@@ -1,0 +1,153 @@
+"""Batched serving launcher: prefill a batch of prompts, decode N tokens.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
+      [--full] [--engine {loop,compiled}] [--batch 8] [--prompt-len 64] \
+      [--new-tokens 32] [--ckpt model.ckpt] [--seed 0] [--kv-int8] \
+      [--device {cuda,cpu}]
+
+Twin of ``repro/launch/serve.py`` (single device). Two decode engines that
+give identical greedy tokens:
+  * ``loop`` -- one decode step per iteration, each step's tokens read back
+    to the host;
+  * ``compiled`` -- tokens stay on the device in one (B, new_tokens)
+    buffer, with one bulk copy to the host at the end.
+
+Prefill and decode rates are reported separately (prompt tok/s vs generated
+tok/s), plus an overall rate that includes prefill. Runs on CUDA unless
+``--device cpu`` is given; with no card visible it raises.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from repro_torch.checkpoint.io import load_pytree
+from repro_torch.configs import registry
+from repro_torch.kernels.dispatch import require_device
+from repro_torch.models.model import Model
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _decode_loop(model, params, cache, tok, S, new_tokens):
+    """Per-step engine: each step's tokens are read back to the host."""
+    tokens = []
+    for i in range(new_tokens):
+        tokens.append(tok.cpu())
+        logits, cache = model.decode(params, cache, tok, S + i)
+        tok = torch.argmax(logits, -1)[:, None]
+    return torch.cat(tokens, dim=1)
+
+
+def _decode_compiled(model, params, cache, tok, S, new_tokens):
+    """Tokens stay on the device; one bulk host copy at the end."""
+    out = torch.empty((tok.shape[0], new_tokens), dtype=torch.long,
+                      device=tok.device)
+    for i in range(new_tokens):
+        out[:, i] = tok[:, 0]
+        logits, cache = model.decode(params, cache, tok, S + i)
+        tok = torch.argmax(logits, -1)[:, None]
+    return out.cpu()
+
+
+@torch.inference_mode()
+def generate(model: Model, params, prompts, new_tokens: int,
+             engine: str = "loop"):
+    """Batched greedy generation. prompts: (B, S) integer tensor on the
+    params' device. Returns (tokens (B, new_tokens) long on the CPU,
+    stats)."""
+    if engine not in ("loop", "compiled"):
+        raise ValueError(f"unknown engine {engine!r}")
+    prompts = prompts.long()
+    device = prompts.device
+    B, S = prompts.shape
+
+    _sync(device)
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, prompts, cache_len=S + new_tokens)
+    _sync(device)
+    t_prefill = time.perf_counter() - t0
+
+    tok = torch.argmax(logits, -1)[:, None]
+    decode = _decode_compiled if engine == "compiled" else _decode_loop
+    t0 = time.perf_counter()
+    out = decode(model, params, cache, tok, S, new_tokens)
+    _sync(device)
+    t_decode = time.perf_counter() - t0
+
+    gen = B * new_tokens
+    total = t_prefill + t_decode
+    return out, {
+        "engine": engine,
+        "device": (torch.cuda.get_device_name(device)
+                   if device.type == "cuda" else "cpu"),
+        "prefill_s": t_prefill,
+        "decode_s": t_decode,
+        "prefill_tokens_per_s": B * S / max(t_prefill, 1e-9),
+        "decode_tokens_per_s": gen / max(t_decode, 1e-9),
+        "tokens_per_s": gen / max(total, 1e-9),
+    }
+
+
+def build_model(arch: str, *, full: bool, kv_int8: bool = False,
+                seed: int = 0, device: str = "cuda"):
+    """(model, params) for an arch, with random params from ``seed``."""
+    dev = require_device(device)
+    cfg = registry.get_config(arch) if full else registry.get_smoke_config(arch)
+    if kv_int8:
+        cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    return model, params
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="internlm2-1.8b",
+                    choices=registry.list_archs())
+    ap.add_argument("--full", action="store_true")
+    ap.add_argument("--engine", default="compiled",
+                    choices=["loop", "compiled"])
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--ckpt", default="")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kv-int8", action="store_true",
+                    help="int8-quantized KV cache")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    args = ap.parse_args(argv)
+
+    model, params = build_model(args.arch, full=args.full,
+                                kv_int8=args.kv_int8, seed=args.seed,
+                                device=args.device)
+    cfg = model.cfg
+    if args.ckpt:
+        params = load_pytree(args.ckpt, params)
+        print(f"restored {args.ckpt}")
+    dev = params["embed"]["table"].device
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                            generator=g, device=dev)
+    out, stats = generate(model, params, prompts, args.new_tokens,
+                          engine=args.engine)
+    print(f"arch={cfg.name} engine={args.engine} batch={args.batch} "
+          f"prompt={args.prompt_len} new={args.new_tokens} "
+          f"device={stats['device']}")
+    print(f"prefill {stats['prefill_s']*1e3:.1f} ms "
+          f"({stats['prefill_tokens_per_s']:.1f} prompt tok/s), decode "
+          f"{stats['decode_s']*1e3:.1f} ms "
+          f"({stats['decode_tokens_per_s']:.1f} tok/s), overall "
+          f"{stats['tokens_per_s']:.1f} tok/s incl. prefill")
+    print("first sequences:", out[:2, :16].tolist())
+    return out, stats
+
+
+if __name__ == "__main__":
+    main()
