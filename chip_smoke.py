@@ -6,16 +6,26 @@
 Phases, each printing its own lines; any failed check exits non-zero:
 
 1. device: require CUDA; print the card's name and power limit (nvidia-smi);
-2. build: compile the hand-written kernels from the repository's sources;
-3. kernel vs plain: hold each kernel against its plain PyTorch version on
-   the card over a grid of shapes, dtypes and masks, and time it at the
-   shape the main path gives it, beside its bound and a library call;
-4. full-width serve (internlm2-1.8b, random weights from a seed): the main
+2. build: compile the hand-written kernels from the repository's sources,
+   one nvcc per source, all started together;
+3. kernels vs plain: hold each kernel against its plain PyTorch version on
+   the card over a grid of shapes, dtypes and masks (the flash forward,
+   the flash backward's dQ and dK/dV kernels, the streaming average,
+   bitwise), and time each at the shape the main path gives it, beside its
+   bound, its plain version and a library call;
+4. full-width serve (internlm2-1.8b, random weights from a seed): a main
    path, with every kernel's launch count set to 0 just before it and read
    just after; then prefill logits with the kernel against the plain
    attention on the card (in f32) and against the f32 model (in bf16);
-5. smoke-width exactness: continuous batching against single-request
-   generation, token for token, in f32.
+5. full-width SWAP training (``repro_torch.launch.train`` with --full
+   --workers 2 and the elastic phase 3): the training main path, counted
+   the same way; every kernel must launch in it, losses and accuracies
+   must be finite, and the elastic average must agree with the plain mean
+   of the same phase-2 models;
+6. smoke-width exactness in f32: continuous batching against
+   single-request generation, token for token; whole-model gradients with
+   the kernels against plain-attention autograd; a whole SWAP run with the
+   kernels against the same run on the plain versions.
 
 The line before the last is one JSON object with each kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -36,8 +46,23 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}       # out, as the JAX tests
 LSE_TOL = 1e-4
+# dq/dk/dv against the plain backward: f32 at the JAX kernel tests' 2e-4.
+# In bf16 both read the same bf16 inputs and sum in f32; they differ by
+# summation order and by where dq/dk/dv round to bf16, so the bound is
+# 1e-2 (relative to 1 + |value|, about 2 bf16 ulp)
+BWD_TOL = {"float32": 2e-4, "bfloat16": 1e-2}
+# whole-model grads in f32, held leaf by leaf: max |err| / max |ref| at the
+# JAX attention-grad tests' 5e-4, and the relative L2 at 1e-5 (leaves of a
+# smoke LM are ~1e-2, and the kernel's grads differ from plain autograd by
+# summation order only, ~1e-6)
+GRAD_TOL, GRAD_L2_TOL = 5e-4, 1e-5
 PREFILL_SHAPE = (8, 512, 512, 16, 8, 128)        # B, Sq, Skv, H, KVH, D
 ENGINE_PROMPTS = (37, 200, 513, 128)             # ServingEngine requests
+# SWAP phase 1 of internlm2-1.8b at the launcher's batch and length
+TRAIN_SHAPE = (256, 64, 64, 16, 8, 128)          # B, Sq, Skv, H, KVH, D
+TRAIN_ARGV = ["--full", "--workers", "2", "--phase1-steps", "4",
+              "--phase2-steps", "4", "--elastic-deadline", "30",
+              "--device", "cuda"]
 
 
 def fail(msg: str) -> None:
@@ -82,14 +107,24 @@ def phase_device():
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.kernels.swa_avg import kernel as swa_kernel
+    builds = {"flash_fwd": kernel.build, "flash_bwd": kernel.build_bwd,
+              "swa_avg": swa_kernel.build}
     t0 = time.perf_counter()
-    built = kernel.build()
-    print(f"[build] flash_fwd: {built.path.name} in "
-          f"{time.perf_counter() - t0:.2f} s (nvcc {built.seconds:.2f} s)")
-    for line in built.log.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            print(f"[build]   {line.strip()}")
+    with ThreadPoolExecutor(len(builds)) as pool:
+        done = {name: pool.submit(fn) for name, fn in builds.items()}
+        done = {name: f.result() for name, f in done.items()}
+    print(f"[build] {len(done)} libraries in "
+          f"{time.perf_counter() - t0:.2f} s (nvcc in parallel)")
+    for name, built in done.items():
+        print(f"[build] {name}: {built.path.name}, nvcc "
+              f"{built.seconds:.2f} s")
+        for line in built.log.splitlines():
+            if ("registers" in line or "smem" in line or "spill" in line
+                    or "Function properties" in line):
+                print(f"[build]   {line.strip()}")
     sys.stdout.flush()
 
 
@@ -149,18 +184,21 @@ def _grid():
                 ((1, 48, 48, 4, 2, D), dtype, True, 0, -8),      # empty rows
                 ((1, 200, 200, 8, 2, D), dtype, True, 48, 0),    # tile skip
             ]
-    # the shapes the main path gives the kernel: generate's batched prefill
-    # and the engine's batch-1 prefills
+    # the shapes the main paths give the kernel: generate's batched
+    # prefill, the engine's batch-1 prefills, and the training steps of
+    # phase 1 (batch 256) and phase 2 (batch 32 per worker)
     cases.append((PREFILL_SHAPE, "bfloat16", True, 0, 0))
     for S in ENGINE_PROMPTS:
         cases.append(((1, S, S, 16, 8, 128), "bfloat16", True, 0, 0))
+    cases.append((TRAIN_SHAPE, "bfloat16", True, 0, 0))
+    cases.append(((32,) + TRAIN_SHAPE[1:], "bfloat16", True, 0, 0))
     return cases
 
 
 def phase_kernel():
     import torch
     from repro_torch.kernels.flash_attention import kernel, ops
-    worst = {}
+    worst, path_err = {}, 0.0
     for i, (shape, dtype, causal, window, q_offset) in enumerate(_grid()):
         q, k, v = _qkv(shape, getattr(torch, dtype), seed=i)
         kw = dict(causal=causal, window=window, scale=None,
@@ -184,8 +222,8 @@ def phase_kernel():
             check(bool((out[:, dead] == 0).all() and (lse[:, dead] == 0).all()),
                   f"case {i}: fully masked rows are not out=0, lse=0")
         worst[dtype] = max(worst.get(dtype, 0.0), err.max().item())
-        if shape == PREFILL_SHAPE:
-            prefill_err = err.max().item()
+        if shape in (PREFILL_SHAPE, TRAIN_SHAPE):   # the two main paths'
+            path_err = max(path_err, err.max().item())
     print(f"[kernel] {len(_grid())} cases match the plain version; max |out "
           f"err| f32 {worst['float32']:.3e} bf16 {worst['bfloat16']:.3e}")
 
@@ -214,15 +252,201 @@ def phase_kernel():
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:34",
-        "launches": None, "max_abs_err": prefill_err, "ms": ms,
+        "launches": None, "max_abs_err": path_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": lib_ms,
     }
 
 
+def _bwd_grid():
+    cases = []
+    for dtype in ("float32", "bfloat16"):
+        for D in (64, 128):
+            for G in (1, 2, 4):
+                for causal, window in ((True, 0), (True, 16), (False, 0)):
+                    cases.append(((2, 67, 67, 4, 4 // G, D), dtype, causal,
+                                  window, 0))
+            cases += [
+                ((1, 33, 129, 4, 2, D), dtype, True, 0, 96),     # q_offset
+                ((1, 33, 129, 8, 2, D), dtype, False, 0, 0),     # ragged Skv
+                ((1, 48, 48, 4, 2, D), dtype, True, 0, -8),      # empty rows
+                ((1, 200, 200, 8, 2, D), dtype, True, 48, 0),    # tile skip
+                ((2, 131, 131, 4, 1, D), dtype, True, 0, -5),    # odd, empty
+            ]
+    # the shapes the training path gives it: phase 1 and phase 2
+    cases.append((TRAIN_SHAPE, "bfloat16", True, 0, 0))
+    cases.append(((32,) + TRAIN_SHAPE[1:], "bfloat16", True, 0, 0))
+    return cases
+
+
+def _rel_err(got, want):
+    return ((got.float() - want.float()).abs()
+            / (1 + want.float().abs())).max().item()
+
+
+def phase_kernel_bwd():
+    import torch
+    from repro_torch.kernels.flash_attention import kernel, ref
+    worst = {}
+    for i, (shape, dtype, causal, window, q_offset) in enumerate(_bwd_grid()):
+        q, k, v = _qkv(shape, getattr(torch, dtype), seed=100 + i)
+        do = _qkv(shape, getattr(torch, dtype), seed=200 + i)[0]
+        kw = dict(causal=causal, window=window, scale=None,
+                  q_offset=q_offset)
+        out, lse = kernel.flash_fwd(q, k, v, **kw)
+        got = kernel.flash_bwd(q, k, v, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            check(g.dtype == w.dtype and g.shape == w.shape,
+                  f"bwd case {i}: {name} shape/dtype")
+            check(bool(torch.isfinite(g).all()),
+                  f"bwd case {i}: non-finite {name}")
+            err = _rel_err(g, w)
+            check(err <= BWD_TOL[dtype],
+                  f"bwd case {i} {shape} {dtype} causal={causal} "
+                  f"window={window} q_offset={q_offset}: {name} error "
+                  f"{err:.3e} > {BWD_TOL[dtype]}")
+            worst[dtype] = max(worst.get(dtype, 0.0), err)
+        if q_offset < 0:   # rows that see no key: dq = 0
+            check(bool((got[0][:, :-q_offset] == 0).all()),
+                  f"bwd case {i}: fully masked rows have dq != 0")
+        if shape == TRAIN_SHAPE:
+            train_err = {n: (g.float() - w.float()).abs().max().item()
+                         for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+    print(f"[kernel-bwd] {len(_bwd_grid())} cases match the plain version; "
+          f"max |err|/(1+|ref|) f32 {worst['float32']:.3e} (limit "
+          f"{BWD_TOL['float32']}), bf16 {worst['bfloat16']:.3e} (limit "
+          f"{BWD_TOL['bfloat16']})")
+
+    # times at the phase-1 training shape
+    B, Sq, Skv, H, KVH, D = TRAIN_SHAPE
+    q, k, v = _qkv(TRAIN_SHAPE, torch.bfloat16, seed=4321)
+    do = _qkv(TRAIN_SHAPE, torch.bfloat16, seed=4322)[0]
+    out, lse = kernel.flash_fwd(q, k, v, causal=True)
+    delta = (do.float() * out.float()).sum(-1)
+    dq_ms = _cuda_ms(lambda: kernel.flash_bwd_dq(q, k, v, do, lse, delta,
+                                                 causal=True), 20)
+    dkv_ms = _cuda_ms(lambda: kernel.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                                   causal=True), 20)
+    plain_ms = _cuda_ms(lambda: ref.flash_attention_bwd_ref(
+        q, k, v, out, lse, do, causal=True), 5)
+    # yardstick only, never called by the port: the library's fused
+    # attention backward, as (forward + backward) less the forward, on
+    # K/V with their heads repeated beforehand
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt = q.transpose(1, 2).contiguous().requires_grad_()
+    kt = k.repeat_interleave(H // KVH, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(H // KVH, dim=2).transpose(1, 2).contiguous()
+    kt.requires_grad_()
+    vt.requires_grad_()
+    dot = do.transpose(1, 2).contiguous()
+
+    def fwd_bwd():
+        o = sdpa(qt, kt, vt, is_causal=True)
+        torch.autograd.grad(o, (qt, kt, vt), dot)
+
+    with torch.no_grad():
+        fwd_ms = _cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 20)
+    lib_ms = _cuda_ms(fwd_bwd, 20) - fwd_ms
+    pairs = _visible_pairs(Sq, Skv, True, 0, 0) * B * H
+    elt = 2                                            # bf16
+    read = (q.numel() * 2 + k.numel() + v.numel()) * elt \
+        + 2 * B * Sq * H * 4                       # q, dO, k, v, lse, delta
+    rows = []
+    for name, ms, written, flops, src in (
+            ("flash_attention_bwd_dq", dq_ms, q.numel() * elt, 6 * D * pairs,
+             "src/repro/kernels/flash_attention/kernel.py:202"),
+            ("flash_attention_bwd_dkv", dkv_ms, 2 * k.numel() * elt,
+             8 * D * pairs,
+             "src/repro/kernels/flash_attention/kernel.py:232")):
+        nbytes = read + written
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        print(f"[kernel-bwd] {name} at B{B} S{Sq} H{H} KVH{KVH} D{D} bf16 "
+              f"causal: kernel {ms:.4f} ms, bound "
+              f"{max(t_bytes, t_ops) * 1e3:.2f} us ({nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.2f} GFLOP), plain (dq, dk, dv together) "
+              f"{plain_ms:.4f} ms, library backward (dq, dk, dv together) "
+              f"{lib_ms:.4f} ms")
+        err = (train_err["dq"] if name.endswith("dq")
+               else max(train_err["dk"], train_err["dv"]))
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_bwd.cu",
+            "replaces": src, "launches": None, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms})
+    sys.stdout.flush()
+    return rows
+
+
+def phase_swa_avg():
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.kernels.swa_avg import kernel, ref
+    from repro_torch.models.model import Model
+    n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in (0, 1, 7):
+            for size in (1, 8191, 8193, 92544 * 2048):   # last: the embedding
+                g = torch.Generator(device="cuda").manual_seed(size + n)
+                avg = torch.randn(size, generator=g, device="cuda").to(dtype)
+                w = torch.randn(size, generator=g, device="cuda")
+                got = kernel.running_average(avg, w, n)
+                torch.cuda.synchronize()
+                want = ref.running_average_ref(avg, w, n)
+                bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+                check(torch.equal(got.view(bits), want.view(bits)),
+                      f"swa_avg {dtype} n={n} size={size}: not bitwise "
+                      f"equal to the plain version")
+                n_cases += 1
+    print(f"[swa_avg] {n_cases} cases bitwise equal to the plain version")
+
+    # times on the full-width internlm2-1.8b parameter tree (f32)
+    model = Model(registry.get_config("internlm2-1.8b"))
+    g = torch.Generator(device="cuda").manual_seed(7)
+    avg = list(_leaves(model.init(g)))
+    w = list(_leaves(model.init(g)))
+    numel = sum(t.numel() for t in avg)
+
+    def fold_kernel():
+        for a, x in zip(avg, w):
+            kernel.running_average(a, x, 1, out=a)
+
+    def fold_plain():
+        for a, x in zip(avg, w):
+            a.copy_(ref.running_average_ref(a, x, 1))
+
+    ms = _cuda_ms(fold_kernel, 5)
+    plain_ms = _cuda_ms(fold_plain, 3)
+    lib_ms = _cuda_ms(lambda: torch._foreach_lerp_(avg, w, 0.5), 5)
+    nbytes = 3 * 4 * numel
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * numel / PEAK_FLOPS["float32"] * 1e3
+    print(f"[swa_avg] full-width tree, {len(avg)} leaves, {numel} f32: "
+          f"kernel {ms:.4f} ms ({len(avg)} launches), bound "
+          f"{max(t_bytes, t_ops):.4f} ms ({nbytes / 1e9:.2f} GB), plain "
+          f"{plain_ms:.4f} ms, library _foreach_lerp_ {lib_ms:.4f} ms",
+          flush=True)
+    del avg, w
+    torch.cuda.empty_cache()
+    return {
+        "name": "swa_avg", "route": "cuda",
+        "source": "src/repro_torch/kernels/swa_avg/csrc/swa_avg.cu",
+        "replaces": "src/repro/kernels/swa_avg/kernel.py:24",
+        "launches": None, "max_abs_err": 0.0, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": lib_ms}
+
+
 # ---------------------------------------------------------------------------
-# phase 4: the main path at full width
+# phase 4: full-width serve
 # ---------------------------------------------------------------------------
 
 
@@ -254,8 +478,9 @@ def phase_serve(card: str):
           flush=True)
 
     generate(model, params, prompts, 2, engine="compiled")   # warm-up
-    # --- the main path, with the launch count read around it ---
-    kernel.flash_fwd.launches = 0
+    # --- the main path, with the launch counts read around it ---
+    for fn in _launch_counts().values():
+        fn.launches = 0
     out_loop, st_loop = generate(model, params, prompts, T, engine="loop")
     out_comp, st_comp = generate(model, params, prompts, T,
                                  engine="compiled")
@@ -327,7 +552,6 @@ def phase_serve(card: str):
     check(e_k <= 1.1 * e_r,
           f"bf16 kernel prefill is further from the f32 model ({e_k:.3e}) "
           f"than the plain version ({e_r:.3e})")
-    return launches
 
 
 def _leaves(tree):
@@ -339,7 +563,7 @@ def _leaves(tree):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: smoke-width exactness
+# phase 6: smoke-width serving exactness
 # ---------------------------------------------------------------------------
 
 
@@ -368,14 +592,179 @@ def phase_exact():
           f"generate for {len(prompts)} requests through 2 slots")
 
 
+# ---------------------------------------------------------------------------
+# phase 5: SWAP training at full width
+# ---------------------------------------------------------------------------
+
+
+def _rel_l2(a_tree, b_tree) -> float:
+    import torch
+    num = den = 0.0
+    for a, b in zip(_leaves(a_tree), _leaves(b_tree)):
+        num += torch.linalg.vector_norm((a.float() - b.float())).item() ** 2
+        den += torch.linalg.vector_norm(b.float()).item() ** 2
+    return (num / den) ** 0.5
+
+
+def _launch_counts():
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.kernels.swa_avg import kernel as swa_kernel
+    return {"flash_attention_fwd": kernel.flash_fwd,
+            "flash_attention_bwd_dq": kernel.flash_bwd_dq,
+            "flash_attention_bwd_dkv": kernel.flash_bwd_dkv,
+            "swa_avg": swa_kernel.running_average}
+
+
+def phase_train(card: str):
+    import math
+    import torch
+    from repro_torch.core.averaging import average_stacked
+    from repro_torch.launch import train
+
+    torch.cuda.empty_cache()
+    print(f"[train] python -m repro_torch.launch.train {' '.join(TRAIN_ARGV)}",
+          flush=True)
+    # --- the main path, with every launch count read around it ---
+    for fn in _launch_counts().values():
+        fn.launches = 0
+    res = train.main(TRAIN_ARGV)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in _launch_counts().items()}
+    # -------------------------------------------------------------
+    print(f"[train] launches on the training path: {launches}")
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched on the training path")
+    values = ([e[k] for e in res["phase1_log"] for k in ("loss", "accuracy")]
+              + res["worker_test_accs"]
+              + [res[k] for k in ("phase1_test_acc", "before_avg_test_acc",
+                                  "after_avg_test_acc", "phase1_train_acc")])
+    check(all(math.isfinite(x) for x in values),
+          f"non-finite loss or accuracy: {values}")
+    check(res["phase2_live_workers"] == 2, "elastic phase 3 dropped a worker")
+    rel = _rel_l2(res["final_bundle"]["params"],
+                  average_stacked(res["stacked_params"]))
+    print(f"[train] elastic average (swa_avg kernel) against the plain mean "
+          f"of the same phase-2 models: relative L2 {rel:.3e} (limit 1e-6)")
+    check(rel <= 1e-6, f"elastic average differs from the plain mean: {rel}")
+    st = res["device"]
+    p1, p2 = res["phase1_steps"], res["phase2_steps"]
+    tok1 = p1 * 256 * 64 / st["phase1_train_s"]
+    tok2 = p2 * 2 * 32 * 64 / st["phase2_train_s"]
+    print(f"[train] on {card}: phase 1 {p1} steps of 256x64 tokens, "
+          f"{st['phase1_train_s'] / p1 * 1e3:.1f} ms/step ({tok1:.0f} tok/s); "
+          f"phase 2 {p2} steps of 2 workers x 32x64 tokens, "
+          f"{st['phase2_train_s'] / p2 * 1e3:.1f} ms/step ({tok2:.0f} tok/s); "
+          f"phase 3 {res['phase3_time'] * 1e3:.1f} ms")
+    print(f"[train] memory peak: phase 1 {st['phase1_peak_gb']:.2f} GB, "
+          f"phase 2 {st['phase2_peak_gb']:.2f} GB, phase 3 "
+          f"{st['phase3_peak_gb']:.2f} GB (torch.cuda.max_memory_allocated)",
+          flush=True)
+    del res
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6: smoke-width training exactness
+# ---------------------------------------------------------------------------
+
+
+def phase_exact_train():
+    import dataclasses
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import (OptimizerConfig, PhaseConfig,
+                                          ScheduleConfig, SWAPConfig)
+    from repro_torch.core.adapters import LMAdapter
+    from repro_torch.core.averaging import elastic_average_stacked
+    from repro_torch.core.swap import SWAP
+    from repro_torch.data.pipeline import Loader, make_markov_lm
+    from repro_torch.dist.config import DistConfig
+    from repro_torch.models.model import Model
+    from repro_torch.optim.api import tree_leaves
+    from repro_torch.train.steps import lm_loss_and_metrics
+
+    smoke = registry.get_smoke_config("internlm2-1.8b")      # f32
+    data = make_markov_lm(1, vocab=smoke.vocab_size, n_train=1024,
+                          n_test=256, seq_len=64)
+    batch = {"tokens": torch.from_numpy(data["train_tokens"][:16]).cuda(),
+             "labels": torch.from_numpy(data["train_labels"][:16]).cuda()}
+    params = Model(smoke).init(torch.Generator(device="cuda").manual_seed(3))
+    grads = {}
+    for impl in ("kernel", "reference"):
+        model = Model(dataclasses.replace(smoke, attention_impl=impl))
+        req = [t.detach().requires_grad_() for t in tree_leaves(params)]
+        it = iter(req)
+        tree = _rebuild(params, it)
+        loss, _ = lm_loss_and_metrics(model, tree, batch)
+        grads[impl] = torch.autograd.grad(loss, req)
+    err = l2 = 0.0
+    for a, b in zip(grads["kernel"], grads["reference"]):
+        check(bool(b.abs().max() > 0), f"zero grad leaf {tuple(b.shape)}")
+        d = a - b
+        err = max(err, (d.abs().max() / b.abs().max()).item())
+        l2 = max(l2, (torch.linalg.vector_norm(d)
+                      / torch.linalg.vector_norm(b)).item())
+    print(f"[exact] f32 smoke: whole-model grads with the kernels against "
+          f"plain-attention autograd, worst leaf: max |err|/max |ref| "
+          f"{err:.3e} (limit {GRAD_TOL}), relative L2 {l2:.3e} (limit "
+          f"{GRAD_L2_TOL})")
+    check(err <= GRAD_TOL and l2 <= GRAD_L2_TOL,
+          f"smoke grads differ: {err:.3e}, relative L2 {l2:.3e}")
+
+    train = {"tokens": data["train_tokens"], "labels": data["train_labels"]}
+    dist = DistConfig(n_workers=2, elastic_deadline_s=30.0)
+    sched = ScheduleConfig(kind="warmup_linear", peak_lr=0.5,
+                           warmup_steps=2, total_steps=8)
+    cfg = SWAPConfig(n_workers=2, seed=1,
+                     phase1=PhaseConfig(batch_size=64, max_steps=8,
+                                        schedule=sched),
+                     phase2=PhaseConfig(batch_size=16, max_steps=6,
+                                        schedule=dataclasses.replace(
+                                            sched, peak_lr=0.125,
+                                            warmup_steps=0, total_steps=6)))
+    runs = {}
+    for impl in ("kernel", "reference"):
+        adapter = LMAdapter(dataclasses.replace(smoke, attention_impl=impl),
+                            OptimizerConfig())
+        test = Loader({"tokens": data["test_tokens"],
+                       "labels": data["test_labels"]}, 64, device="cuda")
+        runs[impl] = SWAP(adapter, cfg, train, test, dist=dist).run(
+            torch.Generator(device="cuda").manual_seed(5))
+    ref_avg, _ = elastic_average_stacked(runs["reference"]["stacked_params"],
+                                         dist, impl="reference")
+    ref_final = runs["reference"]["final_bundle"]["params"]
+    check(all(torch.equal(a, b) for a, b in zip(_leaves(ref_avg),
+                                                 _leaves(ref_final))),
+          "elastic average on the kernel is not bitwise the plain fold")
+    rel = _rel_l2(runs["kernel"]["final_bundle"]["params"], ref_avg)
+    acc = abs(runs["kernel"]["after_avg_test_acc"]
+              - runs["reference"]["after_avg_test_acc"])
+    print(f"[exact] f32 smoke SWAP (8 + 6 steps, W 2, elastic): kernels "
+          f"against plain versions, averaged params relative L2 {rel:.3e} "
+          f"(limit 1e-4), averaged test acc |diff| {acc:.3e} (limit 2e-3)")
+    check(rel <= 1e-4, f"smoke SWAP averaged params differ: {rel:.3e}")
+    check(acc <= 2e-3, f"smoke SWAP averaged accuracy differs: {acc:.3e}")
+
+
+def _rebuild(tree, it):
+    if isinstance(tree, dict):
+        return {k: _rebuild(tree[k], it) for k in sorted(tree)}
+    return next(it)
+
+
 def main() -> None:
     card = phase_device()
     phase_build()
-    report = phase_kernel()
-    report["launches"] = phase_serve(card)
+    rows = [phase_kernel(), *phase_kernel_bwd(), phase_swa_avg()]
+    phase_serve(card)
+    launches = phase_train(card)
     phase_exact()
+    phase_exact_train()
+    for row in rows:
+        row["launches"] = launches[row["name"]]
     import torch
-    print(json.dumps({"kernels": [report]}))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

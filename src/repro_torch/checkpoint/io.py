@@ -34,6 +34,8 @@ def _items(tree, prefix=""):
 def _map(fn, tree):
     if isinstance(tree, dict):
         return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):   # NamedTuple
+        return tuple(_map(fn, v) for v in tree)
     if isinstance(tree, (list, tuple)):
         return type(tree)(_map(fn, v) for v in tree)
     return None if tree is None else fn(tree)
@@ -62,7 +64,10 @@ def _from_numpy(arr, device):
 
 def params_from_numpy(tree, device="cpu"):
     """Nested dict/list of numpy arrays (e.g. ``jax.device_get(params)``)
-    -> the same structure of tensors on ``device``."""
+    -> the same structure of tensors on ``device``. A NamedTuple (a JAX
+    ``TrainState`` or ``LossScaleState``, an optimizer state inside it)
+    becomes a plain tuple in field order, for the port's twin type to take:
+    ``TrainState(*params_from_numpy(jax_state))``."""
     return _map(lambda a: _from_numpy(np.asarray(a), device), tree)
 
 

@@ -1,0 +1,269 @@
+"""SWAP (Algorithm 1 of the paper), the three-phase controller: twin of
+``repro/core/swap.py``, single process on one device.
+
+Phase 1: synchronous large-batch SGD until the train-accuracy EMA reaches
+         tau (checked at epoch boundaries) or max_steps.
+Phase 2: W independent small-batch workers from the common phase-1 model,
+         each with its own data order, as one stacked ensemble (a leading W
+         axis on every leaf of the state; see ``repro_torch.train.loop``).
+Phase 3: average the W models (the plain mean, or with
+         ``DistConfig.elastic_deadline_s > 0`` the elastic fold of
+         whichever workers report within the deadline, on the streaming-
+         average kernel), then the adapter's BN recompute hook.
+
+The phase-1 optimizer state is dropped before phase 2 (the results keep
+only the phase-1 bundle). ``results["device"]`` (a dict, which the
+launcher's summary leaves out) holds the device's name, each phase's train
+time without evals, and on CUDA each phase's device-memory peak
+(``torch.cuda.max_memory_allocated``). Checkpoint/resume (ROADMAP
+A10) and the mesh, supervisor, heartbeats and chunk filter (A13) are not
+ported yet and are refused.
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import PhaseConfig, SWAPConfig
+from repro_torch.core.averaging import average_stacked, elastic_average_stacked
+from repro_torch.core.schedules import schedule_fn as make_schedule
+from repro_torch.data.pipeline import Loader
+from repro_torch.dist.config import DistConfig
+from repro_torch.optim.api import tree_leaves, tree_map
+from repro_torch.train.loop import (
+    EpochRunner, TrainState, init_train_state, run_phase, stack_train_state,
+)
+from repro_torch.train.precision import resolve_policy
+
+
+def _stack_bundles(bundle, n: int):
+    return tree_map(lambda a: a.unsqueeze(0).expand(n, *a.shape).clone(),
+                    bundle)
+
+
+def _device_of(bundle) -> torch.device:
+    return tree_leaves(bundle["params"])[0].device
+
+
+def _record_peak(stats: Dict, phase: str, device: torch.device) -> None:
+    if device.type == "cuda":
+        stats[f"{phase}_peak_gb"] = \
+            torch.cuda.max_memory_allocated(device) / 1e9
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _refuse(what: str, item: str):
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+class SGDRun:
+    """Plain single-model training (phase 1, and the small/large-batch
+    baselines): epoch chunks, EMA early exit at epoch boundaries."""
+
+    def __init__(self, adapter, phase: PhaseConfig, train_arrays: Dict,
+                 seed: int = 0, dist: Optional[DistConfig] = None,
+                 device="cpu"):
+        self.adapter = adapter
+        self.phase = phase
+        self.dist = dist if dist is not None else DistConfig()
+        self.loader = Loader(train_arrays, phase.batch_size, seed=seed,
+                             device=device)
+        self.policy = resolve_policy(phase.precision, adapter.opt_cfg)
+        self.runner = EpochRunner(
+            adapter.make_train_step(make_schedule(phase.schedule),
+                                    policy=self.policy,
+                                    grad_accum_steps=phase.grad_accum_steps),
+            self.loader, phase.accuracy_ema)
+
+    def init_state(self, bundle, opt_state=None, start_step: int = 0,
+                   phase_tag: str = "phase1") -> TrainState:
+        opt_state = opt_state if opt_state is not None \
+            else self.adapter.init_opt(bundle)
+        return init_train_state(bundle, opt_state, step=start_step,
+                                phase=phase_tag,
+                                scale=self.policy.init_scale_state())
+
+    def run(self, bundle, opt_state=None, start_step: int = 0,
+            log: Optional[list] = None, worker: int = 0):
+        """Returns (bundle, opt_state, steps_taken, acc_ema)."""
+        state = self.init_state(bundle, opt_state, start_step)
+        res = run_phase(self.runner, state, worker,
+                        max_steps=self.phase.max_steps,
+                        stop_accuracy=self.phase.stop_accuracy, log=log)
+        st = res.state
+        return st.bundle, st.opt_state, res.steps, float(st.acc_ema)
+
+
+class SWAP:
+    """The full three-phase algorithm over an adapter and a dataset."""
+
+    def __init__(self, adapter, cfg: SWAPConfig, train_arrays: Dict,
+                 test_loader: Loader, mesh=None,
+                 dist: Optional[DistConfig] = None, supervisor=None):
+        if mesh is not None:
+            _refuse("a device mesh / sharded phase-2 engine", "A13")
+        if supervisor is not None:
+            _refuse("the phase supervisor", "A13")
+        if cfg.checkpoint_dir or cfg.checkpoint_every:
+            _refuse("train-state checkpoints", "A10")
+        self.adapter = adapter
+        self.cfg = cfg
+        self.train_arrays = train_arrays
+        self.test_loader = test_loader
+        self.dist = dist if dist is not None else DistConfig()
+        self.mesh = None
+
+    def phase1(self, bundle) -> Tuple[EpochRunner, TrainState]:
+        """Phase 1's runner (one model, the large batch) and its start
+        state from ``bundle``."""
+        p1 = SGDRun(self.adapter, self.cfg.phase1, self.train_arrays,
+                    seed=self.cfg.seed, dist=self.dist,
+                    device=_device_of(bundle))
+        return p1.runner, p1.init_state(bundle)
+
+    def phase2(self, bundle) -> Tuple[EpochRunner, TrainState]:
+        """Phase 2's ensemble runner (W workers, the small batch, each its
+        own data order) and the W-worker state stacked from ``bundle``."""
+        cfg, adapter, W = self.cfg, self.adapter, self.cfg.n_workers
+        loader = Loader(self.train_arrays, cfg.phase2.batch_size,
+                        seed=cfg.seed + 1, device=_device_of(bundle))
+        policy = resolve_policy(cfg.phase2.precision, adapter.opt_cfg)
+        runner = EpochRunner(
+            adapter.make_train_step(
+                make_schedule(cfg.phase2.schedule), policy=policy,
+                grad_accum_steps=cfg.phase2.grad_accum_steps),
+            loader, cfg.phase2.accuracy_ema, ensemble=True)
+        stacked = _stack_bundles(bundle, W)
+        opt = tree_map(lambda t: t.expand(W).clone() if t.dim() == 0 else t,
+                       adapter.init_opt(stacked))
+        return runner, stack_train_state(stacked, opt, W, seed=cfg.seed + 2,
+                                         scale=policy.init_scale_state())
+
+    def average(self, stacked_params, worker_arrivals=None):
+        """Phase 3's average of the stacked workers: (params, live mask).
+        The plain mean, or the elastic fold when the deadline is set."""
+        if self.dist.elastic:
+            return elastic_average_stacked(stacked_params, self.dist,
+                                           worker_arrivals=worker_arrivals)
+        W = int(tree_leaves(stacked_params)[0].shape[0])
+        return average_stacked(stacked_params), np.ones(W, dtype=bool)
+
+    def run(self, key, collect_curves: bool = False,
+            resume: bool = False, phase2_hooks: Sequence = (),
+            worker_arrivals: Optional[Sequence[float]] = None,
+            heartbeats=None, phase2_chunk_filter=None) -> Dict:
+        """``key``: the torch.Generator the adapter initializes from (its
+        device is where the run happens). ``phase2_hooks``: extra
+        epoch-boundary hooks for phase 2, ``hook(state, steps_done)``.
+        ``worker_arrivals``: per-worker report times for the elastic
+        phase 3 (``float('inf')`` marks a lost worker)."""
+        if resume:
+            _refuse("resume", "A10")
+        if heartbeats is not None:
+            _refuse("heartbeat liveness", "A13")
+        if phase2_chunk_filter is not None:
+            _refuse("the phase-2 chunk filter (fault injection)", "A13")
+        cfg = self.cfg
+        adapter = self.adapter
+        results: Dict = {"phase1_log": [], "phase2_curves": [],
+                         "recovery_events": []}
+
+        # ---------------- phase 1: large batch, synchronous --------------
+        t0 = time.perf_counter()
+        bundle = adapter.init(key)
+        dev = _device_of(bundle)
+        stats = results["device"] = {
+            "name": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                     else "cpu")}
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        runner1, state1 = self.phase1(bundle)
+        res1 = run_phase(runner1, state1, 0,
+                         max_steps=cfg.phase1.max_steps,
+                         stop_accuracy=cfg.phase1.stop_accuracy,
+                         log=results["phase1_log"])
+        state1 = res1.state
+        results["phase1_steps"] = int(state1.step)
+        results["phase1_train_acc"] = float(state1.acc_ema)
+        results["phase1_skipped_steps"] = int(state1.scale.skipped)
+        results["phase1_loss_scale"] = float(state1.scale.scale)
+        results["phase1_time"] = time.perf_counter() - t0
+        results["phase1_test_acc"] = adapter.eval_accuracy(
+            bundle, self.test_loader)
+        stats["phase1_train_s"] = res1.train_time
+        del state1, res1, runner1     # the phase-1 optimizer state goes
+        _record_peak(stats, "phase1", dev)
+
+        # ---------------- phase 2: independent small-batch workers -------
+        W = cfg.n_workers
+        runner2, state2 = self.phase2(bundle)
+        workers = list(range(W))
+
+        bn_loader = Loader(self.train_arrays, cfg.bn_recompute_batch_size,
+                           seed=cfg.seed, device=dev)
+        hooks = list(phase2_hooks)
+        if collect_curves:
+            def curve_hook(state: TrainState, done: int):
+                avg_now = adapter.finalize(
+                    average_stacked(state.bundle["params"]), bn_loader,
+                    cfg.bn_recompute_batches)
+                accs: List[float] = [
+                    adapter.eval_accuracy(
+                        tree_map(lambda a: a[w], state.bundle),
+                        self.test_loader, max_batches=2)
+                    for w in range(int(state.step.shape[0]))]
+                results["phase2_curves"].append({
+                    "step": int(state.step[0]) - 1,
+                    "worker_test_accs": accs,
+                    "avg_test_acc": adapter.eval_accuracy(
+                        avg_now, self.test_loader, max_batches=2)})
+
+            hooks.append(curve_hook)
+
+        res2 = run_phase(runner2, state2, workers,
+                         max_steps=cfg.phase2.max_steps,
+                         chunk_steps=1 if collect_curves else None,
+                         on_chunk=hooks)
+        state2 = res2.state
+        W_live = int(state2.step.shape[0])
+        results["phase2_worker_ids"] = workers
+        results["phase2_steps"] = int(state2.step[0])
+        results["phase2_time"] = res2.train_time
+        results["phase2_eval_time"] = res2.hook_time
+
+        worker_accs = [
+            adapter.eval_accuracy(tree_map(lambda a: a[w], state2.bundle),
+                                  self.test_loader)
+            for w in range(W_live)]
+        results["worker_test_accs"] = worker_accs
+        stats["phase2_train_s"] = res2.train_time
+        _record_peak(stats, "phase2", dev)
+
+        # ---------------- phase 3: average + BN recompute ----------------
+        t3 = time.perf_counter()
+        avg_params, live_mask = self.average(state2.bundle["params"],
+                                             worker_arrivals)
+        full_mask = [False] * W
+        for pos, wid in enumerate(workers):
+            full_mask[wid] = bool(live_mask[pos])
+        results["worker_live_mask"] = full_mask
+        results["phase2_live_workers"] = int(sum(full_mask))
+        live_accs = [a for a, live in zip(worker_accs, live_mask) if live]
+        results["before_avg_test_acc"] = sum(live_accs) / len(live_accs)
+        final = adapter.finalize(avg_params, bn_loader,
+                                 cfg.bn_recompute_batches)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t4 = time.perf_counter()
+        results["phase3_time"] = t4 - t3
+        results["after_avg_test_acc"] = adapter.eval_accuracy(
+            final, self.test_loader)
+        results["total_time"] = t4 - t0
+        _record_peak(stats, "phase3", dev)
+        results["final_bundle"] = final
+        results["stacked_params"] = state2.bundle["params"]
+        results["phase1_bundle"] = bundle
+        return results

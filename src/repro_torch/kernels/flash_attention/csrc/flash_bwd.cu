@@ -1,0 +1,517 @@
+// Flash-attention backward for NVIDIA Hopper (sm_90a), written by hand.
+//
+// Replaces the Pallas TPU kernels
+//   repro/kernels/flash_attention/kernel.py::_fa_bwd_dq_kernel   (dQ)
+//   repro/kernels/flash_attention/kernel.py::_fa_bwd_dkv_kernel  (dK, dV)
+// and computes what they compute, for q, dO (B,Sq,H,D) and k, v
+// (B,Skv,KVH,D) in f32 or bf16, D in {64, 128}, given the forward's lse
+// (B,Sq,H) f32 and delta = rowsum(dO * O) (B,Sq,H) f32 (taken outside, in
+// plain PyTorch, as the JAX package does):
+//   S  = (q * scale) . k^T, with q * scale formed in f32 (never rounded to
+//        bf16), masked to NEG_INF = -1e30 (padding, causal, window, as
+//        kernel.py::_mask), P = exp(S - lse) (0 where masked);
+//   dP = dO . v^T,  dS = P * (dP - delta);
+//   dQ = scale * sum_k dS . k;   dV = sum_q P^T . dO;
+//   dK = sum_q dS^T . (q * scale),
+// with dK and dV summed over the G = H / KVH query heads of each KV head
+// inside the kernel (no atomics), as the TPU grid (B*KVH, nk, G*nq) does.
+// Every product is an f32 FMA; outputs are rounded to the input dtype once.
+// A row that sees no key has lse = 0 (the forward's contract): all its P
+// are 0, so its dq is 0 and it adds nothing to dk or dv.
+//
+// What bounds it on an H100: at the SWAP phase-1 shape of internlm2-1.8b
+// (B 256, S 64, H 16, KVH 8, D 128, bf16, causal; 8.52 M visible pairs of
+// query and key rows over the heads) each kernel reads q, dO, k, v, lse and
+// delta (203.4 MB) and writes dq (dQ kernel) or dk and dv (dK/dV kernel),
+// 270.5 MB each. That is 80.8 us each at 3.35 TB/s. Their products, 6 D
+// per visible pair for dQ (6.5 GFLOP) and 8 D for dK/dV (8.7 GFLOP), take
+// 6.6 and 8.8 us at the bf16 tensor-core peak (989 TFLOP/s), so the
+// function is memory-bound on the card. These kernels do their products
+// on the CUDA cores in f32 (no tensor cores), so they are bound by FMA
+// issue and shared-memory reads instead: at 67 TFLOP/s that is 98 and
+// 130 us at best.
+//
+// Design. dQ: one CTA of 4 warps per (query tile of 32 rows, head, batch)
+// loops over the 64-key tiles that the causal or window bound leaves
+// visible (the loop takes the place of the TPU's sequential KV grid axis).
+// Each warp owns 8 query rows; a lane owns keys lane and lane + 32 of the
+// tile for S and dP, and D/32 output columns for dS . K. dK/dV: one CTA of
+// 4 warps per (32-key tile, KV head, batch) loops over the G query heads
+// and, for each, over the visible 64-row query tiles. Each warp owns 8
+// keys; a lane owns query rows lane and lane + 32 for S^T and dP^T, and
+// D/32 output columns of dK and dV. Tiles are staged in shared memory as
+// f32; operands a lane reads alone (K and V in dQ, Q and dO in dK/dV) are
+// padded by 4 floats a row so that its float4 reads are free of bank
+// conflicts, the others are read as broadcasts. wgmma and TMA are left for
+// a later kernel.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kNegInf = -1e30f;
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+
+// dQ kernel tiles
+constexpr int kQRows = 32;                 // query rows per CTA
+constexpr int kQKeys = 64;                 // keys per KV tile
+constexpr int kQRowsPerWarp = kQRows / kWarps;
+// dK/dV kernel tiles
+constexpr int kKVKeys = 32;                // keys per CTA
+constexpr int kKVRows = 64;                // query rows per Q tile
+constexpr int kKVKeysPerWarp = kKVKeys / kWarps;
+
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  static constexpr int n = 4;
+  static __device__ __forceinline__ void load(const float* p, float* out) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+  }
+};
+template <>
+struct Vec16<__nv_bfloat16> {
+  static constexpr int n = 8;
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              float* out) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+  }
+};
+
+__device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+__device__ __forceinline__ bool visible(int kpos, int qpos, int Skv,
+                                        int causal, int window) {
+  bool ok = kpos < Skv;
+  if (causal) ok = ok && kpos <= qpos;
+  if (window > 0) ok = ok && kpos > qpos - window;
+  return ok;
+}
+
+// rows [r0, r0 + n) of a (S, heads, D) tensor's head `head` -> f32 smem rows
+// of `stride` floats, times `mul`; rows past S are zero
+template <typename T, int D>
+__device__ __forceinline__ void stage_rows(const T* base, int64_t pos_stride,
+                                           int r0, int n, int S, float mul,
+                                           float* dst, int stride) {
+  constexpr int kVec = Vec16<T>::n;
+  constexpr int kChunks = D / kVec;
+  for (int i = threadIdx.x; i < n * kChunks; i += kThreads) {
+    const int r = i / kChunks, d = (i % kChunks) * kVec;
+    float x[kVec];
+    if (r0 + r < S) {
+      Vec16<T>::load(base + (int64_t)(r0 + r) * pos_stride + d, x);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) x[j] = 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kVec; j += 4)
+      *reinterpret_cast<float4*>(dst + r * stride + d + j) =
+          make_float4(x[j] * mul, x[j + 1] * mul, x[j + 2] * mul,
+                      x[j + 3] * mul);
+  }
+}
+
+template <int D>
+constexpr int dq_smem_floats() {
+  return 2 * kQRows * D + 2 * kQKeys * (D + 4) + kQRows * kQKeys;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 2)
+fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, T* __restrict__ dq,
+                 int Sq, int Skv, int H, int KVH, float scale, int causal,
+                 int window, int q_offset) {
+  constexpr int kCols = D / 32;
+  constexpr int kStride = D + 4;
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;                      // [kQRows][D], q * scale
+  float* sdO = sQ + kQRows * D;          // [kQRows][D]
+  float* sK = sdO + kQRows * D;          // [kQKeys][kStride]
+  float* sV = sK + kQKeys * kStride;     // [kQKeys][kStride]
+  float* sdS = sV + kQKeys * kStride;    // [kQRows][kQKeys]
+
+  const int q0 = blockIdx.x * kQRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (H / KVH);
+  const int lane = threadIdx.x & 31;
+  const int row0 = (threadIdx.x >> 5) * kQRowsPerWarp;
+  const int64_t q_stride = (int64_t)H * D;
+  const int64_t kv_stride = (int64_t)KVH * D;
+  const T* kb = k + ((int64_t)b * Skv * KVH + kvh) * D;
+  const T* vb = v + ((int64_t)b * Skv * KVH + kvh) * D;
+
+  stage_rows<T, D>(q + ((int64_t)b * Sq * H + h) * D, q_stride, q0, kQRows,
+                   Sq, scale, sQ, D);
+  stage_rows<T, D>(dout + ((int64_t)b * Sq * H + h) * D, q_stride, q0,
+                   kQRows, Sq, 1.f, sdO, D);
+
+  float lse_r[kQRowsPerWarp], dl_r[kQRowsPerWarp];
+#pragma unroll
+  for (int r = 0; r < kQRowsPerWarp; ++r) {
+    const int row = q0 + row0 + r;
+    const int64_t i = ((int64_t)b * Sq + row) * H + h;
+    lse_r[r] = row < Sq ? lse[i] : 0.f;
+    dl_r[r] = row < Sq ? delta[i] : 0.f;
+  }
+
+  // the KV tiles some row of this query tile can see (as the forward)
+  const int q_last = min(q0 + kQRows, Sq) - 1;
+  int kv_end = Skv;
+  if (causal) kv_end = min(kv_end, q_last + q_offset + 1);
+  int kv_begin = 0;
+  if (window > 0) kv_begin = max(0, q0 + q_offset - window + 1);
+  const int t_begin = kv_begin / kQKeys;
+  const int t_end =
+      kv_end > kv_begin ? (kv_end + kQKeys - 1) / kQKeys : t_begin;
+
+  float acc[kQRowsPerWarp][kCols];
+#pragma unroll
+  for (int r = 0; r < kQRowsPerWarp; ++r)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int k0 = t * kQKeys;
+    __syncthreads();  // sQ/sdO written; no warp still reads the last tile
+    stage_rows<T, D>(kb, kv_stride, k0, kQKeys, Skv, 1.f, sK, kStride);
+    stage_rows<T, D>(vb, kv_stride, k0, kQKeys, Skv, 1.f, sV, kStride);
+    __syncthreads();
+
+    // S and dP for keys lane and lane + 32 of the tile
+    float s[kQRowsPerWarp][2], dp[kQRowsPerWarp][2];
+#pragma unroll
+    for (int r = 0; r < kQRowsPerWarp; ++r)
+      s[r][0] = s[r][1] = dp[r][0] = dp[r][1] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < D; d += 4) {
+      const float4 ka = *reinterpret_cast<const float4*>(sK + lane * kStride + d);
+      const float4 kc =
+          *reinterpret_cast<const float4*>(sK + (lane + 32) * kStride + d);
+      const float4 va = *reinterpret_cast<const float4*>(sV + lane * kStride + d);
+      const float4 vc =
+          *reinterpret_cast<const float4*>(sV + (lane + 32) * kStride + d);
+#pragma unroll
+      for (int r = 0; r < kQRowsPerWarp; ++r) {
+        const float4 qv = *reinterpret_cast<const float4*>(sQ + (row0 + r) * D + d);
+        const float4 ov = *reinterpret_cast<const float4*>(sdO + (row0 + r) * D + d);
+        s[r][0] = dot4(qv, ka, s[r][0]);
+        s[r][1] = dot4(qv, kc, s[r][1]);
+        dp[r][0] = dot4(ov, va, dp[r][0]);
+        dp[r][1] = dot4(ov, vc, dp[r][1]);
+      }
+    }
+
+    // P = exp(S - lse) where visible, dS = P * (dP - delta)
+#pragma unroll
+    for (int r = 0; r < kQRowsPerWarp; ++r) {
+      const int row = q0 + row0 + r;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int kpos = k0 + lane + 32 * j;
+        const bool ok =
+            row < Sq && visible(kpos, row + q_offset, Skv, causal, window);
+        const float p = ok ? expf(s[r][j] - lse_r[r]) : 0.f;
+        sdS[(row0 + r) * kQKeys + lane + 32 * j] = p * (dp[r][j] - dl_r[r]);
+      }
+    }
+    __syncwarp();
+
+    // acc += dS . K for this lane's output columns
+#pragma unroll 2
+    for (int c = 0; c < kQKeys; c += 4) {
+      float kk[4][kCols];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int cc = 0; cc < kCols; ++cc)
+          kk[j][cc] = sK[(c + j) * kStride + lane + 32 * cc];
+#pragma unroll
+      for (int r = 0; r < kQRowsPerWarp; ++r) {
+        const float4 ds =
+            *reinterpret_cast<const float4*>(sdS + (row0 + r) * kQKeys + c);
+#pragma unroll
+        for (int cc = 0; cc < kCols; ++cc) {
+          acc[r][cc] = fmaf(ds.x, kk[0][cc], acc[r][cc]);
+          acc[r][cc] = fmaf(ds.y, kk[1][cc], acc[r][cc]);
+          acc[r][cc] = fmaf(ds.z, kk[2][cc], acc[r][cc]);
+          acc[r][cc] = fmaf(ds.w, kk[3][cc], acc[r][cc]);
+        }
+      }
+    }
+    __syncwarp();  // sdS is rewritten by the next tile
+  }
+
+#pragma unroll
+  for (int r = 0; r < kQRowsPerWarp; ++r) {
+    const int row = q0 + row0 + r;
+    if (row < Sq) {
+      T* out = dq + (((int64_t)b * Sq + row) * H + h) * D;
+#pragma unroll
+      for (int cc = 0; cc < kCols; ++cc)
+        store_f32(out + lane + 32 * cc, acc[r][cc] * scale);
+    }
+  }
+}
+
+template <int D>
+constexpr int dkv_smem_floats() {
+  return 2 * kKVKeys * D + 2 * kKVRows * (D + 4) + 2 * kKVKeys * kKVRows +
+         2 * kKVRows;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1)
+fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const T* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, T* __restrict__ dk,
+                  T* __restrict__ dv, int Sq, int Skv, int H, int KVH,
+                  float scale, int causal, int window, int q_offset) {
+  constexpr int kCols = D / 32;
+  constexpr int kStride = D + 4;
+  extern __shared__ __align__(16) float smem[];
+  float* sK = smem;                        // [kKVKeys][D]
+  float* sV = sK + kKVKeys * D;            // [kKVKeys][D]
+  float* sQ = sV + kKVKeys * D;            // [kKVRows][kStride], q * scale
+  float* sdO = sQ + kKVRows * kStride;     // [kKVRows][kStride]
+  float* sP = sdO + kKVRows * kStride;     // [kKVKeys][kKVRows]
+  float* sdS = sP + kKVKeys * kKVRows;     // [kKVKeys][kKVRows]
+  float* sL = sdS + kKVKeys * kKVRows;     // [kKVRows] lse
+  float* sDl = sL + kKVRows;               // [kKVRows] delta
+
+  const int k0 = blockIdx.x * kKVKeys;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int G = H / KVH;
+  const int lane = threadIdx.x & 31;
+  const int key0 = (threadIdx.x >> 5) * kKVKeysPerWarp;
+  const int64_t q_stride = (int64_t)H * D;
+  const int64_t kv_stride = (int64_t)KVH * D;
+
+  stage_rows<T, D>(k + ((int64_t)b * Skv * KVH + kvh) * D, kv_stride, k0,
+                   kKVKeys, Skv, 1.f, sK, D);
+  stage_rows<T, D>(v + ((int64_t)b * Skv * KVH + kvh) * D, kv_stride, k0,
+                   kKVKeys, Skv, 1.f, sV, D);
+
+  // the query rows that can see some key of this tile
+  const int k_last = min(k0 + kKVKeys, Skv) - 1;
+  int r_begin = 0, r_end = Sq;
+  if (causal) r_begin = max(0, k0 - q_offset);
+  if (window > 0) r_end = min(r_end, max(0, k_last + window - q_offset));
+  const int t_begin = r_begin / kKVRows;
+  const int t_end = r_end > r_begin ? (r_end + kKVRows - 1) / kKVRows : t_begin;
+
+  float acc_k[kKVKeysPerWarp][kCols], acc_v[kKVKeysPerWarp][kCols];
+#pragma unroll
+  for (int r = 0; r < kKVKeysPerWarp; ++r)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc_k[r][c] = acc_v[r][c] = 0.f;
+
+  for (int g = 0; g < G; ++g) {
+    const int h = kvh * G + g;
+    const T* qb = q + ((int64_t)b * Sq * H + h) * D;
+    const T* ob = dout + ((int64_t)b * Sq * H + h) * D;
+    for (int t = t_begin; t < t_end; ++t) {
+      const int r0 = t * kKVRows;
+      __syncthreads();  // no warp still reads the last Q tile
+      stage_rows<T, D>(qb, q_stride, r0, kKVRows, Sq, scale, sQ, kStride);
+      stage_rows<T, D>(ob, q_stride, r0, kKVRows, Sq, 1.f, sdO, kStride);
+      for (int i = threadIdx.x; i < kKVRows; i += kThreads) {
+        const int row = r0 + i;
+        const int64_t at = ((int64_t)b * Sq + row) * H + h;
+        sL[i] = row < Sq ? lse[at] : 0.f;
+        sDl[i] = row < Sq ? delta[at] : 0.f;
+      }
+      __syncthreads();
+
+      // S^T and dP^T for query rows lane and lane + 32 of the tile
+      float s[kKVKeysPerWarp][2], dp[kKVKeysPerWarp][2];
+#pragma unroll
+      for (int r = 0; r < kKVKeysPerWarp; ++r)
+        s[r][0] = s[r][1] = dp[r][0] = dp[r][1] = 0.f;
+#pragma unroll 2
+      for (int d = 0; d < D; d += 4) {
+        const float4 qa = *reinterpret_cast<const float4*>(sQ + lane * kStride + d);
+        const float4 qc =
+            *reinterpret_cast<const float4*>(sQ + (lane + 32) * kStride + d);
+        const float4 oa =
+            *reinterpret_cast<const float4*>(sdO + lane * kStride + d);
+        const float4 oc =
+            *reinterpret_cast<const float4*>(sdO + (lane + 32) * kStride + d);
+#pragma unroll
+        for (int r = 0; r < kKVKeysPerWarp; ++r) {
+          const float4 kv = *reinterpret_cast<const float4*>(sK + (key0 + r) * D + d);
+          const float4 vv = *reinterpret_cast<const float4*>(sV + (key0 + r) * D + d);
+          s[r][0] = dot4(qa, kv, s[r][0]);
+          s[r][1] = dot4(qc, kv, s[r][1]);
+          dp[r][0] = dot4(oa, vv, dp[r][0]);
+          dp[r][1] = dot4(oc, vv, dp[r][1]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kKVKeysPerWarp; ++r) {
+        const int kpos = k0 + key0 + r;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int i = lane + 32 * j;
+          const int row = r0 + i;
+          const bool ok =
+              row < Sq && visible(kpos, row + q_offset, Skv, causal, window);
+          const float p = ok ? expf(s[r][j] - sL[i]) : 0.f;
+          sP[(key0 + r) * kKVRows + i] = p;
+          sdS[(key0 + r) * kKVRows + i] = p * (dp[r][j] - sDl[i]);
+        }
+      }
+      __syncwarp();
+
+      // dV += P^T . dO and dK += dS^T . (q * scale), this lane's columns
+#pragma unroll 2
+      for (int c = 0; c < kKVRows; c += 4) {
+        float oo[4][kCols], qq[4][kCols];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int cc = 0; cc < kCols; ++cc) {
+            oo[j][cc] = sdO[(c + j) * kStride + lane + 32 * cc];
+            qq[j][cc] = sQ[(c + j) * kStride + lane + 32 * cc];
+          }
+#pragma unroll
+        for (int r = 0; r < kKVKeysPerWarp; ++r) {
+          const float4 p =
+              *reinterpret_cast<const float4*>(sP + (key0 + r) * kKVRows + c);
+          const float4 ds =
+              *reinterpret_cast<const float4*>(sdS + (key0 + r) * kKVRows + c);
+#pragma unroll
+          for (int cc = 0; cc < kCols; ++cc) {
+            acc_v[r][cc] = fmaf(p.x, oo[0][cc], acc_v[r][cc]);
+            acc_v[r][cc] = fmaf(p.y, oo[1][cc], acc_v[r][cc]);
+            acc_v[r][cc] = fmaf(p.z, oo[2][cc], acc_v[r][cc]);
+            acc_v[r][cc] = fmaf(p.w, oo[3][cc], acc_v[r][cc]);
+            acc_k[r][cc] = fmaf(ds.x, qq[0][cc], acc_k[r][cc]);
+            acc_k[r][cc] = fmaf(ds.y, qq[1][cc], acc_k[r][cc]);
+            acc_k[r][cc] = fmaf(ds.z, qq[2][cc], acc_k[r][cc]);
+            acc_k[r][cc] = fmaf(ds.w, qq[3][cc], acc_k[r][cc]);
+          }
+        }
+      }
+      __syncwarp();  // sP/sdS are rewritten by the next tile
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kKVKeysPerWarp; ++r) {
+    const int kpos = k0 + key0 + r;
+    if (kpos < Skv) {
+      const int64_t at = (((int64_t)b * Skv + kpos) * KVH + kvh) * D;
+#pragma unroll
+      for (int cc = 0; cc < kCols; ++cc) {
+        store_f32(dk + at + lane + 32 * cc, acc_k[r][cc]);
+        store_f32(dv + at + lane + 32 * cc, acc_v[r][cc]);
+      }
+    }
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta,
+                      void* dq, int B, int Sq, int Skv, int H, int KVH,
+                      float scale, int causal, int window, int q_offset,
+                      cudaStream_t stream) {
+  const int smem = dq_smem_floats<D>() * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      fa_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + kQRows - 1) / kQRows, H, B);
+  fa_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dq), Sq, Skv, H, KVH, scale, causal, window, q_offset);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* delta,
+                       void* dk, void* dv, int B, int Sq, int Skv, int H,
+                       int KVH, float scale, int causal, int window,
+                       int q_offset, cudaStream_t stream) {
+  const int smem = dkv_smem_floats<D>() * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      fa_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Skv + kKVKeys - 1) / kKVKeys, KVH, B);
+  fa_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dk), static_cast<T*>(dv), Sq, Skv, H, KVH, scale,
+      causal, window, q_offset);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+#define FA_DISPATCH(fn, ...)                                        \
+  if (dtype == 0 && D == 64) return fn<float, 64>(__VA_ARGS__);     \
+  if (dtype == 0 && D == 128) return fn<float, 128>(__VA_ARGS__);   \
+  if (dtype == 1 && D == 64) return fn<__nv_bfloat16, 64>(__VA_ARGS__); \
+  if (dtype == 1 && D == 128) return fn<__nv_bfloat16, 128>(__VA_ARGS__); \
+  return (int)cudaErrorInvalidValue;
+
+// dtype: 0 = float32, 1 = bfloat16. Each returns a cudaError_t (0 = launched).
+extern "C" int fa_bwd_dq(const void* q, const void* k, const void* v,
+                         const void* dout, const void* lse, const void* delta,
+                         void* dq, int B, int Sq, int Skv, int H, int KVH,
+                         int D, int dtype, float scale, int causal, int window,
+                         int q_offset, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  FA_DISPATCH(launch_dq, q, k, v, dout, lse, delta, dq, B, Sq, Skv, H, KVH,
+              scale, causal, window, q_offset, st)
+}
+
+extern "C" int fa_bwd_dkv(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse,
+                          const void* delta, void* dk, void* dv, int B,
+                          int Sq, int Skv, int H, int KVH, int D, int dtype,
+                          float scale, int causal, int window, int q_offset,
+                          void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  FA_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, H,
+              KVH, scale, causal, window, q_offset, st)
+}
+
+extern "C" const char* fa_bwd_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

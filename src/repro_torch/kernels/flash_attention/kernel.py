@@ -1,11 +1,18 @@
-"""ctypes binding of the hand-written Hopper flash-attention forward.
+"""ctypes bindings of the hand-written Hopper flash-attention kernels.
 
-``flash_fwd`` launches ``csrc/flash_fwd.cu`` (which replaces the Pallas TPU
-kernel ``repro/kernels/flash_attention/kernel.py::_fa_kernel``) on PyTorch's
-current stream. It checks device, dtype, contiguity and shapes, allocates
-the outputs with ``torch.empty``, and raises if the launch is refused.
-``flash_fwd.launches`` counts the launches. The library is built from the
-repository's source at first use (``repro_torch.kernels._build``).
+  * ``flash_fwd`` launches ``csrc/flash_fwd.cu``, which replaces the Pallas
+    TPU kernel ``repro/kernels/flash_attention/kernel.py::_fa_kernel``;
+  * ``flash_bwd_dq`` and ``flash_bwd_dkv`` launch ``csrc/flash_bwd.cu``,
+    which replaces ``_fa_bwd_dq_kernel`` and ``_fa_bwd_dkv_kernel``;
+    ``flash_bwd`` takes delta = rowsum(dO * O) in plain PyTorch and runs
+    both.
+
+Each launches on PyTorch's current stream, checks device, dtype,
+contiguity and shapes, allocates its outputs with ``torch.empty``, raises if
+the launch is refused, and counts its launches in ``<fn>.launches``. The
+libraries are built from the repository's sources at first use
+(``repro_torch.kernels._build``). The differentiable entry is
+``ops.flash_attention`` (its autograd Function runs these kernels).
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu"
+BWD_SOURCE = SOURCE.with_name("flash_bwd.cu")
 HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -38,18 +46,39 @@ def _library():
     return built, lib
 
 
+@functools.cache
+def _bwd_library():
+    built = _build.build_library("flash_bwd", [BWD_SOURCE])
+    lib = ctypes.CDLL(str(built.path))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    common = [i32, i32, i32, i32, i32, i32,       # B Sq Skv H KVH D
+              i32, ctypes.c_float,                # dtype, scale
+              i32, i32, i32,                      # causal window q_offset
+              ptr]                                # stream
+    lib.fa_bwd_dq.argtypes = [ptr] * 7 + common   # q k v dO lse delta dq
+    lib.fa_bwd_dkv.argtypes = [ptr] * 8 + common  # ... dk dv
+    lib.fa_bwd_dq.restype = lib.fa_bwd_dkv.restype = i32
+    lib.fa_bwd_error_string.argtypes = [i32]
+    lib.fa_bwd_error_string.restype = ctypes.c_char_p
+    return built, lib
+
+
 def build() -> _build.Built:
-    """Build (or reuse) and load the kernel library; returns the build."""
+    """Build (or reuse) and load the forward library; returns the build."""
     return _library()[0]
+
+
+def build_bwd() -> _build.Built:
+    """Build (or reuse) and load the backward library; returns the build."""
+    return _bwd_library()[0]
 
 
 def _check(q, k, v):
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError(
-            "the flash-attention kernel is forward only in this slice; its "
-            "backward (dQ/dKV) kernels come with the training slice. Run "
-            "serving under torch.inference_mode(), or use "
-            "impl='reference' for a differentiable path.")
+            "flash_fwd launches the kernel outside autograd; call "
+            "ops.flash_attention, whose autograd Function runs the forward "
+            "and backward kernels, for a differentiable call.")
     if q.device.type != "cuda":
         raise RuntimeError(
             f"the flash-attention kernel needs CUDA tensors; got {q.device}")
@@ -104,3 +133,99 @@ def flash_fwd(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 flash_fwd.launches = 0
+
+
+def _check_bwd(q, k, v, do, lse, delta):
+    _check(q, k, v)
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"dO must match q {tuple(q.shape)} {q.dtype}; got "
+                         f"{tuple(do.shape)} {do.dtype}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != q.shape[:3] or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be (B,Sq,H) float32; got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    for name, t in (("dO", do), ("lse", lse), ("delta", delta)):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {q.device}")
+    if do.data_ptr() % 16:
+        raise ValueError("dO must start on a 16-byte boundary")
+
+
+def _bwd_args(q, k, scale, causal, window, q_offset):
+    B, Sq, H, D = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else D ** -0.5
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    return [B, Sq, Skv, H, KVH, D, _DTYPES[q.dtype], scale,
+            int(bool(causal)), int(window), int(q_offset), stream]
+
+
+def _raise_if(err, lib, which):
+    if err != 0:
+        raise RuntimeError(f"flash-attention {which} kernel launch failed: "
+                           f"{lib.fa_bwd_error_string(err).decode()} ({err})")
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
+                 window: int = 0, scale: float | None = None,
+                 q_offset: int = 0):
+    """dQ (B,Sq,H,D) in q.dtype from q, k, v, dO, the forward's lse and
+    delta = rowsum(dO * O), both (B,Sq,H) f32 and contiguous."""
+    _check_bwd(q, k, v, do, lse, delta)
+    dq = torch.empty_like(q)
+    if q.numel() == 0:
+        return dq
+    if k.shape[1] == 0:
+        return dq.zero_()
+    _, lib = _bwd_library()
+    with torch.cuda.device(q.device):
+        err = lib.fa_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                            dq.data_ptr(),
+                            *_bwd_args(q, k, scale, causal, window, q_offset))
+    _raise_if(err, lib, "dQ")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
+                  window: int = 0, scale: float | None = None,
+                  q_offset: int = 0):
+    """(dK, dV), each (B,Skv,KVH,D) in k.dtype, summed over the query heads
+    of each KV head."""
+    _check_bwd(q, k, v, do, lse, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if k.numel() == 0:
+        return dk, dv
+    if q.shape[1] == 0:
+        return dk.zero_(), dv.zero_()
+    _, lib = _bwd_library()
+    with torch.cuda.device(q.device):
+        err = lib.fa_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                             do.data_ptr(), lse.data_ptr(),
+                             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                             *_bwd_args(q, k, scale, causal, window,
+                                        q_offset))
+    _raise_if(err, lib, "dK/dV")
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_bwd(q, k, v, out, lse, do, *, causal: bool = True, window: int = 0,
+              scale: float | None = None, q_offset: int = 0):
+    """Flash backward on the card: (dq, dk, dv) in the input dtypes, from
+    the forward's q, k, v, out and lse and the output grad dO (all
+    contiguous CUDA tensors, as ``flash_fwd`` takes them)."""
+    if out.shape != q.shape or out.dtype != q.dtype:
+        raise ValueError(f"out must match q {tuple(q.shape)} {q.dtype}; got "
+                         f"{tuple(out.shape)} {out.dtype}")
+    # delta = rowsum(dO * O) in f32, outside the kernels (as kernel.py:288)
+    delta = (do.float() * out.float()).sum(-1)
+    kw = dict(causal=causal, window=window, scale=scale, q_offset=q_offset)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    return dq, dk, dv
+
+
+flash_bwd_dq.launches = 0
+flash_bwd_dkv.launches = 0

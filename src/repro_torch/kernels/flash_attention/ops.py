@@ -1,8 +1,12 @@
 """Public attention op (twin of ``repro/kernels/flash_attention/ops.py``).
 
-``impl="kernel"``: the hand-written Hopper forward kernel (``kernel.py``,
-``csrc/flash_fwd.cu``). Forward only in this slice: an input that requires
-grad on the kernel path raises; the backward kernels come with training.
+``impl="kernel"``: the hand-written Hopper kernels (``kernel.py``), run by
+the autograd Function ``FlashAttention``: its forward launches
+``csrc/flash_fwd.cu`` and saves (q, k, v, out, lse); its backward launches
+the dQ and dK/dV kernels of ``csrc/flash_bwd.cu`` (the twin of the JAX
+``custom_vjp`` in ``repro/kernels/flash_attention/ops.py``). The phase-2
+ensemble runs it worker by worker (``repro_torch.train.loop``), so it has
+no ``vmap`` rule.
 
 ``impl="reference"``: the blockwise plain-PyTorch flash formulation (loop
 over KV chunks, online softmax), the twin of the JAX ``_blockwise_reference``.
@@ -93,6 +97,36 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
                              scale=scale, q_offset=q_offset)
 
 
+class FlashAttention(torch.autograd.Function):
+    """(out, lse) = flash attention of (q, k, v), with the kernels on both
+    passes. ``apply(q, k, v, causal, window, scale, q_offset)``; lse is not
+    differentiable."""
+
+    @staticmethod
+    def forward(q, k, v, causal, window, scale, q_offset):
+        return _kernel.flash_fwd(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal=causal,
+                                 window=window, scale=scale,
+                                 q_offset=q_offset)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window, scale, q_offset = inputs
+        out, lse = output
+        ctx.save_for_backward(q.contiguous(), k.contiguous(),
+                              v.contiguous(), out, lse)
+        ctx.kw = dict(causal=causal, window=window, scale=scale,
+                      q_offset=q_offset)
+        ctx.mark_non_differentiable(lse)
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _kernel.flash_bwd(q, k, v, out, lse, dout.contiguous(),
+                                       **ctx.kw)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale: float | None = None, q_offset: int = 0,
                     chunk: int = 512, impl: str = "auto"):
@@ -105,5 +139,4 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         return _blockwise_reference(q, k, v, causal=causal, window=window,
                                     scale=scale, q_offset=q_offset,
                                     chunk=chunk)
-    return _kernel.flash_fwd(q, k, v, causal=causal, window=window,
-                             scale=scale, q_offset=q_offset)[0]
+    return FlashAttention.apply(q, k, v, causal, window, scale, q_offset)[0]

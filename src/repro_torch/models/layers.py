@@ -5,6 +5,7 @@ are cast to the compute dtype at each matmul (``mdot``).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple
 
@@ -77,6 +78,11 @@ def apply_norm(params, x, kind: str, eps: float = 1e-6):
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
+def _rope_freqs_on(head_dim: int, theta: float, device: torch.device):
+    return rope_freqs(head_dim, theta, device)
+
+
 def rope_freqs(head_dim: int, theta: float, device=None):
     """Inverse frequencies for the half-dim."""
     half = head_dim // 2
@@ -88,7 +94,9 @@ def rope_freqs(head_dim: int, theta: float, device=None):
 def rope_cos_sin(positions, head_dim: int, theta: float):
     """positions: (..., S) int. Returns (cos, sin) of shape
     (..., S, head_dim//2)."""
-    inv = rope_freqs(head_dim, theta, positions.device)
+    # one table per (head_dim, theta, device), made once: building it
+    # copies theta to the device, which would stall the host every layer
+    inv = _rope_freqs_on(head_dim, theta, positions.device)
     ang = positions[..., :, None].float() * inv
     return torch.cos(ang), torch.sin(ang)
 

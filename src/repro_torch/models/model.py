@@ -8,6 +8,13 @@ the remainder layers form a stacked ``tail``. The reference's ``lax.scan``
 over units is a Python loop here. Caches are dicts keyed by position in unit
 and stacked across units on the leading axis.
 
+Training (``apply`` under autograd) rematerializes each pattern unit when
+``cfg.remat`` is set, as the reference's ``jax.checkpoint`` does:
+``torch.utils.checkpoint`` (non-reentrant); with ``remat_policy="dots"`` the
+outputs of the weight matmuls (``aten.mm``/``aten.addmm``, which have no
+batch dims) are saved and everything else is recomputed, the twin of
+``dots_with_no_batch_dims_saveable``. Remat changes memory, not numbers.
+
 Families, attention kinds and M-RoPE outside this slice are refused at
 construction.
 """
@@ -17,6 +24,7 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -39,10 +47,31 @@ def _tree_index(tree, i):
     return _tree_map(lambda a: a[i], tree)
 
 
+def _tree_unbind(tree, n: int):
+    """The ``n`` slices of a stacked tree along its leading axis. Unlike
+    ``n`` index views, whose backward writes each slice's gradient into a
+    zero tensor of the whole stacked size, ``unbind``'s backward stacks the
+    ``n`` gradients once."""
+    if isinstance(tree, dict):
+        parts = {k: _tree_unbind(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(tree.unbind(0))
+
+
 def _tree_stack(trees, dim=0):
     if isinstance(trees[0], dict):
         return {k: _tree_stack([t[k] for t in trees], dim) for k in trees[0]}
     return torch.stack(trees, dim=dim)
+
+
+def _save_dots_policy(ctx, op, *args, **kwargs):
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _save_dots_context():
+    return ckpt.create_selective_checkpoint_contexts(_save_dots_policy)
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -144,15 +173,26 @@ class Model:
         x = apply_norm(p["ln2"], h, cfg.norm, cfg.norm_eps)
         return h + apply_mlp(p["mlp"], x, cfg.act, self.dtype), {"a": ac}
 
+    def _units(self, params):
+        """Each pattern unit's params (leading axis unit_len)."""
+        if "blocks" not in params or not self.n_units:
+            return []
+        return _tree_unbind(params["blocks"], self.n_units)
+
+    def _tail(self, params):
+        return (_tree_unbind(params["tail"], len(self.tail_kinds))
+                if self.tail_kinds else [])
+
     def _layers(self, params):
         """(unit index or None for the tail, position, kind, block params)
         for every layer in order."""
-        for u in range(self.n_units if "blocks" in params else 0):
-            unit_p = _tree_index(params["blocks"], u)
+        for u, unit_p in enumerate(self._units(params)):
+            layers = _tree_unbind(unit_p, len(self.unit_kinds))
             for i, kind in enumerate(self.unit_kinds):
-                yield u, i, kind, _tree_index(unit_p, i)
-        for i, kind in enumerate(self.tail_kinds):
-            yield None, i, kind, _tree_index(params["tail"], i)
+                yield u, i, kind, layers[i]
+        for i, (kind, p) in enumerate(zip(self.tail_kinds,
+                                          self._tail(params))):
+            yield None, i, kind, p
 
     # ------------------------------------------------------------------
     # embedding / head
@@ -175,13 +215,32 @@ class Model:
     # public API
     # ------------------------------------------------------------------
 
+    def _remat(self, fn, *args):
+        """``fn(*args)`` under activation checkpointing (see the module
+        docstring), or plainly when nothing needs a gradient."""
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        kw = {}
+        if self.cfg.remat_policy == "dots":
+            kw["context_fn"] = _save_dots_context
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+
     def apply(self, params, tokens):
         """Full-sequence forward. Returns (logits, aux_loss)."""
         cfg = self.cfg
         B, S = tokens.shape
         positions = self._default_positions(B, S, tokens.device)
         h = self._embed(params, tokens)
-        for _, _, kind, p in self._layers(params):
+
+        def unit(h, unit_p):
+            layers = _tree_unbind(unit_p, len(self.unit_kinds))
+            for p, kind in zip(layers, self.unit_kinds):
+                h, _ = self._block_full(p, h, kind, positions, "train")
+            return h
+
+        for unit_p in self._units(params):
+            h = self._remat(unit, h, unit_p) if cfg.remat else unit(h, unit_p)
+        for kind, p in zip(self.tail_kinds, self._tail(params)):
             h, _ = self._block_full(p, h, kind, positions, "train")
         h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)

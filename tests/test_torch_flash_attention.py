@@ -1,21 +1,26 @@
 """Port's flash-attention op against the JAX package's, on the CPU.
 
-The same numpy inputs go through JAX (the Pallas kernel in interpret mode,
+The same numpy inputs go through JAX (the Pallas kernels in interpret mode,
 the blockwise reference and the oracle) and through the port's plain
 versions. Tolerances are the JAX kernel tests' own: out f32 2e-5, bf16 3e-2,
-lse 1e-4.
+lse 1e-4; the backward 2e-4 against the Pallas backward kernels and 5e-4
+for autograd against ``jax.grad``. The autograd Function that runs the
+CUDA kernels is tested here with its two launch functions replaced by the
+plain versions (the kernels themselves run only on the card).
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # the suite runs as parallel test processes
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.flash_attention import ops as jops  # noqa: E402
 from repro.kernels.flash_attention import ref as jref  # noqa: E402
 from repro.kernels.flash_attention.kernel import (  # noqa: E402
-    flash_attention_pallas_fwd,
+    flash_attention_pallas_bwd, flash_attention_pallas_fwd,
 )
 from repro_torch.kernels import _build, dispatch  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as tkernel  # noqa: E402
@@ -24,6 +29,8 @@ from repro_torch.kernels.flash_attention import ref as tref  # noqa: E402
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 LSE_TOL = 1e-4
+BWD_TOL = 2e-4      # tests/test_kernels_flash_attention.py:97
+GRAD_TOL = 5e-4     # tests/test_kernels_flash_attention.py:73
 
 # (B, Sq, Skv, H, KVH, D): the JAX kernel tests' grid, then D = 64 and 128
 SHAPES = [
@@ -150,8 +157,10 @@ def test_kernel_impl_on_cpu_tensor_raises():
 
 
 def test_requires_grad_on_kernel_path_raises():
+    """Called directly, outside its autograd Function, the kernel would
+    drop the graph: it raises and names the differentiable entry."""
     (_, _, _), (tq, tk, tv) = _inputs((1, 8, 8, 2, 1, 64), seed=7)
-    with pytest.raises(RuntimeError, match="forward only"):
+    with pytest.raises(RuntimeError, match="ops.flash_attention"):
         tkernel.flash_fwd(tq.requires_grad_(), tk, tv)
     with torch.inference_mode():     # the serving path: no grad, no raise
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -168,3 +177,166 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     tkernel._library.cache_clear()
     with pytest.raises(RuntimeError, match="nvcc"):
         tkernel.build()
+
+
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+
+BWD_CASES = [
+    ((2, 67, 67, 8, 2, 32), True, 0, 0),       # GQA, ragged, multi-block
+    ((1, 40, 40, 4, 1, 16), True, 16, 0),      # kv=1, sliding window
+    ((2, 33, 64, 4, 4, 24), False, 0, 0),      # cross-length, non-causal
+    ((1, 64, 64, 8, 2, 64), True, 0, 0),       # D 64
+    ((1, 33, 129, 4, 2, 128), True, 0, 96),    # D 128, q_offset
+    ((1, 48, 48, 4, 2, 64), True, 0, -8),      # rows that see no key
+]
+
+
+def _grad_out(shape, dtype="float32", seed=20):
+    B, Sq, _, H, _, D = shape
+    a = np.random.default_rng(seed).standard_normal(
+        (B, Sq, H, D)).astype(np.float32)
+    return (jnp.asarray(a, getattr(jnp, dtype)),
+            torch.from_numpy(a).to(getattr(torch, dtype)))
+
+
+@pytest.mark.parametrize("shape,causal,window,q_offset", BWD_CASES)
+def test_bwd_ref_matches_pallas_bwd_kernels(shape, causal, window, q_offset):
+    """The plain backward (the CUDA kernels' yardstick on the card) against
+    the Pallas dQ and dK/dV kernels in interpret mode, on the same q, k, v,
+    out, lse and dO."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(shape, seed=11)
+    jdo, tdo = _grad_out(shape)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    jo, jl = flash_attention_pallas_fwd(jq, jk, jv, interpret=True, **kw)
+    want = flash_attention_pallas_bwd(jq, jk, jv, jo, jl, jdo,
+                                      interpret=True, **kw)
+    to, tl = torch.from_numpy(np.array(jo)), torch.from_numpy(np.array(jl))
+    got = tref.flash_attention_bwd_ref(tq, tk, tv, to, tl, tdo, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        _close(g, w, BWD_TOL)
+    if q_offset < 0:
+        assert bool((got[0][:, :-q_offset] == 0).all())
+
+
+@pytest.mark.parametrize("shape,causal,window,q_offset", BWD_CASES[:5])
+def test_autograd_through_reference_matches_jax_grad(shape, causal, window,
+                                                     q_offset):
+    """Training on the CPU differentiates the blockwise reference with
+    autograd; JAX differentiates its blockwise reference with jax.grad."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(shape, seed=12)
+    jdo, tdo = _grad_out(shape, seed=21)
+    kw = dict(causal=causal, window=window, q_offset=q_offset, chunk=16)
+
+    def jloss(q, k, v):
+        return (jops.flash_attention(q, k, v, impl="reference", **kw)
+                * jdo).sum()
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
+    ts = [t.requires_grad_() for t in (tq, tk, tv)]
+    out = tops.flash_attention(*ts, impl="reference", **kw)
+    got = torch.autograd.grad((out * tdo).sum(), ts)
+    for g, w in zip(got, want):
+        _close(g, w, GRAD_TOL)
+
+
+@pytest.fixture
+def plain_launches(monkeypatch):
+    """The autograd Function's two launch functions, replaced by the plain
+    versions, with their calls counted."""
+    calls = {"fwd": 0, "bwd": 0}
+
+    def fwd(q, k, v, **kw):
+        calls["fwd"] += 1
+        return tops._blockwise_fwd(q, k, v, chunk=512, **kw)
+
+    def bwd(q, k, v, out, lse, do, **kw):
+        calls["bwd"] += 1
+        return tref.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
+
+    monkeypatch.setattr(tkernel, "flash_fwd", fwd)
+    monkeypatch.setattr(tkernel, "flash_bwd", bwd)
+    return calls
+
+
+@pytest.mark.parametrize("shape,causal,window,q_offset", BWD_CASES[3:])
+def test_function_grads_match_jax_grad(plain_launches, shape, causal, window,
+                                       q_offset):
+    (jq, jk, jv), (tq, tk, tv) = _inputs(shape, seed=13)
+    jdo, tdo = _grad_out(shape, seed=22)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+
+    def jloss(q, k, v):     # the blockwise reference: rows that see no
+        return (jops.flash_attention(q, k, v, impl="reference", **kw)
+                * jdo).sum()  # key get zero grads (naive gives NaN)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
+    ts = [t.requires_grad_() for t in (tq, tk, tv)]
+    out, lse = tops.FlashAttention.apply(*ts, causal, window, None, q_offset)
+    assert not lse.requires_grad
+    got = torch.autograd.grad((out * tdo).sum(), ts)
+    assert plain_launches == {"fwd": 1, "bwd": 1}
+    for g, w in zip(got, want):
+        _close(g, w, GRAD_TOL)
+
+
+@pytest.mark.parametrize("W", [1, 3])
+def test_ensemble_runs_the_function_worker_by_worker(plain_launches,
+                                                     monkeypatch, W):
+    """The phase-2 ensemble with ``attention_impl="kernel"``: each step
+    runs the Function once per layer and worker, forward and backward, and
+    the workers end where the same steps on the plain attention leave
+    them."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import OptimizerConfig, ScheduleConfig
+    from repro_torch.core.adapters import LMAdapter
+    from repro_torch.core.schedules import schedule_fn
+    from repro_torch.core.swap import _stack_bundles
+    from repro_torch.data.pipeline import Loader
+    from repro_torch.optim.api import tree_leaves
+    from repro_torch.train import loop
+
+    resolve = dispatch.resolve
+    monkeypatch.setattr(dispatch, "resolve", lambda impl, dev: (
+        "kernel" if impl == "kernel" else resolve(impl, dev)))
+    smoke = registry.get_smoke_config("internlm2-1.8b")
+    rng = np.random.default_rng(15)
+    tokens = rng.integers(0, smoke.vocab_size, (64, 17))
+    train = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    sched = schedule_fn(ScheduleConfig(kind="const", peak_lr=0.05))
+    n_steps, final = 2, {}
+    for impl in ("kernel", "reference"):
+        adapter = LMAdapter(dataclasses.replace(smoke, attention_impl=impl),
+                            OptimizerConfig())
+        bundle = adapter.init(torch.Generator().manual_seed(4))
+        stacked = _stack_bundles(bundle, W)
+        state = loop.stack_train_state(stacked, adapter.init_opt(stacked), W)
+        runner = loop.EpochRunner(adapter.make_train_step(sched),
+                                  Loader(train, 8, seed=7), 0.9,
+                                  ensemble=True)
+        state, _ = runner.run_chunk(state, list(range(W)), n_steps)
+        final[impl] = tree_leaves(state.bundle["params"])
+    calls = n_steps * W * smoke.n_layers
+    assert plain_launches == {"fwd": calls, "bwd": calls}
+    for got, want in zip(final["kernel"], final["reference"]):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)
+
+
+def test_bwd_kernel_on_cpu_raises_and_needs_nvcc(tmp_path, monkeypatch):
+    (_, _, _), (tq, tk, tv) = _inputs((1, 8, 8, 2, 1, 64), seed=8)
+    lse = torch.zeros(tq.shape[:3])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tkernel.flash_bwd(tq, tk, tv, tq, lse, tq)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tkernel.flash_bwd_dq(tq, tk, tv, tq, lse, lse)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tkernel.flash_bwd_dkv(tq, tk, tv, tq, lse, lse)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    tkernel._bwd_library.cache_clear()
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tkernel.build_bwd()

@@ -10,7 +10,8 @@ from pathlib import Path
 
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # the suite runs as parallel test processes
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -41,9 +42,17 @@ def _run(args, cwd):
                           capture_output=True, text=True, timeout=120)
 
 
+PORT_MODULES = (
+    "repro_torch.launch.serve", "repro_torch.serve.engine",
+    "repro_torch.checkpoint.io", "repro_torch.launch.train",
+    "repro_torch.launch.profile_train", "repro_torch.core.swap",
+    "repro_torch.core.swa", "repro_torch.train.loop",
+    "repro_torch.data.pipeline", "repro_torch.kernels.flash_attention",
+    "repro_torch.kernels.swa_avg")
+
+
 def test_importing_the_port_loads_no_jax():
-    code = ("import sys, repro_torch.launch.serve, repro_torch.serve.engine, "
-            "repro_torch.checkpoint.io; "
+    code = (f"import sys, {', '.join(PORT_MODULES)}; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     proc = _run(["-c", code], ROOT)
