@@ -11,21 +11,26 @@ Phases, each printing its own lines; any failed check exits non-zero:
 3. kernels vs plain: hold each kernel against its plain PyTorch version on
    the card over a grid of shapes, dtypes and masks (the flash forward,
    the flash backward's dQ and dK/dV kernels, the streaming average,
-   bitwise), and time each at the shape the main path gives it, beside its
-   bound, its plain version and a library call;
+   bitwise, the SSD intra-chunk forward and backward), and time each at
+   the shape the main path gives it, beside its bound, its plain version
+   and a library call where one computes the same function;
 4. full-width serve (internlm2-1.8b, random weights from a seed): a main
    path, with every kernel's launch count set to 0 just before it and read
    just after; then prefill logits with the kernel against the plain
    attention on the card (in f32) and against the f32 model (in bf16);
 5. full-width SWAP training (``repro_torch.launch.train`` with --full
    --workers 2 and the elastic phase 3): the training main path, counted
-   the same way; every kernel must launch in it, losses and accuracies
-   must be finite, and the elastic average must agree with the plain mean
-   of the same phase-2 models;
+   the same way; every kernel of the path must launch in it, losses and
+   accuracies must be finite, and the elastic average must agree with the
+   plain mean of the same phase-2 models;
 6. smoke-width exactness in f32: continuous batching against
    single-request generation, token for token; whole-model gradients with
-   the kernels against plain-attention autograd; a whole SWAP run with the
-   kernels against the same run on the plain versions.
+   the kernels against plain autograd; a whole SWAP run with the kernels
+   against the same run on the plain versions;
+7. phases 4-6 again for mamba2-2.7b (the ssm family, on the SSD kernels):
+   serving at full width (64 layers), SWAP training at full width with the
+   depth cut to 56 layers (MAMBA_TRAIN_LAYERS: 64 layers do not fit the
+   card: 62 ran out of memory in phase 2), and the smoke exactness checks.
 
 The line before the last is one JSON object with each kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -63,6 +68,23 @@ TRAIN_SHAPE = (256, 64, 64, 16, 8, 128)          # B, Sq, Skv, H, KVH, D
 TRAIN_ARGV = ["--full", "--workers", "2", "--phase1-steps", "4",
               "--phase2-steps", "4", "--elastic-deadline", "30",
               "--device", "cuda"]
+MAMBA = "mamba2-2.7b"
+# SSD kernels against their plain versions: max |err| / max |ref|, the JAX
+# SSD tests' 1e-4. Both compute in f32 from the same (f32 or bf16) inputs,
+# so bf16 inputs are held to the same bound.
+SSD_TOL = 1e-4
+# (B, S, H, P, G, N, chunk): mamba2-2.7b's serving prefill (batch 8, prompt
+# 512) and its SWAP phase 1 (batch 256, the launcher's sequence of 64)
+SSD_SERVE_SHAPE = (8, 512, 80, 64, 1, 128, 256)
+SSD_TRAIN_SHAPE = (256, 64, 80, 64, 1, 128, 64)
+# 64 layers of mamba2-2.7b are 2.83 B parameters. On an H100 the training
+# run's phase-3 peak was 53.10 GB at 40 layers and 68.54 GB at 56, 0.965 GB
+# a layer, so 64 layers would need ~76.3 GB, over the 75 GB line of
+# PERF.md. 62 layers (~74.3 GB by that slope) ran out of device memory all
+# the same: a 6.25 GiB allocation of phase 2's update failed with 61.56 GiB
+# allocated and 15.08 GiB reserved but free in pieces. 56 is the deepest
+# that ran.
+MAMBA_TRAIN_LAYERS = 56
 
 
 def fail(msg: str) -> None:
@@ -109,13 +131,16 @@ def phase_device():
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
     from repro_torch.kernels.swa_avg import kernel as swa_kernel
     builds = {"flash_fwd": kernel.build, "flash_bwd": kernel.build_bwd,
-              "swa_avg": swa_kernel.build}
+              "swa_avg": swa_kernel.build,
+              "ssd": ssd_kernel.build}     # ssd_fwd and ssd_bwd, together
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         done = {name: pool.submit(fn) for name, fn in builds.items()}
         done = {name: f.result() for name, f in done.items()}
+    done.update(zip(("ssd_fwd", "ssd_bwd"), done.pop("ssd")))
     print(f"[build] {len(done)} libraries in "
           f"{time.perf_counter() - t0:.2f} s (nvcc in parallel)")
     for name, built in done.items():
@@ -445,6 +470,183 @@ def phase_swa_avg():
         "library_ms": lib_ms}
 
 
+def _ssd_inputs(shape, dtype, seed):
+    """x, dt, A, Bm, Cm as the JAX SSD tests draw them; x, Bm and Cm in
+    ``dtype``, dt and A in f32."""
+    import torch
+    B, S, H, P, G, N = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    x = mk(B, S, H, P).to(dtype)
+    dt = torch.nn.functional.softplus(mk(B, S, H))
+    A = -torch.exp(mk(H))
+    return x, dt, A, mk(B, S, G, N).to(dtype), mk(B, S, G, N).to(dtype)
+
+
+def _ssd_cotangents(shape, chunk, seed):
+    import torch
+    B, S, H, P, G, N = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    return mk(B, S, H, P), mk(B, S // chunk, H, P, N), mk(B, S, H)
+
+
+def _scaled_err(got, want) -> float:
+    """max |got - want| / max |want|."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def _ssd_grid():
+    """(B, S, H, P, G, N), chunk, dtype: every L in 1..256 the main paths
+    give the kernels (1, engine prompts 37 and 200, training 64, the full
+    chunk 256), with 1 to 3 chunks, 1 or 2 groups, both (P, N)."""
+    cases = []
+    for dtype in ("float32", "bfloat16"):
+        for P, N in ((64, 128), (32, 16)):
+            for G in (1, 2):
+                for k, L in enumerate((1, 37, 64, 200, 256)):
+                    nc = 1 + (k + G + P // 32) % 3
+                    cases.append(((2, L * nc, 4, P, G, N), L, dtype))
+    return cases
+
+
+def _ssd_work(shape, chunk, elt, bwd: bool):
+    """(bytes, flops) the function must move and do: each input read once,
+    each output written once; the pairs j <= i of each chunk. What depends
+    on B and C alone is counted once per group, the rest once per head: the
+    C.B^T scores, and in the backward the dC and dB products, taken on
+    dG o seg summed over the group's heads (dC and dB are per group)."""
+    B, S, H, P, G, N = shape
+    nc = S // chunk
+    pairs = chunk * (chunk + 1) // 2
+    inputs = (B * S * H * P + 2 * B * S * G * N) * elt + (B * S * H + H) * 4
+    if not bwd:
+        out = (B * S * H * P + B * nc * H * P * N + B * S * H) * 4
+        # per group C.B^T; per head y = (scores o seg) (dt x) and the state
+        flops = B * nc * (G * pairs * 2 * N
+                          + H * (pairs * 2 * P + 2 * P * N * chunk))
+        return inputs + out, flops
+    cots = (B * S * H * P + B * nc * H * P * N + B * S * H) * 4
+    out = (B * S * H * P + B * S * H + H + 2 * B * S * G * N) * 4
+    # per group C.B^T, dC and dB; per head dG, d_dx, the sum of dG o seg
+    # over the group and the state terms (B dS^T, x dS)
+    flops = B * nc * (G * pairs * 6 * N
+                      + H * (pairs * (4 * P + 1) + 4 * P * N * chunk))
+    return inputs + cots + out, flops
+
+
+def _bound(nbytes, flops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def phase_ssd():
+    import torch
+    from repro_torch.kernels.ssd import kernel, ops
+    worst = {}
+    for i, (shape, L, dtype) in enumerate(_ssd_grid()):
+        args = _ssd_inputs(shape, getattr(torch, dtype), seed=300 + i)
+        got = kernel.ssd_fwd(*args, chunk=L)
+        cots = _ssd_cotangents(shape, L, seed=400 + i)
+        got_b = kernel.ssd_bwd(*args, *cots, chunk=L)
+        torch.cuda.synchronize()
+        want = ops._intra_chunk(*args, L)
+        want_b = ops._intra_chunk_bwd(*args, *cots, L)
+        for name, g, w in zip(("y", "states", "cum", "dx", "ddt", "dA", "dB",
+                               "dC"), got + got_b, want + want_b):
+            check(g.shape == w.shape and g.dtype == torch.float32,
+                  f"ssd case {i}: {name} shape/dtype")
+            check(bool(torch.isfinite(g).all()),
+                  f"ssd case {i}: non-finite {name}")
+            err = _scaled_err(g, w)
+            check(err <= SSD_TOL, f"ssd case {i} {shape} L={L} {dtype}: "
+                                  f"{name} error {err:.3e} > {SSD_TOL}")
+            worst[dtype] = max(worst.get(dtype, 0.0), err)
+    # ragged S through the scan: padding, chunk chaining and, in f32, the
+    # Function's grads (bf16 leaves would get bf16-rounded grads, which two
+    # paths that differ in the last f32 bits may round one bf16 step apart)
+    for S, chunk in ((83, 32), (513, 256)):
+        shape = (2, S, 4, 64, 2, 128)
+        for dtype in ("float32", "bfloat16"):
+            x, dt, A, Bm, Cm = _ssd_inputs(shape, getattr(torch, dtype),
+                                           seed=S)
+            D = torch.randn(4, device="cuda")
+            outs = {}
+            for impl in ("kernel", "reference"):
+                ts = [t.detach().clone().requires_grad_(dtype == "float32")
+                      for t in (x, dt, A, Bm, Cm, D)]
+                with torch.set_grad_enabled(dtype == "float32"):
+                    y, st = ops.ssd_scan(*ts, chunk=chunk, impl=impl)
+                outs[impl] = [y, st]
+                if dtype == "float32":
+                    loss = (y ** 2).mean() + (st ** 2).mean()
+                    outs[impl] += torch.autograd.grad(loss, ts)
+            for name, g, w in zip(("y", "state", "dx", "ddt", "dA", "dB",
+                                   "dC", "dD"), *outs.values()):
+                err = _scaled_err(g, w)
+                check(err <= SSD_TOL, f"ssd_scan S={S} chunk={chunk} "
+                                      f"{dtype}: {name} error {err:.3e}")
+                worst[dtype] = max(worst[dtype], err)
+    print(f"[ssd] {len(_ssd_grid())} kernel cases (fwd and bwd) and 4 ragged "
+          f"scans (f32 with grads) match the plain versions; max |err|/max "
+          f"|ref| "
+          f"f32 {worst['float32']:.3e}, bf16 {worst['bfloat16']:.3e} (limit "
+          f"{SSD_TOL})")
+
+    # each kernel's JSON row is taken at the shape of the main path its
+    # launches are counted on; the forward is also timed at the training
+    # shape (PERF.md)
+    rows = []
+    for name, shape7, bwd, src, where, row in (
+            ("ssd_fwd", SSD_SERVE_SHAPE, False,
+             "src/repro/kernels/ssd/kernel.py:29", "serve prefill", True),
+            ("ssd_fwd", SSD_TRAIN_SHAPE, False,
+             "src/repro/kernels/ssd/kernel.py:29", "training phase 1", False),
+            ("ssd_bwd", SSD_TRAIN_SHAPE, True,
+             "src/repro/kernels/ssd/kernel.py:61", "training phase 1", True)):
+        *shape, chunk = shape7
+        args = _ssd_inputs(tuple(shape), torch.bfloat16, seed=7)
+        if bwd:
+            cots = _ssd_cotangents(tuple(shape), chunk, seed=8)
+            got = kernel.ssd_bwd(*args, *cots, chunk=chunk)
+            want = ops._intra_chunk_bwd(*args, *cots, chunk)
+            ms = _cuda_ms(lambda: kernel.ssd_bwd(*args, *cots, chunk=chunk),
+                          10)
+            plain_ms = _cuda_ms(lambda: ops._intra_chunk_bwd(
+                *args, *cots, chunk), 3)
+        else:
+            got = kernel.ssd_fwd(*args, chunk=chunk)
+            want = ops._intra_chunk(*args, chunk)
+            ms = _cuda_ms(lambda: kernel.ssd_fwd(*args, chunk=chunk), 10)
+            plain_ms = _cuda_ms(lambda: ops._intra_chunk(*args, chunk), 3)
+        errs = [_scaled_err(g, w) for g, w in zip(got, want)]
+        check(max(errs) <= SSD_TOL, f"{name} at the {where} shape: error "
+                                    f"{max(errs):.3e}")
+        max_abs = max((g - w).abs().max().item() for g, w in zip(got, want))
+        del got, want
+        nbytes, flops = _ssd_work(tuple(shape), chunk, 2, bwd)
+        bound_ms, bound_by = _bound(nbytes, flops)
+        B, S, H, P, G, N = shape
+        print(f"[ssd] {name} at the {where} shape B{B} S{S} H{H} P{P} G{G} "
+              f"N{N} L{chunk} bf16: kernel {ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.2f} GFLOP), plain {plain_ms:.4f} ms, library "
+              f"none (no PyTorch call computes it); max |err| {max_abs:.3e}",
+              flush=True)
+        if row:
+            rows.append({
+                "name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/ssd/csrc/{name}.cu",
+                "replaces": src, "launches": None, "max_abs_err": max_abs,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None})
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 4: full-width serve
 # ---------------------------------------------------------------------------
@@ -554,6 +756,114 @@ def phase_serve(card: str):
           f"than the plain version ({e_r:.3e})")
 
 
+def phase_mamba_serve(card: str):
+    """mamba2-2.7b at full width (64 layers) on the serving main path;
+    returns the SSD forward's launches on it."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.kernels.ssd import kernel
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import Request, ServingEngine
+
+    torch.cuda.empty_cache()
+    cfg = registry.get_config(MAMBA)
+    model = Model(cfg)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init(g)
+    B, S, T = 8, 512, 32
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                            device="cuda")
+    lengths, n_new, max_seq = ENGINE_PROMPTS, 16, 1024
+    reqs = [Request(rid=i, prompt=torch.randint(
+        0, cfg.vocab_size, (L,), generator=g, device="cuda"),
+        max_new_tokens=n_new) for i, L in enumerate(lengths)]
+    s = cfg.ssm
+    print(f"[mamba-serve] {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, SSD heads {s.expand * cfg.d_model // s.head_dim}x"
+          f"{s.head_dim}, state {s.d_state}, groups {s.n_groups}, chunk "
+          f"{s.chunk_size}, vocab {cfg.vocab_size}, {cfg.dtype}; params "
+          f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B f32",
+          flush=True)
+
+    generate(model, params, prompts, 2, engine="compiled")   # warm-up
+    # --- the main path, with the launch counts read around it ---
+    for fn in _launch_counts().values():
+        fn.launches = 0
+    out_loop, st_loop = generate(model, params, prompts, T, engine="loop")
+    out_comp, st_comp = generate(model, params, prompts, T,
+                                 engine="compiled")
+    engine = ServingEngine(model, params, max_batch=2, max_seq=max_seq)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        done = engine.run(reqs)
+    torch.cuda.synchronize()
+    t_engine = time.perf_counter() - t0
+    launches = kernel.ssd_fwd.launches
+    # -------------------------------------------------------------
+
+    check(out_loop.shape == (B, T) and torch.equal(out_loop, out_comp),
+          "mamba2: loop and compiled engines disagree at full width")
+    check(bool(((out_loop >= 0) & (out_loop < cfg.vocab_size)).all()),
+          "mamba2: generated token ids out of range")
+    for st in (st_loop, st_comp):
+        print(f"[mamba-serve] generate engine={st['engine']} batch {B} "
+              f"prompt {S} new {T} on {card}: prefill "
+              f"{st['prefill_s'] * 1e3:.2f} ms "
+              f"({st['prefill_tokens_per_s']:.1f} prompt tok/s), decode "
+              f"{st['decode_s'] * 1e3:.2f} ms "
+              f"({st['decode_tokens_per_s']:.1f} tok/s)")
+    for r in reqs:
+        check(r.done and len(done[r.rid]) == n_new,
+              f"mamba2 engine request {r.rid} (prompt {r.prompt.shape[0]}) "
+              f"ended with {len(done[r.rid])} of {n_new} tokens")
+    n_prefills = 2 + len(reqs)
+    print(f"[mamba-serve] ServingEngine: {len(reqs)} requests (prompts "
+          f"{list(lengths)}) through 2 slots: {n_new} tokens each in "
+          f"{t_engine:.2f} s")
+    print(f"[mamba-serve] ssd_fwd launches on the main path: {launches} for "
+          f"{n_prefills} prefills of {cfg.n_layers} layers")
+    check(launches >= cfg.n_layers * n_prefills,
+          f"ssd_fwd launched {launches} times, fewer than {cfg.n_layers} per "
+          f"prefill")
+
+    # prefill logits, kernel against the plain SSD on the card: in f32,
+    # where the kernel is the only difference (limit 1e-2 relative L2, as
+    # for the dense path; the two sum in another order); in bf16, no
+    # further from the f32 model with the plain SSD than the plain version
+    # is, within 10% (as the dense path's check holds its kernel)
+    logits = {}
+    for dtype, impl in (("float32", "kernel"), ("float32", "reference"),
+                        ("bfloat16", "kernel"), ("bfloat16", "reference")):
+        m = Model(dataclasses.replace(cfg, dtype=dtype, ssd_impl=impl))
+        with torch.inference_mode():
+            logits[dtype, impl] = m.prefill(params, prompts)[0].float()
+
+    def rel(a, b):
+        return (torch.linalg.vector_norm(logits[a] - logits[b])
+                / torch.linalg.vector_norm(logits[b])).item()
+
+    truth = ("float32", "reference")
+    r32 = rel(("float32", "kernel"), truth)
+    r16 = rel(("bfloat16", "kernel"), ("bfloat16", "reference"))
+    e_k = rel(("bfloat16", "kernel"), truth)
+    e_r = rel(("bfloat16", "reference"), truth)
+    print(f"[mamba-serve] prefill logits, kernel vs plain SSD: relative L2 "
+          f"{r32:.3e} in f32 (limit 1e-2), {r16:.3e} in bf16; bf16 against "
+          f"the f32 model: kernel {e_k:.3e}, plain {e_r:.3e} (limit 1.1x "
+          f"plain)", flush=True)
+    check(all(bool(torch.isfinite(v).all()) for v in logits.values()),
+          "mamba2: non-finite prefill logits")
+    check(r32 <= 1e-2, f"mamba2 f32 prefill logits differ: {r32:.3e}")
+    check(e_k <= 1.1 * e_r,
+          f"mamba2 bf16 kernel prefill is further from the f32 model "
+          f"({e_k:.3e}) than the plain version ({e_r:.3e})")
+    del params, logits
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -567,14 +877,14 @@ def _leaves(tree):
 # ---------------------------------------------------------------------------
 
 
-def phase_exact():
+def phase_exact(arch="internlm2-1.8b"):
     import torch
     from repro_torch.configs import registry
     from repro_torch.launch.serve import generate
     from repro_torch.models.model import Model
     from repro_torch.serve.engine import Request, ServingEngine
 
-    model = Model(registry.get_smoke_config("internlm2-1.8b"))   # f32
+    model = Model(registry.get_smoke_config(arch))               # f32
     g = torch.Generator(device="cuda").manual_seed(1)
     params = model.init(g)
     prompts = [torch.randint(0, model.cfg.vocab_size, (L,), generator=g,
@@ -588,8 +898,9 @@ def phase_exact():
         check(got[i] == want[0].tolist(),
               f"smoke request {i}: engine {got[i]} != generate "
               f"{want[0].tolist()}")
-    print(f"[exact] f32 smoke: ServingEngine tokens equal single-request "
-          f"generate for {len(prompts)} requests through 2 slots")
+    print(f"[exact] f32 {arch} smoke: ServingEngine tokens equal "
+          f"single-request generate for {len(prompts)} requests through 2 "
+          f"slots")
 
 
 # ---------------------------------------------------------------------------
@@ -608,32 +919,45 @@ def _rel_l2(a_tree, b_tree) -> float:
 
 def _launch_counts():
     from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
     from repro_torch.kernels.swa_avg import kernel as swa_kernel
     return {"flash_attention_fwd": kernel.flash_fwd,
             "flash_attention_bwd_dq": kernel.flash_bwd_dq,
             "flash_attention_bwd_dkv": kernel.flash_bwd_dkv,
-            "swa_avg": swa_kernel.running_average}
+            "swa_avg": swa_kernel.running_average,
+            "ssd_fwd": ssd_kernel.ssd_fwd,
+            "ssd_bwd": ssd_kernel.ssd_bwd}
 
 
-def phase_train(card: str):
+DENSE_TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                       "flash_attention_bwd_dkv", "swa_avg")
+MAMBA_TRAIN_KERNELS = ("ssd_fwd", "ssd_bwd", "swa_avg")
+
+
+def phase_train(card: str, argv=TRAIN_ARGV, cfg=None,
+                required=DENSE_TRAIN_KERNELS, tag="train"):
+    """The launcher's own run (``train.main(argv, cfg=cfg)``) as a main
+    path: every kernel in ``required`` must launch in it."""
     import math
     import torch
     from repro_torch.core.averaging import average_stacked
     from repro_torch.launch import train
 
     torch.cuda.empty_cache()
-    print(f"[train] python -m repro_torch.launch.train {' '.join(TRAIN_ARGV)}",
+    cut = f" (cfg: {cfg.n_layers} layers)" if cfg is not None else ""
+    print(f"[{tag}] python -m repro_torch.launch.train {' '.join(argv)}{cut}",
           flush=True)
     # --- the main path, with every launch count read around it ---
     for fn in _launch_counts().values():
         fn.launches = 0
-    res = train.main(TRAIN_ARGV)
+    res = train.main(argv, cfg=cfg)
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in _launch_counts().items()}
     # -------------------------------------------------------------
-    print(f"[train] launches on the training path: {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"{name} was not launched on the training path")
+    print(f"[{tag}] launches on the training path: {launches}")
+    for name in required:
+        check(launches[name] > 0,
+              f"{name} was not launched on the {tag} path")
     values = ([e[k] for e in res["phase1_log"] for k in ("loss", "accuracy")]
               + res["worker_test_accs"]
               + [res[k] for k in ("phase1_test_acc", "before_avg_test_acc",
@@ -643,19 +967,19 @@ def phase_train(card: str):
     check(res["phase2_live_workers"] == 2, "elastic phase 3 dropped a worker")
     rel = _rel_l2(res["final_bundle"]["params"],
                   average_stacked(res["stacked_params"]))
-    print(f"[train] elastic average (swa_avg kernel) against the plain mean "
+    print(f"[{tag}] elastic average (swa_avg kernel) against the plain mean "
           f"of the same phase-2 models: relative L2 {rel:.3e} (limit 1e-6)")
     check(rel <= 1e-6, f"elastic average differs from the plain mean: {rel}")
     st = res["device"]
     p1, p2 = res["phase1_steps"], res["phase2_steps"]
     tok1 = p1 * 256 * 64 / st["phase1_train_s"]
     tok2 = p2 * 2 * 32 * 64 / st["phase2_train_s"]
-    print(f"[train] on {card}: phase 1 {p1} steps of 256x64 tokens, "
+    print(f"[{tag}] on {card}: phase 1 {p1} steps of 256x64 tokens, "
           f"{st['phase1_train_s'] / p1 * 1e3:.1f} ms/step ({tok1:.0f} tok/s); "
           f"phase 2 {p2} steps of 2 workers x 32x64 tokens, "
           f"{st['phase2_train_s'] / p2 * 1e3:.1f} ms/step ({tok2:.0f} tok/s); "
           f"phase 3 {res['phase3_time'] * 1e3:.1f} ms")
-    print(f"[train] memory peak: phase 1 {st['phase1_peak_gb']:.2f} GB, "
+    print(f"[{tag}] memory peak: phase 1 {st['phase1_peak_gb']:.2f} GB, "
           f"phase 2 {st['phase2_peak_gb']:.2f} GB, phase 3 "
           f"{st['phase3_peak_gb']:.2f} GB (torch.cuda.max_memory_allocated)",
           flush=True)
@@ -669,7 +993,9 @@ def phase_train(card: str):
 # ---------------------------------------------------------------------------
 
 
-def phase_exact_train():
+def phase_exact_train(arch="internlm2-1.8b", field="attention_impl"):
+    """Smoke exactness with the kernels (``field`` = "kernel") against the
+    plain versions (``field`` = "reference")."""
     import dataclasses
     import torch
     from repro_torch.configs import registry
@@ -684,7 +1010,7 @@ def phase_exact_train():
     from repro_torch.optim.api import tree_leaves
     from repro_torch.train.steps import lm_loss_and_metrics
 
-    smoke = registry.get_smoke_config("internlm2-1.8b")      # f32
+    smoke = registry.get_smoke_config(arch)                  # f32
     data = make_markov_lm(1, vocab=smoke.vocab_size, n_train=1024,
                           n_test=256, seq_len=64)
     batch = {"tokens": torch.from_numpy(data["train_tokens"][:16]).cuda(),
@@ -692,7 +1018,7 @@ def phase_exact_train():
     params = Model(smoke).init(torch.Generator(device="cuda").manual_seed(3))
     grads = {}
     for impl in ("kernel", "reference"):
-        model = Model(dataclasses.replace(smoke, attention_impl=impl))
+        model = Model(dataclasses.replace(smoke, **{field: impl}))
         req = [t.detach().requires_grad_() for t in tree_leaves(params)]
         it = iter(req)
         tree = _rebuild(params, it)
@@ -705,8 +1031,8 @@ def phase_exact_train():
         err = max(err, (d.abs().max() / b.abs().max()).item())
         l2 = max(l2, (torch.linalg.vector_norm(d)
                       / torch.linalg.vector_norm(b)).item())
-    print(f"[exact] f32 smoke: whole-model grads with the kernels against "
-          f"plain-attention autograd, worst leaf: max |err|/max |ref| "
+    print(f"[exact] f32 {arch} smoke: whole-model grads with the kernels "
+          f"against plain autograd, worst leaf: max |err|/max |ref| "
           f"{err:.3e} (limit {GRAD_TOL}), relative L2 {l2:.3e} (limit "
           f"{GRAD_L2_TOL})")
     check(err <= GRAD_TOL and l2 <= GRAD_L2_TOL,
@@ -725,7 +1051,7 @@ def phase_exact_train():
                                             warmup_steps=0, total_steps=6)))
     runs = {}
     for impl in ("kernel", "reference"):
-        adapter = LMAdapter(dataclasses.replace(smoke, attention_impl=impl),
+        adapter = LMAdapter(dataclasses.replace(smoke, **{field: impl}),
                             OptimizerConfig())
         test = Loader({"tokens": data["test_tokens"],
                        "labels": data["test_labels"]}, 64, device="cuda")
@@ -740,9 +1066,10 @@ def phase_exact_train():
     rel = _rel_l2(runs["kernel"]["final_bundle"]["params"], ref_avg)
     acc = abs(runs["kernel"]["after_avg_test_acc"]
               - runs["reference"]["after_avg_test_acc"])
-    print(f"[exact] f32 smoke SWAP (8 + 6 steps, W 2, elastic): kernels "
-          f"against plain versions, averaged params relative L2 {rel:.3e} "
-          f"(limit 1e-4), averaged test acc |diff| {acc:.3e} (limit 2e-3)")
+    print(f"[exact] f32 {arch} smoke SWAP (8 + 6 steps, W 2, elastic): "
+          f"kernels against plain versions, averaged params relative L2 "
+          f"{rel:.3e} (limit 1e-4), averaged test acc |diff| {acc:.3e} "
+          f"(limit 2e-3)")
     check(rel <= 1e-4, f"smoke SWAP averaged params differ: {rel:.3e}")
     check(acc <= 2e-3, f"smoke SWAP averaged accuracy differs: {acc:.3e}")
 
@@ -754,13 +1081,30 @@ def _rebuild(tree, it):
 
 
 def main() -> None:
+    import dataclasses
     card = phase_device()
     phase_build()
-    rows = [phase_kernel(), *phase_kernel_bwd(), phase_swa_avg()]
+    rows = [phase_kernel(), *phase_kernel_bwd(), phase_swa_avg(),
+            *phase_ssd()]
     phase_serve(card)
     launches = phase_train(card)
     phase_exact()
     phase_exact_train()
+    # the ssm family: serving at full width, training at a cut depth
+    from repro_torch.configs import registry
+    ssd_serve = phase_mamba_serve(card)
+    cut = dataclasses.replace(registry.get_config(MAMBA),
+                              n_layers=MAMBA_TRAIN_LAYERS)
+    ssd_train = phase_train(card, ["--arch", MAMBA] + TRAIN_ARGV, cut,
+                            MAMBA_TRAIN_KERNELS, tag="mamba-train")
+    phase_exact(MAMBA)
+    phase_exact_train(MAMBA, "ssd_impl")
+    # launches: the dense kernels' on the dense training path; the SSD
+    # forward's on the mamba serving path (the shape its time is taken
+    # at), the SSD backward's on the mamba training path
+    launches.update(ssd_fwd=ssd_serve, ssd_bwd=ssd_train["ssd_bwd"])
+    print(f"[mamba-train] ssd_fwd launched {ssd_train['ssd_fwd']} times on "
+          f"the training path too")
     for row in rows:
         row["launches"] = launches[row["name"]]
     import torch

@@ -24,6 +24,17 @@ it (the elastic fold on the streaming-average kernel with
 ``--elastic-deadline > 0``). Every number is printed with the card's name
 and power limit, and written as JSON to ``--json-out`` when it is given.
 Needs a card.
+
+``main(argv, cfg=...)`` (a Python keyword, as for ``train.build``)
+profiles that run on another config of the same arch, e.g. mamba2-2.7b at
+the depth ``chip_smoke.py`` trains it at:
+
+  PYTHONPATH=src python -c "import dataclasses; \
+      from repro_torch.configs import registry; \
+      from repro_torch.launch import profile_train as p; \
+      p.main(['--arch', 'mamba2-2.7b', '--full', '--workers', '2', \
+              '--elastic-deadline', '30'], cfg=dataclasses.replace( \
+              registry.get_config('mamba2-2.7b'), n_layers=56))"
 """
 from __future__ import annotations
 
@@ -41,6 +52,8 @@ CATEGORIES = (("flash_attention_fwd", ("fa_fwd_kernel",)),
               ("flash_attention_bwd_dq", ("fa_bwd_dq_kernel",)),
               ("flash_attention_bwd_dkv", ("fa_bwd_dkv_kernel",)),
               ("swa_avg", ("avg_kernel",)),
+              ("ssd_fwd", ("ssd_fwd_kernel",)),
+              ("ssd_bwd", ("ssd_bwd_kernel",)),
               ("matmul", ("gemm", "sm90_xmma", "cutlass", "nvjet",
                           "ampere_", "sm80_")))
 
@@ -119,9 +132,9 @@ def _measure(run_step, tokens_per_step: int):
     }
 
 
-def main(argv=None):
+def main(argv=None, *, cfg=None):
     args = launcher.build_parser().parse_args(argv)
-    swap = launcher.build(args)
+    swap = launcher.build(args, cfg)
     dev = torch.device(args.device)
     if dev.type != "cuda":
         raise SystemExit("profile_train times the card: run it with "

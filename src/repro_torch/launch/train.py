@@ -1,7 +1,8 @@
 """SWAP training launcher: twin of ``repro/launch/train.py``, one process.
 
-Runs the three-phase SWAP schedule on an LM architecture (the smoke config
-by default; ``--full`` for the full one) on the synthetic Markov-LM task:
+Runs the three-phase SWAP schedule on an LM architecture of the dense or
+ssm family (the smoke config by default; ``--full`` for the full one) on
+the synthetic Markov-LM task:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \
       [--full] [--workers 4] [--phase1-steps 150] [--phase2-steps 60] \
@@ -67,13 +68,18 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def build(args) -> SWAP:
+def build(args, cfg=None) -> SWAP:
     """The SWAP run that the parsed flags describe: model, data, optimizer,
-    phase schedules and the phase-3 average, on ``args.device``."""
+    phase schedules and the phase-3 average, on ``args.device``. ``cfg``
+    (a Python keyword, not a flag) replaces the config that ``--arch`` and
+    ``--full`` select with one of the same arch, e.g. at a cut depth."""
     dev = require_device(args.device)
     dist = DistConfig.from_args(args, n_workers_default=4)
-    cfg = (registry.get_config(args.arch) if args.full
-           else registry.get_smoke_config(args.arch))
+    if cfg is None:
+        cfg = (registry.get_config(args.arch) if args.full
+               else registry.get_smoke_config(args.arch))
+    elif not cfg.name.startswith(args.arch):
+        raise ValueError(f"cfg {cfg.name!r} is not of --arch {args.arch}")
     if cfg.family == "cnn":
         raise SystemExit("the CNN path is not ported yet (ROADMAP A9)")
 
@@ -113,11 +119,11 @@ def build(args) -> SWAP:
     return SWAP(adapter, swap_cfg, train, test_loader, dist=dist)
 
 
-def main(argv=None):
+def main(argv=None, *, cfg=None):
     """Parse ``argv``, run SWAP, print the summary. Returns the results
-    dict of ``SWAP.run``."""
+    dict of ``SWAP.run``. ``cfg``: as for ``build``."""
     args = build_parser().parse_args(argv)
-    swap = build(args)
+    swap = build(args, cfg)
     cfg, dist = swap.adapter.cfg, swap.dist
     lost = [int(w) for w in args.lost_workers.split(",") if w.strip()]
     if lost and not dist.elastic:

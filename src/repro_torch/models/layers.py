@@ -1,7 +1,7 @@
 """Shared layer primitives: inits, norms, RoPE, MLP, embeds.
 
-Twin of ``repro/models/layers.py`` for the dense family. Params stay f32 and
-are cast to the compute dtype at each matmul (``mdot``).
+Twin of ``repro/models/layers.py`` for the dense and ssm families. Params
+stay f32 and are cast to the compute dtype at each matmul (``mdot``).
 """
 from __future__ import annotations
 
@@ -71,6 +71,13 @@ def apply_norm(params, x, kind: str, eps: float = 1e-6):
         out = (xf - mu) * torch.rsqrt(var + eps) * params["scale"] \
             + params["bias"]
     return out.to(x.dtype)
+
+
+def gated_rmsnorm(x, z, scale, eps: float = 1e-6):
+    """Mamba-2 RMSNormGated: norm(x * silu(z)) * scale."""
+    xf = (x * F.silu(z)).float()
+    ms = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Model assembly for the dense family (internlm2, qwen2.5, gemma3).
+"""Model assembly for the dense (internlm2, qwen2.5, gemma3) and ssm
+(mamba2) families.
 
 Twin of ``repro/models/model.py``. Layers are grouped into *pattern units*
 exactly as in the reference (gemma3: unit = 5 local + 1 global layers), and
@@ -6,7 +7,8 @@ params are nested dicts of tensors under the reference's key paths and
 shapes: stacked ``blocks`` keep their leading ``(n_units, unit_len)`` axes,
 the remainder layers form a stacked ``tail``. The reference's ``lax.scan``
 over units is a Python loop here. Caches are dicts keyed by position in unit
-and stacked across units on the leading axis.
+and stacked across units on the leading axis: an attention layer's is
+``{"a": {k, v}}``, a mamba layer's ``{"m": {conv, state}}``.
 
 Training (``apply`` under autograd) rematerializes each pattern unit when
 ``cfg.remat`` is set, as the reference's ``jax.checkpoint`` does:
@@ -27,14 +29,15 @@ import torch
 import torch.utils.checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention as attn
+from repro_torch.models import attention as attn, mamba2
 from repro_torch.models.layers import (
     apply_mlp, apply_norm, dense_init, embed_init, init_mlp, init_norm, mdot,
 )
 
 @dataclasses.dataclass(frozen=True)
 class LayerKind:
-    window: int = 0     # sliding window for attn (0 = full)
+    block: str = "attn"  # "attn" | "mamba"
+    window: int = 0      # sliding window for attn (0 = full)
 
 
 def _tree_map(fn, tree):
@@ -77,10 +80,17 @@ def _save_dots_context():
 def check_supported(cfg: ModelConfig) -> None:
     """Refuse configs outside the ported slice, naming the ROADMAP item
     that will add them."""
-    if cfg.family != "dense":
+    if cfg.family == "hybrid":
+        raise NotImplementedError(
+            f"{cfg.name}: the hybrid family is not ported yet (ROADMAP A11: "
+            f"zamba2's shared attention block at head_dim {cfg.head_dim}, "
+            f"which the flash kernels do not take yet)")
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
             f"A11 other families; A9 for the cnn)")
+    if cfg.family == "ssm":
+        return
     if cfg.attention != "gqa":
         raise NotImplementedError(
             f"{cfg.name}: attention {cfg.attention!r} is not ported yet "
@@ -105,7 +115,9 @@ class Model:
 
     @staticmethod
     def _plan(cfg: ModelConfig) -> Tuple[List[LayerKind], int, List[LayerKind]]:
-        if cfg.local_global_pattern != (0, 0):
+        if cfg.family == "ssm":
+            unit = [LayerKind("mamba")]
+        elif cfg.local_global_pattern != (0, 0):
             loc, glob = cfg.local_global_pattern
             unit = ([LayerKind(window=cfg.sliding_window)] * loc
                     + [LayerKind()] * glob)
@@ -119,8 +131,12 @@ class Model:
     # ------------------------------------------------------------------
 
     def _init_blocks(self, gen: torch.Generator, lead: Tuple[int, ...]):
-        """Params of ``prod(lead)`` blocks, stacked on the ``lead`` axes."""
+        """Params of ``prod(lead)`` blocks, stacked on the ``lead`` axes
+        (every block of a ported family has the same kind of params)."""
         cfg = self.cfg
+        if self.unit_kinds[0].block == "mamba":
+            return {"ln1": init_norm(cfg.d_model, cfg.norm, gen.device, lead),
+                    "mamba": mamba2.init_mamba(gen, cfg, lead)}
         return {"ln1": init_norm(cfg.d_model, cfg.norm, gen.device, lead),
                 "ln2": init_norm(cfg.d_model, cfg.norm, gen.device, lead),
                 "attn": attn.init_gqa(gen, cfg, lead),
@@ -153,6 +169,13 @@ class Model:
         cfg = self.cfg
         cache = {}
         x = apply_norm(p["ln1"], h, cfg.norm, cfg.norm_eps)
+        if kind.block == "mamba":
+            if mode == "prefill":
+                y, cache["m"] = mamba2.mamba_forward(p["mamba"], x, cfg,
+                                                     return_cache=True)
+            else:
+                y = mamba2.mamba_forward(p["mamba"], x, cfg)
+            return h + y, cache
         if mode == "prefill":
             y, cache["a"] = attn.gqa_forward(
                 p["attn"], x, cfg, positions=positions, window=kind.window,
@@ -167,6 +190,9 @@ class Model:
     def _block_decode(self, p, h, kind: LayerKind, cache, pos):
         cfg = self.cfg
         x = apply_norm(p["ln1"], h, cfg.norm, cfg.norm_eps)
+        if kind.block == "mamba":
+            y, mc = mamba2.mamba_decode(p["mamba"], x, cache["m"], cfg)
+            return h + y, {"m": mc}
         y, ac = attn.gqa_decode(p["attn"], x, cache["a"], pos, cfg,
                                 window=kind.window)
         h = h + y
@@ -256,6 +282,8 @@ class Model:
         h = self._embed(params, tokens)
 
         def pad_cache(c, kind: LayerKind):
+            if kind.block == "mamba":
+                return c
             L = c["a"]["k"].shape[1]
             tgt = min(cache_len, kind.window) if kind.window > 0 else cache_len
             if L < tgt:
@@ -304,9 +332,14 @@ class Model:
         cfg = self.cfg
 
         def block_cache(kind: LayerKind, lead=()):
-            c = attn.gqa_empty_cache(cfg, batch, cache_len, kind.window,
-                                     self.dtype, device)
-            return {"a": {k: v.expand(lead + v.shape).clone()
+            if kind.block == "mamba":
+                key = "m"
+                c = mamba2.mamba_empty_cache(cfg, batch, self.dtype, device)
+            else:
+                key = "a"
+                c = attn.gqa_empty_cache(cfg, batch, cache_len, kind.window,
+                                         self.dtype, device)
+            return {key: {k: v.expand(lead + v.shape).clone()
                           for k, v in c.items()}}
 
         cache: Dict[str, Any] = {}

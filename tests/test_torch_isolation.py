@@ -48,7 +48,8 @@ PORT_MODULES = (
     "repro_torch.launch.profile_train", "repro_torch.core.swap",
     "repro_torch.core.swa", "repro_torch.train.loop",
     "repro_torch.data.pipeline", "repro_torch.kernels.flash_attention",
-    "repro_torch.kernels.swa_avg")
+    "repro_torch.kernels.swa_avg", "repro_torch.kernels.ssd",
+    "repro_torch.models.mamba2")
 
 
 def test_importing_the_port_loads_no_jax():

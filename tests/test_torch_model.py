@@ -163,7 +163,7 @@ def test_config_validates_impl_without_jax():
                     attention_impl="mosaic")
 
 
-@pytest.mark.parametrize("arch", ["mamba2-2.7b", "minicpm3-4b",
+@pytest.mark.parametrize("arch", ["zamba2-7b", "minicpm3-4b",
                                   "qwen2-vl-72b", "whisper-base",
                                   "granite-moe-3b-a800m", "cifar-cnn"])
 def test_model_refuses_configs_outside_the_slice(arch):

@@ -49,7 +49,8 @@ def _serve_both(arch, prompts, *, max_batch, max_seq, n_new, eos=None):
     return jeng.run(jreqs), teng.run(treqs), teng
 
 
-@pytest.mark.parametrize("arch", ["internlm2-1.8b", "gemma3-1b"])
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "gemma3-1b",
+                                  "mamba2-2.7b"])
 @pytest.mark.parametrize("engine", ["loop", "compiled"])
 def test_generate_matches_jax(arch, engine):
     jm, jp, tm, tp = _setup(arch)

@@ -111,7 +111,8 @@ def _start(jad, key=1):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["internlm2-1.8b", "qwen2.5-14b"])
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "qwen2.5-14b",
+                                  "mamba2-2.7b"])
 def test_lm_loss_metrics_and_grads_match_jax(arch):
     jcfg, tcfg = jreg.get_smoke_config(arch), treg.get_smoke_config(arch)
     jad = JAdapter(jcfg, JOpt())
