@@ -1,0 +1,133 @@
+#!/usr/bin/env python3
+"""Compare sources of the bf16 flash-attention forward kernel on one card.
+
+    python3 ab_flash_fwd.py [VARIANT.cu ...]
+
+Builds the ``flash_fwd`` library once with the repository's bf16 kernel
+(``csrc/flash_fwd_sm90.cu``, named "main") and once with each VARIANT.cu in
+its place (named by its stem), all nvcc runs started together, and prints
+each build's ``-Xptxas -v`` lines. Then, for each build: the bf16 cases of
+``chip_smoke.py``'s forward grid against the plain version at its bounds
+(a count of failing cases); warm times at the prefill and the phase-1
+training shape, taken in turns (main, variants, variants reversed, main)
+beside SDPA's in the same call; times with L2 flushed; and the host cost of
+one call of the C entry for bf16 against f32. Needs a card; compare
+variants only within one run.
+"""
+from __future__ import annotations
+
+import ctypes
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import chip_smoke as smoke
+
+
+def _load(built):
+    lib = ctypes.CDLL(str(built.path))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.fa_fwd.argtypes = ([ptr] * 5 + [i32] * 7 + [ctypes.c_float]
+                           + [i32] * 3 + [ptr])
+    lib.fa_fwd.restype = i32
+    return lib
+
+
+def _runner(lib, q, k, v, causal=True, window=0, q_offset=0):
+    """A closure launching lib's fa_fwd on (q, k, v); returns (out, lse)."""
+    import torch
+    B, Sq, H, D = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lse = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), B, Sq, Skv, H, KVH, D,
+            int(q.dtype == torch.bfloat16), D ** -0.5, int(causal), window,
+            q_offset, torch.cuda.current_stream().cuda_stream)
+
+    def run():
+        err = lib.fa_fwd(*args)
+        if err:
+            smoke.fail(f"launch failed ({err})")
+        return out, lse
+    return run
+
+
+def main(argv) -> None:
+    smoke.phase_device()
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel, ops
+    sources = {"main": kernel.SM90_SOURCE}
+    sources.update({Path(p).stem: Path(p).resolve() for p in argv})
+    with ThreadPoolExecutor(len(sources)) as pool:
+        jobs = {n: pool.submit(_build.build_library, f"flash_fwd_ab_{n}",
+                               [kernel.SOURCE, p])
+                for n, p in sources.items()}
+        built = {n: job.result() for n, job in jobs.items()}
+    libs = {}
+    for n, b in built.items():
+        for line in b.log.splitlines():
+            if "registers" in line or "spill" in line or "C7518" in line:
+                print(f"[{n}] {line.strip()}")
+        libs[n] = _load(b)
+
+    for n, lib in libs.items():
+        bad = 0
+        for i, (shape, dtype, causal, window, q_offset) in enumerate(
+                smoke._grid()):
+            if dtype != "bfloat16":
+                continue
+            q, k, v = smoke._qkv(shape, torch.bfloat16, seed=i)
+            out, lse = _runner(lib, q, k, v, causal, window, q_offset)()
+            ref, ref_lse = ops._blockwise_fwd(
+                q, k, v, causal=causal, window=window, scale=None,
+                q_offset=q_offset, chunk=512)
+            bound = smoke.TOL[dtype] * (1 + ref.float().abs())
+            ok = bool(((out.float() - ref.float()).abs() <= bound).all())
+            ok &= bool(((lse - ref_lse).abs()
+                        <= smoke.LSE_TOL * (1 + ref_lse.abs())).all())
+            bad += not ok
+        print(f"[{n}] bf16 grid cases outside the bounds: {bad}", flush=True)
+
+    order = list(libs) + list(libs)[::-1]
+    for shape in (smoke.PREFILL_SHAPE, smoke.TRAIN_SHAPE):
+        B, Sq, Skv, H, KVH, D = shape
+        q, k, v = smoke._qkv(shape, torch.bfloat16, seed=7)
+        runs = {n: _runner(lib, q, k, v) for n, lib in libs.items()}
+        warm = {n: [] for n in libs}
+        for n in order:
+            warm[n].append(smoke._device_ms(runs[n], 100))
+        qt = q.transpose(1, 2).contiguous()
+        kt = k.repeat_interleave(H // KVH, dim=2).transpose(1, 2).contiguous()
+        vt = v.repeat_interleave(H // KVH, dim=2).transpose(1, 2).contiguous()
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)
+        print(f"[time] {shape} warm ms: " + ", ".join(
+            f"{n} {sum(t) / len(t):.4f} ({' '.join(f'{x:.4f}' for x in t)})"
+            for n, t in warm.items())
+            + f"; SDPA {smoke._device_ms(sdpa, 100):.4f}")
+        print(f"[time] {shape} L2 flushed ms: " + ", ".join(
+            f"{n} {smoke._device_ms(runs[n], 30, flush=True):.4f}"
+            for n in libs)
+            + f"; SDPA {smoke._device_ms(sdpa, 30, flush=True):.4f}",
+            flush=True)
+
+    # host cost of one call of the C entry (a decode row: launch-bound)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = smoke._qkv((1, 1, 64, 16, 8, 128), dtype, seed=3)
+        run = _runner(libs["main"], q, k, v, q_offset=63)
+        for _ in range(50):
+            run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            run()
+        us = (time.perf_counter() - t0) / 2000 * 1e6
+        torch.cuda.synchronize()
+        print(f"[host] {dtype}: {us:.1f} us a call of the C entry")
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -13,7 +13,9 @@ Phases, each printing its own lines; any failed check exits non-zero:
    the flash backward's dQ and dK/dV kernels, the streaming average,
    bitwise, the SSD intra-chunk forward and backward), and time each at
    the shape the main path gives it, beside its bound, its plain version
-   and a library call where one computes the same function;
+   and a library call where one computes the same function (the flash
+   forward, whose bf16 route is the wgmma kernel, at both the prefill and
+   the phase-1 training shape, and at the prefill also with L2 flushed);
 4. full-width serve (internlm2-1.8b, random weights from a seed): a main
    path, with every kernel's launch count set to 0 just before it and read
    just after; then prefill logits with the kernel against the plain
@@ -223,7 +225,7 @@ def _grid():
 def phase_kernel():
     import torch
     from repro_torch.kernels.flash_attention import kernel, ops
-    worst, path_err = {}, 0.0
+    worst, path_err = {}, {}
     for i, (shape, dtype, causal, window, q_offset) in enumerate(_grid()):
         q, k, v = _qkv(shape, getattr(torch, dtype), seed=i)
         kw = dict(causal=causal, window=window, scale=None,
@@ -248,14 +250,67 @@ def phase_kernel():
                   f"case {i}: fully masked rows are not out=0, lse=0")
         worst[dtype] = max(worst.get(dtype, 0.0), err.max().item())
         if shape in (PREFILL_SHAPE, TRAIN_SHAPE):   # the two main paths'
-            path_err = max(path_err, err.max().item())
+            path_err[shape] = err.max().item()
     print(f"[kernel] {len(_grid())} cases match the plain version; max |out "
           f"err| f32 {worst['float32']:.3e} bf16 {worst['bfloat16']:.3e}")
 
-    # times at the prefill shape of internlm2-1.8b (what each layer gives it)
-    B, Sq, Skv, H, KVH, D = PREFILL_SHAPE
-    q, k, v = _qkv(PREFILL_SHAPE, torch.bfloat16, seed=1234)
-    ms = _cuda_ms(lambda: kernel.flash_fwd(q, k, v, causal=True), 50)
+    # times at the two main paths' shapes: the internlm2-1.8b prefill, and
+    # the phase-1 training step (48 launches a step with remat)
+    prefill = _fwd_times(PREFILL_SHAPE, "prefill", seed=1234, cold=True)
+    train = _fwd_times(TRAIN_SHAPE, "phase-1 training", seed=1235)
+    sys.stdout.flush()
+    return {
+        "name": "flash_attention_fwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_fwd_sm90.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:34",
+        "launches": None, "max_abs_err": path_err[PREFILL_SHAPE],
+        **prefill,
+        "train_shape": {"max_abs_err": path_err[TRAIN_SHAPE], **train},
+    }
+
+
+def _device_ms(fn, iters: int, flush: bool = False) -> float:
+    """Mean device time of fn over iters launches. The launches are queued
+    behind a ~50 ms sleep kernel, so that the host's cost of issuing fn
+    (tens of microseconds of Python a call, more than a short kernel takes)
+    does not show between the events. With flush, the 50 MB L2 is
+    overwritten (a 256 MB write) before each launch and each launch is
+    timed alone."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    event = lambda: torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)        # GPU clock cycles
+    if not flush:
+        start, end = event(), event()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+    scrub = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    events = [(event(), event()) for _ in range(iters)]
+    for start, end in events:
+        scrub.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / iters
+
+
+def _fwd_times(shape, label, seed, cold=False):
+    """The bf16 forward's device time at one shape, warm (and, with cold,
+    with L2 flushed), beside its bound, its plain version and SDPA, timed
+    the same way."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel, ops
+    B, Sq, Skv, H, KVH, D = shape
+    q, k, v = _qkv(shape, torch.bfloat16, seed=seed)
+    run = lambda: kernel.flash_fwd(q, k, v, causal=True)
+    ms = _device_ms(run, 50)
     plain_ms = _cuda_ms(lambda: ops._blockwise_fwd(
         q, k, v, causal=True, window=0, scale=None, q_offset=0, chunk=512), 5)
     # yardstick only, never called by the port: one fused library call on
@@ -263,25 +318,28 @@ def phase_kernel():
     qt = q.transpose(1, 2).contiguous()
     kt = k.repeat_interleave(H // KVH, dim=2).transpose(1, 2).contiguous()
     vt = v.repeat_interleave(H // KVH, dim=2).transpose(1, 2).contiguous()
-    lib_ms = _cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True), 50)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True)
+    lib_ms = _device_ms(sdpa, 50)
     nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel()) + B * Sq * H * 4
     flops = 4 * D * B * H * _visible_pairs(Sq, Skv, True, 0, 0)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
-    print(f"[kernel] prefill shape B{B} S{Sq} H{H} KVH{KVH} D{D} bf16 causal: "
-          f"kernel {ms:.4f} ms, bound {max(t_bytes, t_ops) * 1e3:.2f} us "
-          f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), plain "
-          f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms", flush=True)
-    return {
-        "name": "flash_attention_fwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:34",
-        "launches": None, "max_abs_err": path_err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": lib_ms,
-    }
+    times = {"shape": f"B{B} S{Sq} H{H} KVH{KVH} D{D} bf16 causal",
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "library_ms": lib_ms}
+    line = (f"[kernel] {label} shape {times['shape']}: kernel {ms:.4f} ms, "
+            f"bound {max(t_bytes, t_ops) * 1e3:.2f} us ({nbytes / 1e6:.1f} "
+            f"MB, {flops / 1e9:.2f} GFLOP), plain {plain_ms:.4f} ms, library "
+            f"{lib_ms:.4f} ms")
+    if cold:
+        times["ms_l2_flushed"] = _device_ms(run, 30, flush=True)
+        times["library_ms_l2_flushed"] = _device_ms(sdpa, 30, flush=True)
+        line += (f"; L2 flushed: kernel {times['ms_l2_flushed']:.4f} ms, "
+                 f"library {times['library_ms_l2_flushed']:.4f} ms")
+    print(line)
+    return times
 
 
 def _bwd_grid():

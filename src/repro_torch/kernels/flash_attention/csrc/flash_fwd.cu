@@ -1,9 +1,10 @@
-// Flash-attention forward for NVIDIA Hopper (sm_90a), written by hand.
+// Flash-attention forward for NVIDIA Hopper (sm_90a), written by hand: the
+// f32 route, and the C entry fa_fwd of both routes.
 //
 // Replaces the Pallas TPU kernel
 //   repro/kernels/flash_attention/kernel.py::_fa_kernel
-// and computes what it computes, for q (B,Sq,H,D) and k, v (B,Skv,KVH,D)
-// in f32 or bf16, D in {64, 128}:
+// and computes what it computes, for q (B,Sq,H,D) and k, v (B,Skv,KVH,D),
+// D in {64, 128}:
 //   * GQA: query head h reads KV head h / (H / KVH), straight from the
 //     strided (B,S,KVH,D) tensor (no repeated heads, no D padding);
 //   * online softmax in f32 (running max, running sum, f32 accumulator);
@@ -13,35 +14,30 @@
 //     alpha = 0 where m_prev <= NEG_INF/2, and a row that sees no key gets
 //     out = 0 and lse = 0;
 //   * outputs: out (B,Sq,H,D) in the input dtype, lse (B,Sq,H) in f32.
-// Rounding follows the plain version beside it (ops._blockwise_fwd, the
-// twin of the JAX blockwise reference): q * scale is taken in the input
-// dtype, and p is rounded to the input dtype before P.V (l sums the
-// unrounded p). In f32 both are no-ops, which is the TPU kernel's
-// arithmetic exactly; in bf16 they are the rounding a bf16 tensor-core P.V
-// would make, and they keep the kernel within summation-order noise of the
-// plain version through a full-depth bf16 prefill.
+// fa_fwd sends bf16 inputs to fa_fwd_sm90 (flash_fwd_sm90.cu: wgmma tensor
+// cores fed by TMA) and f32 inputs to fa_fwd_kernel below, on the CUDA
+// cores in f32 FMA: the tensor cores would take f32 as TF32 (about three
+// decimal digits), and the f32 route is what the port's f32 checks hold to
+// the reference. It is the TPU kernel's arithmetic exactly (the plain
+// version's rounding points, q * scale and p in the input dtype, are no-ops
+// in f32).
 //
-// What bounds it on an H100: at the internlm2-1.8b prefill shape (B 8,
-// S 512, H 16, KVH 8, D 128, bf16, causal) the function must move ~50.6 MB
-// (15.1 us at 3.35 TB/s) and do ~8.6 GFLOP (8.7 us on the bf16 tensor
-// cores), so the function is memory-bound. This kernel does its products on
-// the CUDA cores in f32 FMA (no TF32, no tensor cores), so it is bound by
-// FMA throughput and shared-memory loads instead: ~8.6 GFLOP at 67 TFLOP/s is
-// ~130 us at best.
+// What bounds it on an H100: ~8.6 GFLOP of the internlm2-1.8b prefill shape
+// (B 8, S 512, H 16, KVH 8, D 128, causal) at the 67 TFLOP/s of f32 FMA is
+// ~130 us at best, against ~101 MB of f32 traffic (30 us): it is bound by
+// FMA throughput and shared-memory loads.
 //
 // Design: one CTA of 4 warps per (batch, head, 32-row query tile) loops over
 // 64-key KV tiles, the loop taking the place of the TPU's sequential KV grid
 // axis; tiles that the causal or window bound excludes entirely are skipped.
 // Each KV tile is read from device memory once per CTA with 16-byte loads
-// and staged in shared memory as f32 (K rows padded by 4 floats, so that
-// the per-lane float4 reads of K are free of bank conflicts). Each warp owns
+// and staged in shared memory (K rows padded by 4 floats, so that the
+// per-lane float4 reads of K are free of bank conflicts). Each warp owns
 // 8 query rows; a lane owns 2 keys of the tile for Q.K^T and D/32 output
 // columns for P.V. Q, K and P are read from shared memory as float4 (Q and
 // P as broadcasts), so each shared load feeds 8-16 FMAs. Shared memory is
 // 91.1 KB per CTA at D = 128 (two CTAs per SM) and 49.9 KB at D = 64.
-// wgmma, TMA and warp specialisation are left for a later kernel.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -54,7 +50,7 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRows = kBlockQ / kWarps;  // query rows per warp
 
-// 16 bytes of T from device memory, as f32 (4 floats or 8 bf16 values)
+// 16 bytes of T from device memory, as f32
 template <typename T>
 struct Vec16;
 template <>
@@ -65,32 +61,11 @@ struct Vec16<float> {
     out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
   }
 };
-template <>
-struct Vec16<__nv_bfloat16> {
-  static constexpr int n = 8;
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                              float* out) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-};
 
 // x rounded to T and back (identity for f32)
 __device__ __forceinline__ float round_to(float x, const float*) { return x; }
-__device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 __device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 template <int D>
 constexpr int smem_floats() {
@@ -311,6 +286,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
+// the bf16 route (flash_fwd_sm90.cu)
+cudaError_t fa_fwd_sm90(const void* q, const void* k, const void* v, void* o,
+                        void* lse, int B, int Sq, int Skv, int H, int KVH,
+                        int D, float scale, int causal, int window,
+                        int q_offset, cudaStream_t stream);
+
 // dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
 extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o,
                       void* lse, int B, int Sq, int Skv, int H, int KVH,
@@ -323,12 +304,9 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o,
   if (dtype == 0 && D == 128)
     return launch<float, 128>(q, k, v, o, lse, B, Sq, Skv, H, KVH, scale,
                               causal, window, q_offset, st);
-  if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, o, lse, B, Sq, Skv, H, KVH,
-                                     scale, causal, window, q_offset, st);
-  if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, o, lse, B, Sq, Skv, H, KVH,
-                                      scale, causal, window, q_offset, st);
+  if (dtype == 1)
+    return fa_fwd_sm90(q, k, v, o, lse, B, Sq, Skv, H, KVH, D, scale, causal,
+                       window, q_offset, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,7 +1,10 @@
 """ctypes bindings of the hand-written Hopper flash-attention kernels.
 
-  * ``flash_fwd`` launches ``csrc/flash_fwd.cu``, which replaces the Pallas
-    TPU kernel ``repro/kernels/flash_attention/kernel.py::_fa_kernel``;
+  * ``flash_fwd`` launches the ``flash_fwd`` library, which replaces the
+    Pallas TPU kernel ``repro/kernels/flash_attention/kernel.py::_fa_kernel``:
+    bf16 inputs run ``csrc/flash_fwd_sm90.cu`` (wgmma tensor cores fed by
+    TMA), f32 inputs the f32 FMA kernel of ``csrc/flash_fwd.cu``, which
+    holds the C entry of both;
   * ``flash_bwd_dq`` and ``flash_bwd_dkv`` launch ``csrc/flash_bwd.cu``,
     which replaces ``_fa_bwd_dq_kernel`` and ``_fa_bwd_dkv_kernel``;
     ``flash_bwd`` takes delta = rowsum(dO * O) in plain PyTorch and runs
@@ -25,6 +28,7 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu"
+SM90_SOURCE = SOURCE.with_name("flash_fwd_sm90.cu")
 BWD_SOURCE = SOURCE.with_name("flash_bwd.cu")
 HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -32,7 +36,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 @functools.cache
 def _library():
-    built = _build.build_library("flash_fwd", [SOURCE])
+    built = _build.build_library("flash_fwd", [SOURCE, SM90_SOURCE])
     lib = ctypes.CDLL(str(built.path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.fa_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr,          # q k v o lse
@@ -79,11 +83,6 @@ def _check(q, k, v):
             "flash_fwd launches the kernel outside autograd; call "
             "ops.flash_attention, whose autograd Function runs the forward "
             "and backward kernels, for a differentiable call.")
-    if q.device.type != "cuda":
-        raise RuntimeError(
-            f"the flash-attention kernel needs CUDA tensors; got {q.device}")
-    if not (q.device == k.device == v.device):
-        raise ValueError("q, k and v must lie on one device")
     if q.dtype not in _DTYPES or not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"q/k/v must all be float32 or bfloat16; got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
@@ -102,7 +101,12 @@ def _check(q, k, v):
         raise ValueError("q, k and v must be contiguous")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must start on a 16-byte boundary (the "
-                         "kernel reads them 16 bytes at a time)")
+                         "kernels read them 16 bytes at a time, or by TMA)")
+    if q.device.type != "cuda":
+        raise RuntimeError(
+            f"the flash-attention kernel needs CUDA tensors; got {q.device}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k and v must lie on one device")
 
 
 def flash_fwd(q, k, v, *, causal: bool = True, window: int = 0,

@@ -48,7 +48,8 @@ import torch
 from repro_torch.launch import train as launcher
 
 WARMUP, STEPS, TRACED = 2, 6, 2
-CATEGORIES = (("flash_attention_fwd", ("fa_fwd_kernel",)),
+CATEGORIES = (("flash_attention_fwd", ("fa_fwd_kernel",
+                                       "fa_fwd_sm90_kernel")),
               ("flash_attention_bwd_dq", ("fa_bwd_dq_kernel",)),
               ("flash_attention_bwd_dkv", ("fa_bwd_dkv_kernel",)),
               ("swa_avg", ("avg_kernel",)),

@@ -179,6 +179,109 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
         tkernel.build()
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wrapper_takes_both_dtypes_up_to_the_device_check(dtype):
+    """f32 (the FMA route) and bf16 (the wgmma route) pass every check that
+    needs no card, at both head dims, and stop only at the device."""
+    for D in tkernel.HEAD_DIMS:
+        (_, _, _), (tq, tk, tv) = _inputs((1, 8, 8, 4, 2, D), dtype, seed=9)
+        with pytest.raises(RuntimeError, match="needs CUDA tensors"):
+            tkernel.flash_fwd(tq, tk, tv)
+
+
+def _misaligned(t):
+    """t's values in a contiguous tensor that starts one element past the
+    allocation, so off a 16-byte boundary."""
+    view = torch.empty(t.numel() + 1, dtype=t.dtype)[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+REFUSED = {
+    "head_dim_256": (lambda q, k, v: (q.repeat(1, 1, 1, 2),
+                                      k.repeat(1, 1, 1, 2),
+                                      v.repeat(1, 1, 1, 2)),
+                     ValueError, "head dim 256"),
+    "float16": (lambda q, k, v: (q.half(), k.half(), v.half()),
+                TypeError, "float32 or bfloat16"),
+    "non_contiguous": (lambda q, k, v: (q.transpose(1, 2).contiguous()
+                                        .transpose(1, 2), k, v),
+                       ValueError, "contiguous"),
+    "misaligned": (lambda q, k, v: (_misaligned(q), k, v),
+                   ValueError, "16-byte boundary"),
+    "cpu": (lambda q, k, v: (q, k, v), RuntimeError, "needs CUDA tensors"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSED))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wrapper_refuses_what_the_kernels_cannot_take(case, dtype):
+    make, exc, msg = REFUSED[case]
+    (_, _, _), (tq, tk, tv) = _inputs((1, 8, 8, 4, 2, 128), dtype, seed=10)
+    q, k, v = make(tq, tk, tv)
+    with pytest.raises(exc, match=msg):
+        tkernel.flash_fwd(q, k, v)
+
+
+def test_forward_library_is_built_from_both_sources(monkeypatch):
+    """One library holds both routes; build_library hashes the sources it
+    is given, so both must be listed or an edited kernel reuses a stale
+    build."""
+    seen = {}
+
+    def fake_build(name, sources):
+        seen[name] = [s.name for s in sources]
+        raise RuntimeError("no nvcc here")
+
+    monkeypatch.setattr(_build, "build_library", fake_build)
+    tkernel._library.cache_clear()
+    with pytest.raises(RuntimeError, match="no nvcc here"):
+        tkernel.build()
+    assert seen == {"flash_fwd": ["flash_fwd.cu", "flash_fwd_sm90.cu"]}
+    assert all((tkernel.SOURCE.parent / n).is_file()
+               for n in seen["flash_fwd"])
+
+
+# The card grid's edge cases (chip_smoke._grid: ragged, window, q_offset,
+# empty rows, skipped tiles), at the bf16 kernel's KV tile of 64 keys.
+CARD_EDGE_CASES = [
+    ((2, 67, 67, 4, 4, 64), True, 16, 0),      # ragged, window, G 1
+    ((2, 67, 67, 4, 1, 128), True, 0, 0),      # ragged, G 4
+    ((2, 1, 64, 8, 4, 64), True, 0, 63),       # decode row
+    ((1, 33, 129, 4, 2, 128), True, 0, 96),    # chunked-prefill offset
+    ((1, 33, 129, 4, 2, 64), False, 0, 0),     # ragged Skv
+    ((1, 40, 40, 4, 1, 128), True, 16, 0),     # window
+    ((1, 48, 48, 4, 2, 64), True, 0, -8),      # rows that see no key
+    ((1, 200, 200, 8, 2, 64), True, 48, 0),    # tiles outside the window
+]
+
+
+@pytest.mark.parametrize("shape,causal,window,q_offset", CARD_EDGE_CASES)
+def test_plain_at_kv_tile_64_matches_pallas_kernel(shape, causal, window,
+                                                   q_offset):
+    """The rounding contract of the bf16 kernel (q * scale in bf16, 64-key
+    tiles, p rounded to bf16 before P.V, l on the unrounded p), as the
+    plain version computes it: out within the JAX tests' bf16 3e-2 of the
+    Pallas kernel; out at 2e-5 and lse at 1e-4 on the f32-upcast inputs
+    (the Pallas kernel scales q in f32, so its bf16 lse differs by the
+    rounding of q * scale where the scale is not a power of 2)."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(shape, "bfloat16", seed=30)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    jo, _ = flash_attention_pallas_fwd(jq, jk, jv, interpret=True, **kw)
+    to, tl = tops._blockwise_fwd(tq, tk, tv, scale=None, chunk=64, **kw)
+    assert to.dtype == torch.bfloat16 and tl.dtype == torch.float32
+    _close(to, jo, TOL["bfloat16"])
+    up = [jnp.asarray(a, jnp.float32) for a in (jq, jk, jv)]
+    jo32, jl32 = flash_attention_pallas_fwd(*up, interpret=True, **kw)
+    to32, tl32 = tops._blockwise_fwd(tq.float(), tk.float(), tv.float(),
+                                     scale=None, chunk=64, **kw)
+    _close(to32, jo32, TOL["float32"])
+    _close(tl32, jl32, LSE_TOL)
+    if q_offset < 0:   # out = 0 and lse = 0 where a row sees no key
+        assert bool((to[:, :-q_offset] == 0).all())
+        assert bool((tl[:, :-q_offset] == 0).all())
+
+
 # ---------------------------------------------------------------------------
 # backward
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""The port stands alone: no file of ``src/repro_torch`` nor ``chip_smoke.py``
-imports JAX or the ``repro`` package, and ``chip_smoke.py`` refuses to run
+"""The port stands alone: no file of ``src/repro_torch``, ``chip_smoke.py``
+nor ``ab_flash_fwd.py`` imports JAX or the ``repro`` package, and ``chip_smoke.py`` refuses to run
 without a card or without the repository beside it."""
 import ast
 import os
@@ -15,7 +15,7 @@ torch.set_num_threads(1)   # the suite runs as parallel test processes
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "ab_flash_fwd.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
