@@ -1,0 +1,194 @@
+#!/usr/bin/env python3
+"""Compare sources of the bf16 flash-attention backward kernels on one card.
+
+    python3 ab_flash_bwd.py [--occupancy] [VARIANT.cu ...]
+
+Builds the ``flash_bwd`` library once with the repository's bf16 kernels
+(``csrc/flash_bwd_sm90.cu``, named "main") and once with each VARIANT.cu
+in its place (named by its stem), all nvcc runs started together, and
+prints each build's ``-Xptxas -v`` lines for its sm90 kernels.
+``--occupancy`` adds the dQ kernel's other CTA shapes as variants, made
+from the main source (one warpgroup a CTA, three CTAs an SM, a K/V ring of
+one stage so that three fit in shared memory) by setting its constants
+(written under ``build/``): two warpgroups a CTA, one CTA an SM, a ring of
+two stages (``dq_2wg_1cta``), and one warpgroup asked for two CTAs an SM
+with a ring of two (``dq_1wg_2cta``). Then, for each
+build: the bf16 cases of ``chip_smoke.py``'s backward grid against the
+plain version's f32 math and against it at the kernels' rounding points,
+at chip_smoke's bounds (a count of failing cases); and device times of the
+dQ and dK/dV kernels at the phase-1 and phase-2 training shapes, taken in
+turns (main, variants, variants reversed, main), beside the library's
+fused backward timed alone in the same call; and the plain-PyTorch forms
+of delta = rowsum(dO * O) that ``kernel.flash_bwd`` could take, timed in
+turns, with their largest difference. Needs a card; compare variants only
+within one run.
+"""
+from __future__ import annotations
+
+import ctypes
+import re
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import chip_smoke as smoke
+
+# name: (query heads a dQ CTA, CTAs an SM asked of ptxas, K/V stages)
+OCCUPANCY = {"dq_2wg_1cta": (2, 1, 2), "dq_1wg_2cta": (1, 2, 2)}
+
+
+def _occupancy_variant(name, main_src: Path) -> Path:
+    heads, blocks, stages = OCCUPANCY[name]
+    text = main_src.read_text()
+    for const, value in (("kDqHeads", heads), ("kDqMinBlocks", blocks),
+                         ("kDqStages", stages)):
+        text, n = re.subn(rf"constexpr int {const} = \d+;",
+                          f"constexpr int {const} = {value};", text)
+        if n != 1:
+            smoke.fail(f"{main_src.name} has no single {const} constant")
+    out = smoke.ROOT / "build" / "ab_flash_bwd" / f"{name}.cu"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(text)
+    return out
+
+
+def _load(built):
+    lib = ctypes.CDLL(str(built.path))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    common = [i32] * 7 + [ctypes.c_float] + [i32] * 3 + [ptr]
+    lib.fa_bwd_dq.argtypes = [ptr] * 7 + common
+    lib.fa_bwd_dkv.argtypes = [ptr] * 8 + common
+    lib.fa_bwd_dq.restype = lib.fa_bwd_dkv.restype = i32
+    return lib
+
+
+def _runners(lib, q, k, v, do, lse, delta, causal=True, window=0,
+             q_offset=0):
+    """Closures launching lib's dQ and dK/dV kernels; they return dq and
+    (dk, dv)."""
+    import torch
+    B, Sq, H, D = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    tail = (B, Sq, Skv, H, KVH, D, 1, D ** -0.5, int(causal), window,
+            q_offset, torch.cuda.current_stream().cuda_stream)
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+           lse.data_ptr(), delta.data_ptr())
+
+    def run_dq():
+        err = lib.fa_bwd_dq(*ins, dq.data_ptr(), *tail)
+        if err:
+            smoke.fail(f"dQ launch failed ({err})")
+        return dq
+
+    def run_dkv():
+        err = lib.fa_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(), *tail)
+        if err:
+            smoke.fail(f"dK/dV launch failed ({err})")
+        return dk, dv
+    return run_dq, run_dkv
+
+
+def _delta_forms(do, out):
+    """Plain-PyTorch forms of delta = rowsum(dO * O) in f32: each product
+    of two bf16 values is exact in f32, so they differ by summation order
+    only."""
+    import torch
+    B, Sq, H, D = do.shape
+    return {
+        "two_casts": lambda: (do.float() * out.float()).sum(-1),
+        "one_cast": lambda: (do.float() * out).sum(-1),
+        "bmm_f32_out": lambda: torch.bmm(
+            do.view(-1, 1, D), out.view(-1, D, 1),
+            out_dtype=torch.float32).view(B, Sq, H),
+    }
+
+
+def main(argv) -> None:
+    smoke.phase_device()
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel
+    sources = {"main": kernel.BWD_SM90_SOURCE}
+    if "--occupancy" in argv:
+        argv = [a for a in argv if a != "--occupancy"]
+        for name in OCCUPANCY:
+            sources[name] = _occupancy_variant(name, kernel.BWD_SM90_SOURCE)
+    sources.update({Path(p).stem: Path(p).resolve() for p in argv})
+    with ThreadPoolExecutor(len(sources)) as pool:
+        jobs = {n: pool.submit(_build.build_library, f"flash_bwd_ab_{n}",
+                               [kernel.BWD_SOURCE, p], kernel.HEADERS)
+                for n, p in sources.items()}
+        built = {n: job.result() for n, job in jobs.items()}
+    libs = {}
+    for n, b in built.items():
+        fn = ""
+        for line in b.log.splitlines():
+            entry = re.search(r"entry function '\S*?(fa_\w+_sm90_kernel\w*?)E"
+                              r"v", line)
+            if "Compiling entry function" in line:
+                fn = entry.group(1) if entry else ""
+            elif fn and ("registers" in line or "spill" in line):
+                print(f"[{n}] {fn}: {line.strip()}")
+            elif "C7518" in line and "bwd" in line:
+                print(f"[{n}] {line.strip()}")
+        libs[n] = _load(b)
+
+    cases = [i for i, c in enumerate(smoke._bwd_grid()) if c[1] == "bfloat16"]
+    bad = {n: 0 for n in libs}
+    for i in cases:
+        (q, k, v, out, lse, do), kw, want, want_r = smoke._bwd_case(i)
+        delta = kernel.bwd_delta(do, out)
+        kw.pop("scale")
+        for n, lib in libs.items():
+            run_dq, run_dkv = _runners(lib, q, k, v, do, lse, delta, **kw)
+            got = (run_dq().clone(), *(t.clone() for t in run_dkv()))
+            torch.cuda.synchronize()
+            bad[n] += not smoke._bwd_ok(
+                smoke._bwd_errors(got, want, want_r), "bfloat16")
+    for n in libs:
+        print(f"[{n}] bf16 backward grid cases outside the bounds: {bad[n]} "
+              f"of {len(cases)}", flush=True)
+
+    order = list(libs) + list(libs)[::-1]
+    for label, shape in (("phase-1", smoke.TRAIN_SHAPE),
+                         ("phase-2", (32,) + smoke.TRAIN_SHAPE[1:])):
+        q, k, v = smoke._qkv(shape, torch.bfloat16, seed=7)
+        do = smoke._qkv(shape, torch.bfloat16, seed=8)[0]
+        out, lse = kernel.flash_fwd(q, k, v, causal=True)
+        delta = kernel.bwd_delta(do, out)
+        runs = {n: _runners(lib, q, k, v, do, lse, delta)
+                for n, lib in libs.items()}
+        for which, idx in (("dQ", 0), ("dK/dV", 1)):
+            times = {n: [] for n in libs}
+            for n in order:
+                times[n].append(smoke._device_ms(runs[n][idx], 100))
+            print(f"[time] {label} {shape} {which} ms: " + ", ".join(
+                f"{n} {sum(t) / len(t):.4f} ({' '.join(f'{x:.4f}' for x in t)})"
+                for n, t in times.items()), flush=True)
+        forms = _delta_forms(do, out)
+        ref = forms["two_casts"]()
+        times = {n: [] for n in forms}
+        for n in list(forms) + list(forms)[::-1]:
+            times[n].append(smoke._device_ms(forms[n], 100))
+        print(f"[delta] {label} {shape} ms: " + ", ".join(
+            f"{n} {sum(t) / len(t):.4f} (max |diff| "
+            f"{smoke._rel_err(forms[n](), ref):.2e})"
+            for n, t in times.items()), flush=True)
+        B, Sq, Skv, H, KVH, D = shape
+        qt = q.transpose(1, 2).contiguous().requires_grad_()
+        kt = k.repeat_interleave(H // KVH, dim=2).transpose(1, 2).contiguous()
+        vt = v.repeat_interleave(H // KVH, dim=2).transpose(1, 2).contiguous()
+        kt.requires_grad_()
+        vt.requires_grad_()
+        o = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)
+        dot = do.transpose(1, 2).contiguous()
+        lib_ms = smoke._device_ms(lambda: torch.autograd.grad(
+            o, (qt, kt, vt), dot, retain_graph=True), 100)
+        print(f"[time] {label} {shape} library backward alone (dq, dk, dv): "
+              f"{lib_ms:.4f} ms", flush=True)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

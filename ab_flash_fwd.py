@@ -63,7 +63,7 @@ def main(argv) -> None:
     sources.update({Path(p).stem: Path(p).resolve() for p in argv})
     with ThreadPoolExecutor(len(sources)) as pool:
         jobs = {n: pool.submit(_build.build_library, f"flash_fwd_ab_{n}",
-                               [kernel.SOURCE, p])
+                               [kernel.SOURCE, p], kernel.HEADERS)
                 for n, p in sources.items()}
         built = {n: job.result() for n, job in jobs.items()}
     libs = {}

@@ -10,12 +10,15 @@ Phases, each printing its own lines; any failed check exits non-zero:
    one nvcc per source, all started together;
 3. kernels vs plain: hold each kernel against its plain PyTorch version on
    the card over a grid of shapes, dtypes and masks (the flash forward,
-   the flash backward's dQ and dK/dV kernels, the streaming average,
+   the flash backward's dQ and dK/dV kernels, in bf16 also against the
+   plain version at their own rounding points, the streaming average,
    bitwise, the SSD intra-chunk forward and backward), and time each at
    the shape the main path gives it, beside its bound, its plain version
    and a library call where one computes the same function (the flash
    forward, whose bf16 route is the wgmma kernel, at both the prefill and
-   the phase-1 training shape, and at the prefill also with L2 flushed);
+   the phase-1 training shape, and at the prefill also with L2 flushed;
+   the bf16 flash backward, the whole call and its delta at the phase-1
+   and phase-2 training shapes, beside the library's backward alone);
 4. full-width serve (internlm2-1.8b, random weights from a seed): a main
    path, with every kernel's launch count set to 0 just before it and read
    just after; then prefill logits with the kernel against the plain
@@ -53,11 +56,26 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}       # out, as the JAX tests
 LSE_TOL = 1e-4
-# dq/dk/dv against the plain backward: f32 at the JAX kernel tests' 2e-4.
-# In bf16 both read the same bf16 inputs and sum in f32; they differ by
-# summation order and by where dq/dk/dv round to bf16, so the bound is
-# 1e-2 (relative to 1 + |value|, about 2 bf16 ulp)
+# dq/dk/dv against the plain backward's f32 math: f32 at the JAX kernel
+# tests' 2e-4. In bf16 both read the same bf16 inputs and sum in f32; they
+# differ by summation order, by where dq/dk/dv round to bf16, and by the
+# bf16 kernels' hi + lo pairs for P and dS, so the bound is 1e-2 (relative
+# to 1 + |value|, about 2 bf16 ulp). The f32 math forms S as the forward
+# that wrote lse formed it (scores_as_forward: q * scale in bf16 for bf16
+# inputs, as the bf16 forward kernel takes it): with S from q * scale in
+# f32, P = exp(S - lse) is not that forward's softmax (its rows miss 1 by
+# up to ~3e-3 at D 128) and the gradient is another function's
 BWD_TOL = {"float32": 2e-4, "bfloat16": 1e-2}
+
+# bf16 kernels against the plain backward at their own rounding points
+# (ref.flash_attention_bwd_ref(..., rounded=True)), fed the same lse: the
+# two round the same f32 sums, which differ only by summation order and
+# ex2.approx against expf (~1e-6 relative; a hi + lo pair keeps P and dS to
+# 2^-16 wherever hi lands), so an output may land one bf16 ulp away, plus
+# 2^-12 of the tensor's largest value for the f32 sums; and those flips are
+# rare, so the relative L2 error stays under 1e-3. A wrong descriptor,
+# fragment index or mask moves values by O(1).
+BWD_ROUNDED_ABS, BWD_ROUNDED_L2 = 2.0 ** -12, 1e-3
 # whole-model grads in f32, held leaf by leaf: max |err| / max |ref| at the
 # JAX attention-grad tests' 5e-4, and the relative L2 at 1e-5 (leaves of a
 # smoke LM are ~1e-2, and the kernel's grads differ from plain autograd by
@@ -368,56 +386,133 @@ def _rel_err(got, want):
             / (1 + want.float().abs())).max().item()
 
 
-def phase_kernel_bwd():
+def _bf16_ulp(x):
+    """The spacing of bf16 values at |x| (8 significant bits; 0 at 0)."""
+    import torch
+    m, e = torch.frexp(x.float())
+    return torch.ldexp((m != 0).float(), e - 8)
+
+
+def _bwd_case(i):
+    """Case i of the backward grid on the card: (args of the kernels' call
+    (q, k, v, out, lse, dO), the mask keywords, the plain version's f32
+    math, and in bf16 the plain version at the kernels' rounding points,
+    else None), all on the lse of the kernel's forward."""
     import torch
     from repro_torch.kernels.flash_attention import kernel, ref
-    worst = {}
+    shape, dtype, causal, window, q_offset = _bwd_grid()[i]
+    q, k, v = _qkv(shape, getattr(torch, dtype), seed=100 + i)
+    do = _qkv(shape, getattr(torch, dtype), seed=200 + i)[0]
+    kw = dict(causal=causal, window=window, scale=None, q_offset=q_offset)
+    out, lse = kernel.flash_fwd(q, k, v, **kw)
+    args = (q, k, v, out, lse, do)
+    want = ref.flash_attention_bwd_ref(*args, scores_as_forward=True, **kw)
+    want_r = None if dtype == "float32" else ref.flash_attention_bwd_ref(
+        *args, rounded=True, **kw)
+    return args, kw, want, want_r
+
+
+def _bwd_errors(got, want, want_r):
+    """Per output: max |err|/(1+|ref|) against the f32 math, and against
+    the rounded plain version (bf16 only) the worst ratio to its elementwise
+    bound (1 bf16 ulp + BWD_ROUNDED_ABS max|ref|) and the relative L2."""
+    import torch
+    errs = {}
+    for name, g, w, wr in zip(("dq", "dk", "dv"), got, want,
+                              want_r or (None,) * 3):
+        e = {"rel": _rel_err(g, w)}
+        if wr is not None:
+            d = (g.float() - wr.float()).abs()
+            bound = _bf16_ulp(wr) + BWD_ROUNDED_ABS * wr.float().abs().max()
+            e["ratio"] = (d / bound).max().item()
+            e["l2"] = (torch.linalg.vector_norm(d)
+                       / torch.linalg.vector_norm(wr.float())).item()
+        errs[name] = e
+    return errs
+
+
+def _bwd_ok(errs, dtype):
+    return all(e["rel"] <= BWD_TOL[dtype] and e.get("ratio", 0) <= 1
+               and e.get("l2", 0) <= BWD_ROUNDED_L2 for e in errs.values())
+
+
+def phase_kernel_bwd():
+    import torch
+    from repro_torch.kernels.flash_attention import kernel
+    worst, worst_r = {}, {"ratio": 0.0, "l2": 0.0}
     for i, (shape, dtype, causal, window, q_offset) in enumerate(_bwd_grid()):
-        q, k, v = _qkv(shape, getattr(torch, dtype), seed=100 + i)
-        do = _qkv(shape, getattr(torch, dtype), seed=200 + i)[0]
-        kw = dict(causal=causal, window=window, scale=None,
-                  q_offset=q_offset)
-        out, lse = kernel.flash_fwd(q, k, v, **kw)
-        got = kernel.flash_bwd(q, k, v, out, lse, do, **kw)
+        args, kw, want, want_r = _bwd_case(i)
+        got = kernel.flash_bwd(*args, **kw)
         torch.cuda.synchronize()
-        want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
         for name, g, w in zip(("dq", "dk", "dv"), got, want):
             check(g.dtype == w.dtype and g.shape == w.shape,
                   f"bwd case {i}: {name} shape/dtype")
             check(bool(torch.isfinite(g).all()),
                   f"bwd case {i}: non-finite {name}")
-            err = _rel_err(g, w)
-            check(err <= BWD_TOL[dtype],
-                  f"bwd case {i} {shape} {dtype} causal={causal} "
-                  f"window={window} q_offset={q_offset}: {name} error "
-                  f"{err:.3e} > {BWD_TOL[dtype]}")
-            worst[dtype] = max(worst.get(dtype, 0.0), err)
+        errs = _bwd_errors(got, want, want_r)
+        check(_bwd_ok(errs, dtype),
+              f"bwd case {i} {shape} {dtype} causal={causal} window={window}"
+              f" q_offset={q_offset}: {errs} (limits {BWD_TOL[dtype]} "
+              f"against the f32 math; in bf16 ratio 1 and relative L2 "
+              f"{BWD_ROUNDED_L2} against the rounded plain version)")
+        for e in errs.values():
+            worst[dtype] = max(worst.get(dtype, 0.0), e["rel"])
+            for key in worst_r:
+                worst_r[key] = max(worst_r[key], e.get(key, 0.0))
         if q_offset < 0:   # rows that see no key: dq = 0
             check(bool((got[0][:, :-q_offset] == 0).all()),
                   f"bwd case {i}: fully masked rows have dq != 0")
         if shape == TRAIN_SHAPE:
             train_err = {n: (g.float() - w.float()).abs().max().item()
                          for n, g, w in zip(("dq", "dk", "dv"), got, want)}
-    print(f"[kernel-bwd] {len(_bwd_grid())} cases match the plain version; "
-          f"max |err|/(1+|ref|) f32 {worst['float32']:.3e} (limit "
+    print(f"[kernel-bwd] {len(_bwd_grid())} cases match the plain version's "
+          f"f32 math; max |err|/(1+|ref|) f32 {worst['float32']:.3e} (limit "
           f"{BWD_TOL['float32']}), bf16 {worst['bfloat16']:.3e} (limit "
-          f"{BWD_TOL['bfloat16']})")
+          f"{BWD_TOL['bfloat16']}); bf16 against the plain version at the "
+          f"kernels' rounding points: worst {worst_r['ratio']:.3f} of the "
+          f"bound (1 bf16 ulp + {BWD_ROUNDED_ABS:.2e} max|ref|), relative L2 "
+          f"{worst_r['l2']:.3e} (limit {BWD_ROUNDED_L2})")
 
-    # times at the phase-1 training shape
-    B, Sq, Skv, H, KVH, D = TRAIN_SHAPE
-    q, k, v = _qkv(TRAIN_SHAPE, torch.bfloat16, seed=4321)
-    do = _qkv(TRAIN_SHAPE, torch.bfloat16, seed=4322)[0]
+    # times at the phase-1 training shape (the JSON rows) and phase 2's
+    phase1 = _bwd_times(TRAIN_SHAPE, "phase-1")
+    phase2 = _bwd_times((32,) + TRAIN_SHAPE[1:], "phase-2")
+    return [{"name": name, "route": "cuda",
+             "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                       "flash_bwd_sm90.cu",
+             "replaces": f"src/repro/kernels/flash_attention/kernel.py:{line}",
+             "launches": None, "max_abs_err": err, **phase1[name],
+             "phase2_shape": phase2[name]}
+            for name, line, err in (
+                ("flash_attention_bwd_dq", 202, train_err["dq"]),
+                ("flash_attention_bwd_dkv", 232,
+                 max(train_err["dk"], train_err["dv"])))]
+
+
+def _bwd_times(shape, label):
+    """Device times of the bf16 dQ and dK/dV kernels, of the whole
+    ``kernel.flash_bwd`` call (delta included) and of delta alone
+    (``kernel.bwd_delta``, plain PyTorch), each behind the sleep kernel,
+    beside their bounds, the plain backward and the library's fused
+    attention backward timed alone (one forward with its graph kept, then
+    the backward again and again)."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel, ref
+    B, Sq, Skv, H, KVH, D = shape
+    q, k, v = _qkv(shape, torch.bfloat16, seed=4321)
+    do = _qkv(shape, torch.bfloat16, seed=4322)[0]
     out, lse = kernel.flash_fwd(q, k, v, causal=True)
-    delta = (do.float() * out.float()).sum(-1)
-    dq_ms = _cuda_ms(lambda: kernel.flash_bwd_dq(q, k, v, do, lse, delta,
-                                                 causal=True), 20)
-    dkv_ms = _cuda_ms(lambda: kernel.flash_bwd_dkv(q, k, v, do, lse, delta,
-                                                   causal=True), 20)
+    delta = kernel.bwd_delta(do, out)
+    dq_ms = _device_ms(lambda: kernel.flash_bwd_dq(q, k, v, do, lse, delta,
+                                                   causal=True), 50)
+    dkv_ms = _device_ms(lambda: kernel.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                                     causal=True), 50)
+    bwd_ms = _device_ms(lambda: kernel.flash_bwd(q, k, v, out, lse, do,
+                                                 causal=True), 50)
+    delta_ms = _device_ms(lambda: kernel.bwd_delta(do, out), 50)
     plain_ms = _cuda_ms(lambda: ref.flash_attention_bwd_ref(
         q, k, v, out, lse, do, causal=True), 5)
     # yardstick only, never called by the port: the library's fused
-    # attention backward, as (forward + backward) less the forward, on
-    # K/V with their heads repeated beforehand
+    # attention backward alone, on K/V with their heads repeated beforehand
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt = q.transpose(1, 2).contiguous().requires_grad_()
     kt = k.repeat_interleave(H // KVH, dim=2).transpose(1, 2).contiguous()
@@ -425,47 +520,47 @@ def phase_kernel_bwd():
     kt.requires_grad_()
     vt.requires_grad_()
     dot = do.transpose(1, 2).contiguous()
-
-    def fwd_bwd():
-        o = sdpa(qt, kt, vt, is_causal=True)
-        torch.autograd.grad(o, (qt, kt, vt), dot)
-
-    with torch.no_grad():
-        fwd_ms = _cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 20)
-    lib_ms = _cuda_ms(fwd_bwd, 20) - fwd_ms
+    o = sdpa(qt, kt, vt, is_causal=True)
+    lib_ms = _device_ms(lambda: torch.autograd.grad(
+        o, (qt, kt, vt), dot, retain_graph=True), 50)
+    del o
     pairs = _visible_pairs(Sq, Skv, True, 0, 0) * B * H
     elt = 2                                            # bf16
     read = (q.numel() * 2 + k.numel() + v.numel()) * elt \
         + 2 * B * Sq * H * 4                       # q, dO, k, v, lse, delta
-    rows = []
-    for name, ms, written, flops, src in (
-            ("flash_attention_bwd_dq", dq_ms, q.numel() * elt, 6 * D * pairs,
-             "src/repro/kernels/flash_attention/kernel.py:202"),
+    times = {}
+    for name, ms, written, flops in (
+            ("flash_attention_bwd_dq", dq_ms, q.numel() * elt, 6 * D * pairs),
             ("flash_attention_bwd_dkv", dkv_ms, 2 * k.numel() * elt,
-             8 * D * pairs,
-             "src/repro/kernels/flash_attention/kernel.py:232")):
+             8 * D * pairs)):
         nbytes = read + written
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
-        print(f"[kernel-bwd] {name} at B{B} S{Sq} H{H} KVH{KVH} D{D} bf16 "
-              f"causal: kernel {ms:.4f} ms, bound "
+        print(f"[kernel-bwd] {label} {name} at B{B} S{Sq} H{H} KVH{KVH} D{D} "
+              f"bf16 causal: kernel {ms:.4f} ms, bound "
               f"{max(t_bytes, t_ops) * 1e3:.2f} us ({nbytes / 1e6:.1f} MB, "
               f"{flops / 1e9:.2f} GFLOP), plain (dq, dk, dv together) "
-              f"{plain_ms:.4f} ms, library backward (dq, dk, dv together) "
-              f"{lib_ms:.4f} ms")
-        err = (train_err["dq"] if name.endswith("dq")
-               else max(train_err["dk"], train_err["dv"]))
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                      "flash_bwd.cu",
-            "replaces": src, "launches": None, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms})
-    sys.stdout.flush()
-    return rows
+              f"{plain_ms:.4f} ms, library backward alone (dq, dk, dv "
+              f"together) {lib_ms:.4f} ms")
+        times[name] = {"shape": f"B{B} S{Sq} H{H} KVH{KVH} D{D} bf16 causal",
+                       "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": max(t_bytes, t_ops),
+                       "bound_by": ("bytes" if t_bytes >= t_ops
+                                    else "operations"),
+                       "library_ms": lib_ms}
+    # the whole backward: read q, out, dO, k, v, lse; write dq, dk, dv
+    nbytes = 4 * (q.numel() + k.numel()) * elt + B * Sq * H * 4
+    t_whole = max(nbytes / HBM_BYTES_PER_S,
+                  10 * D * pairs / PEAK_FLOPS["bfloat16"]) * 1e3
+    print(f"[kernel-bwd] {label} kernel.flash_bwd (delta, dQ, dK/dV): "
+          f"{bwd_ms:.4f} ms, bound {t_whole * 1e3:.2f} us ({nbytes / 1e6:.1f}"
+          f" MB), library backward alone {lib_ms:.4f} ms "
+          f"({bwd_ms / lib_ms:.2f}x); delta's chain alone {delta_ms:.4f} ms",
+          flush=True)
+    for t in times.values():
+        t.update(flash_bwd_ms=bwd_ms, flash_bwd_bound_ms=t_whole,
+                 delta_ms=delta_ms)
+    return times
 
 
 def phase_swa_avg():

@@ -2,8 +2,9 @@
 
 The route is ``nvcc`` into a ``.so`` with a plain C interface, loaded with
 ``ctypes``: it needs no PyTorch headers and builds in seconds. Libraries go
-to ``build/`` at the repository root, named by a hash of their sources and
-flags, so a changed source is rebuilt and an unchanged one is reused.
+to ``build/`` at the repository root, named by a hash of their sources,
+the headers they include and the flags, so a changed source or header is
+rebuilt and an unchanged one is reused.
 There is no fallback: without ``nvcc`` the build raises.
 """
 from __future__ import annotations
@@ -39,7 +40,11 @@ def find_nvcc() -> Optional[str]:
     return shutil.which("nvcc")
 
 
-def build_library(name: str, sources: Sequence[Path]) -> Built:
+def build_library(name: str, sources: Sequence[Path],
+                  headers: Sequence[Path] = ()) -> Built:
+    """Compile ``sources`` into one library. ``headers`` are the files they
+    include: hashed with them, not compiled, and their directories on the
+    include path (so a source built from another directory finds them)."""
     nvcc = find_nvcc()
     if nvcc is None:
         raise RuntimeError(
@@ -47,14 +52,16 @@ def build_library(name: str, sources: Sequence[Path]) -> Built:
             f"$CUDA_HOME/bin or on PATH. The kernel is compiled from source "
             f"at first use and has no fallback.")
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in (*sources, *headers):
         h.update(Path(src).read_bytes())
+    includes = [f"-I{d}" for d in dict.fromkeys(
+        str(Path(hd).resolve().parent) for hd in headers)]
     out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
     if out.exists():
         return Built(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    cmd = [nvcc, *NVCC_FLAGS, *includes, "-o", str(tmp), *map(str, sources)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0

@@ -1,35 +1,37 @@
-// Flash-attention backward for NVIDIA Hopper (sm_90a), written by hand.
+// Flash-attention backward for NVIDIA Hopper (sm_90a), written by hand: the
+// f32 route, and the C entries fa_bwd_dq and fa_bwd_dkv of both routes.
 //
 // Replaces the Pallas TPU kernels
 //   repro/kernels/flash_attention/kernel.py::_fa_bwd_dq_kernel   (dQ)
 //   repro/kernels/flash_attention/kernel.py::_fa_bwd_dkv_kernel  (dK, dV)
 // and computes what they compute, for q, dO (B,Sq,H,D) and k, v
-// (B,Skv,KVH,D) in f32 or bf16, D in {64, 128}, given the forward's lse
+// (B,Skv,KVH,D), D in {64, 128}, given the forward's lse
 // (B,Sq,H) f32 and delta = rowsum(dO * O) (B,Sq,H) f32 (taken outside, in
 // plain PyTorch, as the JAX package does):
-//   S  = (q * scale) . k^T, with q * scale formed in f32 (never rounded to
-//        bf16), masked to NEG_INF = -1e30 (padding, causal, window, as
-//        kernel.py::_mask), P = exp(S - lse) (0 where masked);
+//   S  = (q * scale) . k^T, with q * scale formed in f32, masked to
+//        NEG_INF = -1e30 (padding, causal, window, as kernel.py::_mask),
+//        P = exp(S - lse) (0 where masked);
 //   dP = dO . v^T,  dS = P * (dP - delta);
 //   dQ = scale * sum_k dS . k;   dV = sum_q P^T . dO;
 //   dK = sum_q dS^T . (q * scale),
 // with dK and dV summed over the G = H / KVH query heads of each KV head
 // inside the kernel (no atomics), as the TPU grid (B*KVH, nk, G*nq) does.
-// Every product is an f32 FMA; outputs are rounded to the input dtype once.
+// Every product is an f32 FMA. The entries send bf16 inputs to
+// flash_bwd_sm90.cu (wgmma tensor cores fed by TMA, S from q * scale in
+// bf16 as the bf16 forward takes it) and f32 inputs to the kernels below: the
+// tensor cores would take f32 as TF32, and this route is what the port's
+// f32 checks hold to the reference.
 // A row that sees no key has lse = 0 (the forward's contract): all its P
 // are 0, so its dq is 0 and it adds nothing to dk or dv.
 //
 // What bounds it on an H100: at the SWAP phase-1 shape of internlm2-1.8b
-// (B 256, S 64, H 16, KVH 8, D 128, bf16, causal; 8.52 M visible pairs of
+// in f32 (B 256, S 64, H 16, KVH 8, D 128, causal; 8.52 M visible pairs of
 // query and key rows over the heads) each kernel reads q, dO, k, v, lse and
-// delta (203.4 MB) and writes dq (dQ kernel) or dk and dv (dK/dV kernel),
-// 270.5 MB each. That is 80.8 us each at 3.35 TB/s. Their products, 6 D
-// per visible pair for dQ (6.5 GFLOP) and 8 D for dK/dV (8.7 GFLOP), take
-// 6.6 and 8.8 us at the bf16 tensor-core peak (989 TFLOP/s), so the
-// function is memory-bound on the card. These kernels do their products
-// on the CUDA cores in f32 (no tensor cores), so they are bound by FMA
-// issue and shared-memory reads instead: at 67 TFLOP/s that is 98 and
-// 130 us at best.
+// delta and writes dq (dQ kernel) or dk and dv (dK/dV kernel): 538.9 MB
+// each, 160.9 us at 3.35 TB/s. Their products, 6 D per visible pair for
+// dQ (6.5 GFLOP) and 8 D for dK/dV (8.7 GFLOP), take 98 and 130 us at the
+// 67 TFLOP/s of f32 FMA, and in practice more: bound by FMA issue and
+// shared-memory reads.
 //
 // Design. dQ: one CTA of 4 warps per (query tile of 32 rows, head, batch)
 // loops over the 64-key tiles that the causal or window bound leaves
@@ -42,10 +44,8 @@
 // D/32 output columns of dK and dV. Tiles are staged in shared memory as
 // f32; operands a lane reads alone (K and V in dQ, Q and dO in dK/dV) are
 // padded by 4 floats a row so that its float4 reads are free of bank
-// conflicts, the others are read as broadcasts. wgmma and TMA are left for
-// a later kernel.
+// conflicts, the others are read as broadcasts.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -74,26 +74,8 @@ struct Vec16<float> {
     out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
   }
 };
-template <>
-struct Vec16<__nv_bfloat16> {
-  static constexpr int n = 8;
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                              float* out) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-};
 
 __device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   acc = fmaf(a.x, b.x, acc);
@@ -483,12 +465,19 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-#define FA_DISPATCH(fn, ...)                                        \
-  if (dtype == 0 && D == 64) return fn<float, 64>(__VA_ARGS__);     \
-  if (dtype == 0 && D == 128) return fn<float, 128>(__VA_ARGS__);   \
-  if (dtype == 1 && D == 64) return fn<__nv_bfloat16, 64>(__VA_ARGS__); \
-  if (dtype == 1 && D == 128) return fn<__nv_bfloat16, 128>(__VA_ARGS__); \
-  return (int)cudaErrorInvalidValue;
+// the bf16 routes (flash_bwd_sm90.cu)
+cudaError_t fa_bwd_dq_sm90(const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse,
+                           const void* delta, void* dq, int B, int Sq,
+                           int Skv, int H, int KVH, int D, float scale,
+                           int causal, int window, int q_offset,
+                           cudaStream_t stream);
+cudaError_t fa_bwd_dkv_sm90(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* delta, void* dk, void* dv, int B,
+                            int Sq, int Skv, int H, int KVH, int D,
+                            float scale, int causal, int window, int q_offset,
+                            cudaStream_t stream);
 
 // dtype: 0 = float32, 1 = bfloat16. Each returns a cudaError_t (0 = launched).
 extern "C" int fa_bwd_dq(const void* q, const void* k, const void* v,
@@ -497,8 +486,16 @@ extern "C" int fa_bwd_dq(const void* q, const void* k, const void* v,
                          int D, int dtype, float scale, int causal, int window,
                          int q_offset, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FA_DISPATCH(launch_dq, q, k, v, dout, lse, delta, dq, B, Sq, Skv, H, KVH,
-              scale, causal, window, q_offset, st)
+  if (dtype == 0 && D == 64)
+    return launch_dq<float, 64>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, H,
+                                KVH, scale, causal, window, q_offset, st);
+  if (dtype == 0 && D == 128)
+    return launch_dq<float, 128>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, H,
+                                 KVH, scale, causal, window, q_offset, st);
+  if (dtype == 1)
+    return fa_bwd_dq_sm90(q, k, v, dout, lse, delta, dq, B, Sq, Skv, H, KVH,
+                          D, scale, causal, window, q_offset, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int fa_bwd_dkv(const void* q, const void* k, const void* v,
@@ -508,8 +505,17 @@ extern "C" int fa_bwd_dkv(const void* q, const void* k, const void* v,
                           float scale, int causal, int window, int q_offset,
                           void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FA_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, H,
-              KVH, scale, causal, window, q_offset, st)
+  if (dtype == 0 && D == 64)
+    return launch_dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv,
+                                 H, KVH, scale, causal, window, q_offset, st);
+  if (dtype == 0 && D == 128)
+    return launch_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, B, Sq,
+                                  Skv, H, KVH, scale, causal, window, q_offset,
+                                  st);
+  if (dtype == 1)
+    return fa_bwd_dkv_sm90(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, H,
+                           KVH, D, scale, causal, window, q_offset, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* fa_bwd_error_string(int err) {

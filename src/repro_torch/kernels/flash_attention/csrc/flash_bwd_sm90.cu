@@ -1,0 +1,611 @@
+// Flash-attention backward for bf16 on NVIDIA Hopper (sm_90a), written by
+// hand: every product of a tile on wgmma tensor cores, Q/dO and K/V tiles
+// fed by TMA.
+//
+// Replaces, for bf16 inputs, the Pallas TPU kernels
+//   repro/kernels/flash_attention/kernel.py::_fa_bwd_dkv_kernel  (dK, dV)
+//   repro/kernels/flash_attention/kernel.py::_fa_bwd_dq_kernel   (dQ)
+// (f32 inputs stay on the FMA kernels of flash_bwd.cu, which holds the C
+// entries of both routes: the tensor cores would take f32 as TF32). The
+// contract is flash_bwd.cu's: q, dO (B,Sq,H,D) and k, v (B,Skv,KVH,D)
+// bf16, D in {64, 128}, query head h on KV head h / (H / KVH); lse and
+// delta = rowsum(dO * O) (B,Sq,H) f32; padding, causal, window and q_offset
+// masks (NEG_INF = -1e30: a masked P is 0); a row that sees no key has
+// dq = 0 and adds nothing to dk or dv; dK and dV summed over the G = H / KVH
+// query heads inside the kernel, with no atomics; outputs rounded to bf16
+// once.
+//
+// Rounding points (ref.flash_attention_bwd_ref(..., rounded=True) is the
+// plain version at these points):
+//   * S is formed from q * scale taken in bf16, on each Q tile in shared
+//     memory, as the bf16 forward (flash_fwd_sm90.cu) took it when it wrote
+//     lse: P = exp(S - lse) is the forward's softmax, and its rows sum to 1.
+//     Nothing else takes q * scale: dK = scale * sum dS^T q and
+//     dQ = scale * sum dS K, with q and k as they came and scale applied in
+//     f32 in the epilogue, as the JAX kernels' f32 math does;
+//   * P, then dS = P (dP - delta), enter their products as hi + lo, two
+//     bf16 values (~16 significant bits), so each product is two wgmma
+//     sets that sum in f32. One bf16 value each (8 bits) moved dV and dK
+//     past the f32 reference's 1e-2 on the test grid: the tensor cores
+//     have time to spare, as the function is bound by bytes;
+//   * S, dP and every sum in f32 on the tensor cores; outputs rounded to
+//     bf16 once.
+//
+// What bounds it on an H100: at the SWAP phase-1 shape of internlm2-1.8b
+// (B 256, S 64, H 16, KVH 8, D 128, causal) each kernel must read q, dO, k,
+// v, lse and delta and write dq (dQ) or dk and dv (dK/dV): 270.5 MB each,
+// 80.8 us at 3.35 TB/s, against 6.5 and 8.7 GFLOP (6.6 and 8.8 us at 989
+// TFLOP/s). Both are bound by bytes, so each reads a K/V tile once per
+// (KV head, query tile) and a Q/dO tile once per (KV head, key tile), and
+// keeps S, P, dP and dS out of device memory.
+//
+// dK/dV kernel (fa_bwd_dkv_sm90_kernel):
+//  * A CTA is one (batch, KV head, 64-key tile), one warpgroup. K and V
+//    arrive once by TMA; the CTA then loops over the G query heads of the
+//    KV head x the 64-row query tiles that the causal and window bounds
+//    leave visible, with the Q and dO tiles of each iteration in a ring of
+//    two stages (the copy of iteration i + 2 starts when i is done).
+//  * The products are taken transposed, so that both register-A products
+//    take the accumulator fragment as it lies:
+//      S^T  = K (q scale)^T   m64n64k16, A = K, B = Q scaled in place,
+//                             both K-major;
+//      P^T  = exp2(S^T log2 e - lse log2 e), masked;
+//      dV  += P^T dO          m64nDk16, A = P^T in registers (hi, lo),
+//                             B = dO MN-major (as V in the forward's P V);
+//      dP^T = V dO^T          A = V, B = dO, both K-major (a second
+//                             descriptor of the same dO tile);
+//      dS^T = P^T (dP^T - delta);
+//      dK  += dS^T q          A = dS^T in registers (hi, lo), B = Q
+//                             MN-major, as it came: each thread keeps the
+//                             chunks it scaled in registers and puts them
+//                             back once S^T is done.
+//    S^T and dP^T are issued together, and so are dV's and dK's products
+//    once dS^T is formed.
+//  * lse and delta belong to the fragment's columns here: thread t holds
+//    query rows 8j + 2 (t%4) (+1). Each iteration stages the Q tile's 64
+//    values of each (-lse log2 e, delta) in shared memory, read from
+//    device memory (strided by H, so not by TMA; rows past Sq read as 0)
+//    one iteration ahead.
+//  * Masks on tiles that cross a bound only; the padding mask on query
+//    rows past Sq is explicit (TMA's zero fill gives S = 0, not -inf).
+//  * Registers, D 128: dK and dV accumulators 64 + 64, S^T and dP^T
+//    32 + 32, the kept chunks of q 32 (until S^T is done); then the hi and
+//    lo fragments of P^T and dS^T, 64, in place of S^T and dP^T: ptxas
+//    fits it in 255, with no spills. Shared memory: K and V 32 KB, two
+//    stages of Q and dO 64 KB; __launch_bounds__(128, 2) gives two CTAs an
+//    SM. At the phase-1 shape a CTA holds one key tile and runs G = 2
+//    iterations, so latency is hidden by the other CTA of the SM, not by
+//    the ring. Key tile 0 sees the most query tiles under causal, and
+//    launches first.
+//  * Epilogue: dK * scale and dV rounded to bf16, staged in the K and V
+//    tiles and stored 16 bytes a thread, coalesced, for keys < Skv.
+//
+// dQ kernel (fa_bwd_dq_sm90_kernel):
+//  * A CTA is one (batch, KV head, 64-row query tile) with NWG warpgroups,
+//    one a query head (kDqHeads when G divides by it, else 1); it loops over
+//    the visible 64-key tiles in a K/V ring of kDqStages, refilled by the
+//    last of the CTA's warps to be done with a stage, as in the forward.
+//    Kept: one warpgroup a CTA, three CTAs an SM (68 KB of shared memory
+//    each at D 128, so a ring of one stage). On an H100 at the phase-1
+//    shape it took 0.0977 ms against 0.1009 for one warpgroup at two CTAs
+//    an SM and 0.1090 for two warpgroups at one (ab_flash_bwd.py
+//    --occupancy); at phase 2's batch of 32, 0.0163 against 0.0162 and
+//    0.0157.
+//  * Products: S = (q scale) K^T and dP = dO V^T (SS, all K-major, issued
+//    together); P = exp2(S log2 e - lse log2 e), masked, and rounded to
+//    hi + lo as the dK/dV kernel's dV product takes it; dS = P (dP -
+//    delta); dQ += dS K (RS, A = dS in registers (hi, lo), B = K MN-major:
+//    the forward's P V with K in V's place). lse and delta are per row
+//    here: four registers a thread for the whole CTA.
+//  * Registers: S + dP + dQ = 32 + 32 + 64 a thread at D 128, more than a
+//    two-CTA bound of two warpgroups leaves (128); the CTA shape, the CTAs
+//    an SM asked of ptxas and the ring depth are constants below, measured
+//    against each other by ab_flash_bwd.py --occupancy. At three CTAs an
+//    SM ptxas fits the kernel in 168 registers, with no spills.
+//  * Epilogue: dQ * scale rounded to bf16, staged in the warpgroup's Q tile,
+//    stored for rows < Sq; the query tiles with the most key tiles launch
+//    first.
+// Not here: a producer warp with setmaxnreg, persistent CTAs, overlap of
+// one iteration's tail with the next one's products, or a fused delta.
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "sm90.cuh"
+
+namespace {
+
+constexpr int kStages = 2;               // Q/dO ring depth of dK/dV
+// the dQ CTA: query heads (one warpgroup each) a CTA, the CTAs an SM asked
+// of ptxas, and the K/V ring depth
+constexpr int kDqHeads = 1;
+constexpr int kDqMinBlocks = 3;
+constexpr int kDqStages = 1;
+
+template <int D>
+__global__ void __launch_bounds__(128, 2)
+fa_bwd_dkv_sm90_kernel(__grid_constant__ const CUtensorMap tq,
+                       __grid_constant__ const CUtensorMap tk,
+                       __grid_constant__ const CUtensorMap tv,
+                       __grid_constant__ const CUtensorMap tdo,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       __nv_bfloat16* __restrict__ dk,
+                       __nv_bfloat16* __restrict__ dv, int Sq, int Skv, int H,
+                       int KVH, float scale, int causal, int window,
+                       int q_offset) {
+  constexpr int kTile = D / kBox * kBoxBytes;  // one 64-row tile
+  constexpr int kChunksPerThread = kTile / 16 / 128;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  // every tile on a 1024-byte boundary: the period of the 128-byte swizzle
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sK = smem;
+  uint8_t* sV = sK + kTile;
+  uint8_t* sQ = sV + kTile;                   // [kStages][kTile]
+  uint8_t* sdO = sQ + kStages * kTile;        // [kStages][kTile]
+  // this iteration's -lse log2 e [64] and delta [64]
+  float* sStat = reinterpret_cast<float*>(sdO + kStages * kTile);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sStat + 2 * kTileRows);
+  const uint32_t bar_kv = smem_u32(bars);     // K/V arrived
+  const uint32_t bar_full = bar_kv + 8;       // [kStages]: Q/dO arrived
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int G = H / KVH;
+  const int kvh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int k0 = blockIdx.z * kTileRows;
+
+  // the query tiles that some key of this tile is visible to
+  const int k_last = min(k0 + kTileRows, Skv) - 1;
+  int r_begin = 0, r_end = Sq;
+  if (causal) r_begin = max(0, k0 - q_offset);
+  if (window > 0) r_end = min(r_end, k_last + window - q_offset);
+  const int t_begin = r_begin / kTileRows;
+  const int n_qt =
+      r_end > r_begin ? (r_end + kTileRows - 1) / kTileRows - t_begin : 0;
+  // iteration i: query head kvh G + i / n_qt, query tile t_begin + i % n_qt
+  const int n_iter = G * n_qt;
+  auto head = [&](int i) { return kvh * G + i / n_qt; };
+  auto row0 = [&](int i) { return (t_begin + i % n_qt) * kTileRows; };
+
+  auto load_q = [&](int i) {  // iteration i's Q and dO into stage i % kStages
+    const int s = i % kStages;
+    mbar_expect_tx(bar_full + 8 * s, 2 * kTile);
+    tma_load_tile<D>(sQ + s * kTile, &tq, bar_full + 8 * s, head(i), row0(i),
+                     b);
+    tma_load_tile<D>(sdO + s * kTile, &tdo, bar_full + 8 * s, head(i),
+                     row0(i), b);
+  };
+
+  if (tid == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kStages; ++s) mbar_init(bar_full + 8 * s, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0 && n_iter > 0) {
+    mbar_expect_tx(bar_kv, 2 * kTile);
+    tma_load_tile<D>(sK, &tk, bar_kv, kvh, k0, b);
+    tma_load_tile<D>(sV, &tv, bar_kv, kvh, k0, b);
+    for (int i = 0; i < min(kStages, n_iter); ++i) load_q(i);
+  }
+  __syncwarp();
+
+  // thread t's entry of sStat for iteration i: -lse log2 e of query row
+  // t (t < 64) or delta of row t - 64, 0 past Sq
+  const float* stat_src = tid < kTileRows ? lse : delta;
+  const float stat_mul = tid < kTileRows ? -kLog2e : 1.f;
+  auto stat = [&](int i) {
+    const int row = row0(i) + tid % kTileRows;
+    return row < Sq ? stat_src[((int64_t)b * Sq + row) * H + head(i)] *
+                          stat_mul
+                    : 0.f;
+  };
+
+  const int r0 = warp * 16 + lane / 4;  // this thread's keys: r0, r0 + 8
+  const int c0 = 2 * (lane % 4);        // and query rows 8j + c0 (+1)
+  const uint32_t k_addr = smem_u32(sK);
+  const uint32_t v_addr = smem_u32(sV);
+  float acc_dk[D / 2], acc_dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+  float stat_next = n_iter > 0 ? stat(0) : 0.f;
+  if (n_iter > 0) mbar_wait(bar_kv, 0);
+
+  const float sc = __bfloat162float(__float2bfloat16_rn(scale));
+  for (int i = 0; i < n_iter; ++i) {
+    const int s = i % kStages;
+    const int q0 = row0(i);
+    uint4* q_tile = reinterpret_cast<uint4*>(sQ + s * kTile);
+    const uint32_t q_addr = smem_u32(q_tile);
+    const uint32_t do_addr = smem_u32(sdO + s * kTile);
+    sStat[tid] = stat_next;             // the last iteration's reads ended
+    if (i + 1 < n_iter) stat_next = stat(i + 1);  // at its closing barrier
+    mbar_wait(bar_full + 8 * s, (i / kStages) & 1);
+    // q * scale in bf16 in place for S^T; this thread's chunks of q as they
+    // came are kept, and put back for dK once S^T is done
+    uint4 raw[kChunksPerThread];
+#pragma unroll
+    for (int c = 0; c < kChunksPerThread; ++c) {
+      raw[c] = q_tile[tid + 128 * c];
+      q_tile[tid + 128 * c] = scale_chunk(raw[c], sc);
+    }
+    fence_proxy_async();
+    warpgroup_sync(0);                  // scaled Q and sStat in place
+
+    // S^T = K (q scale)^T and dP^T = V dO^T, two groups
+    float st[32], dpt[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) st[j] = dpt[j] = 0.f;
+    wgmma_fence();
+    wgmma_tiles_abt<D>(st, k_addr, q_addr);
+    wgmma_commit();
+    wgmma_tiles_abt<D>(dpt, v_addr, do_addr);
+    wgmma_commit();
+    wgmma_wait<1>();
+    pin(st);
+    // every warp's S^T has read the scaled tile: put q back
+    warpgroup_sync(0);
+#pragma unroll
+    for (int c = 0; c < kChunksPerThread; ++c) q_tile[tid + 128 * c] = raw[c];
+    fence_proxy_async();
+
+    // P^T = exp(S^T - lse), 0 where masked, as hi + lo: st[4j + e] is key
+    // r0 + 8 (e >> 1), query row 8j + c0 + (e & 1); masks only on tiles
+    // that cross a bound
+    const bool edge =
+        k0 + kTileRows > Skv || q0 + kTileRows > Sq ||
+        (causal && k0 + kTileRows - 1 > q0 + q_offset) ||
+        (window > 0 && k0 <= q0 + kTileRows - 1 + q_offset - window);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 nl = *reinterpret_cast<const float2*>(sStat + 8 * j + c0);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2_approx(fmaf(st[4 * j + e], kLog2e, e & 1 ? nl.y : nl.x));
+        if (edge) {
+          const int kpos = k0 + r0 + 8 * (e >> 1);
+          const int row = q0 + 8 * j + c0 + (e & 1);
+          const int qpos = row + q_offset;
+          bool ok = kpos < Skv && row < Sq;
+          if (causal) ok = ok && kpos <= qpos;
+          if (window > 0) ok = ok && kpos > qpos - window;
+          if (!ok) p = 0.f;
+        }
+        st[4 * j + e] = split_round(p);
+      }
+    }
+
+    // dS^T = P^T (dP^T - delta), from P^T as the dV product takes it
+    wgmma_wait<0>();                    // dP^T
+    pin(dpt);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 dl =
+          *reinterpret_cast<const float2*>(sStat + kTileRows + 8 * j + c0);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dpt[4 * j + e] =
+            st[4 * j + e] * (dpt[4 * j + e] - (e & 1 ? dl.y : dl.x));
+    }
+
+    // dV += P^T dO and dK += dS^T q (times scale in the epilogue), each A
+    // as hi + lo; dK's B is the Q tile as it came, every thread's chunks
+    // put back
+    uint32_t pa[4][4], pb[4][4], da[4][4], db[4][4];
+    to_split_frags(st, pa, pb);
+    to_split_frags(dpt, da, db);
+    warpgroup_sync(0);
+    wgmma_fence();
+    wgmma_frags_b<D>(acc_dv, pa, do_addr);
+    wgmma_frags_b<D>(acc_dv, pb, do_addr);
+    wgmma_frags_b<D>(acc_dk, da, q_addr);
+    wgmma_frags_b<D>(acc_dk, db, q_addr);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(acc_dv);
+    pin(acc_dk);
+    pin(pa);
+    pin(pb);
+    pin(da);
+    pin(db);
+
+    // every warp is done with stage s and with sStat: refill the stage
+    warpgroup_sync(0);
+    if (tid == 0 && i + kStages < n_iter) load_q(i + kStages);
+  }
+
+  // dK * scale and dV in bf16, staged in the K and V tiles, stored for
+  // keys < Skv
+  stage_acc<D>(sK, acc_dk, scale, warp, lane);
+  stage_acc<D>(sV, acc_dv, 1.f, warp, lane);
+  warpgroup_sync(0);
+  const int64_t row_stride = (int64_t)KVH * D;  // between positions
+  const int64_t at = (((int64_t)b * Skv + k0) * KVH + kvh) * D;
+  store_tile<D>(sK, dk + at, row_stride, Skv - k0, tid, 128);
+  store_tile<D>(sV, dv + at, row_stride, Skv - k0, tid, 128);
+}
+
+template <int D, int NWG, int MIN_BLOCKS, int STAGES>
+__global__ void __launch_bounds__(NWG * 128, MIN_BLOCKS)
+fa_bwd_dq_sm90_kernel(__grid_constant__ const CUtensorMap tq,
+                      __grid_constant__ const CUtensorMap tk,
+                      __grid_constant__ const CUtensorMap tv,
+                      __grid_constant__ const CUtensorMap tdo,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      __nv_bfloat16* __restrict__ dq, int Sq, int Skv, int H,
+                      int KVH, float scale, int causal, int window,
+                      int q_offset) {
+  constexpr int kTile = D / kBox * kBoxBytes;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sQ = smem;                         // [NWG][kTile], q * scale
+  uint8_t* sdO = sQ + NWG * kTile;            // [NWG][kTile]
+  uint8_t* sK = sdO + NWG * kTile;            // [STAGES][kTile]
+  uint8_t* sV = sK + STAGES * kTile;          // [STAGES][kTile]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sV + STAGES * kTile);
+  const uint32_t bar_q = smem_u32(bars);      // Q and dO arrived
+  const uint32_t bar_full = bar_q + 8;        // [STAGES]: K/V arrived
+  // [STAGES]: warps done with the stage; the last one refills it
+  int* released = reinterpret_cast<int*>(bars + 1 + STAGES);
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int G = H / KVH;
+  const int kvh = blockIdx.x / (G / NWG);
+  const int h0 = kvh * G + (blockIdx.x % (G / NWG)) * NWG;
+  const int h = h0 + wg;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kTileRows;  // longest first
+
+  // the KV tiles that some row of this query tile can see
+  const int q_last = min(q0 + kTileRows, Sq) - 1;
+  int kv_end = Skv;
+  if (causal) kv_end = min(kv_end, q_last + q_offset + 1);
+  int kv_begin = 0;
+  if (window > 0) kv_begin = max(0, q0 + q_offset - window + 1);
+  const int t_begin = kv_begin / kTileRows;
+  const int n_tiles =
+      kv_end > kv_begin ? (kv_end + kTileRows - 1) / kTileRows - t_begin : 0;
+
+  auto load_kv = [&](int i) {  // the CTA's i-th KV tile into stage i % STAGES
+    const int s = i % STAGES;
+    const int k0 = (t_begin + i) * kTileRows;
+    mbar_expect_tx(bar_full + 8 * s, 2 * kTile);
+    tma_load_tile<D>(sK + s * kTile, &tk, bar_full + 8 * s, kvh, k0, b);
+    tma_load_tile<D>(sV + s * kTile, &tv, bar_full + 8 * s, kvh, k0, b);
+  };
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      released[s] = 0;
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar_q, 2 * NWG * kTile);
+    for (int w = 0; w < NWG; ++w) {
+      tma_load_tile<D>(sQ + w * kTile, &tq, bar_q, h0 + w, q0, b);
+      tma_load_tile<D>(sdO + w * kTile, &tdo, bar_q, h0 + w, q0, b);
+    }
+    for (int i = 0; i < min(STAGES, n_tiles); ++i) load_kv(i);
+  }
+  __syncwarp();
+
+  const int r0 = warp * 16 + lane / 4;  // this thread's rows: r0, r0 + 8
+  const int c0 = 2 * (lane % 4);        // and keys 8j + c0 (+1)
+  // -lse log2 e and delta of this thread's two rows (0 past Sq)
+  float nl[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + 8 * r;
+    const int64_t at = ((int64_t)b * Sq + row) * H + h;
+    nl[r] = row < Sq ? -lse[at] * kLog2e : 0.f;
+    dl[r] = row < Sq ? delta[at] : 0.f;
+  }
+
+  mbar_wait(bar_q, 0);
+  uint8_t* my_q = sQ + wg * kTile;
+  scale_tile(my_q, kTile, scale, tid % 128, 128);
+  warpgroup_sync(wg);
+  const uint32_t q_addr = smem_u32(my_q);
+  const uint32_t do_addr = smem_u32(sdO + wg * kTile);
+  const int qpos0 = q0 + r0 + q_offset;
+  float acc[D / 2];                     // dQ, the m64nD fragment
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % STAGES;
+    const int k0 = (t_begin + i) * kTileRows;
+    const uint32_t k_addr = smem_u32(sK + s * kTile);
+    const uint32_t v_addr = smem_u32(sV + s * kTile);
+    mbar_wait(bar_full + 8 * s, (i / STAGES) & 1);
+
+    // S = (q scale) K^T and dP = dO V^T, two groups
+    float sc[32], dp[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) sc[j] = dp[j] = 0.f;
+    wgmma_fence();
+    wgmma_tiles_abt<D>(sc, q_addr, k_addr);
+    wgmma_commit();
+    wgmma_tiles_abt<D>(dp, do_addr, v_addr);
+    wgmma_commit();
+    wgmma_wait<1>();
+    pin(sc);
+
+    // P = exp(S - lse), 0 where masked, rounded to hi + lo as the dK/dV
+    // kernel's dV product takes it; sc[4j + 2r + e] is row r0 + 8r, key
+    // 8j + c0 + e
+    const bool edge =
+        k0 + kTileRows > Skv ||
+        (causal && k0 + kTileRows - 1 > q0 + q_offset) ||
+        (window > 0 && k0 <= q0 + kTileRows - 1 + q_offset - window);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2_approx(fmaf(sc[4 * j + e], kLog2e, nl[e >> 1]));
+        if (edge) {
+          const int kpos = k0 + 8 * j + c0 + (e & 1);
+          const int qpos = qpos0 + 8 * (e >> 1);
+          bool ok = kpos < Skv;
+          if (causal) ok = ok && kpos <= qpos;
+          if (window > 0) ok = ok && kpos > qpos - window;
+          if (!ok) p = 0.f;
+        }
+        sc[4 * j + e] = split_round(p);
+      }
+    }
+    wgmma_wait<0>();                    // dP
+    pin(dp);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] - dl[e >> 1]);
+    }
+
+    // dQ += dS K, dS as hi + lo; K is the MN-major B operand, as V in the
+    // forward's P V
+    uint32_t da[4][4], db[4][4];
+    to_split_frags(dp, da, db);
+    wgmma_fence();
+    wgmma_frags_b<D>(acc, da, k_addr);
+    wgmma_frags_b<D>(acc, db, k_addr);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(acc);
+    pin(da);
+    pin(db);
+
+    // release the stage: the last of the CTA's warps to be done with it
+    // issues the copy of the tile that goes there next
+    __syncwarp();
+    if (lane == 0) {
+      __threadfence_block();   // this warp's reads of the stage are done
+      if (atomicAdd(&released[s], 1) == 4 * NWG - 1) {
+        released[s] = 0;
+        if (i + STAGES < n_tiles) load_kv(i + STAGES);
+      }
+    }
+    __syncwarp();
+  }
+
+  // dQ * scale in bf16, staged in this warpgroup's Q tile, rows < Sq
+  stage_acc<D>(my_q, acc, scale, warp, lane);
+  warpgroup_sync(wg);
+  const int64_t row_stride = (int64_t)H * D;  // between positions in dq
+  store_tile<D>(my_q, dq + (((int64_t)b * Sq + q0) * H + h) * D, row_stride,
+                Sq - q0, tid % 128, 128);
+}
+
+struct Maps {
+  CUtensorMap q, k, v, dout;
+};
+
+bool encode_all(Maps* m, const void* q, const void* k, const void* v,
+                const void* dout, int B, int Sq, int Skv, int H, int KVH,
+                int D) {
+  return encode(&m->q, q, D, H, Sq, B) && encode(&m->k, k, D, KVH, Skv, B) &&
+         encode(&m->v, v, D, KVH, Skv, B) &&
+         encode(&m->dout, dout, D, H, Sq, B);
+}
+
+template <int D>
+cudaError_t launch_dkv(const Maps& m, const void* lse, const void* delta,
+                       void* dk, void* dv, int B, int Sq, int Skv, int H,
+                       int KVH, float scale, int causal, int window,
+                       int q_offset, cudaStream_t stream) {
+  constexpr int kTile = D / kBox * kBoxBytes;
+  const int smem = 1024 + (2 + 2 * kStages) * kTile +
+                   2 * kTileRows * (int)sizeof(float) + 8 * (1 + kStages);
+  const cudaError_t err = cudaFuncSetAttribute(
+      fa_bwd_dkv_sm90_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(KVH, B, (Skv + kTileRows - 1) / kTileRows);
+  fa_bwd_dkv_sm90_kernel<D><<<grid, 128, smem, stream>>>(
+      m.q, m.k, m.v, m.dout, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), Sq, Skv, H, KVH, scale, causal,
+      window, q_offset);
+  return cudaGetLastError();
+}
+
+template <int D, int NWG>
+cudaError_t launch_dq(const Maps& m, const void* lse, const void* delta,
+                      void* dq, int B, int Sq, int Skv, int H, int KVH,
+                      float scale, int causal, int window, int q_offset,
+                      cudaStream_t stream) {
+  constexpr int kTile = D / kBox * kBoxBytes;
+  auto kernel = fa_bwd_dq_sm90_kernel<D, NWG, kDqMinBlocks, kDqStages>;
+  const int smem = 1024 + (2 * NWG + 2 * kDqStages) * kTile +
+                   8 * (1 + kDqStages) + 4 * kDqStages;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(H / NWG, B, (Sq + kTileRows - 1) / kTileRows);
+  kernel<<<grid, NWG * 128, smem, stream>>>(
+      m.q, m.k, m.v, m.dout, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq), Sq,
+      Skv, H, KVH, scale, causal, window, q_offset);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The bf16 routes of fa_bwd_dq and fa_bwd_dkv (flash_bwd.cu). Each returns
+// a cudaError_t.
+cudaError_t fa_bwd_dq_sm90(const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse,
+                           const void* delta, void* dq, int B, int Sq,
+                           int Skv, int H, int KVH, int D, float scale,
+                           int causal, int window, int q_offset,
+                           cudaStream_t stream) {
+  Maps m;
+  if (!encode_all(&m, q, k, v, dout, B, Sq, Skv, H, KVH, D))
+    return cudaErrorInvalidValue;
+  const bool group = (H / KVH) % kDqHeads == 0;  // kDqHeads heads a CTA
+  if (D == 64)
+    return group ? launch_dq<64, kDqHeads>(m, lse, delta, dq, B, Sq, Skv, H,
+                                           KVH, scale, causal, window,
+                                           q_offset, stream)
+                 : launch_dq<64, 1>(m, lse, delta, dq, B, Sq, Skv, H, KVH,
+                                    scale, causal, window, q_offset, stream);
+  if (D == 128)
+    return group ? launch_dq<128, kDqHeads>(m, lse, delta, dq, B, Sq, Skv, H,
+                                            KVH, scale, causal, window,
+                                            q_offset, stream)
+                 : launch_dq<128, 1>(m, lse, delta, dq, B, Sq, Skv, H, KVH,
+                                     scale, causal, window, q_offset, stream);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t fa_bwd_dkv_sm90(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* delta, void* dk, void* dv, int B,
+                            int Sq, int Skv, int H, int KVH, int D,
+                            float scale, int causal, int window, int q_offset,
+                            cudaStream_t stream) {
+  Maps m;
+  if (!encode_all(&m, q, k, v, dout, B, Sq, Skv, H, KVH, D))
+    return cudaErrorInvalidValue;
+  if (D == 64)
+    return launch_dkv<64>(m, lse, delta, dk, dv, B, Sq, Skv, H, KVH, scale,
+                          causal, window, q_offset, stream);
+  if (D == 128)
+    return launch_dkv<128>(m, lse, delta, dk, dv, B, Sq, Skv, H, KVH, scale,
+                           causal, window, q_offset, stream);
+  return cudaErrorInvalidValue;
+}

@@ -77,187 +77,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
-constexpr float kNegInf = -1e30f;        // NEG_INF of the TPU kernel
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kRows = 64;                // query rows per warpgroup (M)
-constexpr int kBlockK = 64;              // keys per KV tile
+constexpr int kRows = kTileRows;         // query rows per warpgroup (M)
+constexpr int kBlockK = kTileRows;       // keys per KV tile
 constexpr int kStages = 2;               // K/V ring depth
-constexpr int kBox = 64;                 // columns per TMA box (128 bytes)
-constexpr int kBoxBytes = kBox * 64 * 2; // one 64-row box, 8 KB
-constexpr int kSwizzleRow = 128;         // bytes per swizzled row
-constexpr int kSwizzleAtom = 8 * kSwizzleRow;  // 8 rows: the SBO
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-// Spins until the barrier's phase of this parity has completed. A wait
-// that never ends (a fault in the pipeline) traps after ~2^28 polls, so it
-// surfaces as a launch error rather than a hung card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done;
-  uint32_t polls = 0;
-  do {
-    if (++polls == (1u << 28)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// one box of a 4-D tensor map at (c0, c1, c2, c3), innermost first
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
-         "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// waits until at most N committed wgmma groups are still in flight
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// Pins registers that an in-flight wgmma writes or reads: no use of an
-// accumulator moves above the wait, and no operand register is reused
-// before it.
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]));
-}
-template <int N>
-__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]));
-}
-
-// the 128 threads of warpgroup wg, on named barrier 1 + wg (an immediate:
-// a barrier id in a register makes ptxas reserve all 16 for the CTA)
-__device__ __forceinline__ void warpgroup_sync(int wg) {
-  if (wg == 0)
-    asm volatile("bar.sync 1, 128;\n" ::: "memory");
-  else
-    asm volatile("bar.sync 2, 128;\n" ::: "memory");
-}
-
-// 2^x on the special-function unit (what __expf uses after its multiply)
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// D (+)= A . B for one k-step of 16: A 64 x 16 (shared memory, or four
-// registers of bf16 pairs), B 16 x N; d is the m64nN f32 fragment.
-__device__ __forceinline__ void wgmma_ss_m64n64(
-    float (&d)[32], uint64_t da, uint64_t db,
-    int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16\n"
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31},\n"
-      " %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_rs_m64n64(
-    float (&d)[32], const uint32_t (&a)[4],
-    uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16\n"
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31},\n"
-      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_rs_m64n128(
-    float (&d)[64], const uint32_t (&a)[4],
-    uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16\n"
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
-      " %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
-      " %60, %61, %62, %63},\n"
-      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d));
-}
-
 
 template <int D, int NWG>
 __global__ void __launch_bounds__(NWG * 128, 2)
@@ -306,13 +132,8 @@ fa_fwd_sm90_kernel(__grid_constant__ const CUtensorMap tq,
     const int s = i % kStages;
     const int k0 = (t_begin + i) * kBlockK;
     mbar_expect_tx(bar_full + 8 * s, 2 * kTile);
-#pragma unroll
-    for (int x = 0; x < kBoxes; ++x) {
-      tma_load(smem_u32(sK + s * kTile + x * kBoxBytes), &tk, bar_full + 8 * s,
-               x * kBox, kvh, k0, b);
-      tma_load(smem_u32(sV + s * kTile + x * kBoxBytes), &tv, bar_full + 8 * s,
-               x * kBox, kvh, k0, b);
-    }
+    tma_load_tile<D>(sK + s * kTile, &tk, bar_full + 8 * s, kvh, k0, b);
+    tma_load_tile<D>(sV + s * kTile, &tv, bar_full + 8 * s, kvh, k0, b);
   };
 
   if (tid == 0) {
@@ -321,15 +142,13 @@ fa_fwd_sm90_kernel(__grid_constant__ const CUtensorMap tq,
       mbar_init(bar_full + 8 * s, 1);
       released[s] = 0;
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
   if (tid == 0) {
     mbar_expect_tx(bar_q, NWG * kTile);
     for (int w = 0; w < NWG; ++w)
-      for (int x = 0; x < kBoxes; ++x)
-        tma_load(smem_u32(sQ + w * kTile + x * kBoxBytes), &tq, bar_q,
-                 x * kBox, h0 + w, q0, b);
+      tma_load_tile<D>(sQ + w * kTile, &tq, bar_q, h0 + w, q0, b);
     for (int i = 0; i < min(kStages, n_tiles); ++i) load_kv(i);
   }
   __syncwarp();
@@ -338,22 +157,7 @@ fa_fwd_sm90_kernel(__grid_constant__ const CUtensorMap tq,
   // takes it (elementwise, so the swizzle does not matter)
   mbar_wait(bar_q, 0);
   uint8_t* my_q = sQ + wg * kTile;
-  {
-    const float sc = __bfloat162float(__float2bfloat16_rn(scale));
-    uint4* qv = reinterpret_cast<uint4*>(my_q);
-    for (int i = tid % 128; i < kTile / 16; i += 128) {
-      uint4 x = qv[i];
-      __nv_bfloat162* hx = reinterpret_cast<__nv_bfloat162*>(&x);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 f = __bfloat1622float2(hx[j]);
-        hx[j] = __floats2bfloat162_rn(f.x * sc, f.y * sc);
-      }
-      qv[i] = x;
-    }
-  }
-  // the generic-proxy writes above, before the wgmma (async proxy) reads
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  scale_tile(my_q, kTile, scale, tid % 128, 128);
   warpgroup_sync(wg);
 
   const int r0 = warp * 16 + lane / 4;  // this thread's rows: r0, r0 + 8
@@ -375,12 +179,7 @@ fa_fwd_sm90_kernel(__grid_constant__ const CUtensorMap tq,
 #pragma unroll
     for (int j = 0; j < 32; ++j) sc[j] = 0.f;
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-      wgmma_ss_m64n64(sc, sw128_desc(q_addr + off, 16, kSwizzleAtom),
-                      sw128_desc(k_addr + off, 16, kSwizzleAtom), kk > 0);
-    }
+    wgmma_tiles_abt<D>(sc, q_addr, k_addr);
     wgmma_commit();
   };
   if (n_tiles > 0) issue_s(0);
@@ -455,25 +254,11 @@ fa_fwd_sm90_kernel(__grid_constant__ const CUtensorMap tq,
     }
     // p in bf16, as the A fragments of P.V's four k-steps
     uint32_t pa[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-#pragma unroll
-      for (int x = 0; x < 4; ++x)
-        pa[j][x] = pack_bf16(sc[8 * j + 2 * x], sc[8 * j + 2 * x + 1]);
-    }
+    to_frags(sc, pa);
 
-    // O += P . V; V is the MN-major B operand: LBO steps a 64-column box,
-    // SBO 8 keys, and a k-step of 16 keys is 2 KB
+    // O += P . V; V is the MN-major B operand
     wgmma_fence();
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const uint64_t dv = sw128_desc(v_addr + j * 2 * kSwizzleAtom, kBoxBytes,
-                                     kSwizzleAtom);
-      if constexpr (D == 64)
-        wgmma_rs_m64n64(acc, pa[j], dv, 1);
-      else
-        wgmma_rs_m64n128(acc, pa[j], dv, 1);
-    }
+    wgmma_frags_b<D>(acc, pa, v_addr);
     wgmma_commit();
     // the next tile's S runs on the tensor cores behind this P.V
     if (i + 1 < n_tiles) {
@@ -483,8 +268,7 @@ fa_fwd_sm90_kernel(__grid_constant__ const CUtensorMap tq,
       wgmma_wait<0>();
     }
     pin(acc);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) pin(pa[j]);
+    pin(pa);
 
     // release the stage: the last of the CTA's warps to be done with it
     // issues the copy of the tile that goes there next, so no warp waits
@@ -524,60 +308,8 @@ fa_fwd_sm90_kernel(__grid_constant__ const CUtensorMap tq,
           empty ? 0.f : m[r] + logf(denom);
   }
   warpgroup_sync(wg);
-  constexpr int kChunks = D / 8;             // 16-byte chunks per row
-  __nv_bfloat16* ob = o + ((int64_t)b * Sq * H + h) * D;
-  for (int i = tid % 128; i < kRows * kChunks; i += 128) {
-    const int row = i / kChunks, c = i % kChunks;
-    if (q0 + row < Sq)
-      *reinterpret_cast<uint4*>(ob + (q0 + row) * row_stride + c * 8) =
-          *reinterpret_cast<const uint4*>(my_q + row * D * 2 +
-                                          ((c ^ (row & 7)) * 16));
-  }
-}
-
-// cuTensorMapEncodeTiled, reached through the runtime (no libcuda link)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a contiguous bf16 (B, S, heads, D) tensor as a 4-D map over
-// (D, heads, S, B), in boxes of 64 columns x 64 rows of one head
-bool encode(CUtensorMap* map, const void* base, int D, int heads, int S,
-            int B) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
-                              (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2,
-                                 (cuuint64_t)heads * D * 2,
-                                 (cuuint64_t)S * heads * D * 2};
-  const cuuint32_t box[4] = {kBox, 1, kRows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  store_tile<D>(my_q, o + (((int64_t)b * Sq + q0) * H + h) * D, row_stride,
+                Sq - q0, tid % 128, 128);
 }
 
 template <int D, int NWG>
@@ -608,9 +340,8 @@ cudaError_t fa_fwd_sm90(const void* q, const void* k, const void* v, void* o,
                         int q_offset, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   // Skv = 0 leaves every tile invisible; the map only needs a valid shape
-  const int s_kv = Skv > 0 ? Skv : 1;
-  if (!encode(&tq, q, D, H, Sq, B) || !encode(&tk, k, D, KVH, s_kv, B) ||
-      !encode(&tv, v, D, KVH, s_kv, B))
+  if (!encode(&tq, q, D, H, Sq, B) || !encode(&tk, k, D, KVH, Skv, B) ||
+      !encode(&tv, v, D, KVH, Skv, B))
     return cudaErrorInvalidValue;
   const bool pair = (H / KVH) % 2 == 0;  // two query heads a CTA
   if (D == 64)

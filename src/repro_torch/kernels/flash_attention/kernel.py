@@ -5,10 +5,16 @@
     bf16 inputs run ``csrc/flash_fwd_sm90.cu`` (wgmma tensor cores fed by
     TMA), f32 inputs the f32 FMA kernel of ``csrc/flash_fwd.cu``, which
     holds the C entry of both;
-  * ``flash_bwd_dq`` and ``flash_bwd_dkv`` launch ``csrc/flash_bwd.cu``,
-    which replaces ``_fa_bwd_dq_kernel`` and ``_fa_bwd_dkv_kernel``;
+  * ``flash_bwd_dq`` and ``flash_bwd_dkv`` launch the ``flash_bwd``
+    library, which replaces ``_fa_bwd_dq_kernel`` and ``_fa_bwd_dkv_kernel``:
+    bf16 inputs run ``csrc/flash_bwd_sm90.cu`` (wgmma tensor cores fed by
+    TMA, q * scale in bf16 as the bf16 forward takes it), f32 inputs the f32
+    FMA kernels of ``csrc/flash_bwd.cu``, which holds the C entries of both;
     ``flash_bwd`` takes delta = rowsum(dO * O) in plain PyTorch and runs
     both.
+
+The two bf16 sources include ``csrc/sm90.cuh``, the Hopper helpers they
+share, which each library lists as a header of its build.
 
 Each launches on PyTorch's current stream, checks device, dtype,
 contiguity and shapes, allocates its outputs with ``torch.empty``, raises if
@@ -30,13 +36,16 @@ from repro_torch.kernels import _build
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu"
 SM90_SOURCE = SOURCE.with_name("flash_fwd_sm90.cu")
 BWD_SOURCE = SOURCE.with_name("flash_bwd.cu")
+BWD_SM90_SOURCE = SOURCE.with_name("flash_bwd_sm90.cu")
+HEADERS = (SOURCE.with_name("sm90.cuh"),)
 HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 @functools.cache
 def _library():
-    built = _build.build_library("flash_fwd", [SOURCE, SM90_SOURCE])
+    built = _build.build_library("flash_fwd", [SOURCE, SM90_SOURCE],
+                                 headers=HEADERS)
     lib = ctypes.CDLL(str(built.path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.fa_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr,          # q k v o lse
@@ -52,7 +61,8 @@ def _library():
 
 @functools.cache
 def _bwd_library():
-    built = _build.build_library("flash_bwd", [BWD_SOURCE])
+    built = _build.build_library("flash_bwd", [BWD_SOURCE, BWD_SM90_SOURCE],
+                                 headers=HEADERS)
     lib = ctypes.CDLL(str(built.path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     common = [i32, i32, i32, i32, i32, i32,       # B Sq Skv H KVH D
@@ -140,7 +150,7 @@ flash_fwd.launches = 0
 
 
 def _check_bwd(q, k, v, do, lse, delta):
-    _check(q, k, v)
+    """The backward's own checks, then ``_check``'s (the device last)."""
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f"dO must match q {tuple(q.shape)} {q.dtype}; got "
                          f"{tuple(do.shape)} {do.dtype}")
@@ -149,10 +159,14 @@ def _check_bwd(q, k, v, do, lse, delta):
             raise ValueError(f"{name} must be (B,Sq,H) float32; got "
                              f"{tuple(t.shape)} {t.dtype}")
     for name, t in (("dO", do), ("lse", lse), ("delta", delta)):
-        if t.device != q.device or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
     if do.data_ptr() % 16:
         raise ValueError("dO must start on a 16-byte boundary")
+    _check(q, k, v)
+    for name, t in (("dO", do), ("lse", lse), ("delta", delta)):
+        if t.device != q.device:
+            raise ValueError(f"{name} must lie on {q.device}; got {t.device}")
 
 
 def _bwd_args(q, k, scale, causal, window, q_offset):
@@ -215,6 +229,15 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
     return dk, dv
 
 
+def bwd_delta(do, out):
+    """delta = rowsum(dO * O) in f32, (B,Sq,H), in plain PyTorch outside the
+    kernels (as the JAX package's kernel.py:288). A bf16 O is promoted
+    inside the product rather than copied to f32 first: the same values
+    (each product of two bf16 values is exact in f32) with one f32 copy
+    fewer."""
+    return (do.float() * out).sum(-1)
+
+
 def flash_bwd(q, k, v, out, lse, do, *, causal: bool = True, window: int = 0,
               scale: float | None = None, q_offset: int = 0):
     """Flash backward on the card: (dq, dk, dv) in the input dtypes, from
@@ -223,8 +246,7 @@ def flash_bwd(q, k, v, out, lse, do, *, causal: bool = True, window: int = 0,
     if out.shape != q.shape or out.dtype != q.dtype:
         raise ValueError(f"out must match q {tuple(q.shape)} {q.dtype}; got "
                          f"{tuple(out.shape)} {out.dtype}")
-    # delta = rowsum(dO * O) in f32, outside the kernels (as kernel.py:288)
-    delta = (do.float() * out.float()).sum(-1)
+    delta = bwd_delta(do, out)
     kw = dict(causal=causal, window=window, scale=scale, q_offset=q_offset)
     dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **kw)

@@ -50,8 +50,10 @@ from repro_torch.launch import train as launcher
 WARMUP, STEPS, TRACED = 2, 6, 2
 CATEGORIES = (("flash_attention_fwd", ("fa_fwd_kernel",
                                        "fa_fwd_sm90_kernel")),
-              ("flash_attention_bwd_dq", ("fa_bwd_dq_kernel",)),
-              ("flash_attention_bwd_dkv", ("fa_bwd_dkv_kernel",)),
+              ("flash_attention_bwd_dq", ("fa_bwd_dq_kernel",
+                                          "fa_bwd_dq_sm90_kernel")),
+              ("flash_attention_bwd_dkv", ("fa_bwd_dkv_kernel",
+                                           "fa_bwd_dkv_sm90_kernel")),
               ("swa_avg", ("avg_kernel",)),
               ("ssd_fwd", ("ssd_fwd_kernel",)),
               ("ssd_bwd", ("ssd_bwd_kernel",)),

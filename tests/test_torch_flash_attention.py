@@ -223,23 +223,30 @@ def test_wrapper_refuses_what_the_kernels_cannot_take(case, dtype):
         tkernel.flash_fwd(q, k, v)
 
 
-def test_forward_library_is_built_from_both_sources(monkeypatch):
-    """One library holds both routes; build_library hashes the sources it
-    is given, so both must be listed or an edited kernel reuses a stale
-    build."""
+def _fake_builds(monkeypatch):
+    """build_library replaced by a recorder of what it is given."""
     seen = {}
 
-    def fake_build(name, sources):
-        seen[name] = [s.name for s in sources]
+    def fake_build(name, sources, headers=()):
+        seen[name] = ([s.name for s in sources], [h.name for h in headers])
         raise RuntimeError("no nvcc here")
 
     monkeypatch.setattr(_build, "build_library", fake_build)
+    return seen
+
+
+def test_forward_library_is_built_from_both_sources(monkeypatch):
+    """One library holds both routes; build_library hashes the sources and
+    headers it is given, so all must be listed or an edited kernel reuses a
+    stale build."""
+    seen = _fake_builds(monkeypatch)
     tkernel._library.cache_clear()
     with pytest.raises(RuntimeError, match="no nvcc here"):
         tkernel.build()
-    assert seen == {"flash_fwd": ["flash_fwd.cu", "flash_fwd_sm90.cu"]}
+    assert seen == {"flash_fwd": (["flash_fwd.cu", "flash_fwd_sm90.cu"],
+                                  ["sm90.cuh"])}
     assert all((tkernel.SOURCE.parent / n).is_file()
-               for n in seen["flash_fwd"])
+               for n in sum(seen["flash_fwd"], []))
 
 
 # The card grid's edge cases (chip_smoke._grid: ragged, window, q_offset,
@@ -443,3 +450,185 @@ def test_bwd_kernel_on_cpu_raises_and_needs_nvcc(tmp_path, monkeypatch):
     tkernel._bwd_library.cache_clear()
     with pytest.raises(RuntimeError, match="nvcc"):
         tkernel.build_bwd()
+
+
+# ---------------------------------------------------------------------------
+# the bf16 backward's rounding contract, and its wrappers
+# ---------------------------------------------------------------------------
+
+# CARD_EDGE_CASES and D 128 at G 2 and G 4 (the scale 128 ** -0.5 is not a
+# power of 2, so q * scale in bf16 moves S there)
+ROUNDED_BWD_CASES = CARD_EDGE_CASES + [
+    ((2, 67, 67, 4, 2, 128), True, 0, 0),
+    ((1, 130, 130, 8, 2, 128), True, 0, 0),
+]
+
+
+@pytest.mark.parametrize("shape,causal,window,q_offset", ROUNDED_BWD_CASES)
+def test_rounded_bwd_ref_matches_pallas_bwd_bf16(shape, causal, window,
+                                                 q_offset):
+    """The bf16 kernels' rounding points (q * scale in bf16 for S, P and dS
+    as hi + lo bf16 pairs), as the plain version computes them, on the
+    port's bf16 forward (chunk 64, its rounding), against the JAX pair
+    (Pallas forward and backward in interpret mode) on the same bf16
+    inputs: within the card check's bf16 BWD_TOL 1e-2 (relative to 1 +
+    |value|). On f32 inputs every option is the default."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(shape, "bfloat16", seed=31)
+    jdo, tdo = _grad_out(shape, "bfloat16", seed=32)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    jo, jl = flash_attention_pallas_fwd(jq, jk, jv, interpret=True, **kw)
+    want = flash_attention_pallas_bwd(jq, jk, jv, jo, jl, jdo,
+                                      interpret=True, **kw)
+    to, tl = tops._blockwise_fwd(tq, tk, tv, scale=None, chunk=64, **kw)
+    got = tref.flash_attention_bwd_ref(tq, tk, tv, to, tl, tdo, rounded=True,
+                                       **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        _close(g, w, 1e-2)
+    if q_offset < 0:
+        assert bool((got[0][:, :-q_offset] == 0).all())
+    f32 = [t.float() for t in (tq, tk, tv, to, tl, tdo)]
+    default = tref.flash_attention_bwd_ref(*f32, **kw)
+    for opt in ("rounded", "scores_as_forward"):
+        for r, d in zip(tref.flash_attention_bwd_ref(*f32, **{opt: True},
+                                                     **kw), default):
+            assert torch.equal(r, d)
+
+
+@pytest.mark.parametrize("shape,causal,window,q_offset", ROUNDED_BWD_CASES)
+def test_rounded_bwd_probs_rows_sum_to_one(shape, causal, window, q_offset):
+    """The fault the rounded contract repairs: against the lse of the bf16
+    forward (which takes q * scale in bf16), the backward's P rows sum to 1
+    within 1e-5 only when S takes q * scale the same way. Where the scale
+    is not a power of 2 (D 128), q * scale in f32 leaves them off by more.
+    Rows that see no key have P = 0."""
+    (_, _, _), (tq, tk, tv) = _inputs(shape, "bfloat16", seed=33)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    _, tl = tops._blockwise_fwd(tq, tk, tv, scale=None, chunk=64, **kw)
+    scale = shape[-1] ** -0.5
+    rows = tref._bwd_probs(tq, tk, tl, scale=scale, scores_as_forward=True,
+                           **kw).sum(-1)
+    live = rows > 0
+    assert bool(live.any())
+    assert float((rows[live] - 1).abs().max()) <= 1e-5
+    if q_offset < 0:
+        assert not bool(live[..., :-q_offset].any())
+    if shape[-1] == 128:
+        f32_rows = tref._bwd_probs(tq, tk, tl, scale=scale,
+                                   scores_as_forward=False, **kw).sum(-1)
+        assert float((f32_rows[live] - 1).abs().max()) > 1e-4
+
+
+def test_split_bf16_keeps_sixteen_bits():
+    """hi + lo: each a bf16 value, their sum within 2^-16 of x relative."""
+    x = torch.from_numpy(np.random.default_rng(34).standard_normal(4096)
+                         .astype(np.float32))
+    y = tref.split_bf16(x)
+    hi = x.bfloat16().float()
+    assert torch.equal((y - hi).bfloat16().float(), y - hi)
+    assert float(((y - x).abs() / x.abs()).max()) <= 2.0 ** -16
+    assert float(((hi - x).abs() / x.abs()).max()) > 2.0 ** -10
+
+
+BWD_FNS = {"dq": tkernel.flash_bwd_dq, "dkv": tkernel.flash_bwd_dkv}
+
+
+def _bwd_args(shape, dtype, seed):
+    (_, _, _), (tq, tk, tv) = _inputs(shape, dtype, seed=seed)
+    do = _grad_out(shape, dtype, seed=seed + 1)[1]
+    lse = torch.zeros(tq.shape[:3])
+    return tq, tk, tv, do, lse, lse.clone()
+
+
+@pytest.mark.parametrize("fn", sorted(BWD_FNS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_wrappers_take_both_dtypes_up_to_the_device_check(fn, dtype):
+    """f32 (the FMA route) and bf16 (the wgmma route) pass every check of
+    the dQ and dK/dV wrappers that needs no card, at both head dims, and
+    stop only at the device."""
+    for D in tkernel.HEAD_DIMS:
+        args = _bwd_args((1, 8, 8, 4, 2, D), dtype, seed=40)
+        with pytest.raises(RuntimeError, match="needs CUDA tensors"):
+            BWD_FNS[fn](*args)
+
+
+def _repeat_d(t):
+    return t.repeat(1, 1, 1, 2)
+
+
+BWD_REFUSED = {
+    "head_dim_256": (lambda q, k, v, do, l, d: (
+        _repeat_d(q), _repeat_d(k), _repeat_d(v), _repeat_d(do), l, d),
+        ValueError, "head dim 256"),
+    "float16": (lambda q, k, v, do, l, d: (q.half(), k.half(), v.half(),
+                                           do.half(), l, d),
+                TypeError, "float32 or bfloat16"),
+    "dO_dtype": (lambda q, k, v, do, l, d: (
+        q, k, v, do.to(torch.float16), l, d), ValueError, "dO must match"),
+    "dO_shape": (lambda q, k, v, do, l, d: (q, k, v, do[:, :4], l, d),
+                 ValueError, "dO must match"),
+    "lse_dtype": (lambda q, k, v, do, l, d: (q, k, v, do, l.double(), d),
+                  ValueError, "lse must be"),
+    "delta_shape": (lambda q, k, v, do, l, d: (q, k, v, do, l, d[..., :1]),
+                    ValueError, "delta must be"),
+    "dO_non_contiguous": (lambda q, k, v, do, l, d: (
+        q, k, v, do.transpose(1, 2).contiguous().transpose(1, 2), l, d),
+        ValueError, "dO must be contiguous"),
+    "misaligned_dO": (lambda q, k, v, do, l, d: (q, k, v, _misaligned(do),
+                                                 l, d),
+                      ValueError, "dO must start on a 16-byte boundary"),
+    "cpu": (lambda q, k, v, do, l, d: (q, k, v, do, l, d), RuntimeError,
+            "needs CUDA tensors"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BWD_REFUSED))
+@pytest.mark.parametrize("fn", sorted(BWD_FNS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_wrappers_refuse_what_the_kernels_cannot_take(case, fn, dtype):
+    make, exc, msg = BWD_REFUSED[case]
+    args = make(*_bwd_args((1, 8, 8, 4, 2, 128), dtype, seed=41))
+    with pytest.raises(exc, match=msg):
+        BWD_FNS[fn](*args)
+
+
+def test_backward_library_is_built_from_both_sources(monkeypatch):
+    """The flash_bwd library: the f32 FMA kernels and C entries, the bf16
+    wgmma kernels, and the header the bf16 sources share."""
+    seen = _fake_builds(monkeypatch)
+    tkernel._bwd_library.cache_clear()
+    with pytest.raises(RuntimeError, match="no nvcc here"):
+        tkernel.build_bwd()
+    assert seen == {"flash_bwd": (["flash_bwd.cu", "flash_bwd_sm90.cu"],
+                                  ["sm90.cuh"])}
+    assert all((tkernel.SOURCE.parent / n).is_file()
+               for n in sum(seen["flash_bwd"], []))
+
+
+def test_build_hashes_headers_and_puts_them_on_the_include_path(
+        tmp_path, monkeypatch):
+    """A header is hashed with the sources, so an edited header names a new
+    library, and its directory is on nvcc's include path (so a source
+    built from elsewhere, as the A/B scripts build variants, finds it).
+    nvcc is a stand-in script that records its arguments."""
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text('#!/bin/sh\necho "$@" > "$NVCC_ARGS"\n'
+                    'while [ "$1" != "-o" ]; do shift; done\n'
+                    'touch "$2"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("NVCC_ARGS", str(tmp_path / "args"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    src, hdr = tmp_path / "a.cu", tmp_path / "inc" / "h.cuh"
+    hdr.parent.mkdir()
+    src.write_text('#include "h.cuh"\n')
+    hdr.write_text("// one\n")
+    first = _build.build_library("x", [src], headers=[hdr])
+    assert first.path.is_file() and first.seconds > 0
+    args = (tmp_path / "args").read_text().split()
+    assert f"-I{hdr.parent}" in args and str(hdr) not in args
+    assert _build.build_library("x", [src], headers=[hdr]).seconds == 0.0
+    hdr.write_text("// two\n")
+    second = _build.build_library("x", [src], headers=[hdr])
+    assert second.path != first.path and second.seconds > 0

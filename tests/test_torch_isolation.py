@@ -1,6 +1,7 @@
-"""The port stands alone: no file of ``src/repro_torch``, ``chip_smoke.py``
-nor ``ab_flash_fwd.py`` imports JAX or the ``repro`` package, and ``chip_smoke.py`` refuses to run
-without a card or without the repository beside it."""
+"""The port stands alone: no file of ``src/repro_torch``, ``chip_smoke.py``,
+``ab_flash_fwd.py`` nor ``ab_flash_bwd.py`` imports JAX or the ``repro``
+package, and ``chip_smoke.py`` refuses to run without a card or without the
+repository beside it."""
 import ast
 import os
 import shutil
@@ -15,7 +16,8 @@ torch.set_num_threads(1)   # the suite runs as parallel test processes
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "ab_flash_fwd.py"]
+    ROOT / "chip_smoke.py", ROOT / "ab_flash_fwd.py",
+    ROOT / "ab_flash_bwd.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
