@@ -12,13 +12,17 @@ Phases, each printing its own lines; any failed check exits non-zero:
    the card over a grid of shapes, dtypes and masks (the flash forward,
    the flash backward's dQ and dK/dV kernels, in bf16 also against the
    plain version at their own rounding points, the streaming average,
-   bitwise, the SSD intra-chunk forward and backward), and time each at
-   the shape the main path gives it, beside its bound, its plain version
-   and a library call where one computes the same function (the flash
-   forward, whose bf16 route is the wgmma kernel, at both the prefill and
-   the phase-1 training shape, and at the prefill also with L2 flushed;
-   the bf16 flash backward, the whole call and its delta at the phase-1
-   and phase-2 training shapes, beside the library's backward alone);
+   bitwise, the SSD intra-chunk forward and backward, whose bf16 wgmma
+   route is also held to the plain versions at its rounding points and to
+   its own bits from a second launch), and time each at the shape the
+   main path gives it, beside its bound, its plain version and a library
+   call where one computes the same function (the flash forward, whose
+   bf16 route is the wgmma kernel, at both the prefill and the phase-1
+   training shape, and at the prefill also with L2 flushed; the bf16 flash
+   backward, the whole call and its delta at the phase-1 and phase-2
+   training shapes, beside the library's backward alone; the bf16 SSD
+   kernels at the serve prefill and phase 1, beside the f32 FMA kernels
+   they replace);
 4. full-width serve (internlm2-1.8b, random weights from a seed): a main
    path, with every kernel's launch count set to 0 just before it and read
    just after; then prefill logits with the kernel against the plain
@@ -35,7 +39,8 @@ Phases, each printing its own lines; any failed check exits non-zero:
 7. phases 4-6 again for mamba2-2.7b (the ssm family, on the SSD kernels):
    serving at full width (64 layers), SWAP training at full width with the
    depth cut to 56 layers (MAMBA_TRAIN_LAYERS: 64 layers do not fit the
-   card: 62 ran out of memory in phase 2), and the smoke exactness checks.
+   card: 62 ran out of memory in phase 2), every SSD launch of both on the
+   bf16 wgmma route, and the smoke exactness checks.
 
 The line before the last is one JSON object with each kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -93,6 +98,19 @@ MAMBA = "mamba2-2.7b"
 # SSD tests' 1e-4. Both compute in f32 from the same (f32 or bf16) inputs,
 # so bf16 inputs are held to the same bound.
 SSD_TOL = 1e-4
+# the bf16 route (wgmma) against the plain versions at its own rounding
+# points (ops._intra_chunk(..., rounded=True)), per output, max |err| / max
+# |ref|: the two take the same hi + lo splits and differ by f32 summation
+# order only, while a wrong descriptor, fragment index or mask moves
+# outputs by O(1). On the CPU (ssd_rounding.py), f32 order moves the
+# contract's outputs, f32 against f64 of the same contract, by up to
+# 1.42e-5 in the forward (states) and 1.58e-5 in dx, dB, dC: those are held
+# to 2e-5 and 4e-5. ddt and dA pass through the reverse cumsum of dcum over
+# L, whose terms cancel (3.55e-5 and 2.73e-5 on the CPU; on an H100 ddt
+# came 6.47e-5 from the rounded version and 6.40e-5 from the f32 math at
+# L 256), so they keep SSD_TOL.
+SSD_ROUNDED_TOL = {"y": 2e-5, "states": 2e-5, "cum": 2e-5, "dx": 4e-5,
+                   "dB": 4e-5, "dC": 4e-5, "ddt": SSD_TOL, "dA": SSD_TOL}
 # (B, S, H, P, G, N, chunk): mamba2-2.7b's serving prefill (batch 8, prompt
 # 512) and its SWAP phase 1 (batch 256, the launcher's sequence of 64)
 SSD_SERVE_SHAPE = (8, 512, 80, 64, 1, 128, 256)
@@ -653,7 +671,10 @@ def _scaled_err(got, want) -> float:
 def _ssd_grid():
     """(B, S, H, P, G, N), chunk, dtype: every L in 1..256 the main paths
     give the kernels (1, engine prompts 37 and 200, training 64, the full
-    chunk 256), with 1 to 3 chunks, 1 or 2 groups, both (P, N)."""
+    chunk 256), with 1 to 3 chunks, 1 or 2 groups, both (P, N); then the
+    bf16 route's widths (N 128, mamba2-2.7b; N 64, the zamba2-7b mamba
+    blocks) with groups of 20 and 16 heads: 20 is not a multiple of the
+    head blocks (8 forward, 16 / 8 / 5 / 4 backward), 16 is."""
     cases = []
     for dtype in ("float32", "bfloat16"):
         for P, N in ((64, 128), (32, 16)):
@@ -661,6 +682,11 @@ def _ssd_grid():
                 for k, L in enumerate((1, 37, 64, 200, 256)):
                     nc = 1 + (k + G + P // 32) % 3
                     cases.append(((2, L * nc, 4, P, G, N), L, dtype))
+    for N, H, G in ((128, 20, 1), (128, 32, 2), (64, 4, 1), (64, 4, 2),
+                    (64, 20, 1), (64, 32, 2)):
+        for k, L in enumerate((1, 37, 64, 200, 256)):
+            nc = 1 + (k + H) % 2
+            cases.append(((2, L * nc, H, 64, G, N), L, "bfloat16"))
     return cases
 
 
@@ -690,8 +716,11 @@ def _ssd_work(shape, chunk, elt, bwd: bool):
 
 
 def _bound(nbytes, flops):
+    """The SSD work's least time on the card, (ms, what binds): the bf16
+    route runs its products on the tensor cores, so the function's flops
+    count at the bf16 rate, and the bytes bind at every main-path shape."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -699,17 +728,22 @@ def _bound(nbytes, flops):
 def phase_ssd():
     import torch
     from repro_torch.kernels.ssd import kernel, ops
-    worst = {}
+    worst, worst_r, n_route = {}, {}, 0
+    names = ("y", "states", "cum", "dx", "ddt", "dA", "dB", "dC")
     for i, (shape, L, dtype) in enumerate(_ssd_grid()):
         args = _ssd_inputs(shape, getattr(torch, dtype), seed=300 + i)
-        got = kernel.ssd_fwd(*args, chunk=L)
         cots = _ssd_cotangents(shape, L, seed=400 + i)
+        sm90 = kernel.sm90_route(args[0], args[3])
+        before = kernel.ssd_fwd.launches_sm90, kernel.ssd_bwd.launches_sm90
+        got = kernel.ssd_fwd(*args, chunk=L)
         got_b = kernel.ssd_bwd(*args, *cots, chunk=L)
         torch.cuda.synchronize()
+        check((kernel.ssd_fwd.launches_sm90 - before[0],
+               kernel.ssd_bwd.launches_sm90 - before[1]) == (sm90, sm90),
+              f"ssd case {i} {shape} {dtype}: took the wrong route")
         want = ops._intra_chunk(*args, L)
         want_b = ops._intra_chunk_bwd(*args, *cots, L)
-        for name, g, w in zip(("y", "states", "cum", "dx", "ddt", "dA", "dB",
-                               "dC"), got + got_b, want + want_b):
+        for name, g, w in zip(names, got + got_b, want + want_b):
             check(g.shape == w.shape and g.dtype == torch.float32,
                   f"ssd case {i}: {name} shape/dtype")
             check(bool(torch.isfinite(g).all()),
@@ -718,6 +752,24 @@ def phase_ssd():
             check(err <= SSD_TOL, f"ssd case {i} {shape} L={L} {dtype}: "
                                   f"{name} error {err:.3e} > {SSD_TOL}")
             worst[dtype] = max(worst.get(dtype, 0.0), err)
+        if not sm90:
+            continue
+        # the bf16 route: against the plain versions at its rounding
+        # points, and the same bits from a second launch (no atomics)
+        n_route += 1
+        want_r = (ops._intra_chunk(*args, L, rounded=True)
+                  + ops._intra_chunk_bwd(*args, *cots, L, rounded=True))
+        again = (kernel.ssd_fwd(*args, chunk=L)
+                 + kernel.ssd_bwd(*args, *cots, chunk=L))
+        for name, g, w, a in zip(names, got + got_b, want_r, again):
+            err = _scaled_err(g, w)
+            check(err <= SSD_ROUNDED_TOL[name],
+                  f"ssd case {i} {shape} L={L}: {name} error {err:.3e} "
+                  f"against the rounded plain version > "
+                  f"{SSD_ROUNDED_TOL[name]}")
+            worst_r[name] = max(worst_r.get(name, 0.0), err)
+            check(torch.equal(g, a), f"ssd case {i} {shape} L={L}: {name} "
+                                     f"differs between two launches")
     # ragged S through the scan: padding, chunk chaining and, in f32, the
     # Function's grads (bf16 leaves would get bf16-rounded grads, which two
     # paths that differ in the last f32 bits may round one bf16 step apart)
@@ -747,57 +799,83 @@ def phase_ssd():
           f"scans (f32 with grads) match the plain versions; max |err|/max "
           f"|ref| "
           f"f32 {worst['float32']:.3e}, bf16 {worst['bfloat16']:.3e} (limit "
-          f"{SSD_TOL})")
+          f"{SSD_TOL}); the {n_route} cases of the bf16 wgmma route against "
+          f"the plain versions at its rounding points, worst per output: "
+          + ", ".join(f"{k} {v:.2e} (limit {SSD_ROUNDED_TOL[k]:.0e})"
+                      for k, v in worst_r.items())
+          + "; bitwise equal from launch to launch")
 
-    # each kernel's JSON row is taken at the shape of the main path its
-    # launches are counted on; the forward is also timed at the training
-    # shape (PERF.md)
-    rows = []
-    for name, shape7, bwd, src, where, row in (
-            ("ssd_fwd", SSD_SERVE_SHAPE, False,
-             "src/repro/kernels/ssd/kernel.py:29", "serve prefill", True),
-            ("ssd_fwd", SSD_TRAIN_SHAPE, False,
-             "src/repro/kernels/ssd/kernel.py:29", "training phase 1", False),
-            ("ssd_bwd", SSD_TRAIN_SHAPE, True,
-             "src/repro/kernels/ssd/kernel.py:61", "training phase 1", True)):
+    # times at the main paths' shapes: the bf16 route's kernel and the f32
+    # FMA kernel it replaces (fma=True, same inputs), each behind the sleep
+    # kernel, beside the bound, the plain version and, for PERF.md's
+    # history, the f32 CUDA-core figure of the same work
+    times = {}
+    for name, shape7, bwd, where in (
+            ("ssd_fwd", SSD_SERVE_SHAPE, False, "serve prefill"),
+            ("ssd_fwd", SSD_TRAIN_SHAPE, False, "training phase 1"),
+            ("ssd_bwd", SSD_TRAIN_SHAPE, True, "training phase 1")):
         *shape, chunk = shape7
         args = _ssd_inputs(tuple(shape), torch.bfloat16, seed=7)
         if bwd:
             cots = _ssd_cotangents(tuple(shape), chunk, seed=8)
-            got = kernel.ssd_bwd(*args, *cots, chunk=chunk)
-            want = ops._intra_chunk_bwd(*args, *cots, chunk)
-            ms = _cuda_ms(lambda: kernel.ssd_bwd(*args, *cots, chunk=chunk),
-                          10)
-            plain_ms = _cuda_ms(lambda: ops._intra_chunk_bwd(
-                *args, *cots, chunk), 3)
+            run = lambda fma=False: kernel.ssd_bwd(*args, *cots, chunk=chunk,
+                                                   fma=fma)
+            plain = lambda: ops._intra_chunk_bwd(*args, *cots, chunk)
         else:
-            got = kernel.ssd_fwd(*args, chunk=chunk)
-            want = ops._intra_chunk(*args, chunk)
-            ms = _cuda_ms(lambda: kernel.ssd_fwd(*args, chunk=chunk), 10)
-            plain_ms = _cuda_ms(lambda: ops._intra_chunk(*args, chunk), 3)
+            run = lambda fma=False: kernel.ssd_fwd(*args, chunk=chunk,
+                                                   fma=fma)
+            plain = lambda: ops._intra_chunk(*args, chunk)
+        before = getattr(kernel, name).launches_sm90
+        got = run()
+        check(getattr(kernel, name).launches_sm90 == before + 1,
+              f"{name} at the {where} shape did not take the bf16 route")
+        want = plain()
         errs = [_scaled_err(g, w) for g, w in zip(got, want)]
         check(max(errs) <= SSD_TOL, f"{name} at the {where} shape: error "
                                     f"{max(errs):.3e}")
         max_abs = max((g - w).abs().max().item() for g, w in zip(got, want))
         del got, want
+        ms = _device_ms(run, 20)
+        old_ms = _device_ms(lambda: run(fma=True), 5)
+        ms_again = _device_ms(run, 20)
+        plain_ms = _cuda_ms(plain, 3)
         nbytes, flops = _ssd_work(tuple(shape), chunk, 2, bwd)
         bound_ms, bound_by = _bound(nbytes, flops)
+        f32_ms = flops / PEAK_FLOPS["float32"] * 1e3
         B, S, H, P, G, N = shape
         print(f"[ssd] {name} at the {where} shape B{B} S{S} H{H} P{P} G{G} "
-              f"N{N} L{chunk} bf16: kernel {ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB, "
-              f"{flops / 1e9:.2f} GFLOP), plain {plain_ms:.4f} ms, library "
-              f"none (no PyTorch call computes it); max |err| {max_abs:.3e}",
-              flush=True)
-        if row:
-            rows.append({
-                "name": name, "route": "cuda",
-                "source": f"src/repro_torch/kernels/ssd/csrc/{name}.cu",
-                "replaces": src, "launches": None, "max_abs_err": max_abs,
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": None})
+              f"N{N} L{chunk} bf16: wgmma kernel {ms:.4f} / {ms_again:.4f} "
+              f"ms, f32 FMA kernel {old_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"by {bound_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} "
+              f"GFLOP; at the f32 CUDA-core rate {f32_ms:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, library none (no PyTorch call computes "
+              f"it); max |err| {max_abs:.3e}", flush=True)
+        times[name, where] = {
+            "shape": f"B{B} S{S} H{H} P{P} G{G} N{N} L{chunk} bf16",
+            "max_abs_err": max_abs, "ms": min(ms, ms_again),
+            "old_fma_ms": old_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_f32_cuda_cores_ms": max(nbytes / HBM_BYTES_PER_S * 1e3,
+                                           f32_ms),
+            "library_ms": None}
+        del args
         torch.cuda.empty_cache()
-    return rows
+    # the forward's row is taken at the serve prefill, with the training
+    # shape beside it; the backward's at the training shape
+    src = "src/repro_torch/kernels/ssd/csrc/"
+    serve = times["ssd_fwd", "serve prefill"]
+    return [
+        {"name": "ssd_fwd", "route": "cuda",
+         "source": src + "ssd_fwd_sm90.cu",
+         "replaces": "src/repro/kernels/ssd/kernel.py:29", "launches": None,
+         **{k: v for k, v in serve.items() if k != "shape"},
+         "shape": serve["shape"],
+         "train_shape": dict(times["ssd_fwd", "training phase 1"],
+                             launches=None)},
+        {"name": "ssd_bwd", "route": "cuda",
+         "source": src + "ssd_bwd_sm90.cu",
+         "replaces": "src/repro/kernels/ssd/kernel.py:61", "launches": None,
+         **times["ssd_bwd", "training phase 1"]}]
 
 
 # ---------------------------------------------------------------------------
@@ -834,8 +912,7 @@ def phase_serve(card: str):
 
     generate(model, params, prompts, 2, engine="compiled")   # warm-up
     # --- the main path, with the launch counts read around it ---
-    for fn in _launch_counts().values():
-        fn.launches = 0
+    _reset_launches()
     out_loop, st_loop = generate(model, params, prompts, T, engine="loop")
     out_comp, st_comp = generate(model, params, prompts, T,
                                  engine="compiled")
@@ -942,8 +1019,7 @@ def phase_mamba_serve(card: str):
 
     generate(model, params, prompts, 2, engine="compiled")   # warm-up
     # --- the main path, with the launch counts read around it ---
-    for fn in _launch_counts().values():
-        fn.launches = 0
+    _reset_launches()
     out_loop, st_loop = generate(model, params, prompts, T, engine="loop")
     out_comp, st_comp = generate(model, params, prompts, T,
                                  engine="compiled")
@@ -954,6 +1030,7 @@ def phase_mamba_serve(card: str):
     torch.cuda.synchronize()
     t_engine = time.perf_counter() - t0
     launches = kernel.ssd_fwd.launches
+    launches_sm90 = kernel.ssd_fwd.launches_sm90
     # -------------------------------------------------------------
 
     check(out_loop.shape == (B, T) and torch.equal(out_loop, out_comp),
@@ -980,6 +1057,10 @@ def phase_mamba_serve(card: str):
     check(launches >= cfg.n_layers * n_prefills,
           f"ssd_fwd launched {launches} times, fewer than {cfg.n_layers} per "
           f"prefill")
+    print(f"[mamba-serve] of them on the bf16 wgmma route: {launches_sm90}")
+    check(launches_sm90 == launches,
+          f"only {launches_sm90} of {launches} ssd_fwd launches on the "
+          f"full-width serving path took the bf16 wgmma route")
 
     # prefill logits, kernel against the plain SSD on the card: in f32,
     # where the kernel is the only difference (limit 1e-2 relative L2, as
@@ -1082,15 +1163,25 @@ def _launch_counts():
             "ssd_bwd": ssd_kernel.ssd_bwd}
 
 
+def _reset_launches():
+    """Every kernel wrapper's launch counts to 0 (all routes, and the SSD
+    wrappers' bf16 route alone)."""
+    for fn in _launch_counts().values():
+        fn.launches = 0
+        if hasattr(fn, "launches_sm90"):
+            fn.launches_sm90 = 0
+
+
 DENSE_TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
                        "flash_attention_bwd_dkv", "swa_avg")
 MAMBA_TRAIN_KERNELS = ("ssd_fwd", "ssd_bwd", "swa_avg")
 
 
 def phase_train(card: str, argv=TRAIN_ARGV, cfg=None,
-                required=DENSE_TRAIN_KERNELS, tag="train"):
+                required=DENSE_TRAIN_KERNELS, tag="train", sm90_only=()):
     """The launcher's own run (``train.main(argv, cfg=cfg)``) as a main
-    path: every kernel in ``required`` must launch in it."""
+    path: every kernel in ``required`` must launch in it, and every launch
+    of a kernel in ``sm90_only`` must take its bf16 wgmma route."""
     import math
     import torch
     from repro_torch.core.averaging import average_stacked
@@ -1101,16 +1192,23 @@ def phase_train(card: str, argv=TRAIN_ARGV, cfg=None,
     print(f"[{tag}] python -m repro_torch.launch.train {' '.join(argv)}{cut}",
           flush=True)
     # --- the main path, with every launch count read around it ---
-    for fn in _launch_counts().values():
-        fn.launches = 0
+    _reset_launches()
     res = train.main(argv, cfg=cfg)
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in _launch_counts().items()}
+    on_sm90 = {name: fn.launches_sm90 for name, fn in _launch_counts().items()
+               if name in sm90_only}
     # -------------------------------------------------------------
     print(f"[{tag}] launches on the training path: {launches}")
     for name in required:
         check(launches[name] > 0,
               f"{name} was not launched on the {tag} path")
+    if sm90_only:
+        print(f"[{tag}] of them on the bf16 wgmma route: {on_sm90}")
+    for name, n in on_sm90.items():
+        check(n == launches[name],
+              f"only {n} of {launches[name]} {name} launches on the {tag} "
+              f"path took the bf16 wgmma route")
     values = ([e[k] for e in res["phase1_log"] for k in ("loss", "accuracy")]
               + res["worker_test_accs"]
               + [res[k] for k in ("phase1_test_acc", "before_avg_test_acc",
@@ -1249,17 +1347,21 @@ def main() -> None:
     cut = dataclasses.replace(registry.get_config(MAMBA),
                               n_layers=MAMBA_TRAIN_LAYERS)
     ssd_train = phase_train(card, ["--arch", MAMBA] + TRAIN_ARGV, cut,
-                            MAMBA_TRAIN_KERNELS, tag="mamba-train")
+                            MAMBA_TRAIN_KERNELS, tag="mamba-train",
+                            sm90_only=("ssd_fwd", "ssd_bwd"))
     phase_exact(MAMBA)
     phase_exact_train(MAMBA, "ssd_impl")
     # launches: the dense kernels' on the dense training path; the SSD
-    # forward's on the mamba serving path (the shape its time is taken
-    # at), the SSD backward's on the mamba training path
+    # forward's on the mamba serving path (the shape of its row) and on the
+    # mamba training path (its train_shape), the SSD backward's on the
+    # mamba training path
     launches.update(ssd_fwd=ssd_serve, ssd_bwd=ssd_train["ssd_bwd"])
     print(f"[mamba-train] ssd_fwd launched {ssd_train['ssd_fwd']} times on "
           f"the training path too")
     for row in rows:
         row["launches"] = launches[row["name"]]
+        if row["name"] == "ssd_fwd":
+            row["train_shape"]["launches"] = ssd_train["ssd_fwd"]
     import torch
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -54,6 +54,12 @@
 // be any length from 1 to 256. Transposed tiles have a pitch of 65 floats,
 // so stores and reads are free of bank conflicts. f32 FMA on the CUDA cores;
 // 184 KB of shared memory a CTA.
+//
+// Routes. This file holds the C entry ssd_bwd of the library, which is
+// built from it and ssd_bwd_sm90.cu: bf16 x, B, C with P = 64 and N in
+// {64, 128} take the wgmma/TMA kernel there, which writes dB and dC once
+// per head block (kernel.sm90_route is the same rule); f32 inputs and other
+// widths take the kernel here, which writes them per head.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -383,21 +389,38 @@ cudaError_t launch(const void* x, const float* dt, const float* A,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, Bm and Cm). strides: the nine
-// (batch, step, head-or-group) element strides of x, Bm and Cm. dy, dx:
-// (B,S,H,P); dstates: (B,nc,H,P,N); dcum, ddt: (B,S,H); db, dc: (B,S,H,N)
-// per head; da: (B,H,nc); all f32 and contiguous. Returns a cudaError_t.
+cudaError_t ssd_bwd_sm90(const void* x, const float* dt, const float* A,
+                         const void* Bm, const void* Cm, const float* dy,
+                         const float* dstates, const float* dcum, float* dx,
+                         float* ddt, float* db, float* dc, float* da,
+                         float* scratch, int batch, int S, int H, int P, int G,
+                         int N, int L, int hb, const long long* st,
+                         cudaStream_t stream);
+
+// dtype: 0 = float32, 1 = bfloat16 (x, Bm and Cm). head_block: heads of a
+// group a CTA of the bf16 route takes. fma: 1 runs the f32 FMA kernel
+// whatever the inputs, 0 the route of the rule. strides: the nine (batch,
+// step, head-or-group) element strides of x, Bm and Cm. dy, dx: (B,S,H,P);
+// dstates: (B,nc,H,P,N); dcum, ddt: (B,S,H); da: (B,H,nc); db, dc:
+// (B,S,H,N) per head on the f32 route, (parts,B,S,G,N) per head block on
+// the bf16 route; scratch: the bf16 route's caches for L > 64; all f32 and
+// contiguous. Returns a cudaError_t.
 extern "C" int ssd_bwd(const void* x, const float* dt, const float* A,
                        const void* Bm, const void* Cm, const float* dy,
                        const float* dstates, const float* dcum, float* dx,
-                       float* ddt, float* db, float* dc, float* da, int batch,
-                       int S, int H, int P, int G, int N, int L, int dtype,
+                       float* ddt, float* db, float* dc, float* da,
+                       float* scratch, int batch, int S, int H, int P, int G,
+                       int N, int L, int dtype, int head_block, int fma,
                        const long long* strides, void* stream) {
   if (L < 1 || L > kMaxL || S % L || P < 1 || P > kMaxP || N < 1 ||
       N > kMaxN || G < 1 || H % G || batch > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
   if (batch == 0 || S == 0 || H == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!fma && dtype == 1 && P == 64 && (N == 64 || N == 128))
+    return (int)ssd_bwd_sm90(x, dt, A, Bm, Cm, dy, dstates, dcum, dx, ddt, db,
+                             dc, da, scratch, batch, S, H, P, G, N, L,
+                             head_block, strides, st);
   if (dtype == 0)
     return launch<float>(x, dt, A, Bm, Cm, dy, dstates, dcum, dx, ddt, db,
                          dc, da, batch, S, H, P, G, N, L, strides, st);

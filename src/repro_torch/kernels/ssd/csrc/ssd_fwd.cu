@@ -39,8 +39,13 @@
 // transposing stores and the reads are free of bank conflicts. The state
 // takes a second loop over key tiles, each thread owning a 4 x 8 block of
 // the (P, N) state. L may be any length from 1 to 256; ragged tiles are
-// zero-filled. f32 FMA on the CUDA cores (no tensor cores yet); built without
-// fast math, so exp is the accurate expf.
+// zero-filled. f32 FMA on the CUDA cores; built without fast math, so exp
+// is the accurate expf.
+//
+// Routes. This file holds the C entry ssd_fwd of the library, which is
+// built from it and ssd_fwd_sm90.cu: bf16 x, B, C with P = 64 and N in
+// {64, 128} take the wgmma/TMA kernel there (kernel.sm90_route is the same
+// rule); f32 inputs and other widths take the kernel here.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -242,19 +247,31 @@ cudaError_t launch(const void* x, const float* dt, const float* A,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, Bm and Cm). strides: the nine
-// (batch, step, head-or-group) element strides of x, Bm and Cm, in that
-// order. Returns a cudaError_t.
+cudaError_t ssd_fwd_sm90(const void* x, const float* dt, const float* A,
+                         const void* Bm, const void* Cm, float* y,
+                         float* states, float* cum, int batch, int S, int H,
+                         int P, int G, int N, int L, int hb,
+                         const long long* st, cudaStream_t stream);
+
+// dtype: 0 = float32, 1 = bfloat16 (x, Bm and Cm). head_block: heads of a
+// group a CTA of the bf16 route takes (ignored by the f32 route). fma: 1
+// runs the f32 FMA kernel whatever the inputs (the card check times the
+// kernel the bf16 route replaces), 0 the route of the rule. strides:
+// the nine (batch, step, head-or-group) element strides of x, Bm and Cm, in
+// that order. Returns a cudaError_t.
 extern "C" int ssd_fwd(const void* x, const float* dt, const float* A,
                        const void* Bm, const void* Cm, float* y,
                        float* states, float* cum, int batch, int S, int H,
-                       int P, int G, int N, int L, int dtype,
-                       const long long* strides, void* stream) {
+                       int P, int G, int N, int L, int dtype, int head_block,
+                       int fma, const long long* strides, void* stream) {
   if (L < 1 || L > kMaxL || S % L || P < 1 || P > kMaxP || N < 1 ||
       N > kMaxN || G < 1 || H % G || batch > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
   if (batch == 0 || S == 0 || H == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!fma && dtype == 1 && P == 64 && (N == 64 || N == 128))
+    return (int)ssd_fwd_sm90(x, dt, A, Bm, Cm, y, states, cum, batch, S, H, P,
+                             G, N, L, head_block, strides, st);
   if (dtype == 0)
     return launch<float>(x, dt, A, Bm, Cm, y, states, cum, batch, S, H, P, G,
                          N, L, strides, st);

@@ -21,6 +21,15 @@ reference on the CPU (``repro_torch.kernels.dispatch``).
 ``_intra_chunk_bwd`` is the plain twin of the backward kernel, written op
 for op as the TPU kernel body (``repro/kernels/ssd/kernel.py:61``); the card
 check holds the backward kernel against it.
+
+``rounded=True`` (bf16 inputs only; a no-op on f32) takes both twins at the
+rounding points of the bf16 tensor-core kernels (``csrc/ssd_fwd_sm90.cu``,
+``csrc/ssd_bwd_sm90.cu``): every f32 operand of a product enters it as a
+hi + lo pair of bf16 values (``_split``), two products where the partner
+is exact bf16 (x, B, C) and three (hi.hi + hi.lo + lo.hi) where both are
+f32, with dt and the state weight w folded into G or x first; the
+backward sums dG o seg and the state term over a block of heads before
+dB and dC (``head_block``), as one kernel CTA does.
 """
 from __future__ import annotations
 
@@ -32,9 +41,23 @@ from repro_torch.kernels.ssd import kernel as _kernel
 from repro_torch.kernels.ssd import ref as _ref
 
 
-def _intra_chunk(x, dt, A, Bm, Cm, chunk):
+def _split(t):
+    """f32 t as the nearest sum of two bf16 values: (hi, lo) in f32."""
+    hi = t.to(torch.bfloat16).float()
+    return hi, (t - hi).to(torch.bfloat16).float()
+
+
+def _mm2(a, b):
+    """a @ b with both f32 factors split: hi.hi + hi.lo + lo.hi."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    return ah @ bh + ah @ bl + al @ bh
+
+
+def _intra_chunk(x, dt, A, Bm, Cm, chunk, *, rounded=False):
     """Plain twin of the intra-chunk kernel (``_intra_chunk_jnp``).
-    Returns (y_intra (B,S,H,P), states (B,nc,H,P,N), cum (B,S,H)), f32."""
+    Returns (y_intra (B,S,H,P), states (B,nc,H,P,N), cum (B,S,H)), f32.
+    ``rounded``: at the bf16 kernel's rounding points (module doc)."""
+    rounded = rounded and x.dtype == torch.bfloat16
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     rep = H // G
@@ -55,10 +78,21 @@ def _intra_chunk(x, dt, A, Bm, Cm, chunk):
 
     scores = torch.einsum("bclgn,bcmgn->bclmg", cf, bf)      # (B,nc,L,L,G)
     scores = scores.repeat_interleave(rep, dim=-1)           # (B,nc,L,L,H)
+    w = torch.exp(cum[:, :, -1:, :] - cum) * dtf             # (B,nc,L,H)
+    if rounded:
+        # G = (s o seg) o dt_j and x o w, each split; x and B exact
+        g_hi, g_lo = _split(scores * seg * dtf[:, :, None])
+        y_intra = (torch.einsum("bclmh,bcmhp->bclhp", g_hi, xf)
+                   + torch.einsum("bclmh,bcmhp->bclhp", g_lo, xf))
+        xw_hi, xw_lo = _split(xf * w[..., None])
+        br = bf.repeat_interleave(rep, dim=3)
+        states = (torch.einsum("bclhp,bclhn->bchpn", xw_hi, br)
+                  + torch.einsum("bclhp,bclhn->bchpn", xw_lo, br))
+        return (y_intra.reshape(Bsz, S, H, P), states,
+                cum.reshape(Bsz, S, H))
     dx = dtf[..., None] * xf                                 # (B,nc,L,H,P)
     y_intra = torch.einsum("bclmh,bcmhp->bclhp", scores * seg, dx)
 
-    w = torch.exp(cum[:, :, -1:, :] - cum) * dtf             # (B,nc,L,H)
     bw = bf.repeat_interleave(rep, dim=3) * w[..., None]     # (B,nc,L,H,N)
     states = torch.einsum("bclhp,bclhn->bchpn", xf, bw)      # (B,nc,H,P,N)
     return y_intra.reshape(Bsz, S, H, P), states, cum.reshape(Bsz, S, H)
@@ -69,18 +103,29 @@ def _per_head(t, Bsz, nc, L, H):
     return t.reshape((Bsz, nc, L, H) + t.shape[3:]).transpose(2, 3)
 
 
-def _intra_chunk_bwd(x, dt, A, Bm, Cm, dy, dstates, dcum, chunk):
+def _intra_chunk_bwd(x, dt, A, Bm, Cm, dy, dstates, dcum, chunk, *,
+                     rounded=False, head_block=None):
     """Plain twin of the intra-chunk backward kernel: the TPU body
     (``_ssd_chunk_bwd_kernel``) op for op, over all (batch, chunk, head)
     tiles at once. Cotangents: dy (B,S,H,P) of y_intra, dstates
     (B,nc,H,P,N) of the chunk-local states, dcum (B,S,H) of cum. Returns
     (dx, ddt, dA, dBm, dCm) in f32, the grouped B/C gradients summed over
-    the heads of each group and dA over (batch, chunk)."""
+    the heads of each group and dA over (batch, chunk).
+
+    ``head_block``: dB and dC are taken once per block of that many heads
+    of a group, on dG o seg (and the state term) summed over the block, and
+    the blocks' partials are then summed, as the bf16 kernel and its
+    wrapper take them; None sums per-head products. ``rounded``: at the
+    bf16 kernel's rounding points (module doc), with its head block unless
+    one is given."""
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     rep = H // G
     L = chunk
     nc = S // L
+    rounded = rounded and x.dtype == torch.bfloat16
+    if rounded and head_block is None:
+        head_block = _kernel.head_block(rep, chunk, bwd=True)
     xf = _per_head(x.float(), Bsz, nc, L, H)                 # (B,nc,H,L,P)
     dtf = _per_head(dt.float(), Bsz, nc, L, H)               # (B,nc,H,L)
     bm = _per_head(Bm.float().repeat_interleave(rep, dim=2), Bsz, nc, L, H)
@@ -99,21 +144,31 @@ def _intra_chunk_bwd(x, dt, A, Bm, Cm, dy, dstates, dcum, chunk):
     dx_in = dtf[..., None] * xf                              # (L,P)
 
     # --- y_intra = G @ dx_in ---
-    dG = dyf @ dx_in.transpose(-1, -2)                       # (L,L)
-    d_dx = Gm.transpose(-1, -2) @ dyf                        # (L,P)
+    if rounded:
+        # dG = (dy x^T) o dt_j with dy split; d_dx = G^T dy, both split
+        dy_hi, dy_lo = _split(dyf)
+        xt = xf.transpose(-1, -2)
+        dG = (dy_hi @ xt + dy_lo @ xt) * dtf[..., None, :]
+        d_dx = _mm2(Gm.transpose(-1, -2), dyf)
+    else:
+        dG = dyf @ dx_in.transpose(-1, -2)                   # (L,L)
+        d_dx = Gm.transpose(-1, -2) @ dyf                    # (L,P)
     dGseg = dG * seg                                         # masked
-    dc = dGseg @ bm                                          # (L,N)
-    db = dGseg.transpose(-1, -2) @ cm                        # (L,N)
     E = dG * Gm
     dcum_t = dcum_t + E.sum(-1) - E.sum(-2)
 
     # --- state = Σ_j w_j x_j ⊗ B_j, w_j = exp(cum_L - cum_j)·dt_j ---
     wexp = torch.exp(cum[..., -1:] - cum)                    # (L,)
     w = wexp * dtf
-    dS_b = bm @ dS.transpose(-1, -2)                         # (L,P)
+    if rounded:
+        ds_hi, ds_lo = _split(dS)
+        dS_b = bm @ ds_hi.transpose(-1, -2) + bm @ ds_lo.transpose(-1, -2)
+        wxds = _mm2(xf * w[..., None], dS)                   # (L,N)
+    else:
+        dS_b = bm @ dS.transpose(-1, -2)                     # (L,P)
+        wxds = w[..., None] * (xf @ dS)                      # (L,N)
     dw = (xf * dS_b).sum(-1)                                 # (L,)
     dx = w[..., None] * dS_b
-    db = db + w[..., None] * (xf @ dS)                       # (L,N)
     dcum_t = dcum_t - dw * w
     last = torch.zeros_like(dcum_t)
     last[..., -1] = (dw * w).sum(-1)
@@ -132,9 +187,36 @@ def _intra_chunk_bwd(x, dt, A, Bm, Cm, dy, dstates, dcum, chunk):
     def unflat(t):
         return t.transpose(2, 3).reshape((Bsz, S, H) + t.shape[4:])
 
-    db = unflat(db).reshape(Bsz, S, G, rep, N).sum(3)
-    dc = unflat(dc).reshape(Bsz, S, G, rep, N).sum(3)
-    return unflat(dx), unflat(ddt), da.sum((0, 1)), db, dc
+    def per_group(t):          # (B,nc,H,L,N) summed over each group's heads
+        return unflat(t).reshape(Bsz, S, G, rep, N).sum(3)
+
+    if head_block is None:
+        db = per_group(dGseg.transpose(-1, -2) @ cm + wxds)
+        dc = per_group(dGseg @ bm)
+        return unflat(dx), unflat(ddt), da.sum((0, 1)), db, dc
+    # per block of heads of a group: M = Σ dG o seg, then dC = M B and
+    # dB = M^T C + Σ (state term); the blocks' partials summed in order
+    parts_b, parts_c = [], []
+    for h0 in range(0, rep, head_block):
+        db_p = torch.zeros((Bsz, nc, G, L, N), device=x.device)
+        dc_p = torch.zeros_like(db_p)
+        for g in range(G):
+            hs = slice(g * rep + h0, g * rep + min(h0 + head_block, rep))
+            M = dGseg[:, :, hs].sum(2)                       # (B,nc,L,L)
+            sx = wxds[:, :, hs].sum(2)                       # (B,nc,L,N)
+            bg, cg = bm[:, :, g * rep], cm[:, :, g * rep]    # (B,nc,L,N)
+            if rounded:
+                m_hi, m_lo = _split(M)
+                db_p[:, :, g] = (sx + m_hi.transpose(-1, -2) @ cg
+                                 + m_lo.transpose(-1, -2) @ cg)
+                dc_p[:, :, g] = m_hi @ bg + m_lo @ bg
+            else:
+                db_p[:, :, g] = sx + M.transpose(-1, -2) @ cg
+                dc_p[:, :, g] = M @ bg
+        parts_b.append(db_p.transpose(2, 3).reshape(Bsz, S, G, N))
+        parts_c.append(dc_p.transpose(2, 3).reshape(Bsz, S, G, N))
+    return (unflat(dx), unflat(ddt), da.sum((0, 1)),
+            torch.stack(parts_b).sum(0), torch.stack(parts_c).sum(0))
 
 
 def _inter_chunk(y_intra, states, cum, x, dt, A, Cm, D, chunk, init_state):

@@ -55,8 +55,8 @@ CATEGORIES = (("flash_attention_fwd", ("fa_fwd_kernel",
               ("flash_attention_bwd_dkv", ("fa_bwd_dkv_kernel",
                                            "fa_bwd_dkv_sm90_kernel")),
               ("swa_avg", ("avg_kernel",)),
-              ("ssd_fwd", ("ssd_fwd_kernel",)),
-              ("ssd_bwd", ("ssd_bwd_kernel",)),
+              ("ssd_fwd", ("ssd_fwd_kernel", "ssd_fwd_sm90_kernel")),
+              ("ssd_bwd", ("ssd_bwd_kernel", "ssd_bwd_sm90_kernel")),
               ("matmul", ("gemm", "sm90_xmma", "cutlass", "nvjet",
                           "ampere_", "sm80_")))
 

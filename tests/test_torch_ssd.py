@@ -300,6 +300,229 @@ def test_kernel_path_refuses_the_cpu_and_design_pins():
         tops.ssd_scan(tx, tdt, tA, tB, tC, tD, impl="pallas")
 
 
+# the bf16 route's widths (mamba2-2.7b P 64 / N 128, the zamba2-7b mamba
+# blocks' N 64) at the engine's and training's chunk lengths and the full
+# chunk, with 2 heads a group: (B, S, H, P, G, N), chunk
+ROUTE_CASES = [((1, L * nc, 4, 64, 2, N), L)
+               for N in (128, 64) for L, nc in ((37, 2), (64, 1), (256, 1))]
+
+
+def _scaled(got, want):
+    """max |got - want| / max |want|."""
+    want = np.asarray(want, np.float64)
+    return (np.abs(got.detach().double().numpy() - want).max()
+            / np.abs(want).max())
+
+
+@pytest.mark.parametrize("shape,chunk", [(s, 32) for s in SHAPES]
+                         + ROUTE_CASES)
+def test_rounded_matches_pallas_pair(shape, chunk):
+    """The plain versions at the bf16 kernels' rounding points, on bf16
+    inputs, against the Mosaic forward and backward kernels in interpret
+    mode: within the JAX SSD tests' 1e-4 of max |ref|."""
+    B, S, H, P, G, N = shape
+    arrays = _padded(shape, chunk, seed=21)
+    Sp = arrays[0].shape[1]
+    cots = _cotangents(B, Sp, H, P, N, chunk, seed=22)
+    (jx, jdt, jA, jB, jC, _), (tx, tdt, tA, tB, tC, _) = _both(arrays,
+                                                               "bfloat16")
+    got = tops._intra_chunk(tx, tdt, tA, tB, tC, chunk, rounded=True)
+    want = ssd_chunk_pallas(jx, jdt, jA, jB, jC, chunk=chunk, interpret=True)
+    got_b = tops._intra_chunk_bwd(tx, tdt, tA, tB, tC,
+                                  *map(torch.from_numpy, cots), chunk,
+                                  rounded=True)
+    want_b = ssd_chunk_pallas_bwd(jx, jdt, jA, jB, jC,
+                                  *map(jnp.asarray, cots), chunk=chunk,
+                                  interpret=True)
+    for name, g, w in zip(("y", "states", "cum", "dx", "ddt", "dA", "dB",
+                           "dC"), got + got_b, want + want_b):
+        assert g.dtype == torch.float32 and tuple(g.shape) == w.shape, name
+        assert _scaled(g, w) <= TOL, (name, _scaled(g, w))
+
+
+@pytest.mark.parametrize("shape,chunk", [(SHAPES[1], 32), ROUTE_CASES[0]])
+def test_rounded_equals_default_in_f32(shape, chunk):
+    """The rounding points are the bf16 route's: on f32 inputs (the f32
+    route) ``rounded=True`` is the default, bit for bit."""
+    B, S, H, P, G, N = shape
+    arrays = _padded(shape, chunk, seed=23)
+    cots = [torch.from_numpy(c) for c in
+            _cotangents(B, arrays[0].shape[1], H, P, N, chunk, seed=24)]
+    _, (tx, tdt, tA, tB, tC, _) = _both(arrays)
+    for r, d in zip(
+            tops._intra_chunk(tx, tdt, tA, tB, tC, chunk, rounded=True)
+            + tops._intra_chunk_bwd(tx, tdt, tA, tB, tC, *cots, chunk,
+                                    rounded=True),
+            tops._intra_chunk(tx, tdt, tA, tB, tC, chunk)
+            + tops._intra_chunk_bwd(tx, tdt, tA, tB, tC, *cots, chunk)):
+        assert torch.equal(r, d)
+
+
+@pytest.mark.parametrize("head_block", [1, 2, 3, 5])
+def test_head_block_partials_equal_per_head_sum(head_block):
+    """dB and dC taken once per block of heads (on dG o seg and the state
+    term summed over the block) and the blocks' partials then summed, as
+    the bf16 kernel and its wrapper take them, equal the per-head sum
+    within 1e-6 of max |ref|; the other outputs do not depend on it."""
+    shape, chunk = (2, 96, 10, 16, 2, 8), 32
+    B, S, H, P, G, N = shape
+    arrays = _padded(shape, chunk, seed=25)
+    cots = [torch.from_numpy(c) for c in
+            _cotangents(B, S, H, P, N, chunk, seed=26)]
+    _, (tx, tdt, tA, tB, tC, _) = _both(arrays)
+    got = tops._intra_chunk_bwd(tx, tdt, tA, tB, tC, *cots, chunk,
+                                head_block=head_block)
+    want = tops._intra_chunk_bwd(tx, tdt, tA, tB, tC, *cots, chunk)
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g, w)
+    for g, w in zip(got[3:], want[3:]):
+        assert _scaled(g, w.numpy()) <= 1e-6
+
+
+def test_rounded_backward_follows_the_kernel_head_block():
+    """``rounded=True`` takes dB and dC per the kernels' head block unless
+    told otherwise: the split of M happens once per block."""
+    shape, chunk = ROUTE_CASES[1]
+    B, S, H, P, G, N = shape
+    arrays = _padded(shape, chunk, seed=27)
+    cots = [torch.from_numpy(c) for c in
+            _cotangents(B, S, H, P, N, chunk, seed=28)]
+    _, (tx, tdt, tA, tB, tC, _) = _both(arrays, "bfloat16")
+    hb = tkernel.head_block(H // G, chunk, bwd=True)
+    got = tops._intra_chunk_bwd(tx, tdt, tA, tB, tC, *cots, chunk,
+                                rounded=True)
+    want = tops._intra_chunk_bwd(tx, tdt, tA, tB, tC, *cots, chunk,
+                                 rounded=True, head_block=hb)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype,P,N,route", [
+    ("bfloat16", 64, 128, True), ("bfloat16", 64, 64, True),
+    ("float32", 64, 128, False), ("bfloat16", 32, 16, False),
+    ("bfloat16", 64, 16, False), ("bfloat16", 48, 128, False)])
+def test_route_rule(dtype, P, N, route):
+    """bf16 x, B, C with P 64 and N 64 or 128 take the wgmma route; f32 and
+    the smoke widths stay on the FMA kernels."""
+    x = torch.zeros(1, 4, 2, P, dtype=getattr(torch, dtype))
+    Bm = torch.zeros(1, 4, 1, N, dtype=getattr(torch, dtype))
+    assert tkernel.sm90_route(x, Bm) is route
+
+
+def test_head_block_rule():
+    """8 heads a forward CTA; 16 / ceil(L / 64) a backward CTA, so that its
+    per-head sums of L floats fit; never more than the group."""
+    assert tkernel.head_block(80, 256, bwd=False) == 8
+    assert tkernel.head_block(80, 64, bwd=True) == 16
+    assert [tkernel.head_block(80, L, bwd=True)
+            for L in (1, 37, 65, 128, 129, 200, 256)] == [16, 16, 8, 8, 5, 4,
+                                                           4]
+    assert tkernel.head_block(2, 64, bwd=True) == 2
+    assert tkernel.head_block(3, 37, bwd=False) == 3
+
+
+def _route_inputs(S=64, H=4, G=1, N=128):
+    x = torch.zeros(1, S, H, 64, dtype=torch.bfloat16)
+    Bm = torch.zeros(1, S, G, N, dtype=torch.bfloat16)
+    return x, torch.ones(1, S, H), -torch.ones(H), Bm, Bm.clone()
+
+
+def test_route_refuses_views_tma_cannot_read():
+    """The bf16 route reads x, B and C by TMA: a view whose start or
+    strides are not a multiple of 16 bytes is refused before the device is
+    asked for; the model's views of its conv output pass."""
+    x, dt, A, Bm, Cm = _route_inputs()
+    conv = torch.zeros(1, 64, 4 * 64 + 2 * 128 + 8, dtype=torch.bfloat16)
+    xv = conv[..., :256].reshape(1, 64, 4, 64)
+    bv = conv[..., 256:384].reshape(1, 64, 1, 128)
+    cv = conv[..., 384:512].reshape(1, 64, 1, 128)
+    tkernel._check_tma(xv, bv, cv)               # 16-byte strides: fine
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tkernel.ssd_fwd(xv, dt, A, bv, cv, chunk=64)
+    odd = torch.zeros(1, 64, 4 * 64 + 2 * 128 + 4, dtype=torch.bfloat16)
+    xo = odd[..., :256].reshape(1, 64, 4, 64)    # step stride 520 bytes
+    bo = odd[..., 258:386].reshape(1, 64, 1, 128)    # starts 516 bytes in
+    for args in ((xo, dt, A, Bm, Cm), (x, dt, A, bo, Cm), (x, dt, A, Bm, bo)):
+        with pytest.raises(ValueError, match="TMA"):
+            tkernel.ssd_fwd(*args, chunk=64)
+        with pytest.raises(ValueError, match="TMA"):
+            tkernel.ssd_bwd(*args, torch.zeros(1, 64, 4, 64),
+                            torch.zeros(1, 1, 4, 64, 128),
+                            torch.zeros(1, 64, 4), chunk=64)
+
+
+@pytest.mark.parametrize("bad", ["chunk", "P", "N", "dtype", "dt"])
+def test_wrappers_refuse_what_the_kernels_cannot_take(bad):
+    """Refused on the host, with the reason, before the device is asked
+    for: a chunk past 256 or not dividing S, widths past the kernels',
+    mixed dtypes, a non-f32 dt."""
+    x, dt, A, Bm, Cm = _route_inputs(S=512)
+    chunk = 64
+    if bad == "chunk":
+        chunk = 512
+    elif bad == "P":
+        x = torch.zeros(1, 512, 4, 128, dtype=torch.bfloat16)
+    elif bad == "N":
+        Bm = Cm = torch.zeros(1, 512, 1, 256, dtype=torch.bfloat16)
+    elif bad == "dtype":
+        Bm = Bm.float()
+    else:
+        dt = dt.bfloat16()
+    with pytest.raises((ValueError, TypeError)):
+        tkernel.ssd_fwd(x, dt, A, Bm, Cm, chunk=chunk)
+
+
+def test_entry_arguments_strides_and_route_flag():
+    """The C entries get the nine (batch, step, head-or-group) strides of
+    the views as they lie, with a size-1 dim given its dense stride (its
+    index is always 0, and TMA wants a stride of a multiple of 16 bytes),
+    and an explicit flag that forces the FMA kernel."""
+    conv = torch.zeros(2, 64, 4 * 64 + 2 * 128, dtype=torch.bfloat16)
+    x = conv[..., :256].reshape(2, 64, 4, 64)
+    Bm = conv[..., 256:384].as_strided((2, 64, 1, 128), (64 * 512, 512, 7, 1),
+                                       storage_offset=256)
+    Cm = conv[..., 384:].reshape(2, 64, 1, 128)
+    assert list(tkernel._strides(x, Bm, Cm)) == [
+        64 * 512, 512, 64, 64 * 512, 512, 128, 64 * 512, 512, 128]
+    assert tkernel._dims(x, Bm, 64, 8, False) == [2, 64, 4, 64, 1, 128, 64,
+                                                  1, 8, 0]
+    assert tkernel._dims(x.float(), Bm, 64, 0, True)[-3:] == [0, 0, 1]
+
+
+def test_libraries_build_from_both_sources_and_the_headers(monkeypatch):
+    """Each library is one nvcc of its f32 source (with the C entry) and
+    its bf16 wgmma/TMA source, hashed with the Hopper headers they
+    include; the bf16 sources issue wgmma and TMA copies and name the TPU
+    kernel they replace."""
+    calls = {}
+
+    def fake(name, sources, headers=()):
+        calls[name] = ([p.name for p in sources], [p.name for p in headers])
+        raise RuntimeError("no nvcc here")
+
+    monkeypatch.setattr(_build, "build_library", fake)
+    tkernel._library.cache_clear()
+    try:
+        for name in ("ssd_fwd", "ssd_bwd"):
+            with pytest.raises(RuntimeError, match="no nvcc"):
+                tkernel._library(name)
+    finally:
+        tkernel._library.cache_clear()
+    assert calls == {
+        name: ([f"{name}.cu", f"{name}_sm90.cu"], ["sm90.cuh", "ssd_sm90.cuh"])
+        for name in ("ssd_fwd", "ssd_bwd")}
+    for name, line in (("ssd_fwd", 29), ("ssd_bwd", 61)):
+        src = (tkernel.CSRC / f"{name}_sm90.cu").read_text()
+        assert f"repro/kernels/ssd/kernel.py:{line}" in src
+        assert '#include "ssd_sm90.cuh"' in src
+        entry = (tkernel.CSRC / f"{name}.cu").read_text()
+        assert f"{name}_sm90(" in entry
+    header = (tkernel.CSRC / "ssd_sm90.cuh").read_text()
+    assert '#include "sm90.cuh"' in header
+    assert "cp.async.bulk.tensor.5d" in header
+    assert all(h.is_file() for h in tkernel.HEADERS)
+
+
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     """No fallback: without nvcc both libraries name it and raise."""
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
