@@ -40,9 +40,24 @@ Phases, each printing its own lines; any failed check exits non-zero:
    serving at full width (64 layers), SWAP training at full width with the
    depth cut to 56 layers (MAMBA_TRAIN_LAYERS: 64 layers do not fit the
    card: 62 ran out of memory in phase 2), every SSD launch of both on the
-   bf16 wgmma route, and the smoke exactness checks.
+   bf16 wgmma route, and the smoke exactness checks;
+8. the paper-faithful CNN+BatchNorm path at the full width of cifar-cnn
+   ``config()``: Table 1 (``repro_torch.experiments.table1_cifar10``,
+   seed 0: small batch, large batch, SWAP before and after averaging) and
+   Table 4's large-batch SWA row from Table 1's large-batch model, one main
+   path counted as above (the SWA row folds its 8 samples on the swa_avg
+   kernel: 25 leaves x 7 folds, bitwise equal to the plain refold); the
+   phase-1/phase-2 step times, a profiler window of each, the
+   augmentation's time, memory peaks; the prng device path on the card
+   against the host path (bits bitwise, normal 4 ulp); with TF32 allowed
+   around the card's calls, the full-width forward against the CPU in f32
+   and the whole-model grads against the CPU in f32 and f64 on the card's
+   branch (its ReLU masks and max choices replayed), each convolution's
+   backward on its own inputs against f64; and a smoke-width SWAP with the
+   elastic phase 3, bitwise equal to its plain refold.
 
-The line before the last is one JSON object with each kernel's numbers; the
+The line before the last is one JSON object with each kernel's numbers
+(the swa_avg row's ``cnn_launches``: its launches on the CNN path); the
 last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -123,6 +138,11 @@ SSD_TRAIN_SHAPE = (256, 64, 80, 64, 1, 128, 64)
 # allocated and 15.08 GiB reserved but free in pieces. 56 is the deepest
 # that ran.
 MAMBA_TRAIN_LAYERS = 56
+# the CNN's f32 forward (against the CPU's), its whole-model grads on one
+# branch and its convolutions' backward (against f32 and f64), max |err| /
+# max |ref| per output: f32 sums in other orders (~1e-6 to ~3e-5); TF32
+# convolutions would put them ~1e-3 apart
+CNN_FWD_TOL, CNN_GRAD_TOL = 1e-5, 1e-4
 
 
 def fail(msg: str) -> None:
@@ -601,7 +621,23 @@ def phase_swa_avg():
                       f"swa_avg {dtype} n={n} size={size}: not bitwise "
                       f"equal to the plain version")
                 n_cases += 1
-    print(f"[swa_avg] {n_cases} cases bitwise equal to the plain version")
+    # the cifar-cnn config() tree: 25 f32 leaves, 64 to 589,824 elements
+    from repro_torch.models import cnn
+    cnn_cfg = registry.get_config("cifar-cnn")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    trees = [cnn.init_cnn(g, cnn_cfg)[0] for _ in range(2)]
+    for n in (0, 1, 7):
+        for avg, w in zip(_leaves(trees[0]), _leaves(trees[1])):
+            got = kernel.running_average(avg, w, n)
+            torch.cuda.synchronize()
+            want = ref.running_average_ref(avg, w, n)
+            check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                  f"swa_avg cifar-cnn leaf {tuple(avg.shape)} n={n}: not "
+                  f"bitwise equal to the plain version")
+            n_cases += 1
+    print(f"[swa_avg] {n_cases} cases bitwise equal to the plain version "
+          f"(the cifar-cnn tree's {len(list(_leaves(trees[0])))} leaves "
+          f"among them)")
 
     # times on the full-width internlm2-1.8b parameter tree (f32)
     model = Model(registry.get_config("internlm2-1.8b"))
@@ -1325,6 +1361,366 @@ def phase_exact_train(arch="internlm2-1.8b", field="attention_impl"):
     check(acc <= 2e-3, f"smoke SWAP averaged accuracy differs: {acc:.3e}")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the CNN+BatchNorm path at full width
+# ---------------------------------------------------------------------------
+
+
+def _finite(values) -> bool:
+    import math
+    return all(math.isfinite(v) for v in values)
+
+
+def _bitwise(a_tree, b_tree) -> bool:
+    import torch
+    return all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(_leaves(a_tree), _leaves(b_tree)))
+
+
+def _cnn_table1_and_swa(card, cfg):
+    """The CNN main path: Table 1 (seed 0) at full width, then Table 4's
+    large-batch SWA row from its large-batch model. Returns (the swa_avg
+    launches, Table 1's runs)."""
+    import torch
+    from repro_torch.core import swa as swa_mod
+    from repro_torch.core.averaging import StreamingAverage
+    from repro_torch.experiments import table1_cifar10 as t1
+    from repro_torch.experiments import table4_swa_vs_swap as t4
+    from repro_torch.experiments.common import run_swa
+    from repro_torch.optim.api import tree_map
+
+    # --- (a) Table 1, with every launch count read around it ---
+    runs = []
+    _reset_launches()
+    out = t1.run(seeds=(0,), cfg=cfg, device="cuda", results=runs)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in _launch_counts().items()}
+    # -------------------------------------------------------------
+    print(f"[cnn] launches on the Table 1 path: {launches}")
+    run = runs[0]
+    small, large, swap = run["small"], run["large"], run["swap"]
+    for row, v in out.items():
+        print(f"[cnn] Table 1 {row}: test acc {v['acc'][0]:.4f}, time "
+              f"{v['time'][0]:.3f} s, updates {v['updates'][0]}")
+    check(_finite([v["acc"][0] for v in out.values()]
+                  + [e[k] for e in swap["phase1_log"]
+                     for k in ("loss", "accuracy")]
+                  + swap["worker_test_accs"]
+                  + [small["train_ema"], large["train_ema"]]),
+          "CNN Table 1: a non-finite loss or accuracy")
+    init_state = run["task"][0].init(
+        torch.Generator(device="cuda").manual_seed(0))["state"]
+    bn = swap["final_bundle"]["state"]
+    check(all(bool(torch.isfinite(t).all()) for t in _leaves(bn)),
+          "CNN phase 3: non-finite recomputed BN state")
+    check(not any(torch.equal(a, b) for a, b in zip(_leaves(bn),
+                                                     _leaves(init_state))),
+          "CNN phase 3: a recomputed BN leaf equals its init value")
+    st = swap["device"]
+    p1, p2, W = swap["phase1_steps"], swap["phase2_steps"], t1.SWAP_HP[
+        "workers"]
+    b1, b2 = t1.SWAP_HP["b1"], t1.SWAP_HP["b2"]
+    print(f"[cnn] SWAP on {card}: phase 1 {p1} steps of {b1}, "
+          f"{st['phase1_train_s'] / p1 * 1e3:.2f} ms/step "
+          f"({p1 * b1 / st['phase1_train_s']:.0f} images/s); phase 2 {p2} "
+          f"steps of {W} workers x {b2}, "
+          f"{st['phase2_train_s'] / p2 * 1e3:.2f} ms/step "
+          f"({p2 * W * b2 / st['phase2_train_s']:.0f} images/s); phase 3 "
+          f"(average + BN recompute) {swap['phase3_time'] * 1e3:.2f} ms")
+    for name, r, b in (("small-batch", small, t1.SMALL["batch_size"]),
+                       ("large-batch", large, t1.LARGE["batch_size"])):
+        print(f"[cnn] SGD {name}: {r['steps']} steps of {b}, "
+              f"{r['time'] / r['steps'] * 1e3:.2f} ms/step "
+              f"({r['steps'] * b / r['time']:.0f} images/s)")
+    print(f"[cnn] memory peak: phase 1 {st['phase1_peak_gb']:.2f} GB, phase "
+          f"2 {st['phase2_peak_gb']:.2f} GB, phase 3 "
+          f"{st['phase3_peak_gb']:.2f} GB (torch.cuda.max_memory_allocated)",
+          flush=True)
+
+    # --- (b) Table 4's large-batch SWA row, counted the same way; each
+    # sample is kept to refold it on the plain version ---
+    samples = []
+
+    class Recording(StreamingAverage):
+        def add(self, params):
+            samples.append(tree_map(lambda a: a.detach().clone(), params))
+            return super().add(params)
+
+    swa_mod.StreamingAverage = Recording
+    try:
+        _reset_launches()
+        res = run_swa(*run["task"], start_bundle=large["bundle"], seed=0,
+                      **t4.LB_SWA)
+        torch.cuda.synchronize()
+        swa_launches = {name: fn.launches
+                        for name, fn in _launch_counts().items()}
+    finally:
+        swa_mod.StreamingAverage = StreamingAverage
+    # -------------------------------------------------------------
+    n_leaves = len(list(_leaves(large["bundle"]["params"])))
+    folds = t4.LB_SWA["n_samples"] - 1
+    print(f"[cnn] Table 4 large-batch SWA ({t4.LB_SWA['n_samples']} samples "
+          f"x {t4.LB_SWA['cycle_steps']} steps of "
+          f"{t4.LB_SWA['batch_size']}): before avg "
+          f"{res['before_avg_test_acc']:.4f}, after avg "
+          f"{res['after_avg_test_acc']:.4f}, {res['time']:.3f} s; launches "
+          f"{swa_launches}")
+    check(_finite([res["before_avg_test_acc"], res["after_avg_test_acc"]]),
+          "CNN SWA row: non-finite accuracy")
+    check(swa_launches["swa_avg"] == n_leaves * folds,
+          f"swa_avg launched {swa_launches['swa_avg']} times on the SWA row, "
+          f"not {n_leaves} leaves x {folds} folds")
+    check(all(n == 0 for k, n in {**launches, **swa_launches}.items()
+              if k != "swa_avg"), "a kernel outside the CNN path launched")
+    plain = StreamingAverage(impl="reference")
+    for sample in samples:
+        plain.add(sample)
+    check(_bitwise(res["final_bundle"]["params"], plain.value()),
+          "the SWA row's average on the swa_avg kernel is not bitwise the "
+          "plain refold of its samples")
+    print(f"[cnn] SWA row average: {n_leaves} leaves x {folds} folds on the "
+          f"kernel, bitwise equal to the plain refold", flush=True)
+    return launches["swa_avg"] + swa_launches["swa_avg"], runs
+
+
+def _cnn_profile(card, run):
+    """Host-timed steps and a profiler window of phase 1 and phase 2 of
+    Table 1's SWAP at full width (``launch.profile_train``'s measure), and
+    the augmentation's time a step."""
+    import torch
+    from repro_torch.core.swap import SWAP
+    from repro_torch.data import prng
+    from repro_torch.data.augment import augment_images
+    from repro_torch.experiments import table1_cifar10 as t1
+    from repro_torch.experiments.common import swap_config
+    from repro_torch.launch import profile_train as prof
+
+    adapter, train, test = run["task"]
+    swap = SWAP(adapter, swap_config(seed=0, **t1.SWAP_HP), train, test)
+    bundle = adapter.init(torch.Generator(device="cuda").manual_seed(0))
+    report = {}
+    for phase, batch in (("phase1", t1.SWAP_HP["b1"]),
+                         ("phase2", t1.SWAP_HP["b2"])):
+        W = 1 if phase == "phase1" else t1.SWAP_HP["workers"]
+        runner, state = getattr(swap, phase)(bundle)
+        box = [state]
+        workers = 0 if W == 1 else list(range(W))
+
+        def step():
+            box[0], _ = runner.run_chunk(box[0], workers, 1)
+
+        r = report[phase] = prof._measure(step, W * batch)
+        cats = ", ".join(f"{k} {v:.2f}" for k, v in
+                         r["device_ms_per_step_by_category"].items())
+        top = "; ".join(f"{k[:70]} {v:.2f}" for k, v in
+                        list(r["top_kernels_ms_per_step"].items())[:6])
+        print(f"[cnn-profile] {phase} ({W} x {batch} images) on {card}: "
+              f"{r['step_ms_mean']:.2f} ms/step ({r['tokens_per_s']:.0f} "
+              f"images/s), device busy {r['device_busy_ms_per_step']:.2f} "
+              f"ms/step, idle share {r['device_idle_share']:.3f}; device "
+              f"ms/step by category: {cats}; top kernels: {top}")
+        del box, state, runner
+    for batch in (t1.SWAP_HP["b1"], t1.SWAP_HP["b2"]):
+        x = torch.randn(batch, 32, 32, 3, device="cuda")
+        dev_ms = _host_ms(lambda: augment_images(x, 12345), 10)
+        key = prng.PRNGKey(7)
+        host_ms = _host_ms(lambda: prng.normal(key, tuple(x.shape)), 3)
+        print(f"[cnn-profile] augment_images at batch {batch}: "
+              f"{dev_ms:.3f} ms a call (bits hashed on the card; wall time "
+              f"to the end of its device work); the noise alone hashed on "
+              f"the host (numpy): {host_ms:.3f} ms", flush=True)
+    torch.cuda.empty_cache()
+
+
+def _host_ms(fn, iters: int) -> float:
+    """Mean wall ms of fn, each call ended by a synchronize."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def _cnn_prng_on_card(shape):
+    """The augmentation's device path on the card against the host path at
+    ``shape``: the threefry bits and ``uniform`` bitwise; ``normal`` and
+    ``augment_images`` within 4 ulp of their largest value, the cutout's
+    zeros bitwise (the tolerances of the CPU tests)."""
+    import numpy as np
+    import torch
+    from repro_torch.data import prng
+    from repro_torch.data.augment import augment_images
+
+    def ulps(got, want):
+        spacing = np.spacing(want.abs().max().numpy())
+        return ((got.cpu() - want).abs().max().item()) / float(spacing)
+
+    k = prng.fold_in(prng.PRNGKey(7), 9176)
+    bits = np.array_equal(prng._bits32(k, shape, device="cuda").cpu().numpy(),
+                          prng._bits32(k, shape).astype(np.int64))
+    uniform = torch.equal(
+        prng.uniform(k, shape, device="cuda").cpu().view(torch.int32),
+        prng.uniform(k, shape).view(torch.int32))
+    normal = ulps(prng.normal(k, shape, device="cuda"), prng.normal(k, shape))
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(3))
+    got, want = augment_images(x.cuda(), 12345).cpu(), augment_images(x, 12345)
+    zeros = torch.equal(got == 0, want == 0)
+    aug = ulps(got, want)
+    print(f"[cnn] prng device path on the card against the host path at "
+          f"{shape}: bits bitwise {bits}, uniform bitwise {uniform}, normal "
+          f"{normal:.1f} ulp, augment_images {aug:.1f} ulp with its cutout "
+          f"zeros bitwise {zeros} (limit 4 ulp of the largest value)",
+          flush=True)
+    check(bits and uniform and zeros and normal <= 4 and aug <= 4,
+          "the prng device path on the card differs from the host path")
+
+
+def _cnn_card_vs_cpu(cfg, batch=32):
+    """Card against CPU at full width in train mode, with cuDNN's TF32
+    allowed around the card's calls (so that a TF32 leak shows): the
+    forward (logits, new BN state) against the CPU in f32; the whole-model
+    grads against the CPU in f32 and in f64, both run on the card's branch
+    (the card forward's ReLU masks and max choices replayed,
+    ``cnn_conv_accuracy.Branch``); each convolution's backward (dx, dw) on
+    the input and cotangent the card's model gave it, against f64, beside
+    the same backward through plain autograd (which follows the TF32
+    flag) as the control. Without the replay a few ReLU inputs within
+    rounding of 0 or near-tied maxes go the other way between two runs and
+    move the grads far more than rounding: those distances and flips are
+    printed, not held."""
+    import torch
+    from cnn_conv_accuracy import Branch, bwd_cudnn, cnn_grads, rel_err
+    from repro_torch.models import cnn
+    g = torch.Generator(device="cuda").manual_seed(21)
+    params, state = cnn.init_cnn(g, cfg)
+    x = torch.randn(batch, cfg.image_size, cfg.image_size, 3, generator=g,
+                    device="cuda")
+    cot = torch.randn(batch, cfg.n_classes, generator=g, device="cuda")
+    model = (params, state, x, cot, cfg)
+
+    def conv_bwd(xs, w, gy, conv=cnn._conv):
+        xs, w = xs.clone().requires_grad_(), w.clone().requires_grad_()
+        return torch.autograd.grad(conv(xs, w), (xs, w), gy)
+
+    def leaky(xs, w):
+        return torch.nn.functional.conv2d(
+            xs.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+            padding=1).permute(0, 2, 3, 1)
+
+    convs, card_branch = [], Branch("record")
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        card_out, card = cnn_grads(*model, "cuda", branch=card_branch,
+                                   convs=convs)
+        got = [conv_bwd(*c) for c in convs]
+        ctl = [conv_bwd(*c, conv=leaky) for c in convs]
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    cpu_out, cpu = cnn_grads(*model, "cpu")
+    f64_branch = Branch("record")
+    f64 = cnn_grads(*model, "cpu", torch.float64, branch=f64_branch)[1]
+    on_card = {dt: cnn_grads(*model, "cpu", dt, branch=Branch(
+        "replay", card_branch.choices))[1]
+        for dt in (torch.float32, torch.float64)}
+    fwd = max(rel_err(a, b) for a, b in zip(card_out, cpu_out))
+    grad = {dt: max(rel_err(a, b) for a, b in zip(card, ref))
+            for dt, ref in on_card.items()}
+    conv = ctl_err = 0.0
+    for (xs, w, gy), mine, leak in zip(convs, got, ctl):
+        want = bwd_cudnn(xs.cpu().double(), w.cpu().double(),
+                         gy.cpu().double())
+        conv = max([conv] + [rel_err(a, b) for a, b in zip(mine, want)])
+        ctl_err = max([ctl_err] + [rel_err(a, b) for a, b in zip(leak, want)])
+    print(f"[cnn] card against CPU at full width (train mode, batch {batch})"
+          f", cuDNN TF32 allowed around the card's calls, max |err|/max "
+          f"|ref|: forward {fwd:.3e} (limit {CNN_FWD_TOL}); whole-model "
+          f"grads on the card's branch against the CPU in f32 "
+          f"{grad[torch.float32]:.3e}, in f64 {grad[torch.float64]:.3e} "
+          f"(limit {CNN_GRAD_TOL}); each of the {len(convs)} convolutions' "
+          f"backward on the model's own inputs against f64, worst "
+          f"{conv:.3e} (limit {CNN_GRAD_TOL}; through plain autograd, "
+          f"which follows the TF32 flag: {ctl_err:.3e})", flush=True)
+    print(f"[cnn] not held: without the replay, the card's grads against "
+          f"f64 {max(rel_err(a, b) for a, b in zip(card, f64)):.3e}, the "
+          f"CPU's f32 grads against f64 "
+          f"{max(rel_err(a, b) for a, b in zip(cpu, f64)):.3e}; the card's "
+          f"choices that differ from f64's: {card_branch.flips(f64_branch)}",
+          flush=True)
+    check(fwd <= CNN_FWD_TOL and max(grad.values()) <= CNN_GRAD_TOL
+          and conv <= CNN_GRAD_TOL,
+          f"CNN card vs CPU: forward {fwd:.3e}, grads {grad}, conv backward "
+          f"{conv:.3e}")
+
+
+def _cnn_exact_smoke():
+    """Smoke-width SWAP (W 2, elastic phase 3): the average on the kernel
+    against the plain refold of the same phase-2 models, bitwise."""
+    import torch
+    from repro_torch.configs.base import PhaseConfig, ScheduleConfig
+    from repro_torch.configs.base import SWAPConfig
+    from repro_torch.core.averaging import elastic_average_stacked
+    from repro_torch.core.swap import SWAP
+    from repro_torch.dist.config import DistConfig
+    from repro_torch.experiments.common import cnn_task
+
+    adapter, train, test = cnn_task(seed=1, device="cuda")
+    sched = ScheduleConfig(kind="warmup_linear", peak_lr=0.4, warmup_steps=2,
+                           total_steps=8)
+    cfg = SWAPConfig(n_workers=2, seed=1, bn_recompute_batches=4,
+                     phase1=PhaseConfig(batch_size=256, max_steps=8,
+                                        schedule=sched),
+                     phase2=PhaseConfig(batch_size=64, max_steps=6,
+                                        schedule=ScheduleConfig(
+                                            kind="warmup_linear",
+                                            peak_lr=0.05, total_steps=6)))
+    dist = DistConfig(n_workers=2, elastic_deadline_s=30.0)
+    _reset_launches()
+    res = SWAP(adapter, cfg, train, test, dist=dist).run(
+        torch.Generator(device="cuda").manual_seed(5))
+    launches = _launch_counts()["swa_avg"].launches
+    plain, _ = elastic_average_stacked(res["stacked_params"], dist,
+                                       impl="reference")
+    n_leaves = len(list(_leaves(plain)))
+    check(launches == n_leaves, f"smoke CNN SWAP: swa_avg launched "
+                                f"{launches} times for {n_leaves} leaves")
+    check(_bitwise(res["final_bundle"]["params"], plain),
+          "smoke CNN SWAP: the elastic average on the kernel is not bitwise "
+          "the plain fold")
+    check(all(bool(torch.isfinite(t).all())
+              for t in _leaves(res["final_bundle"]["state"])),
+          "smoke CNN SWAP: non-finite recomputed BN state")
+    print(f"[cnn] smoke SWAP (W 2, elastic phase 3): average on the kernel "
+          f"({launches} launches) bitwise equal to the plain fold; test acc "
+          f"before {res['before_avg_test_acc']:.4f}, after "
+          f"{res['after_avg_test_acc']:.4f}", flush=True)
+
+
+def phase_cnn(card: str) -> int:
+    """The CNN+BatchNorm phase; returns swa_avg's launches on its main
+    path."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.experiments import table1_cifar10 as t1
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = registry.get_config("cifar-cnn")
+    print(f"[cnn] {cfg.name}: channels {cfg.cnn_channels}, images "
+          f"{cfg.image_size}x{cfg.image_size}x3, {cfg.n_classes} classes, "
+          f"f32", flush=True)
+    launches, runs = _cnn_table1_and_swa(card, cfg)
+    _cnn_profile(card, runs[0])
+    del runs
+    _cnn_prng_on_card((t1.SWAP_HP["b1"], cfg.image_size, cfg.image_size, 3))
+    _cnn_card_vs_cpu(cfg)
+    _cnn_exact_smoke()
+    torch.cuda.empty_cache()
+    print(f"[cnn] phase time {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def _rebuild(tree, it):
     if isinstance(tree, dict):
         return {k: _rebuild(tree[k], it) for k in sorted(tree)}
@@ -1351,6 +1747,7 @@ def main() -> None:
                             sm90_only=("ssd_fwd", "ssd_bwd"))
     phase_exact(MAMBA)
     phase_exact_train(MAMBA, "ssd_impl")
+    cnn_launches = phase_cnn(card)
     # launches: the dense kernels' on the dense training path; the SSD
     # forward's on the mamba serving path (the shape of its row) and on the
     # mamba training path (its train_shape), the SSD backward's on the
@@ -1362,6 +1759,8 @@ def main() -> None:
         row["launches"] = launches[row["name"]]
         if row["name"] == "ssd_fwd":
             row["train_shape"]["launches"] = ssd_train["ssd_fwd"]
+        if row["name"] == "swa_avg":
+            row["cnn_launches"] = cnn_launches
     import torch
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

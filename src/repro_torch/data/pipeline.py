@@ -6,13 +6,15 @@ through ``repro_torch.data.prng`` (a twin of ``jax.random``):
   * ``make_markov_lm`` -- a finite next-token dataset sampled from a fixed
     random low-entropy Markov chain (train: a finite sample; test: fresh
     draws from the same chain);
+  * ``make_gmm_images`` -- Gaussian-mixture images: ``n_classes`` cluster
+    means in (H, W, 3) image space plus per-sample noise, for the
+    paper-faithful CNN+BN (its augmentation is ``repro_torch.data.augment``);
   * ``Loader`` -- epoch-permuted batches, a pure function of (seed, worker,
     epoch), so each SWAP phase-2 worker walks the whole dataset in its own
     order. The epoch permutations are cached per (worker, epoch).
 
 Arrays stay on the CPU as numpy; ``Loader.batch`` returns tensors on the
-loader's device. The CNN's ``make_gmm_images`` and augmentation come with
-the CNN path.
+loader's device.
 """
 from __future__ import annotations
 
@@ -51,6 +53,27 @@ def make_markov_lm(seed: int, vocab: int = 64, n_train: int = 2048,
         "test_tokens": test[:, :-1], "test_labels": test[:, 1:],
         "transition_logits": logits.numpy(),
     }
+
+
+def make_gmm_images(seed: int, n_classes: int = 10, image_size: int = 16,
+                    n_train: int = 4096, n_test: int = 1024,
+                    noise: float = 1.5) -> Dict[str, np.ndarray]:
+    """Gaussian-mixture image classification. `noise` controls task
+    difficulty (and therefore the size of the generalization gap)."""
+    key = prng.PRNGKey(seed)
+    k_means, k_train, k_test, k_ltr, k_lte = prng.split(key, 5)
+    shape = (image_size, image_size, 3)
+    means = prng.normal(k_means, (n_classes,) + shape)
+
+    def sample(kimg, klab, n):
+        labels = prng.randint(klab, (n,), 0, n_classes)
+        imgs = means[labels.long()] + noise * prng.normal(kimg, (n,) + shape)
+        return imgs.numpy(), labels.numpy()
+
+    tr_x, tr_y = sample(k_train, k_ltr, n_train)
+    te_x, te_y = sample(k_test, k_lte, n_test)
+    return {"train_images": tr_x, "train_labels": tr_y,
+            "test_images": te_x, "test_labels": te_y}
 
 
 class Loader:

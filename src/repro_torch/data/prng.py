@@ -15,8 +15,13 @@ since JAX 0.5):
     logits (mode "low"); ``permutation`` sorts by fresh 32-bit keys for
     ceil(3 ln n / ln(2^32 - 1)) rounds.
 
-The hash runs in numpy ``uint32`` (torch has no full uint32 arithmetic), in
-place, over chunks of the counter that stay in the CPU's cache; keys and
+By default the hash runs on the host in numpy ``uint32`` (torch has no full
+uint32 arithmetic), in place, over chunks of the counter that stay in the
+CPU's cache. ``uniform`` and ``normal`` also take ``device=``: the hash
+then runs in torch int64 ops (each word masked to 32 bits) on that device,
+as ``jax.random`` runs on its accelerator, and gives the same bits as the
+host path; the floats that follow are the same torch ops either way, so on
+the CPU the two paths are bitwise equal. Keys and
 integer results are handed out as int64 tensors holding the uint32 values.
 Integer outputs are bitwise equal to JAX's; ``uniform`` is too; ``normal``
 and ``categorical``'s noise pass through ``log``/``log1p``/``sqrt`` of
@@ -26,6 +31,7 @@ where XLA's is not promised to be stable: the two agree unless two of the
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence, Tuple, Union
 
@@ -65,6 +71,25 @@ def threefry2x32(k1: int, k2: int, x1: np.ndarray, x2: np.ndarray):
     return x1, x2
 
 
+def _threefry2x32_torch(k1: int, k2: int, x1: torch.Tensor,
+                        x2: torch.Tensor):
+    """``threefry2x32`` on int64 tensors holding uint32 values, on their
+    device. Overwrites and returns x1 and x2."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    tmp = torch.empty_like(x2)
+    x1.add_(ks[0]).bitwise_and_(M32)
+    x2.add_(ks[1]).bitwise_and_(M32)
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x1.add_(x2).bitwise_and_(M32)
+            torch.bitwise_left_shift(x2, r, out=tmp)     # rotate left by r
+            x2.bitwise_right_shift_(32 - r).bitwise_or_(tmp)
+            x2.bitwise_and_(M32).bitwise_xor_(x1)
+        x1.add_(ks[(i + 1) % 3]).bitwise_and_(M32)
+        x2.add_((ks[(i + 2) % 3] + i + 1) & M32).bitwise_and_(M32)
+    return x1, x2
+
+
 def PRNGKey(seed: int) -> torch.Tensor:
     """The key ``jax.random.PRNGKey(seed)`` for 0 <= seed < 2**31."""
     seed = int(seed)
@@ -99,11 +124,19 @@ def split(key, num: int = 2) -> torch.Tensor:
     return _key(*_hash_iota(key, num))
 
 
-def _bits32(key, shape: Shape) -> np.ndarray:
+def _bits32(key, shape: Shape, device=None):
+    """32 random bits per element: a numpy uint32 array (``device`` None),
+    or an int64 tensor on ``device``."""
     shape = _shape(shape)
-    b1, b2 = _hash_iota(key, math.prod(shape))
-    b1 ^= b2
-    return b1.reshape(shape)
+    n = math.prod(shape)
+    if device is None:
+        b1, b2 = _hash_iota(key, n)
+        b1 ^= b2
+        return b1.reshape(shape)
+    b1 = torch.zeros(n, dtype=torch.int64, device=device)
+    b2 = torch.arange(n, dtype=torch.int64, device=device)
+    b1, b2 = _threefry2x32_torch(*_words(key), b1, b2)
+    return b1.bitwise_xor_(b2).reshape(shape)
 
 
 def bits(key, shape: Shape) -> torch.Tensor:
@@ -111,18 +144,21 @@ def bits(key, shape: Shape) -> torch.Tensor:
     return torch.from_numpy(_bits32(key, shape).astype(np.int64))
 
 
-def _bits_to_unit(b: np.ndarray) -> torch.Tensor:
+def _bits_to_unit(b) -> torch.Tensor:
     """uint32 bits -> f32 in [0, 1): 23 bits in the mantissa of [1, 2)."""
+    if isinstance(b, torch.Tensor):
+        b = b.bitwise_right_shift_(9).bitwise_or_(0x3F800000)
+        return b.to(torch.int32).view(torch.float32) - 1.0
     b >>= np.uint32(9)
     b |= np.uint32(0x3F800000)
     return torch.from_numpy(b.view(np.float32)) - 1.0
 
 
 def uniform(key, shape: Shape = (), minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
+            maxval: float = 1.0, device=None) -> torch.Tensor:
     lo = torch.tensor(minval, dtype=torch.float32)
     hi = torch.tensor(maxval, dtype=torch.float32)
-    f = _bits_to_unit(_bits32(key, shape))
+    f = _bits_to_unit(_bits32(key, shape, device))
     return torch.maximum(lo, f * (hi - lo) + lo)
 
 
@@ -135,23 +171,32 @@ _ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
                0.00943887047, 1.00167406, 2.83297682)
 
 
+@functools.cache
+def _erfinv_coefs(device: torch.device):
+    """The two polynomials' coefficients as f32 tensors on ``device``,
+    copied there once."""
+    return [torch.tensor(c, dtype=torch.float32, device=device)
+            for c in _ERFINV_LT5 + _ERFINV_GE5]
+
+
 def erfinv(x: torch.Tensor) -> torch.Tensor:
     """f32 erfinv by XLA's polynomial, op for op."""
     w = -torch.log1p(-x * x)
     lt = w < 5.0
     w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
-    f32 = lambda c: torch.tensor(c, dtype=torch.float32)  # noqa: E731
-    p = torch.where(lt, f32(_ERFINV_LT5[0]), f32(_ERFINV_GE5[0]))
-    for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
-        p = torch.where(lt, f32(a), f32(b)) + p * w
+    coefs = _erfinv_coefs(x.device)
+    n = len(_ERFINV_LT5)
+    p = torch.where(lt, coefs[0], coefs[n])
+    for a, b in zip(coefs[1:n], coefs[n + 1:]):
+        p = torch.where(lt, a, b) + p * w
     out = p * x
     return torch.where(x.abs() == 1.0, x * torch.finfo(torch.float32).max,
                        out)
 
 
-def normal(key, shape: Shape = ()) -> torch.Tensor:
+def normal(key, shape: Shape = (), device=None) -> torch.Tensor:
     lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
-    u = uniform(key, shape, lo, 1.0)
+    u = uniform(key, shape, lo, 1.0, device)
     return torch.tensor(math.sqrt(2), dtype=torch.float32) * erfinv(u)
 
 

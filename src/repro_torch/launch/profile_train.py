@@ -57,6 +57,10 @@ CATEGORIES = (("flash_attention_fwd", ("fa_fwd_kernel",
               ("swa_avg", ("avg_kernel",)),
               ("ssd_fwd", ("ssd_fwd_kernel", "ssd_fwd_sm90_kernel")),
               ("ssd_bwd", ("ssd_bwd_kernel", "ssd_bwd_sm90_kernel")),
+              # cuDNN's convolutions (the CNN) before the matmul keys,
+              # since some of their names hold "sm90_xmma" too
+              ("convolution", ("fprop", "dgrad", "wgrad", "implicit_gemm",
+                               "implicit_conv", "convolve", "cudnn")),
               ("matmul", ("gemm", "sm90_xmma", "cutlass", "nvjet",
                           "ampere_", "sm80_")))
 

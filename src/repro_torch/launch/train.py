@@ -2,7 +2,8 @@
 
 Runs the three-phase SWAP schedule on an LM architecture of the dense or
 ssm family (the smoke config by default; ``--full`` for the full one) on
-the synthetic Markov-LM task:
+the synthetic Markov-LM task (the CNN is refused, as by the reference: its
+runs are ``repro_torch.experiments``):
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \
       [--full] [--workers 4] [--phase1-steps 150] [--phase2-steps 60] \
@@ -81,7 +82,8 @@ def build(args, cfg=None) -> SWAP:
     elif not cfg.name.startswith(args.arch):
         raise ValueError(f"cfg {cfg.name!r} is not of --arch {args.arch}")
     if cfg.family == "cnn":
-        raise SystemExit("the CNN path is not ported yet (ROADMAP A9)")
+        raise SystemExit("use python -m repro_torch.experiments."
+                         "table1_cifar10 for the CNN")
 
     data = make_markov_lm(args.seed, vocab=min(cfg.vocab_size, 512),
                           n_train=4096, n_test=1024, seq_len=args.seq_len)

@@ -85,10 +85,15 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name}: the hybrid family is not ported yet (ROADMAP A11: "
             f"zamba2's shared attention block at head_dim {cfg.head_dim}, "
             f"which the flash kernels do not take yet)")
+    if cfg.family == "cnn":
+        raise NotImplementedError(
+            f"{cfg.name}: the cnn family is not a Model: it is the functional "
+            f"repro_torch.models.cnn (init_cnn, apply_cnn), as in the "
+            f"reference")
     if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
-            f"A11 other families; A9 for the cnn)")
+            f"A11 other families)")
     if cfg.family == "ssm":
         return
     if cfg.attention != "gqa":

@@ -1,6 +1,6 @@
 """The port stands alone: no file of ``src/repro_torch``, ``chip_smoke.py``,
-``ab_flash_fwd.py``, ``ab_flash_bwd.py``, ``ab_ssd.py`` nor ``ssd_rounding.py``
-imports JAX or the ``repro`` package, and ``chip_smoke.py`` refuses to run without a card or without the
+``ab_flash_fwd.py``, ``ab_flash_bwd.py``, ``ab_ssd.py``, ``ssd_rounding.py``
+nor ``cnn_conv_accuracy.py`` imports JAX or the ``repro`` package, and ``chip_smoke.py`` refuses to run without a card or without the
 repository beside it."""
 import ast
 import os
@@ -17,7 +17,8 @@ torch.set_num_threads(1)   # the suite runs as parallel test processes
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "ab_flash_fwd.py",
-    ROOT / "ab_flash_bwd.py", ROOT / "ab_ssd.py", ROOT / "ssd_rounding.py"]
+    ROOT / "ab_flash_bwd.py", ROOT / "ab_ssd.py", ROOT / "ssd_rounding.py",
+    ROOT / "cnn_conv_accuracy.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -51,7 +52,12 @@ PORT_MODULES = (
     "repro_torch.core.swa", "repro_torch.train.loop",
     "repro_torch.data.pipeline", "repro_torch.kernels.flash_attention",
     "repro_torch.kernels.swa_avg", "repro_torch.kernels.ssd",
-    "repro_torch.models.mamba2")
+    "repro_torch.models.mamba2", "repro_torch.models.cnn",
+    "repro_torch.models.registry", "repro_torch.core",
+    "repro_torch.data.augment", "repro_torch.experiments.common",
+    "repro_torch.experiments.table1_cifar10",
+    "repro_torch.experiments.table4_swa_vs_swap",
+    "repro_torch.experiments.quickstart")
 
 
 def test_importing_the_port_loads_no_jax():

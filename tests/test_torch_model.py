@@ -165,7 +165,7 @@ def test_config_validates_impl_without_jax():
 
 @pytest.mark.parametrize("arch", ["zamba2-7b", "minicpm3-4b",
                                   "qwen2-vl-72b", "whisper-base",
-                                  "granite-moe-3b-a800m", "cifar-cnn"])
+                                  "granite-moe-3b-a800m"])
 def test_model_refuses_configs_outside_the_slice(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         TModel(treg.get_smoke_config(arch))

@@ -83,6 +83,22 @@ def test_uniform_bitwise_normal_within_4_ulp(seed):
                                rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("shape", [(), (1,), (7, 3), (64, 16, 16, 3)])
+def test_device_path_bitwise_equal_to_the_host_path(shape):
+    """The hash in torch int64 ops (``device=``; here on the CPU) gives the
+    host path's 32 bits, and so the same uniform and normal values."""
+    for seed in (0, 5, 2 ** 31 - 1):
+        k = prng.fold_in(prng.PRNGKey(seed), 9176)
+        got = prng._bits32(k, shape, device="cpu")
+        assert got.dtype == torch.int64
+        np.testing.assert_array_equal(got.numpy(),
+                                      prng._bits32(k, shape).astype(np.int64))
+        for fn in (prng.uniform, prng.normal):
+            got, want = fn(k, shape, device="cpu"), fn(k, shape)
+            assert got.dtype == want.dtype == torch.float32
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 def test_categorical_matches_on_a_peaked_distribution():
     jk, tk = jax.random.PRNGKey(4), prng.PRNGKey(4)
     logits = np.random.default_rng(0).standard_normal(
