@@ -54,11 +54,31 @@ Phases, each printing its own lines; any failed check exits non-zero:
    and the whole-model grads against the CPU in f32 and f64 on the card's
    branch (its ReLU masks and max choices replayed), each convolution's
    backward on its own inputs against f64; and a smoke-width SWAP with the
-   elastic phase 3, bitwise equal to its plain refold.
+   elastic phase 3, bitwise equal to its plain refold;
+9. the rest of the paper's experiments, one seed each, the CNN ones at the
+   full width of cifar-cnn ``config()``: Table 2 (20 classes), Figure 1
+   (the phase-2 curves), Figures 2/3 (the 9 x 9 plane with BN recomputed
+   per point, the ASCII map, the three points), Figure 4 (the cosines),
+   the worker ablation (W 1, 2, 4, 8), and Table 3 on its reference task
+   (the internlm2 smoke config in f32, whose three flash kernels must
+   launch); each a main path counted as above, every accuracy and cosine
+   finite;
+10. checkpoints and resume, the resuming run a new process
+   (``python3 chip_smoke.py --resume-child ...``) on a copy of the
+   snapshot directory with the snapshots after the cut deleted: Table 1's
+   SWAP at the full width of cifar-cnn, and internlm2 smoke through the
+   launcher (``--checkpoint-dir``, ``--checkpoint-every``,
+   ``--elastic-deadline``), each cut once mid-phase-1 and once
+   mid-phase-2; the final params, BN state, stacked params, phase-1 log,
+   step counts and accuracies bitwise the uninterrupted run's; each CNN
+   snapshot's size and its load and save ms; the flash kernels and
+   swa_avg launched in the resumed launcher runs.
 
 The line before the last is one JSON object with each kernel's numbers
-(the swa_avg row's ``cnn_launches``: its launches on the CNN path); the
-last line is ``{"ok": true, "device": {...}}``.
+(the swa_avg row's ``cnn_launches``: its launches on the CNN path; the
+flash rows' ``table3_launches``: on Table 3; ``resume_launches``: in the
+two resumed launcher runs); the last line is ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -67,6 +87,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Dict, Tuple
 
 ROOT = Path(__file__).resolve().parent
 
@@ -160,7 +181,9 @@ def check(cond: bool, msg: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def phase_device():
+def _require_card():
+    """Fail without a card or without the repository; put ``src`` on the
+    path and the card's f32 products in full f32."""
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -171,6 +194,11 @@ def phase_device():
     # f32 products in full f32 on the card (no TF32), for the tolerances
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def phase_device():
+    import torch
+    _require_card()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -1721,6 +1749,330 @@ def phase_cnn(card: str) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the rest of the paper's experiments
+# ---------------------------------------------------------------------------
+
+FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv")
+
+
+def _counted(tag, fn):
+    """``fn()`` as a main path: every launch count set to 0 just before it
+    and read just after. Returns (its result, the counts, its seconds)."""
+    import torch
+    _reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: fn_.launches for name, fn_ in _launch_counts().items()}
+    print(f"[experiments] {tag}: {seconds:.2f} s; launches {launches}",
+          flush=True)
+    return out, launches, seconds
+
+
+def _table_rows(tag, out):
+    for row, v in out.items():
+        print(f"[experiments] {tag} {row}: test acc {v['acc'][0]:.4f}, time "
+              f"{v['time'][0]:.3f} s", flush=True)
+    check(_finite([v["acc"][0] for v in out.values()]),
+          f"{tag}: a non-finite accuracy")
+
+
+def phase_experiments(card: str) -> Dict[str, int]:
+    """Tables 2 and 3, Figures 1-4 and the worker ablation, one seed each,
+    the CNN ones at the full width of cifar-cnn ``config()``, Table 3 on
+    its reference task (the internlm2 smoke config, f32, on the f32 flash
+    kernels). Returns Table 3's launches."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.experiments import (ablation_workers, figure1_curves,
+                                         figure4_cosine, landscape_viz,
+                                         table2_cifar100, table3_imagenet)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = registry.get_config("cifar-cnn")
+    print(f"[experiments] {cfg.name} at full width (channels "
+          f"{cfg.cnn_channels}, {cfg.image_size}x{cfg.image_size}x3) on "
+          f"{card}; one seed each", flush=True)
+
+    out, _, _ = _counted("Table 2 (20 classes, noise 3.0)",
+                         lambda: table2_cifar100.run(
+                             seeds=(0,), verbose=False, cfg=cfg))
+    _table_rows("Table 2", out)
+
+    out, launches, _ = _counted(
+        "Table 3 (internlm2 smoke, f32)",
+        lambda: table3_imagenet.run(seeds=(0,), verbose=False))
+    _table_rows("Table 3", out)
+    for name in FLASH_KERNELS:
+        check(launches[name] > 0, f"{name} was not launched on Table 3")
+    table3 = {name: launches[name] for name in FLASH_KERNELS}
+
+    f1, _, _ = _counted("Figure 1 (phase-2 curves, W 4)",
+                        lambda: figure1_curves.run(verbose=False, cfg=cfg))
+    curves = f1["curves"]
+    late = len(curves) - len(curves) // 2
+    print(f"[experiments] Figure 1: {len(curves)} curve points; averaged "
+          f"model >= best worker in {f1['late_steps_avg_above_best']}/{late} "
+          f"late-phase steps; last point workers "
+          f"{[round(a, 4) for a in curves[-1]['worker_test_accs']]}, "
+          f"average {curves[-1]['avg_test_acc']:.4f}", flush=True)
+    check(_finite([a for c in curves for a in
+                   c["worker_test_accs"] + [c["avg_test_acc"]]]),
+          "Figure 1: a non-finite accuracy")
+
+    f23, _, _ = _counted(
+        "Figures 2/3 (plane through LB, SGD, SWAP; BN per point)",
+        lambda: landscape_viz.main(["--device", "cuda"], cfg=cfg))
+    print(f"[experiments] Figures 2/3: {len(f23['grid'])} grid points; "
+          f"points {f23['points']}; train err at the points "
+          f"{f23['train_err']}; test err {f23['test_err']}", flush=True)
+    check(len(f23["grid"]) == 81 and _finite(
+        [g[k] for g in f23["grid"] for k in ("train_err", "test_err")]
+        + list(f23["train_err"].values()) + list(f23["test_err"].values())),
+        "Figures 2/3: a missing grid point or a non-finite error")
+
+    f4, _, _ = _counted("Figure 4 (cosine of -g with the SWAP direction)",
+                        lambda: figure4_cosine.run(verbose=False, cfg=cfg))
+    print(f"[experiments] Figure 4: {len(f4['sims'])} cosines; early mean "
+          f"{f4['early_mean']:.4f} -> late mean {f4['late_mean']:.4f}",
+          flush=True)
+    check(_finite(f4["sims"] + [f4["early_mean"], f4["late_mean"]]),
+          "Figure 4: a non-finite cosine")
+
+    runs = []
+    abl, _, _ = _counted(
+        "worker ablation (W 1, 2, 4, 8)",
+        lambda: ablation_workers.run(seeds=(0,), verbose=False, cfg=cfg,
+                                     results=runs))
+    for r in runs:
+        s = r["swap"]
+        print(f"[experiments] ablation W {r['workers']}: before avg "
+              f"{s['before_avg_test_acc']:.4f}, after avg "
+              f"{s['after_avg_test_acc']:.4f}; phase 1 {s['phase1_steps']} "
+              f"steps, {s['phase1_time']:.2f} s; phase 2 "
+              f"{s['phase2_time']:.2f} s", flush=True)
+    check(_finite([a for v in abl.values() for a in v["before"] + v["after"]]),
+          "the worker ablation: a non-finite accuracy")
+    torch.cuda.empty_cache()
+    print(f"[experiments] phase time {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return table3
+
+
+# ---------------------------------------------------------------------------
+# phase 10: checkpoints and bit-exact resume in a new process
+# ---------------------------------------------------------------------------
+
+# cifar-cnn at full width on Table 1's SWAP (2048 images: 4 steps an epoch
+# at 512, 32 at 64): snapshots every 48 steps fall at phase-1 steps 48 and
+# 96 and at phase-2 step 64
+CNN_CKPT_EVERY = 48
+# internlm2 smoke through the launcher (4096 sequences: 16 steps an epoch
+# at 256): phase-1 snapshots at 16, 32, 48, phase-2 at 16 and 32
+LM_RESUME_ARGV = ["--workers", "2", "--phase1-steps", "48", "--phase2-steps",
+                  "32", "--phase2-batch", "256", "--stop-acc", "1.01",
+                  "--elastic-deadline", "30", "--checkpoint-every", "16",
+                  "--device", "cuda"]
+RESUME_SCALARS = ("phase1_steps", "phase2_steps", "phase1_train_acc",
+                  "phase1_test_acc", "worker_test_accs",
+                  "before_avg_test_acc", "after_avg_test_acc",
+                  "phase1_skipped_steps", "phase1_loss_scale")
+
+
+def _cnn_resume_swap(ckpt_dir):
+    """Table 1's SWAP (seed 0) at full width, snapshotting into
+    ``ckpt_dir``: (the SWAP, its key)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.core.swap import SWAP
+    from repro_torch.experiments import table1_cifar10 as t1
+    from repro_torch.experiments.common import cnn_task, swap_config
+    adapter, train, test = cnn_task(seed=0, noise=t1.NOISE,
+                                    cfg=registry.get_config("cifar-cnn"),
+                                    device="cuda")
+    cfg = dataclasses.replace(swap_config(seed=0, **t1.SWAP_HP),
+                              checkpoint_dir=ckpt_dir,
+                              checkpoint_every=CNN_CKPT_EVERY)
+    return (SWAP(adapter, cfg, train, test),
+            torch.Generator(device="cuda").manual_seed(0))
+
+
+def _resume_record(res) -> Tuple[bytes, dict]:
+    """What a resumed run must reproduce bitwise: (the packed final bundle,
+    phase-1 bundle and stacked params; the phase-1 log and scalars)."""
+    from repro_torch.checkpoint.io import pack_pytree
+    tree = {"final": res["final_bundle"], "phase1": res["phase1_bundle"],
+            "stacked": res["stacked_params"]}
+    return pack_pytree(tree), {
+        "phase1_log": res["phase1_log"],
+        **{k: res[k] for k in RESUME_SCALARS}}
+
+
+def resume_child(kind: str, out: str, args) -> None:
+    """A fresh process that resumes: ``kind`` "cnn" (``args``: the
+    checkpoint directory) or "lm" (``args``: the launcher's flags, with
+    ``--resume``). Writes ``out``.msgpack and ``out``.json."""
+    import torch
+    _require_card()
+    _reset_launches()
+    if kind == "cnn":
+        swap, key = _cnn_resume_swap(args[0])
+        res = swap.run(key, resume=True)
+    else:
+        from repro_torch.launch import train
+        res = train.main(args)
+    torch.cuda.synchronize()
+    packed, rec = _resume_record(res)
+    rec["launches"] = {n: f.launches for n, f in _launch_counts().items()}
+    Path(out + ".msgpack").write_bytes(packed)
+    Path(out + ".json").write_text(json.dumps(rec))
+
+
+def _interrupt(src: str, dst: str, keep) -> str:
+    """Copy a checkpoint directory and delete the snapshots written after
+    the cut (``keep(filename)`` false), as a killed process leaves it."""
+    import os
+    import shutil
+    shutil.copytree(src, dst)
+    for name in os.listdir(dst):
+        if not keep(name):
+            os.remove(os.path.join(dst, name))
+    check(any(n.endswith(".msgpack") for n in os.listdir(dst)),
+          f"no snapshot before the cut in {src}: {sorted(os.listdir(src))}")
+    return dst
+
+
+def _resume_in_new_process(tag, kind, out, args, want, first_step):
+    """Run ``resume_child`` in a new process and hold its record against
+    the uninterrupted run's ``want`` bitwise. Returns its launches."""
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--resume-child",
+         kind, out, *args], capture_output=True, text=True, timeout=900)
+    check(proc.returncode == 0,
+          f"{tag}: the resuming process failed:\n{proc.stderr[-3000:]}")
+    packed, rec = want
+    got = json.loads(Path(out + ".json").read_text())
+    tail = [e for e in rec["phase1_log"] if e["step"] >= first_step]
+    same = {"params, BN state and stacked params": Path(
+        out + ".msgpack").read_bytes() == packed,
+            "phase1_log": got["phase1_log"] == tail,
+            **{k: got[k] == rec[k] for k in RESUME_SCALARS}}
+    print(f"[resume] {tag}, resumed in a new process: bitwise "
+          f"{all(same.values())} ({len(got['phase1_log'])} phase-1 log "
+          f"entries re-run; phase1_steps {got['phase1_steps']}, after avg "
+          f"{got['after_avg_test_acc']!r}); launches {got['launches']}",
+          flush=True)
+    check(all(same.values()), f"{tag}: the resumed run differs from the "
+                              f"uninterrupted one in "
+                              f"{[k for k, v in same.items() if not v]}")
+    return got["launches"]
+
+
+def _snapshot_costs(swap, key, ckpt_dir):
+    """Each snapshot's size, and its load and save ms alone."""
+    import os
+    import torch
+    from repro_torch.checkpoint.state import (list_checkpoints,
+                                              load_train_state,
+                                              save_train_state)
+    bundle = swap.adapter.init(key)
+    templates = {"phase1": swap.phase1(bundle)[1],
+                 "phase2": swap.phase2(bundle)[1]}
+    for c in list_checkpoints(ckpt_dir):
+        template = templates["phase2" if c["tag"] == "phase2" else "phase1"]
+        t0 = time.perf_counter()
+        state = load_train_state(c["path"], template)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        save_train_state(c["path"] + ".again", state, c["meta"])
+        t2 = time.perf_counter()
+        same = (Path(c["path"] + ".again").read_bytes()
+                == Path(c["path"]).read_bytes())
+        os.remove(c["path"] + ".again")
+        os.remove(c["path"] + ".again.json")
+        print(f"[resume] snapshot {os.path.basename(c['path'])}: "
+              f"{os.path.getsize(c['path']) / 1e6:.2f} MB; load "
+              f"{(t1 - t0) * 1e3:.1f} ms, save {(t2 - t1) * 1e3:.1f} ms; "
+              f"saved again bitwise {same}", flush=True)
+        check(same, f"snapshot {c['path']} is not saved again bitwise")
+
+
+def phase_resume(card: str) -> Dict[str, int]:
+    """Snapshots and resume, the resuming run a new process: cifar-cnn at
+    full width (Table 1's SWAP) and internlm2 smoke through the launcher,
+    each cut once mid-phase-1 and once mid-phase-2. Returns the launches
+    of the resumed launcher runs."""
+    import os
+    import tempfile
+    import torch
+    from repro_torch.launch import train
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = f"{tmp}/cnn"
+        swap, key = _cnn_resume_swap(run_dir)
+        res = swap.run(key)
+        torch.cuda.synchronize()
+        want = _resume_record(res)
+        p2_steps = res["phase2_steps"]
+        print(f"[resume] cifar-cnn full width, Table 1's SWAP on {card}, "
+              f"snapshots every {CNN_CKPT_EVERY} steps: phase 1 "
+              f"{res['phase1_steps']} steps, phase 2 {p2_steps}; after avg "
+              f"{res['after_avg_test_acc']:.4f}; snapshot time in the run "
+              f"(phase 2, with its evals) {res['phase2_eval_time']:.2f} s",
+              flush=True)
+        del res
+        _snapshot_costs(swap, key, run_dir)
+        for cut, keep, first in (
+                ("mid-phase-1 (from phase 1 step 48)",
+                 lambda n: n.startswith("phase1-step00000048"), 48),
+                ("mid-phase-2 (from phase 2 step 64)",
+                 lambda n: (n.startswith(("phase1-", "phase1_final-",
+                                          "phase2-step00000064"))), 10 ** 9)):
+            src = _interrupt(run_dir, f"{tmp}/cnn-{first}", keep)
+            _resume_in_new_process(f"cifar-cnn {cut}", "cnn",
+                                   f"{tmp}/cnn-{first}-out", [src], want,
+                                   first)
+
+        lm_dir = f"{tmp}/lm"
+        argv = LM_RESUME_ARGV + ["--checkpoint-dir", lm_dir]
+        print(f"[resume] python -m repro_torch.launch.train "
+              f"{' '.join(LM_RESUME_ARGV)} --checkpoint-dir DIR", flush=True)
+        res = train.main(argv)
+        torch.cuda.synchronize()
+        want = _resume_record(res)
+        del res
+        for name in sorted(os.listdir(lm_dir)):
+            if name.endswith(".msgpack"):
+                print(f"[resume] internlm2 smoke snapshot {name}: "
+                      f"{os.path.getsize(f'{lm_dir}/{name}') / 1e6:.2f} MB")
+        for cut, keep, first in (
+                ("mid-phase-1 (from phase 1 step 32)",
+                 lambda n: n.startswith(("phase1-step00000016",
+                                         "phase1-step00000032")), 32),
+                ("mid-phase-2 (from phase 2 step 16)",
+                 lambda n: n.startswith(("phase1-", "phase1_final-",
+                                         "phase2-step00000016")), 10 ** 9)):
+            src = _interrupt(lm_dir, f"{tmp}/lm-{first}", keep)
+            got = _resume_in_new_process(
+                f"internlm2 launcher {cut}", "lm", f"{tmp}/lm-{first}-out",
+                LM_RESUME_ARGV + ["--checkpoint-dir", src, "--resume"], want,
+                first)
+            for name in FLASH_KERNELS + ("swa_avg",):
+                check(got[name] > 0, f"{name} was not launched in the "
+                                     f"resumed launcher run ({cut})")
+            for name, n in got.items():
+                launches[name] = launches.get(name, 0) + n
+    torch.cuda.empty_cache()
+    print(f"[resume] phase time {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def _rebuild(tree, it):
     if isinstance(tree, dict):
         return {k: _rebuild(tree[k], it) for k in sorted(tree)}
@@ -1748,6 +2100,8 @@ def main() -> None:
     phase_exact(MAMBA)
     phase_exact_train(MAMBA, "ssd_impl")
     cnn_launches = phase_cnn(card)
+    table3 = phase_experiments(card)
+    resumed = phase_resume(card)
     # launches: the dense kernels' on the dense training path; the SSD
     # forward's on the mamba serving path (the shape of its row) and on the
     # mamba training path (its train_shape), the SSD backward's on the
@@ -1761,6 +2115,10 @@ def main() -> None:
             row["train_shape"]["launches"] = ssd_train["ssd_fwd"]
         if row["name"] == "swa_avg":
             row["cnn_launches"] = cnn_launches
+        if row["name"] in table3:
+            row["table3_launches"] = table3[row["name"]]
+        if row["name"] in resumed:
+            row["resume_launches"] = resumed[row["name"]]
     import torch
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
@@ -1769,4 +2127,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--resume-child"]:
+        resume_child(sys.argv[2], sys.argv[3], sys.argv[4:])
+    else:
+        main()

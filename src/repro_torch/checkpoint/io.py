@@ -7,23 +7,41 @@ checkpoint written by either loads in the other. This is the weight bridge
 between them; ``params_from_numpy`` / ``params_to_numpy`` are the in-memory
 half of it.
 
+Snapshots carry a content checksum (``checksum_bytes``, the reference's
+crc32 string) that ``load_pytree(expected_checksum=)`` verifies before it
+unpacks; a mismatch raises ``ChecksumError``.
+
 ``msgpack`` is imported inside the functions that need it.
 """
 from __future__ import annotations
 
 import os
-from typing import Any
+import zlib
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
 
+class ChecksumError(ValueError):
+    """Snapshot bytes do not match the checksum recorded in their sidecar
+    (bit rot, a torn copy, an out-of-band truncation)."""
+
+
+def _is_namedtuple(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
 def _items(tree, prefix=""):
-    """(path, leaf) pairs in JAX's flattening order (dict keys sorted, None
-    is an empty subtree)."""
+    """(path, leaf) pairs in JAX's flattening order and under its key paths
+    (dict keys sorted; a NamedTuple's fields in field order, each keyed
+    ``.field``; None is an empty subtree)."""
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _items(tree[k], f"{prefix}{k}/")
+    elif _is_namedtuple(tree):
+        for f, v in zip(tree._fields, tree):
+            yield from _items(v, f"{prefix}.{f}/")
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             yield from _items(v, f"{prefix}{i}/")
@@ -34,7 +52,7 @@ def _items(tree, prefix=""):
 def _map(fn, tree):
     if isinstance(tree, dict):
         return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):   # NamedTuple
+    if _is_namedtuple(tree):
         return tuple(_map(fn, v) for v in tree)
     if isinstance(tree, (list, tuple)):
         return type(tree)(_map(fn, v) for v in tree)
@@ -106,29 +124,87 @@ def pack_pytree(tree: Any) -> bytes:
     return msgpack.packb(_flatten(tree), use_bin_type=True)
 
 
+def checksum_bytes(data: bytes) -> str:
+    """Content checksum of a snapshot payload, in sidecar string form."""
+    return f"crc32:{zlib.crc32(data) & 0xFFFFFFFF:08x}"
+
+
+def payload_intact(data: bytes) -> bool:
+    """Integrity probe for a payload with no recorded checksum: a
+    truncated msgpack stream fails to unpack. A same-length bit flip needs
+    the checksum to show."""
+    import msgpack
+    try:
+        msgpack.unpackb(data, raw=False)
+    except Exception:    # msgpack raises several types on a torn stream
+        return False
+    return True
+
+
 def save_pytree(path: str, tree: Any) -> None:
     atomic_write(path, pack_pytree(tree))
 
 
-def _decode_leaf(rec, device):
+def _decode_leaf(rec) -> torch.Tensor:
+    """A record as a CPU tensor of the file's dtype (uint32, which torch
+    holds with few ops, as int64)."""
     if rec["dtype"] == "bfloat16":
         arr = np.frombuffer(rec["data"], dtype=np.int16).reshape(rec["shape"])
-        return torch.from_numpy(arr.copy()).view(torch.bfloat16).to(device)
+        return torch.from_numpy(arr.copy()).view(torch.bfloat16)
     arr = np.frombuffer(rec["data"], dtype=rec["dtype"]).reshape(rec["shape"])
-    return torch.from_numpy(arr.copy()).to(device)
+    if arr.dtype == np.uint32:
+        arr = arr.astype(np.int64)
+    return torch.from_numpy(arr.copy())
 
 
-def load_pytree(path: str, template: Any):
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype.is_floating_point:
+        view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+            a.element_size()]
+        return torch.equal(a.view(view), b.view(view))
+    return torch.equal(a, b)
+
+
+def _as_template(t: torch.Tensor, leaf: torch.Tensor, key: str):
+    """``t`` in the dtype of the template ``leaf``, which must hold every
+    value exactly."""
+    if t.dtype == leaf.dtype:
+        return t
+    out = t.to(leaf.dtype)
+    if not _same_bits(out.to(t.dtype), t):
+        raise ValueError(
+            f"checkpoint leaf {key!r} holds {t.dtype} values that the "
+            f"template's {leaf.dtype} cannot hold exactly")
+    return out
+
+
+def load_pytree(path: str, template: Any, optional_prefixes: tuple = (),
+                expected_checksum: Optional[str] = None):
     """Restore into the structure of ``template`` (a tree of tensors; each
-    leaf is replaced by the checkpoint's, on the template leaf's device).
-    A missing leaf or a shape mismatch raises."""
+    leaf is replaced by the checkpoint's, in the template leaf's dtype and
+    on its device). A missing leaf or a shape mismatch raises, and so does
+    a leaf whose values the template's dtype cannot hold exactly.
+
+    Leaves whose key starts with one of ``optional_prefixes`` keep the
+    template's value when the snapshot predates them. With
+    ``expected_checksum`` (the sidecar's), the raw bytes are verified
+    before they are unpacked; a mismatch raises ``ChecksumError``."""
     import msgpack
     with open(path, "rb") as f:
         raw = f.read()
+    if expected_checksum is not None:
+        got = checksum_bytes(raw)
+        if got != expected_checksum:
+            raise ChecksumError(
+                f"checkpoint {path} is corrupt: content checksum {got} != "
+                f"recorded {expected_checksum}")
     payload = msgpack.unpackb(raw, raw=False)
     restored = {}
     for key, leaf in _items(template):
         if key not in payload:
+            if optional_prefixes and key.startswith(optional_prefixes):
+                restored[key] = leaf
+                continue
             raise KeyError(f"checkpoint missing leaf {key!r}")
         rec = payload[key]
         want = tuple(leaf.shape)
@@ -136,11 +212,15 @@ def load_pytree(path: str, template: Any):
             raise ValueError(
                 f"checkpoint leaf {key!r} has shape {tuple(rec['shape'])} "
                 f"but the template expects {want}")
-        restored[key] = _decode_leaf(rec, leaf.device)
+        restored[key] = _as_template(_decode_leaf(rec), leaf,
+                                     key).to(leaf.device)
 
     def rebuild(tree, prefix=""):
         if isinstance(tree, dict):
             return {k: rebuild(v, f"{prefix}{k}/") for k, v in tree.items()}
+        if _is_namedtuple(tree):
+            return type(tree)(*(rebuild(v, f"{prefix}.{f}/")
+                                for f, v in zip(tree._fields, tree)))
         if isinstance(tree, (list, tuple)):
             return type(tree)(rebuild(v, f"{prefix}{i}/")
                               for i, v in enumerate(tree))

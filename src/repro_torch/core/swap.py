@@ -15,9 +15,11 @@ The phase-1 optimizer state is dropped before phase 2 (the results keep
 only the phase-1 bundle). ``results["device"]`` (a dict, which the
 launcher's summary leaves out) holds the device's name, each phase's train
 time without evals, and on CUDA each phase's device-memory peak
-(``torch.cuda.max_memory_allocated``). Checkpoint/resume (ROADMAP
-A10) and the mesh, supervisor, heartbeats and chunk filter (A13) are not
-ported yet and are refused.
+(``torch.cuda.max_memory_allocated``). With
+``SWAPConfig.checkpoint_dir``/``checkpoint_every`` set, periodic snapshots
+let ``run(resume=True)`` restart bit-exactly mid-phase-1 or mid-phase-2
+(see ``repro_torch.checkpoint.state``). The mesh, supervisor, heartbeats
+and chunk filter (ROADMAP A13) are not ported yet and are refused.
 """
 from __future__ import annotations
 
@@ -27,6 +29,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.state import (
+    Checkpointer, checkpoint_workers, find_resume_point, list_checkpoints,
+    load_train_state, shrink_worker_axis, state_step,
+)
 from repro_torch.configs.base import PhaseConfig, SWAPConfig
 from repro_torch.core.averaging import average_stacked, elastic_average_stacked
 from repro_torch.core.schedules import schedule_fn as make_schedule
@@ -37,6 +43,10 @@ from repro_torch.train.loop import (
     EpochRunner, TrainState, init_train_state, run_phase, stack_train_state,
 )
 from repro_torch.train.precision import resolve_policy
+
+_PHASE1_SUMMARY_KEYS = ("phase1_steps", "phase1_train_acc", "phase1_time",
+                        "phase1_test_acc", "phase1_skipped_steps",
+                        "phase1_loss_scale")
 
 
 def _stack_bundles(bundle, n: int):
@@ -107,8 +117,6 @@ class SWAP:
             _refuse("a device mesh / sharded phase-2 engine", "A13")
         if supervisor is not None:
             _refuse("the phase supervisor", "A13")
-        if cfg.checkpoint_dir or cfg.checkpoint_every:
-            _refuse("train-state checkpoints", "A10")
         self.adapter = adapter
         self.cfg = cfg
         self.train_arrays = train_arrays
@@ -124,10 +132,14 @@ class SWAP:
                     device=_device_of(bundle))
         return p1.runner, p1.init_state(bundle)
 
-    def phase2(self, bundle) -> Tuple[EpochRunner, TrainState]:
+    def phase2(self, bundle, n_workers: Optional[int] = None
+               ) -> Tuple[EpochRunner, TrainState]:
         """Phase 2's ensemble runner (W workers, the small batch, each its
-        own data order) and the W-worker state stacked from ``bundle``."""
-        cfg, adapter, W = self.cfg, self.adapter, self.cfg.n_workers
+        own data order) and the W-worker state stacked from ``bundle``.
+        ``n_workers`` replaces the configured W, for the template of a
+        snapshot written by a run of another size."""
+        cfg, adapter = self.cfg, self.adapter
+        W = n_workers if n_workers is not None else cfg.n_workers
         loader = Loader(self.train_arrays, cfg.phase2.batch_size,
                         seed=cfg.seed + 1, device=_device_of(bundle))
         policy = resolve_policy(cfg.phase2.precision, adapter.opt_cfg)
@@ -156,12 +168,13 @@ class SWAP:
             worker_arrivals: Optional[Sequence[float]] = None,
             heartbeats=None, phase2_chunk_filter=None) -> Dict:
         """``key``: the torch.Generator the adapter initializes from (its
-        device is where the run happens). ``phase2_hooks``: extra
-        epoch-boundary hooks for phase 2, ``hook(state, steps_done)``.
-        ``worker_arrivals``: per-worker report times for the elastic
-        phase 3 (``float('inf')`` marks a lost worker)."""
-        if resume:
-            _refuse("resume", "A10")
+        device is where the run happens). ``resume``: restart from the
+        newest verified snapshot in ``cfg.checkpoint_dir`` (mid-phase-1,
+        or phase 2 from ``phase1_final`` or mid-phase-2), bit-exactly.
+        ``phase2_hooks``: extra epoch-boundary hooks for phase 2,
+        ``hook(state, steps_done)``. ``worker_arrivals``: per-worker report
+        times for the elastic phase 3 (``float('inf')`` marks a lost
+        worker)."""
         if heartbeats is not None:
             _refuse("heartbeat liveness", "A13")
         if phase2_chunk_filter is not None:
@@ -170,6 +183,10 @@ class SWAP:
         adapter = self.adapter
         results: Dict = {"phase1_log": [], "phase2_curves": [],
                          "recovery_events": []}
+        ckpt = Checkpointer(cfg.checkpoint_dir, cfg.checkpoint_every) \
+            if cfg.checkpoint_dir else None
+        resume_pt = find_resume_point(cfg.checkpoint_dir) \
+            if (resume and cfg.checkpoint_dir) else None
 
         # ---------------- phase 1: large batch, synchronous --------------
         t0 = time.perf_counter()
@@ -181,25 +198,72 @@ class SWAP:
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         runner1, state1 = self.phase1(bundle)
-        res1 = run_phase(runner1, state1, 0,
-                         max_steps=cfg.phase1.max_steps,
-                         stop_accuracy=cfg.phase1.stop_accuracy,
-                         log=results["phase1_log"])
-        state1 = res1.state
-        results["phase1_steps"] = int(state1.step)
-        results["phase1_train_acc"] = float(state1.acc_ema)
-        results["phase1_skipped_steps"] = int(state1.scale.skipped)
-        results["phase1_loss_scale"] = float(state1.scale.scale)
-        results["phase1_time"] = time.perf_counter() - t0
-        results["phase1_test_acc"] = adapter.eval_accuracy(
-            bundle, self.test_loader)
-        stats["phase1_train_s"] = res1.train_time
-        del state1, res1, runner1     # the phase-1 optimizer state goes
+        if resume_pt is not None and resume_pt["tag"] in ("phase1_final",
+                                                          "phase2"):
+            # phase 1 finished in an earlier process: its final state and
+            # summary metrics come from the phase1_final snapshot
+            finals = [c for c in list_checkpoints(cfg.checkpoint_dir)
+                      if c["tag"] == "phase1_final"]
+            if not finals:
+                raise ValueError(
+                    f"cannot resume {resume_pt['tag']} from "
+                    f"{cfg.checkpoint_dir!r}: no phase1_final snapshot")
+            meta = finals[-1]["meta"]
+            state1 = load_train_state(finals[-1]["path"], state1)
+            bundle = state1.bundle
+            for k in _PHASE1_SUMMARY_KEYS:
+                if k in meta:
+                    results[k] = meta[k]
+            stats["phase1_train_s"] = meta.get("phase1_train_s", 0.0)
+        else:
+            prior_t1 = prior_train1 = 0.0
+            if resume_pt is not None:      # tag "phase1": mid-phase-1
+                state1 = load_train_state(resume_pt["path"], state1)
+                # the time before the interruption, so that the reported
+                # times go with the cumulative phase1_steps
+                prior_t1 = resume_pt["meta"].get("phase1_time", 0.0)
+                prior_train1 = resume_pt["meta"].get("phase1_train_s", 0.0)
+            res1 = run_phase(
+                runner1, state1, 0,
+                max_steps=cfg.phase1.max_steps - state_step(state1),
+                stop_accuracy=cfg.phase1.stop_accuracy,
+                log=results["phase1_log"], checkpointer=ckpt, tag="phase1",
+                checkpoint_meta=lambda tt: {
+                    "phase1_time": prior_t1 + time.perf_counter() - t0,
+                    "phase1_train_s": prior_train1 + tt})
+            state1 = res1.state
+            bundle = state1.bundle
+            results["phase1_steps"] = state_step(state1)
+            results["phase1_train_acc"] = float(state1.acc_ema)
+            results["phase1_skipped_steps"] = int(state1.scale.skipped)
+            results["phase1_loss_scale"] = float(state1.scale.scale)
+            results["phase1_time"] = prior_t1 + time.perf_counter() - t0
+            results["phase1_test_acc"] = adapter.eval_accuracy(
+                bundle, self.test_loader)
+            stats["phase1_train_s"] = prior_train1 + res1.train_time
+            if ckpt is not None:
+                ckpt.save("phase1_final", state1, meta=dict(
+                    {k: results[k] for k in _PHASE1_SUMMARY_KEYS},
+                    phase1_train_s=stats["phase1_train_s"]))
+            del res1
+        del state1, runner1           # the phase-1 optimizer state goes
         _record_peak(stats, "phase1", dev)
 
         # ---------------- phase 2: independent small-batch workers -------
         W = cfg.n_workers
         runner2, state2 = self.phase2(bundle)
+        prior_t2 = 0.0
+        if resume_pt is not None and resume_pt["tag"] == "phase2":
+            # the snapshot's W from its sidecar: load into a template of
+            # that size, then keep this run's W (growing is refused, see
+            # checkpoint.state.shrink_worker_axis)
+            ckpt_w = checkpoint_workers(resume_pt["meta"])
+            template = state2 if ckpt_w in (None, W) \
+                else self.phase2(bundle, n_workers=ckpt_w)[1]
+            state2 = shrink_worker_axis(
+                load_train_state(resume_pt["path"], template), W)
+            del template
+            prior_t2 = resume_pt["meta"].get("phase2_train_time", 0.0)
         workers = list(range(W))
 
         bn_loader = Loader(self.train_arrays, cfg.bn_recompute_batch_size,
@@ -216,7 +280,7 @@ class SWAP:
                         self.test_loader, max_batches=2)
                     for w in range(int(state.step.shape[0]))]
                 results["phase2_curves"].append({
-                    "step": int(state.step[0]) - 1,
+                    "step": state_step(state) - 1,
                     "worker_test_accs": accs,
                     "avg_test_acc": adapter.eval_accuracy(
                         avg_now, self.test_loader, max_batches=2)})
@@ -224,14 +288,19 @@ class SWAP:
             hooks.append(curve_hook)
 
         res2 = run_phase(runner2, state2, workers,
-                         max_steps=cfg.phase2.max_steps,
+                         max_steps=cfg.phase2.max_steps - state_step(state2),
                          chunk_steps=1 if collect_curves else None,
+                         checkpointer=ckpt, tag="phase2",
+                         checkpoint_meta=lambda tt: {
+                             "phase2_train_time": prior_t2 + tt,
+                             "n_workers": W},
                          on_chunk=hooks)
         state2 = res2.state
         W_live = int(state2.step.shape[0])
         results["phase2_worker_ids"] = workers
-        results["phase2_steps"] = int(state2.step[0])
-        results["phase2_time"] = res2.train_time
+        results["phase2_steps"] = state_step(state2)
+        # train time only, cumulative over resumes
+        results["phase2_time"] = prior_t2 + res2.train_time
         results["phase2_eval_time"] = res2.hook_time
 
         worker_accs = [
@@ -239,7 +308,7 @@ class SWAP:
                                   self.test_loader)
             for w in range(W_live)]
         results["worker_test_accs"] = worker_accs
-        stats["phase2_train_s"] = res2.train_time
+        stats["phase2_train_s"] = results["phase2_time"]
         _record_peak(stats, "phase2", dev)
 
         # ---------------- phase 3: average + BN recompute ----------------

@@ -9,13 +9,16 @@ runs are ``repro_torch.experiments``):
       [--full] [--workers 4] [--phase1-steps 150] [--phase2-steps 60] \
       [--stop-acc 0.55] [--optimizer sgd|lars|adamw] [--save out.ckpt] \
       [--phase1-precision bfloat16] [--grad-accum 4] \
+      [--checkpoint-dir ckpts/ --checkpoint-every 50] [--resume] \
       [--elastic-deadline 30] [--lost-workers 3] [--device {cuda,cpu}]
 
 Flags, defaults and the printed summary are the reference launcher's.
 Runs on CUDA unless ``--device cpu`` is given; with no card visible it
-raises. Not ported yet, and so not accepted: ``--checkpoint-*`` and
-``--resume`` (ROADMAP A10), ``--supervise``, ``--mesh`` and the other
-distribution flags (A13).
+raises. Long jobs: ``--checkpoint-dir``/``--checkpoint-every`` write
+epoch-aligned TrainState snapshots, and a relaunch with ``--resume``
+continues bit-exactly from the newest one, mid-phase-1 or mid-phase-2.
+Not ported yet, and so not accepted: ``--supervise``, ``--mesh`` and the
+other distribution flags (ROADMAP A13).
 """
 from __future__ import annotations
 
@@ -65,6 +68,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--save", default="")
     ap.add_argument("--json-out", default="")
+    ap.add_argument("--checkpoint-dir", default="",
+                    help="directory for periodic TrainState snapshots")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="snapshot cadence in steps (epoch-aligned); 0 = off")
+    ap.add_argument("--resume", action="store_true",
+                    help="continue from the newest snapshot in "
+                         "--checkpoint-dir (bit-exact, mid-phase)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return ap
 
@@ -74,6 +84,8 @@ def build(args, cfg=None) -> SWAP:
     phase schedules and the phase-3 average, on ``args.device``. ``cfg``
     (a Python keyword, not a flag) replaces the config that ``--arch`` and
     ``--full`` select with one of the same arch, e.g. at a cut depth."""
+    if args.resume and not args.checkpoint_dir:
+        raise SystemExit("--resume requires --checkpoint-dir")
     dev = require_device(args.device)
     dist = DistConfig.from_args(args, n_workers_default=4)
     if cfg is None:
@@ -116,7 +128,8 @@ def build(args, cfg=None) -> SWAP:
             schedule=ScheduleConfig(kind="warmup_linear", peak_lr=lr_small,
                                     warmup_steps=0,
                                     total_steps=args.phase2_steps)),
-        seed=args.seed)
+        seed=args.seed, checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every)
 
     return SWAP(adapter, swap_cfg, train, test_loader, dist=dist)
 
@@ -138,7 +151,7 @@ def main(argv=None, *, cfg=None):
           f"workers={dist.n_workers} engine=loop")
     t0 = time.time()
     res = swap.run(torch.Generator(device=args.device).manual_seed(args.seed),
-                   worker_arrivals=worker_arrivals)
+                   resume=args.resume, worker_arrivals=worker_arrivals)
     out = {k: v for k, v in res.items()
            if isinstance(v, (int, float, list)) and k != "phase1_log"}
     out["wall_s"] = time.time() - t0

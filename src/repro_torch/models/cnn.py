@@ -12,9 +12,13 @@ BatchNorm is written as the reference's ops, not ``F.batch_norm``: the
 biased batch variance, y = (x - mean) * rsqrt(var + 1e-5) * scale + bias,
 and running stats ``0.9 * old + 0.1 * batch``. The convolutions run on
 cuDNN (on the CPU, PyTorch's own) in full f32 whatever the caller's
-``torch.backends.cudnn.allow_tf32`` says: forward and backward each run
-under the flag set off (``_Conv``), since the backward, run later by
-autograd, would otherwise read the flag as it stands then.
+``torch.backends.cudnn.allow_tf32`` says, and by cuDNN's deterministic
+algorithms whatever ``torch.backends.cudnn.deterministic`` says: forward
+and backward each run under both settings (``_Conv``), since the backward,
+run later by autograd, would otherwise read the flags as they stand then.
+The deterministic algorithms make a run give the same bits in every
+process, which a bit-exact resume in a new process needs
+(``cnn_determinism.py`` measures what the default choice does).
 """
 from __future__ import annotations
 
@@ -44,6 +48,17 @@ def _no_tf32():
         conv.fp32_precision = old
 
 
+@contextlib.contextmanager
+def _deterministic():
+    """cuDNN's deterministic algorithms inside the block."""
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
+
+
 def _nchw(x: torch.Tensor) -> torch.Tensor:
     """An NHWC tensor as NCHW with channels-last strides (no copy)."""
     return x.permute(0, 3, 1, 2)
@@ -55,12 +70,13 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 class _Conv(torch.autograd.Function):
     """3x3 stride-1 "SAME" convolution of NHWC images with an HWIO weight,
-    forward and backward in full f32 (see the module docstring)."""
+    forward and backward in full f32 by deterministic algorithms (see the
+    module docstring)."""
 
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
-        with _no_tf32():
+        with _no_tf32(), _deterministic():
             y = F.conv2d(_nchw(x), w.permute(3, 2, 0, 1), padding=1)
         return _nhwc(y)
 
@@ -68,7 +84,7 @@ class _Conv(torch.autograd.Function):
     def backward(ctx, gy):
         x, w = ctx.saved_tensors
         mask = [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False]
-        with _no_tf32():
+        with _no_tf32(), _deterministic():
             gx, gw, _ = torch.ops.aten.convolution_backward(
                 _nchw(gy), _nchw(x), w.permute(3, 2, 0, 1), None, [1, 1],
                 [1, 1], [1, 1], False, [0, 0], 1, mask)

@@ -15,8 +15,9 @@
     Python loop of eager steps.
   * ``run_phase`` -- the host loop of a phase: chunks with early exit on
     the EMA at epoch boundaries, the realignment of a mid-epoch entry to
-    the next boundary, per-step logs, and ``on_chunk`` hooks whose time is
-    kept apart from train time.
+    the next boundary, per-step logs, periodic checkpoints
+    (``repro_torch.checkpoint.state.Checkpointer``), and ``on_chunk`` hooks;
+    the time of hooks and checkpoints is kept apart from train time.
   * ``python_loop_reference`` -- the per-step host loop, kept as the
     equivalence oracle.
 
@@ -159,7 +160,7 @@ class PhaseResult(NamedTuple):
     state: TrainState
     steps: int          # steps executed by this call
     train_time: float   # wall time inside train chunks only
-    hook_time: float    # wall time in on_chunk hooks and logging
+    hook_time: float    # wall time in on_chunk hooks, checkpoints, logging
 
 
 def _ema_value(state: TrainState) -> float:
@@ -197,12 +198,17 @@ def _append_log(log: List[dict], metrics: Dict, first_step: int) -> None:
 def run_phase(runner: EpochRunner, state: TrainState, worker, *,
               max_steps: int, stop_accuracy: Optional[float] = None,
               chunk_steps: Optional[int] = None, log: Optional[list] = None,
+              checkpointer=None, tag: str = "phase1",
+              checkpoint_meta: Optional[Callable] = None,
               on_chunk: Optional[Callable] = None) -> PhaseResult:
     """Drive a phase: chunks of an epoch with early exit on the accuracy
     EMA at epoch boundaries. ``max_steps`` counts from the current
-    ``state.step``. A state that enters mid-epoch runs a first chunk to
-    the next boundary only, so that the stopping check keeps to epoch
-    boundaries."""
+    ``state.step`` (a resumed state runs the remainder). A state that
+    enters mid-epoch runs a first chunk to the next boundary only, so that
+    the stopping check keeps to epoch boundaries. Between chunks the hooks
+    run, then ``checkpointer.maybe_save(tag, state, meta)``, with ``meta``
+    = ``checkpoint_meta(train_time_so_far)`` when given (e.g. the
+    cumulative phase times, for a resume to report totals)."""
     if log is not None and runner.ensemble:
         raise ValueError(
             "per-step logs are single-model only: ensemble metrics carry a "
@@ -227,6 +233,10 @@ def run_phase(runner: EpochRunner, state: TrainState, worker, *,
             _append_log(log, metrics, _first_step(state) - n)
         for hook in hooks:
             hook(state, done)
+        if checkpointer is not None:
+            checkpointer.maybe_save(
+                tag, state,
+                checkpoint_meta(train_time) if checkpoint_meta else None)
         hook_time += time.perf_counter() - t1
 
         if stop_accuracy is not None and _ema_value(state) >= stop_accuracy:

@@ -102,3 +102,99 @@ def test_load_rejects_missing_leaf_and_shape(tmp_path):
         tio.load_pytree(path, dict(tree, w=torch.zeros(4, 3)))
     back = tio.load_pytree(path, tree)
     assert tio.pack_pytree(back) == tio.pack_pytree(tree)
+
+
+# ---------------------------------------------------------------------------
+# the checksum half and the dtype boundary of a train-state snapshot
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("data", [b"", b"swap", bytes(range(256)) * 17])
+def test_checksum_bytes_equals_jax(data):
+    assert tio.checksum_bytes(data) == jio.checksum_bytes(data)
+    assert tio.checksum_bytes(data).startswith("crc32:")
+
+
+def test_flipped_byte_raises_checksum_error(tmp_path):
+    tree = tio.params_from_numpy(_mixed_tree())
+    path = str(tmp_path / "t.ckpt")
+    tio.save_pytree(path, tree)
+    with open(path, "rb") as f:
+        raw = bytearray(f.read())
+    good = tio.checksum_bytes(bytes(raw))
+    assert tio.pack_pytree(tio.load_pytree(path, tree,
+                                           expected_checksum=good)) == raw
+    raw[len(raw) // 2] ^= 0x01
+    with open(path, "wb") as f:
+        f.write(raw)
+    with pytest.raises(tio.ChecksumError, match="corrupt"):
+        tio.load_pytree(path, tree, expected_checksum=good)
+    assert isinstance(tio.ChecksumError("x"), ValueError)
+
+
+def test_payload_intact_catches_truncation():
+    raw = tio.pack_pytree(tio.params_from_numpy(_mixed_tree()))
+    assert tio.payload_intact(raw) and jio.payload_intact(raw)
+    assert not tio.payload_intact(raw[:-7])
+    assert tio.payload_intact(raw[:-7]) == jio.payload_intact(raw[:-7])
+
+
+def test_optional_prefixes_keep_the_template_leaf(tmp_path):
+    tree = tio.params_from_numpy(_mixed_tree())
+    path = str(tmp_path / "t.ckpt")
+    tio.save_pytree(path, tree)
+    extra = torch.full((2,), 7.0)
+    template = dict(tree, scale={"s": extra})
+    back = tio.load_pytree(path, template, optional_prefixes=("scale/",))
+    assert back["scale"]["s"] is extra
+    assert torch.equal(back["w"], tree["w"])
+    with pytest.raises(KeyError, match="scale/s"):
+        tio.load_pytree(path, template)
+
+
+def test_train_state_dtype_boundary(tmp_path):
+    """On disk: ``step`` int32, ``rng`` uint32, the loss-scale state under
+    JAX's ``scale/.field`` keys; restored in the port's int64."""
+    import msgpack
+    from repro_torch.checkpoint.state import load_train_state, save_train_state
+    from repro_torch.train.loop import init_train_state, stack_train_state
+    bundle = {"params": {"w": torch.ones(2, 3)}, "state": {}}
+    opt = {"mu": {"w": torch.zeros(2, 3)}}
+    for state, lead in ((init_train_state(bundle, opt, step=5, seed=3), []),
+                        (stack_train_state(
+                            {"params": {"w": torch.ones(4, 2, 3)},
+                             "state": {}}, {"mu": {"w": torch.zeros(4, 2, 3)}},
+                            4, seed=3), [4])):
+        path = str(tmp_path / f"s{len(lead)}.msgpack")
+        save_train_state(path, state)
+        with open(path, "rb") as f:
+            payload = msgpack.unpackb(f.read(), raw=False)
+        assert (payload["step"]["dtype"], payload["step"]["shape"]) == \
+            ("int32", lead)
+        assert (payload["rng"]["dtype"], payload["rng"]["shape"]) == \
+            ("uint32", lead + [2])
+        assert [k for k in payload if k.startswith("scale/")] == [
+            "scale/.scale", "scale/.growth_count", "scale/.skipped"]
+        back = load_train_state(path, state)
+        assert back.step.dtype == back.rng.dtype == torch.int64
+        assert torch.equal(back.rng, state.rng)
+        assert torch.equal(back.step, state.step)
+
+
+def test_load_takes_the_template_dtype_where_exact(tmp_path):
+    path = str(tmp_path / "t.ckpt")
+    tio.save_pytree(path, {"i": torch.tensor([1, -2], dtype=torch.int32),
+                           "f": torch.tensor([0.5, 3.0]),
+                           "big": torch.tensor([2 ** 40]),
+                           "x": torch.tensor([0.1])})
+    got = tio.load_pytree(path, {"i": torch.zeros(2, dtype=torch.int64),
+                                 "f": torch.zeros(2, dtype=torch.bfloat16),
+                                 "big": torch.zeros(1, dtype=torch.int64),
+                                 "x": torch.zeros(1, dtype=torch.float64)})
+    assert got["i"].dtype == torch.int64 and got["i"].tolist() == [1, -2]
+    assert got["f"].dtype == torch.bfloat16 and got["f"].tolist() == [0.5, 3.0]
+    assert got["x"].dtype == torch.float64
+    with pytest.raises(ValueError, match="'big'.*exactly"):
+        tio.load_pytree(path, {"big": torch.zeros(1, dtype=torch.int32)})
+    with pytest.raises(ValueError, match="'x'.*exactly"):
+        tio.load_pytree(path, {"x": torch.zeros(1, dtype=torch.bfloat16)})

@@ -281,7 +281,11 @@ def test_experiment_tasks_build_on_the_cpu():
 
 
 def test_entry_points_need_a_card_and_the_launcher_refuses_the_cnn():
-    from repro_torch.experiments import common, quickstart, table1_cifar10
+    from repro_torch.experiments import (ablation_workers, common,
+                                         figure1_curves, figure4_cosine,
+                                         figure23_landscape, landscape_viz,
+                                         quickstart, table1_cifar10,
+                                         table2_cifar100, table3_imagenet)
     with pytest.raises(SystemExit, match="experiments.table1_cifar10"):
         tlaunch.main(["--arch", ARCH, "--device", "cpu"])
     if torch.cuda.is_available():
@@ -292,3 +296,16 @@ def test_entry_points_need_a_card_and_the_launcher_refuses_the_cnn():
         common.cnn_task()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         table1_cifar10.run(seeds=(0,), verbose=False)
+    for mod in (table2_cifar100, table3_imagenet):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mod.run(seeds=(0,), verbose=False)
+    for mod in (figure1_curves, figure23_landscape, figure4_cosine):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mod.run(verbose=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ablation_workers.run(seeds=(0,), verbose=False)
+    for mod in (landscape_viz, table2_cifar100, table3_imagenet,
+                figure1_curves, figure23_landscape, figure4_cosine,
+                ablation_workers):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mod.main([])

@@ -1,7 +1,8 @@
 """The port stands alone: no file of ``src/repro_torch``, ``chip_smoke.py``,
-``ab_flash_fwd.py``, ``ab_flash_bwd.py``, ``ab_ssd.py``, ``ssd_rounding.py``
-nor ``cnn_conv_accuracy.py`` imports JAX or the ``repro`` package, and ``chip_smoke.py`` refuses to run without a card or without the
-repository beside it."""
+``ab_flash_fwd.py``, ``ab_flash_bwd.py``, ``ab_ssd.py``, ``ssd_rounding.py``,
+``cnn_conv_accuracy.py`` nor ``cnn_determinism.py`` imports JAX or the
+``repro`` package, and ``chip_smoke.py`` refuses to run without a card or
+without the repository beside it."""
 import ast
 import os
 import shutil
@@ -18,7 +19,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "ab_flash_fwd.py",
     ROOT / "ab_flash_bwd.py", ROOT / "ab_ssd.py", ROOT / "ssd_rounding.py",
-    ROOT / "cnn_conv_accuracy.py"]
+    ROOT / "cnn_conv_accuracy.py", ROOT / "cnn_determinism.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -57,7 +58,15 @@ PORT_MODULES = (
     "repro_torch.data.augment", "repro_torch.experiments.common",
     "repro_torch.experiments.table1_cifar10",
     "repro_torch.experiments.table4_swa_vs_swap",
-    "repro_torch.experiments.quickstart")
+    "repro_torch.experiments.quickstart", "repro_torch.checkpoint",
+    "repro_torch.checkpoint.state",
+    "repro_torch.experiments.table2_cifar100",
+    "repro_torch.experiments.table3_imagenet",
+    "repro_torch.experiments.figure1_curves",
+    "repro_torch.experiments.figure23_landscape",
+    "repro_torch.experiments.landscape_viz",
+    "repro_torch.experiments.figure4_cosine",
+    "repro_torch.experiments.ablation_workers")
 
 
 def test_importing_the_port_loads_no_jax():
