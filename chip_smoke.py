@@ -9,7 +9,8 @@ Phases, each printing its own lines; any failed check exits non-zero:
 2. build: compile the hand-written kernels from the repository's sources,
    one nvcc per source, all started together;
 3. kernels vs plain: hold each kernel against its plain PyTorch version on
-   the card over a grid of shapes, dtypes and masks (the flash forward,
+   the card over a grid of shapes, dtypes, head dims (64, 128, 256) and
+   masks (the flash forward,
    the flash backward's dQ and dK/dV kernels, in bf16 also against the
    plain version at their own rounding points, the streaming average,
    bitwise, the SSD intra-chunk forward and backward, whose bf16 wgmma
@@ -20,7 +21,9 @@ Phases, each printing its own lines; any failed check exits non-zero:
    bf16 route is the wgmma kernel, at both the prefill and the phase-1
    training shape, and at the prefill also with L2 flushed; the bf16 flash
    backward, the whole call and its delta at the phase-1 and phase-2
-   training shapes, beside the library's backward alone; the bf16 SSD
+   training shapes, beside the library's backward alone; the same at
+   gemma3-1b's shapes, head dim 256: its prefill in a global and in a local
+   layer (window 512), its phase-1 forward and backward; the bf16 SSD
    kernels at the serve prefill and phase 1, beside the f32 FMA kernels
    they replace);
 4. full-width serve (internlm2-1.8b, random weights from a seed): a main
@@ -36,12 +39,19 @@ Phases, each printing its own lines; any failed check exits non-zero:
    single-request generation, token for token; whole-model gradients with
    the kernels against plain autograd; a whole SWAP run with the kernels
    against the same run on the plain versions;
-7. phases 4-6 again for mamba2-2.7b (the ssm family, on the SSD kernels):
+7. phases 4-6 for gemma3-1b (the flash kernels at head dim 256; 22 local
+   layers at window 512 and 4 global): serving at full width at batch 8,
+   prompt 2048, one forward launch a layer a prefill; SWAP training at full
+   width with the phase-1 batch cut to 128 (GEMMA_PHASE1_BATCH: 256 runs
+   out of memory), the flash launches a step as the layer plan has them,
+   every phase's memory peak under 75 GB; the exactness checks on the gemma3
+   smoke config at head dim 256, prompts and sequences past its window;
+8. phases 4-6 again for mamba2-2.7b (the ssm family, on the SSD kernels):
    serving at full width (64 layers), SWAP training at full width with the
    depth cut to 56 layers (MAMBA_TRAIN_LAYERS: 64 layers do not fit the
    card: 62 ran out of memory in phase 2), every SSD launch of both on the
    bf16 wgmma route, and the smoke exactness checks;
-8. the paper-faithful CNN+BatchNorm path at the full width of cifar-cnn
+9. the paper-faithful CNN+BatchNorm path at the full width of cifar-cnn
    ``config()``: Table 1 (``repro_torch.experiments.table1_cifar10``,
    seed 0: small batch, large batch, SWAP before and after averaging) and
    Table 4's large-batch SWA row from Table 1's large-batch model, one main
@@ -55,7 +65,7 @@ Phases, each printing its own lines; any failed check exits non-zero:
    branch (its ReLU masks and max choices replayed), each convolution's
    backward on its own inputs against f64; and a smoke-width SWAP with the
    elastic phase 3, bitwise equal to its plain refold;
-9. the rest of the paper's experiments, one seed each, the CNN ones at the
+10. the rest of the paper's experiments, one seed each, the CNN ones at the
    full width of cifar-cnn ``config()``: Table 2 (20 classes), Figure 1
    (the phase-2 curves), Figures 2/3 (the 9 x 9 plane with BN recomputed
    per point, the ASCII map, the three points), Figure 4 (the cosines),
@@ -63,7 +73,7 @@ Phases, each printing its own lines; any failed check exits non-zero:
    (the internlm2 smoke config in f32, whose three flash kernels must
    launch); each a main path counted as above, every accuracy and cosine
    finite;
-10. checkpoints and resume, the resuming run a new process
+11. checkpoints and resume, the resuming run a new process
    (``python3 chip_smoke.py --resume-child ...``) on a copy of the
    snapshot directory with the snapshots after the cut deleted: Table 1's
    SWAP at the full width of cifar-cnn, and internlm2 smoke through the
@@ -77,8 +87,9 @@ Phases, each printing its own lines; any failed check exits non-zero:
 The line before the last is one JSON object with each kernel's numbers
 (the swa_avg row's ``cnn_launches``: its launches on the CNN path; the
 flash rows' ``table3_launches``: on Table 3; ``resume_launches``: in the
-two resumed launcher runs); the last line is ``{"ok": true, "device":
-{...}}``.
+two resumed launcher runs; ``gemma3_launches``: on gemma3's training path,
+and the forward's on its serving path; ``gemma3_*`` shapes: the times at
+head dim 256); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -130,6 +141,20 @@ TRAIN_ARGV = ["--full", "--workers", "2", "--phase1-steps", "4",
               "--phase2-steps", "4", "--elastic-deadline", "30",
               "--device", "cuda"]
 MAMBA = "mamba2-2.7b"
+# PERF.md's line for a training phase's device memory peak: above it a
+# configuration is cut further
+PEAK_LIMIT_GB = 75.0
+# gemma3-1b: head dim 256, local layers at a window of 512; its serving
+# prefill (batch 8, prompt 2048, where the window binds) and its SWAP
+# phase 1 at the launcher's sequence of 64 and the batch its run takes
+GEMMA = "gemma3-1b"
+GEMMA_WINDOW = 512
+GEMMA_PREFILL_SHAPE = (8, 2048, 2048, 4, 1, 256)
+GEMMA_PROMPT = 2048
+GEMMA_PHASE1_BATCH = 128
+GEMMA_TRAIN_SHAPE = (GEMMA_PHASE1_BATCH, 64, 64, 4, 1, 256)
+GEMMA_TRAIN_ARGV = ["--arch", GEMMA, "--phase1-batch",
+                    str(GEMMA_PHASE1_BATCH)] + TRAIN_ARGV
 # SSD kernels against their plain versions: max |err| / max |ref|, the JAX
 # SSD tests' 1e-4. Both compute in f32 from the same (f32 or bf16) inputs,
 # so bf16 inputs are held to the same bound.
@@ -279,14 +304,15 @@ def _cuda_ms(fn, iters: int) -> float:
 
 
 def _grid():
+    from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
     cases = []
     for dtype in ("float32", "bfloat16"):
-        for D in (64, 128):
+        for D in HEAD_DIMS:
             for G in (1, 2, 4):
                 for causal, window in ((True, 0), (True, 16), (False, 0)):
                     cases.append(((2, 67, 67, 4, 4 // G, D), dtype, causal,
                                   window, 0))
-        for D in (64, 128):
+        for D in HEAD_DIMS:
             cases += [
                 ((2, 1, 64, 8, 4, D), dtype, True, 0, 63),       # decode row
                 ((1, 33, 129, 4, 2, D), dtype, True, 0, 96),     # q_offset
@@ -295,22 +321,37 @@ def _grid():
                 ((1, 48, 48, 4, 2, D), dtype, True, 0, -8),      # empty rows
                 ((1, 200, 200, 8, 2, D), dtype, True, 48, 0),    # tile skip
             ]
+        # gemma3's window of 512 where it binds: ragged S, and a chunk of
+        # queries after a cached prefix (Sq != Skv, q_offset)
+        cases += [((1, 700, 700, 4, 1, 256), dtype, True, GEMMA_WINDOW, 0),
+                  ((1, 100, 700, 4, 1, 256), dtype, True, GEMMA_WINDOW, 600)]
     # the shapes the main paths give the kernel: generate's batched
     # prefill, the engine's batch-1 prefills, and the training steps of
-    # phase 1 (batch 256) and phase 2 (batch 32 per worker)
+    # phase 1 (batch 256) and phase 2 (batch 32 per worker); gemma3's
+    # prefill in a global and a local layer, and its two training phases
     cases.append((PREFILL_SHAPE, "bfloat16", True, 0, 0))
     for S in ENGINE_PROMPTS:
         cases.append(((1, S, S, 16, 8, 128), "bfloat16", True, 0, 0))
     cases.append((TRAIN_SHAPE, "bfloat16", True, 0, 0))
     cases.append(((32,) + TRAIN_SHAPE[1:], "bfloat16", True, 0, 0))
+    for window in (0, GEMMA_WINDOW):
+        cases.append((GEMMA_PREFILL_SHAPE, "bfloat16", True, window, 0))
+    cases.append((GEMMA_TRAIN_SHAPE, "bfloat16", True, 0, 0))
+    cases.append(((32,) + GEMMA_TRAIN_SHAPE[1:], "bfloat16", True, 0, 0))
     return cases
 
 
 def phase_kernel():
     import torch
     from repro_torch.kernels.flash_attention import kernel, ops
-    worst, path_err = {}, {}
+    worst, worst_d = {}, {}
+    # the main paths' (shape, window): their errors go to the JSON line
+    path_err = dict.fromkeys(((PREFILL_SHAPE, 0), (TRAIN_SHAPE, 0),
+                              (GEMMA_PREFILL_SHAPE, 0),
+                              (GEMMA_PREFILL_SHAPE, GEMMA_WINDOW),
+                              (GEMMA_TRAIN_SHAPE, 0)))
     for i, (shape, dtype, causal, window, q_offset) in enumerate(_grid()):
+        D = shape[-1]
         q, k, v = _qkv(shape, getattr(torch, dtype), seed=i)
         kw = dict(causal=causal, window=window, scale=None,
                   q_offset=q_offset)
@@ -333,24 +374,41 @@ def phase_kernel():
             check(bool((out[:, dead] == 0).all() and (lse[:, dead] == 0).all()),
                   f"case {i}: fully masked rows are not out=0, lse=0")
         worst[dtype] = max(worst.get(dtype, 0.0), err.max().item())
-        if shape in (PREFILL_SHAPE, TRAIN_SHAPE):   # the two main paths'
-            path_err[shape] = err.max().item()
+        worst_d[D] = max(worst_d.get(D, 0.0), err.max().item())
+        if (shape, window) in path_err:
+            path_err[shape, window] = err.max().item()
     print(f"[kernel] {len(_grid())} cases match the plain version; max |out "
-          f"err| f32 {worst['float32']:.3e} bf16 {worst['bfloat16']:.3e}")
+          f"err| f32 {worst['float32']:.3e} bf16 {worst['bfloat16']:.3e}; "
+          f"by head dim " + ", ".join(f"D {d} {e:.3e}"
+                                      for d, e in sorted(worst_d.items())))
 
-    # times at the two main paths' shapes: the internlm2-1.8b prefill, and
-    # the phase-1 training step (48 launches a step with remat)
+    # times at the main paths' shapes: the internlm2-1.8b prefill and its
+    # phase-1 training step (48 launches a step with remat); gemma3-1b's
+    # prefill in a global and a local layer, and its phase-1 step
     prefill = _fwd_times(PREFILL_SHAPE, "prefill", seed=1234, cold=True)
     train = _fwd_times(TRAIN_SHAPE, "phase-1 training", seed=1235)
+    g_prefill = _fwd_times(GEMMA_PREFILL_SHAPE, "gemma3 prefill, global",
+                           seed=1236, cold=True)
+    g_local = _fwd_times(GEMMA_PREFILL_SHAPE, "gemma3 prefill, local",
+                         seed=1236, window=GEMMA_WINDOW)
+    g_train = _fwd_times(GEMMA_TRAIN_SHAPE, "gemma3 phase-1 training",
+                         seed=1237)
     sys.stdout.flush()
     return {
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_fwd_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:34",
-        "launches": None, "max_abs_err": path_err[PREFILL_SHAPE],
+        "launches": None, "max_abs_err": path_err[PREFILL_SHAPE, 0],
         **prefill,
-        "train_shape": {"max_abs_err": path_err[TRAIN_SHAPE], **train},
+        "train_shape": {"max_abs_err": path_err[TRAIN_SHAPE, 0], **train},
+        "gemma3_prefill": {
+            "max_abs_err": path_err[GEMMA_PREFILL_SHAPE, 0], **g_prefill},
+        "gemma3_prefill_local": {
+            "max_abs_err": path_err[GEMMA_PREFILL_SHAPE, GEMMA_WINDOW],
+            **g_local},
+        "gemma3_train_shape": {
+            "max_abs_err": path_err[GEMMA_TRAIN_SHAPE, 0], **g_train},
     }
 
 
@@ -385,31 +443,42 @@ def _device_ms(fn, iters: int, flush: bool = False) -> float:
     return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
-def _fwd_times(shape, label, seed, cold=False):
+def _fwd_times(shape, label, seed, cold=False, window=0):
     """The bf16 forward's device time at one shape, warm (and, with cold,
     with L2 flushed), beside its bound, its plain version and SDPA, timed
-    the same way."""
+    the same way. With a window, SDPA takes it as a boolean mask, which
+    its flash backend does not take: the yardstick is then another
+    backend's."""
     import torch
     from repro_torch.kernels.flash_attention import kernel, ops
     B, Sq, Skv, H, KVH, D = shape
     q, k, v = _qkv(shape, torch.bfloat16, seed=seed)
-    run = lambda: kernel.flash_fwd(q, k, v, causal=True)
+    run = lambda: kernel.flash_fwd(q, k, v, causal=True, window=window)
     ms = _device_ms(run, 50)
     plain_ms = _cuda_ms(lambda: ops._blockwise_fwd(
-        q, k, v, causal=True, window=0, scale=None, q_offset=0, chunk=512), 5)
+        q, k, v, causal=True, window=window, scale=None, q_offset=0,
+        chunk=512), 5)
     # yardstick only, never called by the port: one fused library call on
     # the same function (K/V heads repeated beforehand, outside the timing)
     qt = q.transpose(1, 2).contiguous()
     kt = k.repeat_interleave(H // KVH, dim=2).transpose(1, 2).contiguous()
     vt = v.repeat_interleave(H // KVH, dim=2).transpose(1, 2).contiguous()
-    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True)
+    if window:
+        pos = torch.arange(Sq, device="cuda")
+        mask = ((pos[None, :] <= pos[:, None])
+                & (pos[None, :] > pos[:, None] - window))
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask)
+    else:
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)
     lib_ms = _device_ms(sdpa, 50)
     nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel()) + B * Sq * H * 4
-    flops = 4 * D * B * H * _visible_pairs(Sq, Skv, True, 0, 0)
+    flops = 4 * D * B * H * _visible_pairs(Sq, Skv, True, window, 0)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
-    times = {"shape": f"B{B} S{Sq} H{H} KVH{KVH} D{D} bf16 causal",
+    mask_name = f"window {window}" if window else "causal"
+    times = {"shape": f"B{B} S{Sq} H{H} KVH{KVH} D{D} bf16 {mask_name}",
              "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
              "library_ms": lib_ms}
@@ -427,9 +496,10 @@ def _fwd_times(shape, label, seed, cold=False):
 
 
 def _bwd_grid():
+    from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
     cases = []
     for dtype in ("float32", "bfloat16"):
-        for D in (64, 128):
+        for D in HEAD_DIMS:
             for G in (1, 2, 4):
                 for causal, window in ((True, 0), (True, 16), (False, 0)):
                     cases.append(((2, 67, 67, 4, 4 // G, D), dtype, causal,
@@ -441,9 +511,14 @@ def _bwd_grid():
                 ((1, 200, 200, 8, 2, D), dtype, True, 48, 0),    # tile skip
                 ((2, 131, 131, 4, 1, D), dtype, True, 0, -5),    # odd, empty
             ]
-    # the shapes the training path gives it: phase 1 and phase 2
-    cases.append((TRAIN_SHAPE, "bfloat16", True, 0, 0))
-    cases.append(((32,) + TRAIN_SHAPE[1:], "bfloat16", True, 0, 0))
+        # gemma3's window of 512 where it binds, as in the forward's grid
+        cases += [((1, 700, 700, 4, 1, 256), dtype, True, GEMMA_WINDOW, 0),
+                  ((1, 100, 700, 4, 1, 256), dtype, True, GEMMA_WINDOW, 600)]
+    # the shapes the training paths give it: phase 1 and phase 2 of
+    # internlm2 and of gemma3
+    for shape in (TRAIN_SHAPE, GEMMA_TRAIN_SHAPE):
+        cases.append((shape, "bfloat16", True, 0, 0))
+        cases.append(((32,) + shape[1:], "bfloat16", True, 0, 0))
     return cases
 
 
@@ -505,7 +580,8 @@ def _bwd_ok(errs, dtype):
 def phase_kernel_bwd():
     import torch
     from repro_torch.kernels.flash_attention import kernel
-    worst, worst_r = {}, {"ratio": 0.0, "l2": 0.0}
+    worst, worst_r, train_err = {}, {"ratio": 0.0, "l2": 0.0}, {}
+    worst_d = {}
     for i, (shape, dtype, causal, window, q_offset) in enumerate(_bwd_grid()):
         args, kw, want, want_r = _bwd_case(i)
         got = kernel.flash_bwd(*args, **kw)
@@ -523,35 +599,46 @@ def phase_kernel_bwd():
               f"{BWD_ROUNDED_L2} against the rounded plain version)")
         for e in errs.values():
             worst[dtype] = max(worst.get(dtype, 0.0), e["rel"])
+            worst_d[shape[-1]] = max(worst_d.get(shape[-1], 0.0), e["rel"])
             for key in worst_r:
                 worst_r[key] = max(worst_r[key], e.get(key, 0.0))
         if q_offset < 0:   # rows that see no key: dq = 0
             check(bool((got[0][:, :-q_offset] == 0).all()),
                   f"bwd case {i}: fully masked rows have dq != 0")
-        if shape == TRAIN_SHAPE:
-            train_err = {n: (g.float() - w.float()).abs().max().item()
-                         for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+        if shape in (TRAIN_SHAPE, GEMMA_TRAIN_SHAPE):
+            train_err[shape] = {
+                n: (g.float() - w.float()).abs().max().item()
+                for n, g, w in zip(("dq", "dk", "dv"), got, want)}
     print(f"[kernel-bwd] {len(_bwd_grid())} cases match the plain version's "
           f"f32 math; max |err|/(1+|ref|) f32 {worst['float32']:.3e} (limit "
           f"{BWD_TOL['float32']}), bf16 {worst['bfloat16']:.3e} (limit "
           f"{BWD_TOL['bfloat16']}); bf16 against the plain version at the "
           f"kernels' rounding points: worst {worst_r['ratio']:.3f} of the "
           f"bound (1 bf16 ulp + {BWD_ROUNDED_ABS:.2e} max|ref|), relative L2 "
-          f"{worst_r['l2']:.3e} (limit {BWD_ROUNDED_L2})")
+          f"{worst_r['l2']:.3e} (limit {BWD_ROUNDED_L2}); worst by head dim "
+          + ", ".join(f"D {d} {e:.3e}" for d, e in sorted(worst_d.items())))
 
-    # times at the phase-1 training shape (the JSON rows) and phase 2's
+    # times at the phase-1 training shape (the JSON rows) and phase 2's;
+    # gemma3's phase 1 at the batch its run takes
     phase1 = _bwd_times(TRAIN_SHAPE, "phase-1")
     phase2 = _bwd_times((32,) + TRAIN_SHAPE[1:], "phase-2")
+    g_phase1 = _bwd_times(GEMMA_TRAIN_SHAPE, "gemma3 phase-1")
+
+    def errs(shape, name):
+        e = train_err[shape]
+        return e["dq"] if name.endswith("dq") else max(e["dk"], e["dv"])
+
     return [{"name": name, "route": "cuda",
              "source": "src/repro_torch/kernels/flash_attention/csrc/"
                        "flash_bwd_sm90.cu",
              "replaces": f"src/repro/kernels/flash_attention/kernel.py:{line}",
-             "launches": None, "max_abs_err": err, **phase1[name],
-             "phase2_shape": phase2[name]}
-            for name, line, err in (
-                ("flash_attention_bwd_dq", 202, train_err["dq"]),
-                ("flash_attention_bwd_dkv", 232,
-                 max(train_err["dk"], train_err["dv"])))]
+             "launches": None, "max_abs_err": errs(TRAIN_SHAPE, name),
+             **phase1[name], "phase2_shape": phase2[name],
+             "gemma3_train_shape": {
+                 "max_abs_err": errs(GEMMA_TRAIN_SHAPE, name),
+                 **g_phase1[name]}}
+            for name, line in (("flash_attention_bwd_dq", 202),
+                               ("flash_attention_bwd_dkv", 232))]
 
 
 def _bwd_times(shape, label):
@@ -947,7 +1034,12 @@ def phase_ssd():
 # ---------------------------------------------------------------------------
 
 
-def phase_serve(card: str):
+def phase_serve(card: str, arch="internlm2-1.8b", S=512, engine=True,
+                tag="serve"):
+    """``arch`` at full width on the serving main path: generate's two
+    engines at batch 8, prompt S, and with ``engine`` the ServingEngine's
+    requests through 2 slots; then the prefill logits' checks. Returns the
+    forward kernel's launches on the main path."""
     import dataclasses
     import torch
     from repro_torch.configs import registry
@@ -956,21 +1048,23 @@ def phase_serve(card: str):
     from repro_torch.models.model import Model
     from repro_torch.serve.engine import Request, ServingEngine
 
-    cfg = registry.get_config("internlm2-1.8b")
+    torch.cuda.empty_cache()
+    cfg = registry.get_config(arch)
     model = Model(cfg)
     g = torch.Generator(device="cuda").manual_seed(0)
     params = model.init(g)
-    B, S, T = 8, 512, 32
+    B, T = 8, 32
     prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
                             device="cuda")
     lengths, n_new, max_seq = ENGINE_PROMPTS, 16, 1024
     reqs = [Request(rid=i, prompt=torch.randint(
         0, cfg.vocab_size, (L,), generator=g, device="cuda"),
-        max_new_tokens=n_new) for i, L in enumerate(lengths)]
+        max_new_tokens=n_new) for i, L in enumerate(lengths)] if engine else []
     n_layers = cfg.n_layers
-    print(f"[serve] {cfg.name}: {n_layers} layers, d_model {cfg.d_model}, "
-          f"heads {cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim}, vocab "
-          f"{cfg.vocab_size}, {cfg.dtype}; params "
+    windows = sorted({k.window for k in model.unit_kinds + model.tail_kinds})
+    print(f"[{tag}] {cfg.name}: {n_layers} layers, d_model {cfg.d_model}, "
+          f"heads {cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim}, windows "
+          f"{windows}, vocab {cfg.vocab_size}, {cfg.dtype}; params "
           f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B f32",
           flush=True)
 
@@ -980,21 +1074,22 @@ def phase_serve(card: str):
     out_loop, st_loop = generate(model, params, prompts, T, engine="loop")
     out_comp, st_comp = generate(model, params, prompts, T,
                                  engine="compiled")
-    engine = ServingEngine(model, params, max_batch=2, max_seq=max_seq)
-    t0 = time.perf_counter()
-    with torch.inference_mode():
-        done = engine.run(reqs)
-    torch.cuda.synchronize()
-    t_engine = time.perf_counter() - t0
+    if engine:
+        serving = ServingEngine(model, params, max_batch=2, max_seq=max_seq)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            done = serving.run(reqs)
+        torch.cuda.synchronize()
+        t_engine = time.perf_counter() - t0
     launches = kernel.flash_fwd.launches
     # -------------------------------------------------------------
 
     check(out_loop.shape == (B, T) and torch.equal(out_loop, out_comp),
-          "loop and compiled engines disagree at full width")
+          f"{arch}: loop and compiled engines disagree at full width")
     check(bool(((out_loop >= 0) & (out_loop < cfg.vocab_size)).all()),
-          "generated token ids out of range")
+          f"{arch}: generated token ids out of range")
     for st in (st_loop, st_comp):
-        print(f"[serve] generate engine={st['engine']} batch {B} prompt {S} "
+        print(f"[{tag}] generate engine={st['engine']} batch {B} prompt {S} "
               f"new {T} on {card}: prefill {st['prefill_s'] * 1e3:.2f} ms "
               f"({st['prefill_tokens_per_s']:.1f} prompt tok/s), decode "
               f"{st['decode_s'] * 1e3:.2f} ms "
@@ -1004,14 +1099,17 @@ def phase_serve(card: str):
               f"engine request {r.rid} (prompt {r.prompt.shape[0]}) ended "
               f"with {len(done[r.rid])} of {n_new} tokens")
     n_prefills = 2 + len(reqs)
-    print(f"[serve] ServingEngine: {len(reqs)} requests (prompts "
-          f"{list(lengths)}) through 2 slots, max_seq {max_seq}: "
-          f"{n_new} tokens each in {t_engine:.2f} s")
-    print(f"[serve] flash_attention_fwd launches on the main path: "
+    if engine:
+        print(f"[{tag}] ServingEngine: {len(reqs)} requests (prompts "
+              f"{list(lengths)}) through 2 slots, max_seq {max_seq}: "
+              f"{n_new} tokens each in {t_engine:.2f} s")
+    print(f"[{tag}] flash_attention_fwd launches on the main path: "
           f"{launches} for {n_prefills} prefills of {n_layers} layers")
-    check(launches >= n_layers * n_prefills,
-          f"kernel launched {launches} times, fewer than {n_layers} per "
-          f"prefill")
+    # one launch a layer a prefill (exactly, without the engine)
+    check(launches >= n_layers * n_prefills
+          and (engine or launches == n_layers * n_prefills),
+          f"{arch}: kernel launched {launches} times for {n_prefills} "
+          f"prefills of {n_layers} layers")
 
     # prefill logits: kernel against the plain attention, on the card
     # prefill logits, kernel against the plain attention on the card. The
@@ -1037,17 +1135,21 @@ def phase_serve(card: str):
     r16 = rel(("bfloat16", "kernel"), ("bfloat16", "reference"))
     e_k = rel(("bfloat16", "kernel"), truth)
     e_r = rel(("bfloat16", "reference"), truth)
-    print(f"[serve] prefill logits, kernel vs plain attention: relative L2 "
+    print(f"[{tag}] prefill logits, kernel vs plain attention: relative L2 "
           f"error {r32:.3e} in f32 (limit 1e-2), {r16:.3e} in bf16")
-    print(f"[serve] bf16 prefill logits against the f32 model with naive "
+    print(f"[{tag}] bf16 prefill logits against the f32 model with naive "
           f"attention: kernel {e_k:.3e}, plain {e_r:.3e} (limit 1.1x plain); "
           f"f32 kernel {rel(('float32', 'kernel'), truth):.3e}", flush=True)
     check(all(bool(torch.isfinite(v).all()) for v in logits.values()),
-          "non-finite prefill logits")
-    check(r32 <= 1e-2, f"f32 prefill logits differ: relative L2 {r32:.3e}")
+          f"{arch}: non-finite prefill logits")
+    check(r32 <= 1e-2, f"{arch}: f32 prefill logits differ: relative L2 "
+                       f"{r32:.3e}")
     check(e_k <= 1.1 * e_r,
-          f"bf16 kernel prefill is further from the f32 model ({e_k:.3e}) "
-          f"than the plain version ({e_r:.3e})")
+          f"{arch}: bf16 kernel prefill is further from the f32 model "
+          f"({e_k:.3e}) than the plain version ({e_r:.3e})")
+    del params, logits
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_mamba_serve(card: str):
@@ -1175,18 +1277,20 @@ def _leaves(tree):
 # ---------------------------------------------------------------------------
 
 
-def phase_exact(arch="internlm2-1.8b"):
+def phase_exact(arch="internlm2-1.8b", cfg=None, lengths=(9, 17, 5, 12, 8)):
+    """ServingEngine against single-request generate on ``cfg`` (f32; the
+    arch's smoke config by default), token for token."""
     import torch
     from repro_torch.configs import registry
     from repro_torch.launch.serve import generate
     from repro_torch.models.model import Model
     from repro_torch.serve.engine import Request, ServingEngine
 
-    model = Model(registry.get_smoke_config(arch))               # f32
+    model = Model(cfg or registry.get_smoke_config(arch))        # f32
     g = torch.Generator(device="cuda").manual_seed(1)
     params = model.init(g)
     prompts = [torch.randint(0, model.cfg.vocab_size, (L,), generator=g,
-                             device="cuda") for L in (9, 17, 5, 12, 8)]
+                             device="cuda") for L in lengths]
     engine = ServingEngine(model, params, max_batch=2, max_seq=64)
     with torch.inference_mode():
         got = engine.run([Request(rid=i, prompt=p, max_new_tokens=6)
@@ -1196,8 +1300,9 @@ def phase_exact(arch="internlm2-1.8b"):
         check(got[i] == want[0].tolist(),
               f"smoke request {i}: engine {got[i]} != generate "
               f"{want[0].tolist()}")
-    print(f"[exact] f32 {arch} smoke: ServingEngine tokens equal "
-          f"single-request generate for {len(prompts)} requests through 2 "
+    print(f"[exact] f32 {model.cfg.name} (head dim {model.cfg.head_dim}): "
+          f"ServingEngine tokens equal single-request generate for "
+          f"{len(prompts)} requests (prompts {list(lengths)}) through 2 "
           f"slots")
 
 
@@ -1244,12 +1349,19 @@ MAMBA_TRAIN_KERNELS = ("ssd_fwd", "ssd_bwd", "swa_avg")
 def phase_train(card: str, argv=TRAIN_ARGV, cfg=None,
                 required=DENSE_TRAIN_KERNELS, tag="train", sm90_only=()):
     """The launcher's own run (``train.main(argv, cfg=cfg)``) as a main
-    path: every kernel in ``required`` must launch in it, and every launch
-    of a kernel in ``sm90_only`` must take its bf16 wgmma route."""
+    path: every kernel in ``required`` must launch in it, every launch of a
+    kernel in ``sm90_only`` must take its bf16 wgmma route, and where the
+    flash kernels are required they must launch as the layer plan has
+    them: a (worker) step runs 1 forward, 1 dQ and 1 dK/dV a layer, and a
+    second forward in each layer of a rematerialized pattern unit (the
+    tail's layers are not); an eval batch 1 forward a layer. Every phase's
+    memory peak must stay under PEAK_LIMIT_GB."""
     import math
     import torch
+    from repro_torch.configs import registry
     from repro_torch.core.averaging import average_stacked
     from repro_torch.launch import train
+    from repro_torch.models.model import Model
 
     torch.cuda.empty_cache()
     cut = f" (cfg: {cfg.n_layers} layers)" if cfg is not None else ""
@@ -1280,24 +1392,46 @@ def phase_train(card: str, argv=TRAIN_ARGV, cfg=None,
     check(all(math.isfinite(x) for x in values),
           f"non-finite loss or accuracy: {values}")
     check(res["phase2_live_workers"] == 2, "elastic phase 3 dropped a worker")
+    args = train.build_parser().parse_args(argv)
+    p1, p2, W = res["phase1_steps"], res["phase2_steps"], args.workers
+    if "flash_attention_fwd" in required:
+        mcfg = cfg or (registry.get_config(args.arch) if args.full
+                       else registry.get_smoke_config(args.arch))
+        plan, n = Model(mcfg), mcfg.n_layers
+        per_step = n + (plan.n_units * len(plan.unit_kinds)
+                        if mcfg.remat else 0)
+        steps = p1 + W * p2
+        fwd, dq, dkv = (launches[k] for k in FLASH_KERNELS)
+        evals, rem = divmod(fwd - per_step * steps, n)
+        print(f"[{tag}] flash launches a (worker) step over {steps} steps: "
+              f"forward {per_step}, dQ {dq / steps:g}, dK/dV {dkv / steps:g};"
+              f" and {evals} eval forwards of {n} layers")
+        check(dq == dkv == n * steps and evals >= 0 and rem == 0,
+              f"flash launches {fwd}/{dq}/{dkv} on the {tag} path are not "
+              f"{per_step}/{n}/{n} a step of {steps}, with whole eval "
+              f"forwards")
     rel = _rel_l2(res["final_bundle"]["params"],
                   average_stacked(res["stacked_params"]))
     print(f"[{tag}] elastic average (swa_avg kernel) against the plain mean "
           f"of the same phase-2 models: relative L2 {rel:.3e} (limit 1e-6)")
     check(rel <= 1e-6, f"elastic average differs from the plain mean: {rel}")
     st = res["device"]
-    p1, p2 = res["phase1_steps"], res["phase2_steps"]
-    tok1 = p1 * 256 * 64 / st["phase1_train_s"]
-    tok2 = p2 * 2 * 32 * 64 / st["phase2_train_s"]
-    print(f"[{tag}] on {card}: phase 1 {p1} steps of 256x64 tokens, "
+    b1, b2, L = args.phase1_batch, args.phase2_batch, args.seq_len
+    tok1 = p1 * b1 * L / st["phase1_train_s"]
+    tok2 = p2 * W * b2 * L / st["phase2_train_s"]
+    print(f"[{tag}] on {card}: phase 1 {p1} steps of {b1}x{L} tokens, "
           f"{st['phase1_train_s'] / p1 * 1e3:.1f} ms/step ({tok1:.0f} tok/s); "
-          f"phase 2 {p2} steps of 2 workers x 32x64 tokens, "
+          f"phase 2 {p2} steps of {W} workers x {b2}x{L} tokens, "
           f"{st['phase2_train_s'] / p2 * 1e3:.1f} ms/step ({tok2:.0f} tok/s); "
           f"phase 3 {res['phase3_time'] * 1e3:.1f} ms")
-    print(f"[{tag}] memory peak: phase 1 {st['phase1_peak_gb']:.2f} GB, "
-          f"phase 2 {st['phase2_peak_gb']:.2f} GB, phase 3 "
-          f"{st['phase3_peak_gb']:.2f} GB (torch.cuda.max_memory_allocated)",
+    peaks = [st[f"phase{i}_peak_gb"] for i in (1, 2, 3)]
+    print(f"[{tag}] memory peak: phase 1 {peaks[0]:.2f} GB, phase 2 "
+          f"{peaks[1]:.2f} GB, phase 3 {peaks[2]:.2f} GB "
+          f"(torch.cuda.max_memory_allocated; limit {PEAK_LIMIT_GB} GB)",
           flush=True)
+    check(max(peaks) <= PEAK_LIMIT_GB,
+          f"a phase of the {tag} run peaked at {max(peaks):.2f} GB, over "
+          f"{PEAK_LIMIT_GB} GB")
     del res
     torch.cuda.empty_cache()
     return launches
@@ -1308,9 +1442,11 @@ def phase_train(card: str, argv=TRAIN_ARGV, cfg=None,
 # ---------------------------------------------------------------------------
 
 
-def phase_exact_train(arch="internlm2-1.8b", field="attention_impl"):
+def phase_exact_train(arch="internlm2-1.8b", field="attention_impl",
+                      cfg=None):
     """Smoke exactness with the kernels (``field`` = "kernel") against the
-    plain versions (``field`` = "reference")."""
+    plain versions (``field`` = "reference"), on ``cfg`` (f32; the arch's
+    smoke config by default)."""
     import dataclasses
     import torch
     from repro_torch.configs import registry
@@ -1325,7 +1461,7 @@ def phase_exact_train(arch="internlm2-1.8b", field="attention_impl"):
     from repro_torch.optim.api import tree_leaves
     from repro_torch.train.steps import lm_loss_and_metrics
 
-    smoke = registry.get_smoke_config(arch)                  # f32
+    smoke = cfg or registry.get_smoke_config(arch)           # f32
     data = make_markov_lm(1, vocab=smoke.vocab_size, n_train=1024,
                           n_test=256, seq_len=64)
     batch = {"tokens": torch.from_numpy(data["train_tokens"][:16]).cuda(),
@@ -1346,7 +1482,8 @@ def phase_exact_train(arch="internlm2-1.8b", field="attention_impl"):
         err = max(err, (d.abs().max() / b.abs().max()).item())
         l2 = max(l2, (torch.linalg.vector_norm(d)
                       / torch.linalg.vector_norm(b)).item())
-    print(f"[exact] f32 {arch} smoke: whole-model grads with the kernels "
+    print(f"[exact] f32 {smoke.name} (head dim {smoke.head_dim}): "
+          f"whole-model grads with the kernels "
           f"against plain autograd, worst leaf: max |err|/max |ref| "
           f"{err:.3e} (limit {GRAD_TOL}), relative L2 {l2:.3e} (limit "
           f"{GRAD_L2_TOL})")
@@ -1381,7 +1518,7 @@ def phase_exact_train(arch="internlm2-1.8b", field="attention_impl"):
     rel = _rel_l2(runs["kernel"]["final_bundle"]["params"], ref_avg)
     acc = abs(runs["kernel"]["after_avg_test_acc"]
               - runs["reference"]["after_avg_test_acc"])
-    print(f"[exact] f32 {arch} smoke SWAP (8 + 6 steps, W 2, elastic): "
+    print(f"[exact] f32 {smoke.name} SWAP (8 + 6 steps, W 2, elastic): "
           f"kernels against plain versions, averaged params relative L2 "
           f"{rel:.3e} (limit 1e-4), averaged test acc |diff| {acc:.3e} "
           f"(limit 2e-3)")
@@ -1390,7 +1527,36 @@ def phase_exact_train(arch="internlm2-1.8b", field="attention_impl"):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: the CNN+BatchNorm path at full width
+# phase 7: gemma3-1b, the flash kernels at head dim 256
+# ---------------------------------------------------------------------------
+
+
+def phase_gemma(card: str):
+    """gemma3-1b at full width (26 layers, 22 local at window 512 and 4
+    global, head dim 256): the serving main path at batch 8, prompt 2048
+    (the window binds), and SWAP training through the launcher at phase-1
+    batch GEMMA_PHASE1_BATCH; then the smoke-width exactness on the gemma3
+    smoke config at head dim 256 (2 layers, one local at window 32 and one
+    global; prompts and sequences longer than the window). Returns (the
+    forward's launches on the serving path, every kernel's on the training
+    path)."""
+    import dataclasses
+    from repro_torch.configs import registry
+    t0 = time.perf_counter()
+    serve = phase_serve(card, GEMMA, S=GEMMA_PROMPT, engine=False,
+                        tag="gemma3-serve")
+    launches = phase_train(card, GEMMA_TRAIN_ARGV, tag="gemma3-train")
+    narrow = dataclasses.replace(registry.get_smoke_config(GEMMA),
+                                 head_dim=256)
+    phase_exact(GEMMA, narrow, lengths=(9, 40, 5, 37, 8))
+    phase_exact_train(GEMMA, cfg=narrow)
+    print(f"[gemma3] phase time {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return serve, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the CNN+BatchNorm path at full width
 # ---------------------------------------------------------------------------
 
 
@@ -1750,7 +1916,7 @@ def phase_cnn(card: str) -> int:
 
 
 # ---------------------------------------------------------------------------
-# phase 9: the rest of the paper's experiments
+# phase 10: the rest of the paper's experiments
 # ---------------------------------------------------------------------------
 
 FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
@@ -1863,7 +2029,7 @@ def phase_experiments(card: str) -> Dict[str, int]:
 
 
 # ---------------------------------------------------------------------------
-# phase 10: checkpoints and bit-exact resume in a new process
+# phase 11: checkpoints and bit-exact resume in a new process
 # ---------------------------------------------------------------------------
 
 # cifar-cnn at full width on Table 1's SWAP (2048 images: 4 steps an epoch
@@ -2089,6 +2255,7 @@ def main() -> None:
     launches = phase_train(card)
     phase_exact()
     phase_exact_train()
+    gemma_serve, gemma_train = phase_gemma(card)
     # the ssm family: serving at full width, training at a cut depth
     from repro_torch.configs import registry
     ssd_serve = phase_mamba_serve(card)
@@ -2119,6 +2286,10 @@ def main() -> None:
             row["table3_launches"] = table3[row["name"]]
         if row["name"] in resumed:
             row["resume_launches"] = resumed[row["name"]]
+        if row["name"] in FLASH_KERNELS:
+            row["gemma3_launches"] = {"train": gemma_train[row["name"]]}
+            if row["name"] == "flash_attention_fwd":
+                row["gemma3_launches"]["serve"] = gemma_serve
     import torch
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

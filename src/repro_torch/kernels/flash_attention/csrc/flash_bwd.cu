@@ -5,7 +5,7 @@
 //   repro/kernels/flash_attention/kernel.py::_fa_bwd_dq_kernel   (dQ)
 //   repro/kernels/flash_attention/kernel.py::_fa_bwd_dkv_kernel  (dK, dV)
 // and computes what they compute, for q, dO (B,Sq,H,D) and k, v
-// (B,Skv,KVH,D), D in {64, 128}, given the forward's lse
+// (B,Skv,KVH,D), D in {64, 128, 256}, given the forward's lse
 // (B,Sq,H) f32 and delta = rowsum(dO * O) (B,Sq,H) f32 (taken outside, in
 // plain PyTorch, as the JAX package does):
 //   S  = (q * scale) . k^T, with q * scale formed in f32, masked to
@@ -41,8 +41,10 @@
 // 4 warps per (32-key tile, KV head, batch) loops over the G query heads
 // and, for each, over the visible 64-row query tiles. Each warp owns 8
 // keys; a lane owns query rows lane and lane + 32 for S^T and dP^T, and
-// D/32 output columns of dK and dV. Tiles are staged in shared memory as
-// f32; operands a lane reads alone (K and V in dQ, Q and dO in dK/dV) are
+// D/32 output columns of dK and dV. At D 256 a CTA takes 16 keys (4 a
+// warp), so that its two accumulators stay at 64 registers a thread; shared
+// memory is then 174.6 KB for dK/dV and 206.8 KB for dQ (one CTA an SM).
+// Tiles are staged in shared memory as f32; operands a lane reads alone (K and V in dQ, Q and dO in dK/dV) are
 // padded by 4 floats a row so that its float4 reads are free of bank
 // conflicts, the others are read as broadcasts.
 
@@ -60,9 +62,11 @@ constexpr int kQRows = 32;                 // query rows per CTA
 constexpr int kQKeys = 64;                 // keys per KV tile
 constexpr int kQRowsPerWarp = kQRows / kWarps;
 // dK/dV kernel tiles
-constexpr int kKVKeys = 32;                // keys per CTA
+template <int D>
+__host__ __device__ constexpr int kv_keys() {  // keys per CTA
+  return D == 256 ? 16 : 32;
+}
 constexpr int kKVRows = 64;                // query rows per Q tile
-constexpr int kKVKeysPerWarp = kKVKeys / kWarps;
 
 template <typename T>
 struct Vec16;
@@ -265,8 +269,8 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <int D>
 constexpr int dkv_smem_floats() {
-  return 2 * kKVKeys * D + 2 * kKVRows * (D + 4) + 2 * kKVKeys * kKVRows +
-         2 * kKVRows;
+  return 2 * kv_keys<D>() * D + 2 * kKVRows * (D + 4) +
+         2 * kv_keys<D>() * kKVRows + 2 * kKVRows;
 }
 
 template <typename T, int D>
@@ -279,6 +283,8 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   float scale, int causal, int window, int q_offset) {
   constexpr int kCols = D / 32;
   constexpr int kStride = D + 4;
+  constexpr int kKVKeys = kv_keys<D>();
+  constexpr int kKVKeysPerWarp = kKVKeys / kWarps;
   extern __shared__ __align__(16) float smem[];
   float* sK = smem;                        // [kKVKeys][D]
   float* sV = sK + kKVKeys * D;            // [kKVKeys][D]
@@ -453,7 +459,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
       fa_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Skv + kKVKeys - 1) / kKVKeys, KVH, B);
+  const dim3 grid((Skv + kv_keys<D>() - 1) / kv_keys<D>(), KVH, B);
   fa_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
@@ -492,6 +498,9 @@ extern "C" int fa_bwd_dq(const void* q, const void* k, const void* v,
   if (dtype == 0 && D == 128)
     return launch_dq<float, 128>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, H,
                                  KVH, scale, causal, window, q_offset, st);
+  if (dtype == 0 && D == 256)
+    return launch_dq<float, 256>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, H,
+                                 KVH, scale, causal, window, q_offset, st);
   if (dtype == 1)
     return fa_bwd_dq_sm90(q, k, v, dout, lse, delta, dq, B, Sq, Skv, H, KVH,
                           D, scale, causal, window, q_offset, st);
@@ -510,6 +519,10 @@ extern "C" int fa_bwd_dkv(const void* q, const void* k, const void* v,
                                  H, KVH, scale, causal, window, q_offset, st);
   if (dtype == 0 && D == 128)
     return launch_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, B, Sq,
+                                  Skv, H, KVH, scale, causal, window, q_offset,
+                                  st);
+  if (dtype == 0 && D == 256)
+    return launch_dkv<float, 256>(q, k, v, dout, lse, delta, dk, dv, B, Sq,
                                   Skv, H, KVH, scale, causal, window, q_offset,
                                   st);
   if (dtype == 1)

@@ -8,7 +8,7 @@
 // (f32 inputs stay on the FMA kernels of flash_bwd.cu, which holds the C
 // entries of both routes: the tensor cores would take f32 as TF32). The
 // contract is flash_bwd.cu's: q, dO (B,Sq,H,D) and k, v (B,Skv,KVH,D)
-// bf16, D in {64, 128}, query head h on KV head h / (H / KVH); lse and
+// bf16, D in {64, 128, 256}, query head h on KV head h / (H / KVH); lse and
 // delta = rowsum(dO * O) (B,Sq,H) f32; padding, causal, window and q_offset
 // masks (NEG_INF = -1e30: a masked P is 0); a row that sees no key has
 // dq = 0 and adds nothing to dk or dv; dK and dV summed over the G = H / KVH
@@ -35,9 +35,11 @@
 // (B 256, S 64, H 16, KVH 8, D 128, causal) each kernel must read q, dO, k,
 // v, lse and delta and write dq (dQ) or dk and dv (dK/dV): 270.5 MB each,
 // 80.8 us at 3.35 TB/s, against 6.5 and 8.7 GFLOP (6.6 and 8.8 us at 989
-// TFLOP/s). Both are bound by bytes, so each reads a K/V tile once per
-// (KV head, query tile) and a Q/dO tile once per (KV head, key tile), and
-// keeps S, P, dP and dS out of device memory.
+// TFLOP/s). Both are bound by bytes, and so are they at gemma3-1b's
+// phase-1 shape (B 256, S 64, H 4, KVH 1, D 256: 118.0 MB for dQ, 35.2 us,
+// and 101.2 MB for dK/dV, 30.2 us). So each reads a K/V tile once per (KV
+// head, query tile) and a Q/dO tile once per (KV head, key tile), and keeps
+// S, P, dP and dS out of device memory.
 //
 // dK/dV kernel (fa_bwd_dkv_sm90_kernel):
 //  * A CTA is one (batch, KV head, 64-key tile), one warpgroup. K and V
@@ -79,6 +81,17 @@
 //    launches first.
 //  * Epilogue: dK * scale and dV rounded to bf16, staged in the K and V
 //    tiles and stored 16 bytes a thread, coalesced, for keys < Skv.
+//  * D 256 (NWG = 2 warpgroups a CTA): the two 64 x 256 f32 accumulators,
+//    256 registers a thread, do not fit one warpgroup, so each warpgroup
+//    owns 128 columns of both dK and dV (64 + 64 registers, as at D 128).
+//    Both form the whole S^T and dP^T (the D contraction is not split), so
+//    nothing passes between them but the CTA's barriers; the tensor cores
+//    do the S^T and dP^T products twice, which the bytes bound leaves room
+//    for. q * scale goes to a tile of its own, written by both warpgroups
+//    from the stage's Q (no kept chunks of q in registers): K, V and the
+//    scaled Q 96 KB, two stages of Q and dO 128 KB, 225.5 KB in all, one CTA
+//    an SM. At KVH 1 the grid is B x ceil(S / 64) CTAs: 128 at B 128, S 64,
+//    under one wave of 132 SMs, each running its G = 4 iterations alone.
 //
 // dQ kernel (fa_bwd_dq_sm90_kernel):
 //  * A CTA is one (batch, KV head, 64-row query tile) with NWG warpgroups,
@@ -101,7 +114,10 @@
 //    two-CTA bound of two warpgroups leaves (128); the CTA shape, the CTAs
 //    an SM asked of ptxas and the ring depth are constants below, measured
 //    against each other by ab_flash_bwd.py --occupancy. At three CTAs an
-//    SM ptxas fits the kernel in 168 registers, with no spills.
+//    SM ptxas fits the kernel in 168 registers, with no spills. At D 256
+//    the dQ accumulator alone is 128 registers and Q and dO take 64 KB, each
+//    K/V stage 64 KB: one warpgroup a CTA, one CTA an SM, a ring of two
+//    stages (kDq256Stages), dQ += dS K one m64n256k16 a k-step.
 //  * Epilogue: dQ * scale rounded to bf16, staged in the warpgroup's Q tile,
 //    stored for rows < Sq; the query tiles with the most key tiles launch
 //    first.
@@ -123,9 +139,11 @@ constexpr int kStages = 2;               // Q/dO ring depth of dK/dV
 constexpr int kDqHeads = 1;
 constexpr int kDqMinBlocks = 3;
 constexpr int kDqStages = 1;
+// at D 256 one warpgroup a CTA and one CTA an SM, with a K/V ring of two
+constexpr int kDq256Stages = 2;
 
-template <int D>
-__global__ void __launch_bounds__(128, 2)
+template <int D, int NWG>
+__global__ void __launch_bounds__(NWG * 128, NWG == 1 ? 2 : 1)
 fa_bwd_dkv_sm90_kernel(__grid_constant__ const CUtensorMap tq,
                        __grid_constant__ const CUtensorMap tk,
                        __grid_constant__ const CUtensorMap tv,
@@ -137,7 +155,12 @@ fa_bwd_dkv_sm90_kernel(__grid_constant__ const CUtensorMap tq,
                        int KVH, float scale, int causal, int window,
                        int q_offset) {
   constexpr int kTile = D / kBox * kBoxBytes;  // one 64-row tile
-  constexpr int kChunksPerThread = kTile / 16 / 128;
+  constexpr int kThreads = NWG * 128;
+  constexpr int kCols = D / NWG;   // the dK, dV columns a warpgroup owns
+  // q * scale in a tile of its own (NWG > 1), or in place with each
+  // thread's chunks of q kept in registers and put back (NWG 1)
+  constexpr bool kOwnTile = NWG > 1;
+  constexpr int kChunksPerThread = kOwnTile ? 1 : kTile / 16 / 128;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   // every tile on a 1024-byte boundary: the period of the 128-byte swizzle
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -145,19 +168,28 @@ fa_bwd_dkv_sm90_kernel(__grid_constant__ const CUtensorMap tq,
   uint8_t* sV = sK + kTile;
   uint8_t* sQ = sV + kTile;                   // [kStages][kTile]
   uint8_t* sdO = sQ + kStages * kTile;        // [kStages][kTile]
+  uint8_t* sQs = sdO + kStages * kTile;       // [kOwnTile][kTile], q * scale
   // this iteration's -lse log2 e [64] and delta [64]
-  float* sStat = reinterpret_cast<float*>(sdO + kStages * kTile);
+  float* sStat = reinterpret_cast<float*>(sQs + (kOwnTile ? kTile : 0));
   uint64_t* bars = reinterpret_cast<uint64_t*>(sStat + 2 * kTileRows);
   const uint32_t bar_kv = smem_u32(bars);     // K/V arrived
   const uint32_t bar_full = bar_kv + 8;       // [kStages]: Q/dO arrived
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
   const int lane = tid % 32;
   const int G = H / KVH;
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
   const int k0 = blockIdx.z * kTileRows;
+  // the CTA's threads (one warpgroup's named barrier when NWG is 1)
+  auto cta_sync = [&]() {
+    if constexpr (NWG == 1)
+      warpgroup_sync(0);
+    else
+      __syncthreads();
+  };
 
   // the query tiles that some key of this tile is visible to
   const int k_last = min(k0 + kTileRows, Skv) - 1;
@@ -195,8 +227,9 @@ fa_bwd_dkv_sm90_kernel(__grid_constant__ const CUtensorMap tq,
   }
   __syncwarp();
 
-  // thread t's entry of sStat for iteration i: -lse log2 e of query row
-  // t (t < 64) or delta of row t - 64, 0 past Sq
+  // thread t's entry of sStat for iteration i (t < 128): -lse log2 e of
+  // query row t (t < 64) or delta of row t - 64, 0 past Sq
+  const bool stats = tid < 2 * kTileRows;
   const float* stat_src = tid < kTileRows ? lse : delta;
   const float stat_mul = tid < kTileRows ? -kLog2e : 1.f;
   auto stat = [&](int i) {
@@ -210,10 +243,12 @@ fa_bwd_dkv_sm90_kernel(__grid_constant__ const CUtensorMap tq,
   const int c0 = 2 * (lane % 4);        // and query rows 8j + c0 (+1)
   const uint32_t k_addr = smem_u32(sK);
   const uint32_t v_addr = smem_u32(sV);
-  float acc_dk[D / 2], acc_dv[D / 2];
+  // this warpgroup's columns of an MN-major B operand
+  const uint32_t col_off = wg * (kCols / kBox) * kBoxBytes;
+  float acc_dk[kCols / 2], acc_dv[kCols / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
-  float stat_next = n_iter > 0 ? stat(0) : 0.f;
+  for (int i = 0; i < kCols / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+  float stat_next = n_iter > 0 && stats ? stat(0) : 0.f;
   if (n_iter > 0) mbar_wait(bar_kv, 0);
 
   const float sc = __bfloat162float(__float2bfloat16_rn(scale));
@@ -223,36 +258,50 @@ fa_bwd_dkv_sm90_kernel(__grid_constant__ const CUtensorMap tq,
     uint4* q_tile = reinterpret_cast<uint4*>(sQ + s * kTile);
     const uint32_t q_addr = smem_u32(q_tile);
     const uint32_t do_addr = smem_u32(sdO + s * kTile);
-    sStat[tid] = stat_next;             // the last iteration's reads ended
-    if (i + 1 < n_iter) stat_next = stat(i + 1);  // at its closing barrier
+    if (stats) {
+      sStat[tid] = stat_next;           // the last iteration's reads ended
+      if (i + 1 < n_iter) stat_next = stat(i + 1);  // at its closing barrier
+    }
     mbar_wait(bar_full + 8 * s, (i / kStages) & 1);
-    // q * scale in bf16 in place for S^T; this thread's chunks of q as they
-    // came are kept, and put back for dK once S^T is done
+    // q * scale in bf16 for S^T: into its own tile, or in place with this
+    // thread's chunks of q as they came kept, and put back for dK once S^T
+    // is done
     uint4 raw[kChunksPerThread];
+    if constexpr (kOwnTile) {
+      uint4* qs = reinterpret_cast<uint4*>(sQs);
+      for (int c = tid; c < kTile / 16; c += kThreads)
+        qs[c] = scale_chunk(q_tile[c], sc);
+    } else {
 #pragma unroll
-    for (int c = 0; c < kChunksPerThread; ++c) {
-      raw[c] = q_tile[tid + 128 * c];
-      q_tile[tid + 128 * c] = scale_chunk(raw[c], sc);
+      for (int c = 0; c < kChunksPerThread; ++c) {
+        raw[c] = q_tile[tid + 128 * c];
+        q_tile[tid + 128 * c] = scale_chunk(raw[c], sc);
+      }
     }
     fence_proxy_async();
-    warpgroup_sync(0);                  // scaled Q and sStat in place
+    cta_sync();                         // scaled Q and sStat in place
+    const uint32_t qs_addr = kOwnTile ? smem_u32(sQs) : q_addr;
 
-    // S^T = K (q scale)^T and dP^T = V dO^T, two groups
+    // S^T = K (q scale)^T and dP^T = V dO^T, two groups, over the whole D
+    // in every warpgroup
     float st[32], dpt[32];
 #pragma unroll
     for (int j = 0; j < 32; ++j) st[j] = dpt[j] = 0.f;
     wgmma_fence();
-    wgmma_tiles_abt<D>(st, k_addr, q_addr);
+    wgmma_tiles_abt<D>(st, k_addr, qs_addr);
     wgmma_commit();
     wgmma_tiles_abt<D>(dpt, v_addr, do_addr);
     wgmma_commit();
     wgmma_wait<1>();
     pin(st);
-    // every warp's S^T has read the scaled tile: put q back
-    warpgroup_sync(0);
+    if constexpr (!kOwnTile) {
+      // every warp's S^T has read the scaled tile: put q back
+      warpgroup_sync(0);
 #pragma unroll
-    for (int c = 0; c < kChunksPerThread; ++c) q_tile[tid + 128 * c] = raw[c];
-    fence_proxy_async();
+      for (int c = 0; c < kChunksPerThread; ++c)
+        q_tile[tid + 128 * c] = raw[c];
+      fence_proxy_async();
+    }
 
     // P^T = exp(S^T - lse), 0 where masked, as hi + lo: st[4j + e] is key
     // r0 + 8 (e >> 1), query row 8j + c0 + (e & 1); masks only on tiles
@@ -293,18 +342,18 @@ fa_bwd_dkv_sm90_kernel(__grid_constant__ const CUtensorMap tq,
             st[4 * j + e] * (dpt[4 * j + e] - (e & 1 ? dl.y : dl.x));
     }
 
-    // dV += P^T dO and dK += dS^T q (times scale in the epilogue), each A
-    // as hi + lo; dK's B is the Q tile as it came, every thread's chunks
-    // put back
+    // dV += P^T dO and dK += dS^T q (times scale in the epilogue) on this
+    // warpgroup's columns, each A as hi + lo; dK's B is the Q tile as it
+    // came (with NWG 1, every thread's chunks put back)
     uint32_t pa[4][4], pb[4][4], da[4][4], db[4][4];
     to_split_frags(st, pa, pb);
     to_split_frags(dpt, da, db);
-    warpgroup_sync(0);
+    if constexpr (!kOwnTile) warpgroup_sync(0);
     wgmma_fence();
-    wgmma_frags_b<D>(acc_dv, pa, do_addr);
-    wgmma_frags_b<D>(acc_dv, pb, do_addr);
-    wgmma_frags_b<D>(acc_dk, da, q_addr);
-    wgmma_frags_b<D>(acc_dk, db, q_addr);
+    wgmma_frags_b<kCols>(acc_dv, pa, do_addr + col_off);
+    wgmma_frags_b<kCols>(acc_dv, pb, do_addr + col_off);
+    wgmma_frags_b<kCols>(acc_dk, da, q_addr + col_off);
+    wgmma_frags_b<kCols>(acc_dk, db, q_addr + col_off);
     wgmma_commit();
     wgmma_wait<0>();
     pin(acc_dv);
@@ -314,20 +363,21 @@ fa_bwd_dkv_sm90_kernel(__grid_constant__ const CUtensorMap tq,
     pin(da);
     pin(db);
 
-    // every warp is done with stage s and with sStat: refill the stage
-    warpgroup_sync(0);
+    // every warp is done with stage s, the scaled tile and sStat: refill
+    // the stage
+    cta_sync();
     if (tid == 0 && i + kStages < n_iter) load_q(i + kStages);
   }
 
-  // dK * scale and dV in bf16, staged in the K and V tiles, stored for
-  // keys < Skv
-  stage_acc<D>(sK, acc_dk, scale, warp, lane);
-  stage_acc<D>(sV, acc_dv, 1.f, warp, lane);
-  warpgroup_sync(0);
+  // dK * scale and dV in bf16, staged in the K and V tiles (each warpgroup
+  // its columns), stored for keys < Skv
+  stage_acc<D, kCols>(sK, acc_dk, scale, warp, lane, wg * kCols);
+  stage_acc<D, kCols>(sV, acc_dv, 1.f, warp, lane, wg * kCols);
+  cta_sync();
   const int64_t row_stride = (int64_t)KVH * D;  // between positions
   const int64_t at = (((int64_t)b * Skv + k0) * KVH + kvh) * D;
-  store_tile<D>(sK, dk + at, row_stride, Skv - k0, tid, 128);
-  store_tile<D>(sV, dv + at, row_stride, Skv - k0, tid, 128);
+  store_tile<D>(sK, dk + at, row_stride, Skv - k0, tid, kThreads);
+  store_tile<D>(sV, dv + at, row_stride, Skv - k0, tid, kThreads);
 }
 
 template <int D, int NWG, int MIN_BLOCKS, int STAGES>
@@ -522,20 +572,20 @@ bool encode_all(Maps* m, const void* q, const void* k, const void* v,
          encode(&m->dout, dout, D, H, Sq, B);
 }
 
-template <int D>
+template <int D, int NWG>
 cudaError_t launch_dkv(const Maps& m, const void* lse, const void* delta,
                        void* dk, void* dv, int B, int Sq, int Skv, int H,
                        int KVH, float scale, int causal, int window,
                        int q_offset, cudaStream_t stream) {
   constexpr int kTile = D / kBox * kBoxBytes;
-  const int smem = 1024 + (2 + 2 * kStages) * kTile +
+  const int smem = 1024 + (2 + 2 * kStages + (NWG > 1)) * kTile +
                    2 * kTileRows * (int)sizeof(float) + 8 * (1 + kStages);
   const cudaError_t err = cudaFuncSetAttribute(
-      fa_bwd_dkv_sm90_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      fa_bwd_dkv_sm90_kernel<D, NWG>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(KVH, B, (Skv + kTileRows - 1) / kTileRows);
-  fa_bwd_dkv_sm90_kernel<D><<<grid, 128, smem, stream>>>(
+  fa_bwd_dkv_sm90_kernel<D, NWG><<<grid, NWG * 128, smem, stream>>>(
       m.q, m.k, m.v, m.dout, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), Sq, Skv, H, KVH, scale, causal,
@@ -549,9 +599,11 @@ cudaError_t launch_dq(const Maps& m, const void* lse, const void* delta,
                       float scale, int causal, int window, int q_offset,
                       cudaStream_t stream) {
   constexpr int kTile = D / kBox * kBoxBytes;
-  auto kernel = fa_bwd_dq_sm90_kernel<D, NWG, kDqMinBlocks, kDqStages>;
-  const int smem = 1024 + (2 * NWG + 2 * kDqStages) * kTile +
-                   8 * (1 + kDqStages) + 4 * kDqStages;
+  constexpr int kMinBlocks = D == 256 ? 1 : kDqMinBlocks;
+  constexpr int kRing = D == 256 ? kDq256Stages : kDqStages;
+  auto kernel = fa_bwd_dq_sm90_kernel<D, NWG, kMinBlocks, kRing>;
+  const int smem = 1024 + (2 * NWG + 2 * kRing) * kTile + 8 * (1 + kRing) +
+                   4 * kRing;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -589,6 +641,9 @@ cudaError_t fa_bwd_dq_sm90(const void* q, const void* k, const void* v,
                                             q_offset, stream)
                  : launch_dq<128, 1>(m, lse, delta, dq, B, Sq, Skv, H, KVH,
                                      scale, causal, window, q_offset, stream);
+  if (D == 256)
+    return launch_dq<256, 1>(m, lse, delta, dq, B, Sq, Skv, H, KVH, scale,
+                             causal, window, q_offset, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -602,10 +657,13 @@ cudaError_t fa_bwd_dkv_sm90(const void* q, const void* k, const void* v,
   if (!encode_all(&m, q, k, v, dout, B, Sq, Skv, H, KVH, D))
     return cudaErrorInvalidValue;
   if (D == 64)
-    return launch_dkv<64>(m, lse, delta, dk, dv, B, Sq, Skv, H, KVH, scale,
-                          causal, window, q_offset, stream);
+    return launch_dkv<64, 1>(m, lse, delta, dk, dv, B, Sq, Skv, H, KVH, scale,
+                             causal, window, q_offset, stream);
   if (D == 128)
-    return launch_dkv<128>(m, lse, delta, dk, dv, B, Sq, Skv, H, KVH, scale,
-                           causal, window, q_offset, stream);
+    return launch_dkv<128, 1>(m, lse, delta, dk, dv, B, Sq, Skv, H, KVH,
+                              scale, causal, window, q_offset, stream);
+  if (D == 256)
+    return launch_dkv<256, 2>(m, lse, delta, dk, dv, B, Sq, Skv, H, KVH,
+                              scale, causal, window, q_offset, stream);
   return cudaErrorInvalidValue;
 }

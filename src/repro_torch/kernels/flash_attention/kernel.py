@@ -14,7 +14,10 @@
     both.
 
 The two bf16 sources include ``csrc/sm90.cuh``, the Hopper helpers they
-share, which each library lists as a header of its build.
+share, which each library lists as a header of its build. Every kernel
+takes the head dims of ``HEAD_DIMS``: 64 and 128 (internlm2, qwen2.5, the
+smoke configs) and 256 (gemma3), the last with tilings of its own (one CTA
+an SM; dK/dV on two warpgroups that split the columns).
 
 Each launches on PyTorch's current stream, checks device, dtype,
 contiguity and shapes, allocates its outputs with ``torch.empty``, raises if
@@ -38,7 +41,7 @@ SM90_SOURCE = SOURCE.with_name("flash_fwd_sm90.cu")
 BWD_SOURCE = SOURCE.with_name("flash_bwd.cu")
 BWD_SM90_SOURCE = SOURCE.with_name("flash_bwd_sm90.cu")
 HEADERS = (SOURCE.with_name("sm90.cuh"),)
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -25,6 +25,10 @@ it (the elastic fold on the streaming-average kernel with
 and power limit, and written as JSON to ``--json-out`` when it is given.
 Needs a card.
 
+gemma3-1b takes the launcher's cut of its phase-1 batch:
+``--arch gemma3-1b --full --workers 2 --phase1-batch 128
+--elastic-deadline 30``.
+
 ``main(argv, cfg=...)`` (a Python keyword, as for ``train.build``)
 profiles that run on another config of the same arch, e.g. mamba2-2.7b at
 the depth ``chip_smoke.py`` trains it at:

@@ -12,6 +12,9 @@ give identical greedy tokens:
   * ``compiled`` -- tokens stay on the device in one (B, new_tokens)
     buffer, with one bulk copy to the host at the end.
 
+gemma3-1b at full width, with a prompt past its local layers' window of
+512: ``--arch gemma3-1b --full --prompt-len 2048``.
+
 Prefill and decode rates are reported separately (prompt tok/s vs generated
 tok/s), plus an overall rate that includes prefill. Runs on CUDA unless
 ``--device cpu`` is given; with no card visible it raises.

@@ -12,6 +12,12 @@ runs are ``repro_torch.experiments``):
       [--checkpoint-dir ckpts/ --checkpoint-every 50] [--resume] \
       [--elastic-deadline 30] [--lost-workers 3] [--device {cuda,cpu}]
 
+gemma3-1b at full width on one 80 GB card takes a phase-1 batch of 128
+(at 256 its 262144-wide logits run the card out of memory):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \
+      --full --workers 2 --phase1-batch 128 --elastic-deadline 30
+
 Flags, defaults and the printed summary are the reference launcher's.
 Runs on CUDA unless ``--device cpu`` is given; with no card visible it
 raises. Long jobs: ``--checkpoint-dir``/``--checkpoint-every`` write

@@ -32,13 +32,15 @@ LSE_TOL = 1e-4
 BWD_TOL = 2e-4      # tests/test_kernels_flash_attention.py:97
 GRAD_TOL = 5e-4     # tests/test_kernels_flash_attention.py:73
 
-# (B, Sq, Skv, H, KVH, D): the JAX kernel tests' grid, then D = 64 and 128
+# (B, Sq, Skv, H, KVH, D): the JAX kernel tests' grid, then D = 64, 128 and
+# 256 (gemma3's, one KV head for four query heads)
 SHAPES = [
     (1, 16, 16, 4, 4, 16),      # MHA tiny
     (2, 67, 67, 8, 2, 32),      # GQA, ragged seq
     (2, 128, 128, 4, 1, 64),    # kv=1 (gemma-style)
     (1, 33, 129, 4, 2, 24),     # cross-length, odd dims
     (1, 70, 70, 8, 2, 128),     # full-width head dim
+    (1, 70, 70, 4, 1, 256),     # gemma3's head dim
 ]
 MASKS = [(True, 0), (True, 16), (False, 0)]
 
@@ -91,7 +93,8 @@ def test_blockwise_and_oracle_match_jax(shape, dtype, causal, window):
 
 @pytest.mark.parametrize("shape", [(2, 40, 40, 4, 2, 32),
                                    (1, 64, 64, 4, 1, 64),
-                                   (1, 33, 129, 4, 2, 128)])
+                                   (1, 33, 129, 4, 2, 128),
+                                   (1, 70, 70, 4, 1, 256)])
 def test_bf16_fwd_matches_pallas_kernel(shape):
     """bf16: the port's plain out at 3e-2; its lse on f32-upcast inputs
     (the kernel's own arithmetic) at 1e-4."""
@@ -109,6 +112,7 @@ def test_bf16_fwd_matches_pallas_kernel(shape):
 @pytest.mark.parametrize("shape,q_offset", [
     ((2, 1, 64, 8, 4, 32), 63),          # decode row
     ((1, 33, 129, 4, 2, 64), 96),        # chunked prefill offset
+    ((1, 33, 129, 4, 1, 256), 96),       # the same at gemma3's head dim
 ])
 def test_q_offset_matches_pallas_kernel(shape, q_offset):
     (jq, jk, jv), (tq, tk, tv) = _inputs(shape, seed=3)
@@ -182,7 +186,7 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_wrapper_takes_both_dtypes_up_to_the_device_check(dtype):
     """f32 (the FMA route) and bf16 (the wgmma route) pass every check that
-    needs no card, at both head dims, and stop only at the device."""
+    needs no card, at every head dim, and stop only at the device."""
     for D in tkernel.HEAD_DIMS:
         (_, _, _), (tq, tk, tv) = _inputs((1, 8, 8, 4, 2, D), dtype, seed=9)
         with pytest.raises(RuntimeError, match="needs CUDA tensors"):
@@ -197,11 +201,20 @@ def _misaligned(t):
     return view
 
 
+def _head_dim(t, D):
+    """t's last dim cut or tiled to D, contiguous."""
+    return t.repeat(1, 1, 1, -(-D // t.shape[-1]))[..., :D].contiguous()
+
+
+# D 256 is a head dim the kernels take (gemma3's): it passes every check
+# and stops only at the device; D 96 is one they do not take yet
 REFUSED = {
-    "head_dim_256": (lambda q, k, v: (q.repeat(1, 1, 1, 2),
-                                      k.repeat(1, 1, 1, 2),
-                                      v.repeat(1, 1, 1, 2)),
-                     ValueError, "head dim 256"),
+    "head_dim_256": (lambda q, k, v: tuple(_head_dim(t, 256)
+                                           for t in (q, k, v)),
+                     RuntimeError, "needs CUDA tensors"),
+    "head_dim_96": (lambda q, k, v: tuple(_head_dim(t, 96)
+                                          for t in (q, k, v)),
+                    ValueError, "head dim 96"),
     "float16": (lambda q, k, v: (q.half(), k.half(), v.half()),
                 TypeError, "float32 or bfloat16"),
     "non_contiguous": (lambda q, k, v: (q.transpose(1, 2).contiguous()
@@ -260,6 +273,8 @@ CARD_EDGE_CASES = [
     ((1, 40, 40, 4, 1, 128), True, 16, 0),     # window
     ((1, 48, 48, 4, 2, 64), True, 0, -8),      # rows that see no key
     ((1, 200, 200, 8, 2, 64), True, 48, 0),    # tiles outside the window
+    ((1, 150, 150, 4, 1, 256), True, 48, 0),   # D 256, binding window
+    ((1, 33, 129, 4, 1, 256), True, 32, 96),   # D 256, window, q_offset
 ]
 
 
@@ -300,6 +315,8 @@ BWD_CASES = [
     ((1, 64, 64, 8, 2, 64), True, 0, 0),       # D 64
     ((1, 33, 129, 4, 2, 128), True, 0, 96),    # D 128, q_offset
     ((1, 48, 48, 4, 2, 64), True, 0, -8),      # rows that see no key
+    ((1, 100, 100, 4, 1, 256), True, 32, 0),   # D 256, binding window
+    ((1, 33, 129, 4, 1, 256), True, 0, 96),    # D 256, q_offset
 ]
 
 
@@ -544,7 +561,7 @@ def _bwd_args(shape, dtype, seed):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_bwd_wrappers_take_both_dtypes_up_to_the_device_check(fn, dtype):
     """f32 (the FMA route) and bf16 (the wgmma route) pass every check of
-    the dQ and dK/dV wrappers that needs no card, at both head dims, and
+    the dQ and dK/dV wrappers that needs no card, at every head dim, and
     stop only at the device."""
     for D in tkernel.HEAD_DIMS:
         args = _bwd_args((1, 8, 8, 4, 2, D), dtype, seed=40)
@@ -552,14 +569,13 @@ def test_bwd_wrappers_take_both_dtypes_up_to_the_device_check(fn, dtype):
             BWD_FNS[fn](*args)
 
 
-def _repeat_d(t):
-    return t.repeat(1, 1, 1, 2)
-
-
 BWD_REFUSED = {
     "head_dim_256": (lambda q, k, v, do, l, d: (
-        _repeat_d(q), _repeat_d(k), _repeat_d(v), _repeat_d(do), l, d),
-        ValueError, "head dim 256"),
+        *(_head_dim(t, 256) for t in (q, k, v, do)), l, d),
+        RuntimeError, "needs CUDA tensors"),
+    "head_dim_96": (lambda q, k, v, do, l, d: (
+        *(_head_dim(t, 96) for t in (q, k, v, do)), l, d),
+        ValueError, "head dim 96"),
     "float16": (lambda q, k, v, do, l, d: (q.half(), k.half(), v.half(),
                                            do.half(), l, d),
                 TypeError, "float32 or bfloat16"),

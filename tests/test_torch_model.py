@@ -135,6 +135,47 @@ def test_per_request_positions_decode_matches_jax():
         _close(tlog, jlog)
 
 
+# gemma3's smoke config at its full-width head dim of 256: 2 layers (one
+# local at window 32, one global), sequences longer than the window. Logits
+# at TOL; grads of the LM loss at the port's train-step bounds (rtol 1e-4,
+# atol 1e-6: f32 sums in another order than XLA's)
+NARROW_256 = dict(head_dim=256)
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
+
+
+def test_gemma3_head_dim_256_logits_and_grads_match_jax():
+    from repro.train.steps import lm_loss_and_metrics as jloss
+    from repro_torch.train.steps import lm_loss_and_metrics as tloss
+    jm, jp, tm, tp = _pair("gemma3-1b", **NARROW_256)
+    assert tm.cfg.head_dim == 256 and tm.cfg.sliding_window == 32
+    assert [k.window for k in tm.unit_kinds] == [32, 0]
+    B, S = 2, 48
+    toks = _tokens(jm.cfg, (B, S + 1), seed=4)
+    jl, _ = jm.apply(jp, jnp.asarray(toks[:, :S]))
+    tl, _ = tm.apply(tp, torch.from_numpy(toks[:, :S]).long())
+    _close(tl, jl)
+
+    jb = {"tokens": jnp.asarray(toks[:, :S]),
+          "labels": jnp.asarray(toks[:, 1:])}
+    tb = {"tokens": torch.from_numpy(toks[:, :S]).long(),
+          "labels": torch.from_numpy(toks[:, 1:]).long()}
+    (jloss_v, _), jg = jax.value_and_grad(
+        lambda p: jloss(jm, p, jb), has_aux=True)(jp)
+    items = list(_items(tp))
+    for _, t in items:
+        t.requires_grad_()
+    tloss_v, _ = tloss(tm, tp, tb)
+    tg = torch.autograd.grad(tloss_v, [t for _, t in items])
+    np.testing.assert_allclose(float(tloss_v.detach()), float(jloss_v),
+                               rtol=1e-5)
+    jflat = _flat(jax.device_get(jg))
+    assert set(jflat) == {k for k, _ in items}
+    for (k, _), got in zip(items, tg):
+        np.testing.assert_allclose(got.numpy(), np.asarray(jflat[k]),
+                                   rtol=GRAD_RTOL, atol=GRAD_ATOL,
+                                   err_msg=k)
+
+
 def test_quantize_kv_matches_jax():
     from repro.models.attention import quantize_kv as jq
     x = np.random.default_rng(3).standard_normal((4, 16, 2, 32)).astype(

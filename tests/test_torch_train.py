@@ -162,6 +162,27 @@ def test_remat_changes_memory_not_numbers(policy):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_eval_loss_in_place_equals_the_graph_loss(dtype):
+    """Without a graph the loss shifts and exponentiates one f32 copy of
+    the logits in place (in f32 the logits themselves): its loss and
+    accuracy are the graph's bit for bit."""
+    cfg = dataclasses.replace(treg.get_smoke_config("internlm2-1.8b"),
+                              dtype=dtype)
+    tr = _data(cfg.vocab_size, n_train=4, seq_len=16)
+    batch = {k: torch.from_numpy(v.copy()) for k, v in tr.items()}
+    adapter = LMAdapter(cfg, OptimizerConfig())
+    params = adapter.init(torch.Generator().manual_seed(0))["params"]
+    leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+    tree = tree_map_sorted(params, iter(leaves))
+    loss, metrics = lm_loss_and_metrics(adapter.model, tree, batch)
+    assert loss.requires_grad
+    with torch.no_grad():
+        loss_e, metrics_e = lm_loss_and_metrics(adapter.model, params, batch)
+    assert torch.equal(loss.detach(), loss_e)
+    assert torch.equal(metrics["accuracy"], metrics_e["accuracy"])
+
+
 def tree_map_sorted(tree, it):
     if isinstance(tree, dict):
         return {k: tree_map_sorted(tree[k], it) for k in sorted(tree)}
