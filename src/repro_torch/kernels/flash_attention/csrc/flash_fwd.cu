@@ -4,7 +4,7 @@
 // Replaces the Pallas TPU kernel
 //   repro/kernels/flash_attention/kernel.py::_fa_kernel
 // and computes what it computes, for q (B,Sq,H,D) and k, v (B,Skv,KVH,D),
-// D in {64, 128, 256}:
+// D in {64, 128, 192, 256}:
 //   * GQA: query head h reads KV head h / (H / KVH), straight from the
 //     strided (B,S,KVH,D) tensor (no repeated heads, no D padding);
 //   * online softmax in f32 (running max, running sum, f32 accumulator);
@@ -36,8 +36,9 @@
 // 8 query rows; a lane owns 2 keys of the tile for Q.K^T and D/32 output
 // columns for P.V. Q, K and P are read from shared memory as float4 (Q and
 // P as broadcasts), so each shared load feeds 8-16 FMAs. Shared memory is
-// 91.1 KB per CTA at D = 128 (two CTAs per SM), 49.9 KB at D = 64 and
-// 173.1 KB at D = 256 (one CTA per SM).
+// 91.1 KB per CTA at D = 128 (two CTAs per SM), 49.9 KB at D = 64, and
+// 132.1 KB at D = 192 and 173.1 KB at D = 256 (one CTA per SM). A lane
+// holds kRows x D/32 accumulators: 48 registers at D 192, 64 at D 256.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -304,6 +305,9 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o,
                              causal, window, q_offset, st);
   if (dtype == 0 && D == 128)
     return launch<float, 128>(q, k, v, o, lse, B, Sq, Skv, H, KVH, scale,
+                              causal, window, q_offset, st);
+  if (dtype == 0 && D == 192)
+    return launch<float, 192>(q, k, v, o, lse, B, Sq, Skv, H, KVH, scale,
                               causal, window, q_offset, st);
   if (dtype == 0 && D == 256)
     return launch<float, 256>(q, k, v, o, lse, B, Sq, Skv, H, KVH, scale,

@@ -5,8 +5,9 @@
 //   repro/kernels/flash_attention/kernel.py::_fa_kernel
 // (f32 inputs stay on fa_fwd_kernel<float, D> in flash_fwd.cu: the tensor
 // cores would take f32 as TF32). The contract is flash_fwd.cu's: q
-// (B,Sq,H,D), k, v (B,Skv,KVH,D), D in {64, 128, 256}, GQA with query head
-// h on KV head h / (H / KVH); padding, causal, window and q_offset masks;
+// (B,Sq,H,D), k, v (B,Skv,KVH,D), D in {64, 128, 192, 256}, GQA with
+// query head h on KV head h / (H / KVH); padding, causal, window and
+// q_offset masks;
 // NEG_INF = -1e30 with the same live/alpha rules; out (B,Sq,H,D) bf16 and
 // lse (B,Sq,H) f32, out = 0 and lse = 0 for a row that sees no key.
 //
@@ -23,7 +24,10 @@
 // ~202.4 MB (60.4 us) against 4.4 GFLOP. Both are bound by bytes. At D 256
 // the gemma3-1b prefill (B 8, S 2048, H 4, KVH 1, causal) moves ~84.1 MB
 // (25.1 us) and does ~68.7 GFLOP (69.5 us): there the tensor cores bind,
-// and a local layer of window 512 does 30.1 GFLOP (30.4 us). The design
+// and a local layer of window 512 does 30.1 GFLOP (30.4 us). At D 192 the
+// deepseek-v2-lite MLA prefill (B 8, S 512, H = KVH 16, v padded to 192,
+// causal) moves ~100.9 MB (30.1 us) and does ~12.9 GFLOP (13.1 us): bound
+// by bytes. The design
 // reads each K/V byte once per (KV head, query tile) and keeps S, P and O
 // out of device memory.
 //
@@ -54,7 +58,8 @@
 //    exp(s - m) is 2^(s log2 e - m log2 e), one FFMA and one ex2.approx,
 //    where __expf takes a subtract, a multiply and the ex2: the softmax's
 //    FP32 and special-function work, not the tensor cores, paces a tile.
-//  * O += P.V: wgmma m64nDk16 (at D 256 one m64n256k16 a k-step) with
+//  * O += P.V: wgmma m64nDk16 (at D 192 and 256 one m64n192k16 or
+//    m64n256k16 a k-step, N = D spanning three or four boxes) with
 //    A = p in registers (the fragment of S columns 16j..16j+15 is the A
 //    fragment of k-step j) and B = V from shared memory, MN-major (D
 //    contiguous; transpose-B). The next tile's
@@ -74,6 +79,10 @@
 //    O accumulator alone is 64 x 256 f32, 128 registers a thread, and a CTA
 //    of two warpgroups takes 192 KB of shared memory (two Q tiles of 32 KB,
 //    a K/V ring of 2 x 2 x 32 KB): one CTA an SM, bounded at 255 registers.
+//    At D 192 the O accumulator is 96 registers a thread beside S's 32,
+//    and a CTA takes 121 KB of shared memory with one warpgroup (G odd, as
+//    MLA's G = 1: a Q tile of 24 KB, a K/V ring of 2 x 2 x 24 KB) or 145 KB
+//    with two: one CTA an SM there too, so one warpgroup an SM at G = 1.
 // Not here: a producer warp with setmaxnreg, persistent CTAs, clusters,
 // the ping-pong of two warpgroups, or overlap of one tile's softmax with
 // the next tile's S (that needs a second S accumulator, 32 more registers
@@ -93,7 +102,7 @@ constexpr int kBlockK = kTileRows;       // keys per KV tile
 constexpr int kStages = 2;               // K/V ring depth
 
 template <int D, int NWG>
-__global__ void __launch_bounds__(NWG * 128, D == 256 ? 1 : 2)
+__global__ void __launch_bounds__(NWG * 128, D >= 192 ? 1 : 2)
 fa_fwd_sm90_kernel(__grid_constant__ const CUtensorMap tq,
                    __grid_constant__ const CUtensorMap tk,
                    __grid_constant__ const CUtensorMap tv,
@@ -360,6 +369,11 @@ cudaError_t fa_fwd_sm90(const void* q, const void* k, const void* v, void* o,
     return pair ? launch<128, 2>(tq, tk, tv, o, lse, B, Sq, Skv, H, KVH,
                                  scale, causal, window, q_offset, stream)
                 : launch<128, 1>(tq, tk, tv, o, lse, B, Sq, Skv, H, KVH,
+                                 scale, causal, window, q_offset, stream);
+  if (D == 192)
+    return pair ? launch<192, 2>(tq, tk, tv, o, lse, B, Sq, Skv, H, KVH,
+                                 scale, causal, window, q_offset, stream)
+                : launch<192, 1>(tq, tk, tv, o, lse, B, Sq, Skv, H, KVH,
                                  scale, causal, window, q_offset, stream);
   if (D == 256)
     return pair ? launch<256, 2>(tq, tk, tv, o, lse, B, Sq, Skv, H, KVH,

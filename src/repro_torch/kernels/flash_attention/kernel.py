@@ -14,10 +14,13 @@
     both.
 
 The two bf16 sources include ``csrc/sm90.cuh``, the Hopper helpers they
-share, which each library lists as a header of its build. Every kernel
-takes the head dims of ``HEAD_DIMS``: 64 and 128 (internlm2, qwen2.5, the
-smoke configs) and 256 (gemma3), the last with tilings of its own (one CTA
-an SM; dK/dV on two warpgroups that split the columns).
+share, which each library lists as a header of its build. The forward
+takes the head dims of ``FWD_HEAD_DIMS``: 64 and 128 (internlm2, qwen2.5,
+granite-moe, the smoke configs), 192 (deepseek-v2-lite's MLA: qk 128 + 64,
+v padded to 192) and 256 (gemma3); the backward those of
+``BWD_HEAD_DIMS``, without 192 until the MoE/MLA training slice. D 192 and
+256 have tilings of their own (one CTA an SM; at 256, dK/dV on two
+warpgroups that split the columns).
 
 Each launches on PyTorch's current stream, checks device, dtype,
 contiguity and shapes, allocates its outputs with ``torch.empty``, raises if
@@ -41,7 +44,8 @@ SM90_SOURCE = SOURCE.with_name("flash_fwd_sm90.cu")
 BWD_SOURCE = SOURCE.with_name("flash_bwd.cu")
 BWD_SM90_SOURCE = SOURCE.with_name("flash_bwd_sm90.cu")
 HEADERS = (SOURCE.with_name("sm90.cuh"),)
-HEAD_DIMS = (64, 128, 256)
+FWD_HEAD_DIMS = (64, 128, 192, 256)
+BWD_HEAD_DIMS = (64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -90,7 +94,7 @@ def build_bwd() -> _build.Built:
     return _bwd_library()[0]
 
 
-def _check(q, k, v):
+def _check(q, k, v, head_dims=FWD_HEAD_DIMS):
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError(
             "flash_fwd launches the kernel outside autograd; call "
@@ -107,9 +111,9 @@ def _check(q, k, v):
     if k.shape[0] != B or k.shape[3] != D or H % k.shape[2]:
         raise ValueError(f"incompatible q {tuple(q.shape)} and k/v "
                          f"{tuple(k.shape)}")
-    if D not in HEAD_DIMS:
+    if D not in head_dims:
         raise ValueError(f"head dim {D} not supported by the kernel "
-                         f"(supported: {HEAD_DIMS})")
+                         f"(supported: {head_dims})")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
@@ -125,7 +129,7 @@ def _check(q, k, v):
 def flash_fwd(q, k, v, *, causal: bool = True, window: int = 0,
               scale: float | None = None, q_offset: int = 0):
     """q: (B,Sq,H,D); k, v: (B,Skv,KVH,D), contiguous, f32 or bf16, D in
-    HEAD_DIMS. Returns (out (B,Sq,H,D) in q.dtype, lse (B,Sq,H) f32)."""
+    FWD_HEAD_DIMS. Returns (out (B,Sq,H,D) in q.dtype, lse (B,Sq,H) f32)."""
     _check(q, k, v)
     B, Sq, H, D = q.shape
     Skv, KVH = k.shape[1], k.shape[2]
@@ -166,7 +170,13 @@ def _check_bwd(q, k, v, do, lse, delta):
             raise ValueError(f"{name} must be contiguous")
     if do.data_ptr() % 16:
         raise ValueError("dO must start on a 16-byte boundary")
-    _check(q, k, v)
+    if q.shape[-1] == 192:
+        raise ValueError(
+            "head dim 192 (MLA) has no backward kernel yet: it comes with "
+            "the SWAP training of the MoE family and MLA (ROADMAP A11, "
+            "MoE/MLA training; its dK/dV wants the D-256 split of columns "
+            "over two warpgroups)")
+    _check(q, k, v, BWD_HEAD_DIMS)
     for name, t in (("dO", do), ("lse", lse), ("delta", delta)):
         if t.device != q.device:
             raise ValueError(f"{name} must lie on {q.device}; got {t.device}")

@@ -13,7 +13,11 @@ give identical greedy tokens:
     buffer, with one bulk copy to the host at the end.
 
 gemma3-1b at full width, with a prompt past its local layers' window of
-512: ``--arch gemma3-1b --full --prompt-len 2048``.
+512: ``--arch gemma3-1b --full --prompt-len 2048``. The MoE family and MLA:
+``--arch deepseek-v2-lite --full`` (MLA, the flash forward at head dim 192;
+15.7 B parameters, 62.7 GB in f32 on an 80 GB card) and ``--arch
+granite-moe-3b-a800m --full``; ``--device cpu`` without ``--full`` serves
+their smoke configs on the plain versions.
 
 Prefill and decode rates are reported separately (prompt tok/s vs generated
 tok/s), plus an overall rate that includes prefill. Runs on CUDA unless

@@ -1,9 +1,10 @@
 """SWAP training launcher: twin of ``repro/launch/train.py``, one process.
 
 Runs the three-phase SWAP schedule on an LM architecture of the dense or
-ssm family (the smoke config by default; ``--full`` for the full one) on
-the synthetic Markov-LM task (the CNN is refused, as by the reference: its
-runs are ``repro_torch.experiments``):
+ssm family with GQA attention (the smoke config by default; ``--full`` for
+the full one) on the synthetic Markov-LM task (the CNN is refused, as by
+the reference: its runs are ``repro_torch.experiments``; the MoE family
+and MLA are refused until their training slice, ROADMAP A11):
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \
       [--full] [--workers 4] [--phase1-steps 150] [--phase2-steps 60] \
@@ -102,6 +103,13 @@ def build(args, cfg=None) -> SWAP:
     if cfg.family == "cnn":
         raise SystemExit("use python -m repro_torch.experiments."
                          "table1_cifar10 for the CNN")
+    if cfg.family == "moe" or cfg.attention == "mla":
+        raise NotImplementedError(
+            f"{cfg.name}: SWAP training of the MoE family and MLA is not "
+            f"ported yet (ROADMAP A11, MoE/MLA training: the router's aux "
+            f"loss in the step, the flash backward at head dim 192, a depth "
+            f"cut of deepseek-v2-lite); they are served: "
+            f"python -m repro_torch.launch.serve --arch {args.arch}")
 
     data = make_markov_lm(args.seed, vocab=min(cfg.vocab_size, 512),
                           n_train=4096, n_test=1024, seq_len=args.seq_len)

@@ -1,17 +1,22 @@
-"""GQA attention (+bias, sliding window): train, prefill and decode.
+"""GQA attention (+bias, sliding window) and MLA: train, prefill and decode.
 
-Twin of the GQA part of ``repro/models/attention.py``. Prefill attention
-goes through the flash-attention op (the hand-written kernel on CUDA);
-single-token decode attends over the cache in plain PyTorch, as the
-reference does in plain jnp. Caches are plain dicts of tensors.
+Twin of the GQA and MLA parts of ``repro/models/attention.py``. Prefill
+attention goes through the flash-attention op (the hand-written kernel on
+CUDA; MLA's at qk's head dim, 192 for deepseek-v2-lite); single-token
+decode attends over the cache in plain PyTorch, as the reference does in
+plain jnp (MLA's absorbed decode in the latent space). Caches are plain
+dicts of tensors; MLA's is the latent ``{c_kv, k_rope}``, not per-head K/V.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.layers import apply_rope, dense_init, mdot, rope_cos_sin
+from repro_torch.models.layers import (
+    apply_norm, apply_rope, dense_init, mdot, rope_cos_sin,
+)
 
 # ---------------------------------------------------------------------------
 # GQA
@@ -120,6 +125,21 @@ def _window_slots(kv, window: int):
     return out
 
 
+def _write_slot(buf, new, slot):
+    """A copy of the cache ``buf`` (B, L, ...) with ``new[b, 0]`` written at
+    ``slot`` of each row b; ``slot`` is a Python int, or a (B,) tensor of
+    per-row slots, where one past L drops its write, as a JAX scatter
+    does."""
+    out = buf.clone()
+    if isinstance(slot, torch.Tensor):
+        ok = slot < buf.shape[1]
+        out[torch.arange(buf.shape[0], device=buf.device)[ok], slot[ok]] = \
+            new[ok, 0].to(buf.dtype)
+    else:
+        out[:, slot] = new[:, 0].to(buf.dtype)
+    return out
+
+
 def _slot_positions(pos, cache_len: int, window: int):
     """Absolute position stored in each slot of a (possibly circular) cache
     after the token at `pos` has been written; -1 = empty. pos: a Python
@@ -151,26 +171,14 @@ def gqa_decode(params, x, cache, pos, cfg: ModelConfig, *, window: int = 0):
     L = cache["k"].shape[1]
     slot = (torch.remainder(pos, L) if vec else pos % L) if window > 0 else pos
 
-    def upd(buf, new):
-        out = buf.clone()
-        if vec:
-            # out-of-range slots drop their write, as a JAX scatter does
-            ok = slot < L
-            out[torch.arange(B, device=buf.device)[ok], slot[ok]] = \
-                new[ok, 0].to(buf.dtype)
-        else:
-            out[:, slot] = new[:, 0].to(buf.dtype)
-        return out
-
     if "k_scale" in cache:      # int8 cache: quantize the new token
         knq, kns = quantize_kv(k_new)
         vnq, vns = quantize_kv(v_new)
-        new_cache = {"k": upd(cache["k"], knq),
-                     "k_scale": upd(cache["k_scale"], kns),
-                     "v": upd(cache["v"], vnq),
-                     "v_scale": upd(cache["v_scale"], vns)}
+        new = {"k": knq, "k_scale": kns, "v": vnq, "v_scale": vns}
     else:
-        new_cache = {"k": upd(cache["k"], k_new), "v": upd(cache["v"], v_new)}
+        new = {"k": k_new, "v": v_new}
+    new_cache = {key: _write_slot(cache[key], t, slot)
+                 for key, t in new.items()}
     k, v = _cache_kv(new_cache, dtype)
 
     kpos = _slot_positions(pos, L, window).to(x.device)
@@ -205,3 +213,133 @@ def gqa_empty_cache(cfg: ModelConfig, batch: int, cache_len: int,
         return {"k": zq, "k_scale": zs, "v": zq.clone(), "v_scale": zs.clone()}
     z = torch.zeros(shape, dtype=dtype, device=device)
     return {"k": z, "v": z.clone()}
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention, MiniCPM3/DeepSeek-V2 style)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig, lead=()):
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    lead = tuple(lead)
+    qh = m.qk_nope_head_dim + m.qk_rope_head_dim
+    r = m.kv_lora_rank
+    return {
+        "wq_a": dense_init(gen, (d, m.q_lora_rank), lead=lead),
+        "q_norm": {"scale": torch.ones(lead + (m.q_lora_rank,),
+                                       device=gen.device)},
+        "wq_b": dense_init(gen, (m.q_lora_rank, H * qh),
+                           fan_in=m.q_lora_rank, lead=lead),
+        "wkv_a": dense_init(gen, (d, r + m.qk_rope_head_dim), lead=lead),
+        "kv_norm": {"scale": torch.ones(lead + (r,), device=gen.device)},
+        "wk_b": dense_init(gen, (r, H * m.qk_nope_head_dim), fan_in=r,
+                           lead=lead),
+        "wv_b": dense_init(gen, (r, H * m.v_head_dim), fan_in=r, lead=lead),
+        "wo": dense_init(gen, (H * m.v_head_dim, d), fan_in=H * m.v_head_dim,
+                         lead=lead),
+    }
+
+
+def _mla_q(params, x, cfg: ModelConfig, positions, dtype):
+    m = cfg.mla
+    B, S, _ = x.shape
+    qh = m.qk_nope_head_dim + m.qk_rope_head_dim
+    q_lat = apply_norm(params["q_norm"], mdot(x, params["wq_a"], dtype),
+                       "rmsnorm", cfg.norm_eps)
+    q = mdot(q_lat, params["wq_b"], dtype).reshape(B, S, cfg.n_heads, qh)
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    cos, sin = rope_cos_sin(positions, m.qk_rope_head_dim, cfg.rope_theta)
+    return q_nope, apply_rope(q_rope, cos, sin)
+
+
+def _mla_latent(params, x, cfg: ModelConfig, positions, dtype):
+    """(c_kv (B,S,r) normed, k_rope (B,S,rope) rotated): what the cache
+    holds."""
+    m = cfg.mla
+    kv = mdot(x, params["wkv_a"], dtype)
+    c_kv, k_rope = kv[..., :m.kv_lora_rank], kv[..., m.kv_lora_rank:]
+    c_kv = apply_norm(params["kv_norm"], c_kv, "rmsnorm", cfg.norm_eps)
+    cos, sin = rope_cos_sin(positions, m.qk_rope_head_dim, cfg.rope_theta)
+    return c_kv, apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0, :]
+
+
+def mla_forward(params, x, cfg: ModelConfig, *, positions,
+                return_cache: bool = False):
+    """Expanded (train/prefill) MLA: per-head K/V made from the latent, the
+    rope part of k shared by every head, v zero-padded to qk's head dim for
+    the flash op (deepseek-v2-lite: 128 + 64 = 192) and sliced back after.
+    Returns out, or (out, latent cache {c_kv, k_rope})."""
+    m = cfg.mla
+    dtype = x.dtype
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    q_nope, q_rope = _mla_q(params, x, cfg, positions, dtype)
+    c_kv, k_rope = _mla_latent(params, x, cfg, positions, dtype)
+
+    k_nope = mdot(c_kv, params["wk_b"], dtype).reshape(
+        B, S, H, m.qk_nope_head_dim)
+    v = mdot(c_kv, params["wv_b"], dtype).reshape(B, S, H, m.v_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, S, H, m.qk_rope_head_dim)], dim=-1)
+    qh = q.shape[-1]
+    vpad = F.pad(v, (0, qh - m.v_head_dim))
+    out = flash_attention(q, k, vpad, causal=True, chunk=cfg.attention_chunk,
+                          impl=cfg.attention_impl, scale=qh ** -0.5)
+    out = out[..., :m.v_head_dim].reshape(B, S, -1)
+    out = mdot(out, params["wo"], dtype)
+    if not return_cache:
+        return out
+    return out, {"c_kv": c_kv, "k_rope": k_rope}
+
+
+def mla_decode(params, x, cache, pos, cfg: ModelConfig):
+    """Absorbed-latent decode: attention runs in the kv_lora_rank space over
+    the (B, L, r) + (B, L, rope) cache, in plain PyTorch as the reference
+    runs it in plain jnp. pos: a Python int or a (B,) long tensor (per-slot
+    positions). Returns (out, new_cache); the input cache is left as it
+    was."""
+    m = cfg.mla
+    dtype = x.dtype
+    B = x.shape[0]
+    H = cfg.n_heads
+    vec = isinstance(pos, torch.Tensor)
+    positions = (pos[:, None] if vec
+                 else torch.full((B, 1), pos, device=x.device))
+    q_nope, q_rope = _mla_q(params, x, cfg, positions, dtype)    # (B,1,H,.)
+    c_new, kr_new = _mla_latent(params, x, cfg, positions, dtype)
+
+    c_kv = _write_slot(cache["c_kv"], c_new, pos)
+    k_rope = _write_slot(cache["k_rope"], kr_new, pos)
+
+    L = c_kv.shape[1]
+    r = m.kv_lora_rank
+    wk_b = params["wk_b"].to(dtype).reshape(r, H, m.qk_nope_head_dim)
+    # absorb: q' = q_nope @ W_k^T per head -> latent space
+    q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], wk_b)       # (B,H,r)
+    s = torch.einsum("bhr,blr->bhl", q_lat, c_kv.to(dtype))
+    s = s + torch.einsum("bhd,bld->bhl", q_rope[:, 0], k_rope.to(dtype))
+    qh = m.qk_nope_head_dim + m.qk_rope_head_dim
+    s = s.float() * (qh ** -0.5)
+    limit = pos[:, None, None] if vec else pos
+    s = torch.where(torch.arange(L, device=x.device)[None, None, :] <= limit,
+                    s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhl,blr->bhr", p.to(dtype), c_kv.to(dtype))
+    wv_b = params["wv_b"].to(dtype).reshape(r, H, m.v_head_dim)
+    o = torch.einsum("bhr,rhd->bhd", o_lat, wv_b).reshape(B, 1, -1)
+    out = mdot(o, params["wo"], dtype)
+    return out, {"c_kv": c_kv, "k_rope": k_rope}
+
+
+def mla_empty_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
+                    device):
+    m = cfg.mla
+    return {
+        "c_kv": torch.zeros((batch, cache_len, m.kv_lora_rank), dtype=dtype,
+                            device=device),
+        "k_rope": torch.zeros((batch, cache_len, m.qk_rope_head_dim),
+                              dtype=dtype, device=device),
+    }

@@ -1,5 +1,6 @@
-"""Model assembly for the dense (internlm2, qwen2.5, gemma3) and ssm
-(mamba2) families.
+"""Model assembly for the dense (internlm2, qwen2.5, gemma3, minicpm3), moe
+(granite-moe, qwen3-moe, deepseek-v2-lite) and ssm (mamba2) families, with
+GQA or MLA attention.
 
 Twin of ``repro/models/model.py``. Layers are grouped into *pattern units*
 exactly as in the reference (gemma3: unit = 5 local + 1 global layers), and
@@ -8,7 +9,9 @@ shapes: stacked ``blocks`` keep their leading ``(n_units, unit_len)`` axes,
 the remainder layers form a stacked ``tail``. The reference's ``lax.scan``
 over units is a Python loop here. Caches are dicts keyed by position in unit
 and stacked across units on the leading axis: an attention layer's is
-``{"a": {k, v}}``, a mamba layer's ``{"m": {conv, state}}``.
+``{"a": {k, v}}`` (MLA's the latent ``{"a": {c_kv, k_rope}}``), a mamba
+layer's ``{"m": {conv, state}}``. ``apply`` returns the MoE layers' summed
+router aux loss beside the logits, as the reference's scan carries it.
 
 Training (``apply`` under autograd) rematerializes each pattern unit when
 ``cfg.remat`` is set, as the reference's ``jax.checkpoint`` does:
@@ -29,15 +32,17 @@ import torch
 import torch.utils.checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention as attn, mamba2
+from repro_torch.models import attention as attn, mamba2, moe
 from repro_torch.models.layers import (
     apply_mlp, apply_norm, dense_init, embed_init, init_mlp, init_norm, mdot,
 )
 
+
 @dataclasses.dataclass(frozen=True)
 class LayerKind:
-    block: str = "attn"  # "attn" | "mamba"
-    window: int = 0      # sliding window for attn (0 = full)
+    block: str = "attn"    # "attn" | "mamba"
+    window: int = 0        # sliding window for attn (0 = full)
+    use_moe: bool = False  # MoE FFN in place of the MLP
 
 
 def _tree_map(fn, tree):
@@ -90,16 +95,16 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name}: the cnn family is not a Model: it is the functional "
             f"repro_torch.models.cnn (init_cnn, apply_cnn), as in the "
             f"reference")
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
             f"A11 other families)")
     if cfg.family == "ssm":
         return
-    if cfg.attention != "gqa":
+    if cfg.attention not in ("gqa", "mla"):
         raise NotImplementedError(
             f"{cfg.name}: attention {cfg.attention!r} is not ported yet "
-            f"(ROADMAP A11, MLA)")
+            f"(ROADMAP A11 other families)")
     if cfg.mrope_sections:
         raise NotImplementedError(
             f"{cfg.name}: M-RoPE is not ported yet (ROADMAP A11, qwen2-vl)")
@@ -128,6 +133,8 @@ class Model:
                     + [LayerKind()] * glob)
         else:
             unit = [LayerKind(window=cfg.sliding_window)]
+        if cfg.family == "moe":
+            unit = [dataclasses.replace(k, use_moe=True) for k in unit]
         n_units, rem = divmod(cfg.n_layers, len(unit))
         return unit, n_units, unit[:rem]
 
@@ -139,13 +146,19 @@ class Model:
         """Params of ``prod(lead)`` blocks, stacked on the ``lead`` axes
         (every block of a ported family has the same kind of params)."""
         cfg = self.cfg
-        if self.unit_kinds[0].block == "mamba":
+        kind = self.unit_kinds[0]
+        if kind.block == "mamba":
             return {"ln1": init_norm(cfg.d_model, cfg.norm, gen.device, lead),
                     "mamba": mamba2.init_mamba(gen, cfg, lead)}
-        return {"ln1": init_norm(cfg.d_model, cfg.norm, gen.device, lead),
-                "ln2": init_norm(cfg.d_model, cfg.norm, gen.device, lead),
-                "attn": attn.init_gqa(gen, cfg, lead),
-                "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, lead)}
+        p = {"ln1": init_norm(cfg.d_model, cfg.norm, gen.device, lead),
+             "ln2": init_norm(cfg.d_model, cfg.norm, gen.device, lead),
+             "attn": (attn.init_mla(gen, cfg, lead) if cfg.attention == "mla"
+                      else attn.init_gqa(gen, cfg, lead))}
+        if kind.use_moe:
+            p["moe"] = moe.init_moe(gen, cfg, lead)
+        else:
+            p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, lead)
+        return p
 
     def init(self, gen: torch.Generator) -> Dict[str, Any]:
         """Random params on ``gen.device`` (same distributions as the
@@ -169,8 +182,16 @@ class Model:
     # blocks
     # ------------------------------------------------------------------
 
+    def _ffn(self, p, x, kind: LayerKind):
+        """(out, aux): the MoE FFN and its router aux loss, or the MLP and
+        None."""
+        if kind.use_moe:
+            return moe.moe_forward(p["moe"], x, self.cfg)
+        return apply_mlp(p["mlp"], x, self.cfg.act, self.dtype), None
+
     def _block_full(self, p, h, kind: LayerKind, positions, mode: str):
-        """Returns (h, cache); cache is {} unless mode == "prefill"."""
+        """Returns (h, cache, aux); cache is {} unless mode == "prefill",
+        aux is None unless the layer is MoE."""
         cfg = self.cfg
         cache = {}
         x = apply_norm(p["ln1"], h, cfg.norm, cfg.norm_eps)
@@ -180,17 +201,20 @@ class Model:
                                                      return_cache=True)
             else:
                 y = mamba2.mamba_forward(p["mamba"], x, cfg)
-            return h + y, cache
-        if mode == "prefill":
-            y, cache["a"] = attn.gqa_forward(
-                p["attn"], x, cfg, positions=positions, window=kind.window,
-                return_cache=True)
+            return h + y, cache, None
+        prefill = mode == "prefill"
+        if cfg.attention == "mla":
+            y = attn.mla_forward(p["attn"], x, cfg, positions=positions,
+                                 return_cache=prefill)
         else:
             y = attn.gqa_forward(p["attn"], x, cfg, positions=positions,
-                                 window=kind.window)
+                                 window=kind.window, return_cache=prefill)
+        if prefill:
+            y, cache["a"] = y
         h = h + y
         x = apply_norm(p["ln2"], h, cfg.norm, cfg.norm_eps)
-        return h + apply_mlp(p["mlp"], x, cfg.act, self.dtype), cache
+        y, aux = self._ffn(p, x, kind)
+        return h + y, cache, aux
 
     def _block_decode(self, p, h, kind: LayerKind, cache, pos):
         cfg = self.cfg
@@ -198,11 +222,14 @@ class Model:
         if kind.block == "mamba":
             y, mc = mamba2.mamba_decode(p["mamba"], x, cache["m"], cfg)
             return h + y, {"m": mc}
-        y, ac = attn.gqa_decode(p["attn"], x, cache["a"], pos, cfg,
-                                window=kind.window)
+        if cfg.attention == "mla":
+            y, ac = attn.mla_decode(p["attn"], x, cache["a"], pos, cfg)
+        else:
+            y, ac = attn.gqa_decode(p["attn"], x, cache["a"], pos, cfg,
+                                    window=kind.window)
         h = h + y
         x = apply_norm(p["ln2"], h, cfg.norm, cfg.norm_eps)
-        return h + apply_mlp(p["mlp"], x, cfg.act, self.dtype), {"a": ac}
+        return h + self._ffn(p, x, kind)[0], {"a": ac}
 
     def _units(self, params):
         """Each pattern unit's params (leading axis unit_len)."""
@@ -257,24 +284,30 @@ class Model:
         return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
 
     def apply(self, params, tokens):
-        """Full-sequence forward. Returns (logits, aux_loss)."""
+        """Full-sequence forward. Returns (logits, aux_loss): the sum of the
+        MoE layers' router aux losses (0 without MoE layers)."""
         cfg = self.cfg
         B, S = tokens.shape
         positions = self._default_positions(B, S, tokens.device)
         h = self._embed(params, tokens)
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
 
-        def unit(h, unit_p):
+        def layer(h, aux, p, kind):
+            h, _, a = self._block_full(p, h, kind, positions, "train")
+            return h, aux if a is None else aux + a
+
+        def unit(h, aux, unit_p):
             layers = _tree_unbind(unit_p, len(self.unit_kinds))
             for p, kind in zip(layers, self.unit_kinds):
-                h, _ = self._block_full(p, h, kind, positions, "train")
-            return h
+                h, aux = layer(h, aux, p, kind)
+            return h, aux
 
         for unit_p in self._units(params):
-            h = self._remat(unit, h, unit_p) if cfg.remat else unit(h, unit_p)
+            h, aux = (self._remat(unit, h, aux, unit_p) if cfg.remat
+                      else unit(h, aux, unit_p))
         for kind, p in zip(self.tail_kinds, self._tail(params)):
-            h, _ = self._block_full(p, h, kind, positions, "train")
+            h, aux = layer(h, aux, p, kind)
         h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
-        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         return self._head(params, h), aux
 
     def prefill(self, params, tokens, *, cache_len: Optional[int] = None):
@@ -289,8 +322,12 @@ class Model:
         def pad_cache(c, kind: LayerKind):
             if kind.block == "mamba":
                 return c
-            L = c["a"]["k"].shape[1]
-            tgt = min(cache_len, kind.window) if kind.window > 0 else cache_len
+            if "c_kv" in c["a"]:                   # MLA's latent cache
+                L, tgt = c["a"]["c_kv"].shape[1], cache_len
+            else:
+                L = c["a"]["k"].shape[1]
+                tgt = (min(cache_len, kind.window) if kind.window > 0
+                       else cache_len)
             if L < tgt:
                 c = {"a": {kk: torch.cat(
                     [vv, vv.new_zeros((vv.shape[0], tgt - L) + vv.shape[2:])],
@@ -300,7 +337,7 @@ class Model:
         per_unit: List[Dict[str, Any]] = [{} for _ in range(self.n_units)]
         cache: Dict[str, Any] = {}
         for u, i, kind, p in self._layers(params):
-            h, c = self._block_full(p, h, kind, positions, "prefill")
+            h, c, _ = self._block_full(p, h, kind, positions, "prefill")
             if u is None:
                 cache[f"t{i}"] = pad_cache(c, kind)
             else:
@@ -340,6 +377,10 @@ class Model:
             if kind.block == "mamba":
                 key = "m"
                 c = mamba2.mamba_empty_cache(cfg, batch, self.dtype, device)
+            elif cfg.attention == "mla":
+                key = "a"
+                c = attn.mla_empty_cache(cfg, batch, cache_len, self.dtype,
+                                         device)
             else:
                 key = "a"
                 c = attn.gqa_empty_cache(cfg, batch, cache_len, kind.window,

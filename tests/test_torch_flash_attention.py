@@ -32,7 +32,8 @@ LSE_TOL = 1e-4
 BWD_TOL = 2e-4      # tests/test_kernels_flash_attention.py:97
 GRAD_TOL = 5e-4     # tests/test_kernels_flash_attention.py:73
 
-# (B, Sq, Skv, H, KVH, D): the JAX kernel tests' grid, then D = 64, 128 and
+# (B, Sq, Skv, H, KVH, D): the JAX kernel tests' grid, then D = 64, 128,
+# 192 (deepseek-v2-lite's MLA: qk 128 + 64, one KV head a query head) and
 # 256 (gemma3's, one KV head for four query heads)
 SHAPES = [
     (1, 16, 16, 4, 4, 16),      # MHA tiny
@@ -40,6 +41,7 @@ SHAPES = [
     (2, 128, 128, 4, 1, 64),    # kv=1 (gemma-style)
     (1, 33, 129, 4, 2, 24),     # cross-length, odd dims
     (1, 70, 70, 8, 2, 128),     # full-width head dim
+    (1, 70, 70, 4, 4, 192),     # deepseek-v2-lite's MLA head dim
     (1, 70, 70, 4, 1, 256),     # gemma3's head dim
 ]
 MASKS = [(True, 0), (True, 16), (False, 0)]
@@ -94,6 +96,7 @@ def test_blockwise_and_oracle_match_jax(shape, dtype, causal, window):
 @pytest.mark.parametrize("shape", [(2, 40, 40, 4, 2, 32),
                                    (1, 64, 64, 4, 1, 64),
                                    (1, 33, 129, 4, 2, 128),
+                                   (1, 70, 70, 4, 4, 192),
                                    (1, 70, 70, 4, 1, 256)])
 def test_bf16_fwd_matches_pallas_kernel(shape):
     """bf16: the port's plain out at 3e-2; its lse on f32-upcast inputs
@@ -113,6 +116,7 @@ def test_bf16_fwd_matches_pallas_kernel(shape):
     ((2, 1, 64, 8, 4, 32), 63),          # decode row
     ((1, 33, 129, 4, 2, 64), 96),        # chunked prefill offset
     ((1, 33, 129, 4, 1, 256), 96),       # the same at gemma3's head dim
+    ((1, 33, 129, 4, 4, 192), 96),       # and at deepseek's MLA head dim
 ])
 def test_q_offset_matches_pallas_kernel(shape, q_offset):
     (jq, jk, jv), (tq, tk, tv) = _inputs(shape, seed=3)
@@ -186,8 +190,10 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_wrapper_takes_both_dtypes_up_to_the_device_check(dtype):
     """f32 (the FMA route) and bf16 (the wgmma route) pass every check that
-    needs no card, at every head dim, and stop only at the device."""
-    for D in tkernel.HEAD_DIMS:
+    needs no card, at every head dim of the forward, and stop only at the
+    device."""
+    assert tkernel.FWD_HEAD_DIMS == (64, 128, 192, 256)
+    for D in tkernel.FWD_HEAD_DIMS:
         (_, _, _), (tq, tk, tv) = _inputs((1, 8, 8, 4, 2, D), dtype, seed=9)
         with pytest.raises(RuntimeError, match="needs CUDA tensors"):
             tkernel.flash_fwd(tq, tk, tv)
@@ -206,9 +212,13 @@ def _head_dim(t, D):
     return t.repeat(1, 1, 1, -(-D // t.shape[-1]))[..., :D].contiguous()
 
 
-# D 256 is a head dim the kernels take (gemma3's): it passes every check
-# and stops only at the device; D 96 is one they do not take yet
+# D 192 and 256 are head dims the forward takes (deepseek-v2-lite's MLA,
+# gemma3's): they pass every check and stop only at the device; D 96 is one
+# it does not take yet
 REFUSED = {
+    "head_dim_192": (lambda q, k, v: tuple(_head_dim(t, 192)
+                                           for t in (q, k, v)),
+                     RuntimeError, "needs CUDA tensors"),
     "head_dim_256": (lambda q, k, v: tuple(_head_dim(t, 256)
                                            for t in (q, k, v)),
                      RuntimeError, "needs CUDA tensors"),
@@ -275,6 +285,8 @@ CARD_EDGE_CASES = [
     ((1, 200, 200, 8, 2, 64), True, 48, 0),    # tiles outside the window
     ((1, 150, 150, 4, 1, 256), True, 48, 0),   # D 256, binding window
     ((1, 33, 129, 4, 1, 256), True, 32, 96),   # D 256, window, q_offset
+    ((1, 150, 150, 4, 4, 192), True, 0, 0),    # D 192 (MLA), G 1, ragged
+    ((1, 33, 129, 4, 2, 192), False, 0, 0),    # D 192, G 2, ragged Skv
 ]
 
 
@@ -563,7 +575,8 @@ def test_bwd_wrappers_take_both_dtypes_up_to_the_device_check(fn, dtype):
     """f32 (the FMA route) and bf16 (the wgmma route) pass every check of
     the dQ and dK/dV wrappers that needs no card, at every head dim, and
     stop only at the device."""
-    for D in tkernel.HEAD_DIMS:
+    assert tkernel.BWD_HEAD_DIMS == (64, 128, 256)
+    for D in tkernel.BWD_HEAD_DIMS:
         args = _bwd_args((1, 8, 8, 4, 2, D), dtype, seed=40)
         with pytest.raises(RuntimeError, match="needs CUDA tensors"):
             BWD_FNS[fn](*args)
@@ -573,6 +586,10 @@ BWD_REFUSED = {
     "head_dim_256": (lambda q, k, v, do, l, d: (
         *(_head_dim(t, 256) for t in (q, k, v, do)), l, d),
         RuntimeError, "needs CUDA tensors"),
+    # MLA's D 192 waits for the MoE/MLA training slice, named in the error
+    "head_dim_192": (lambda q, k, v, do, l, d: (
+        *(_head_dim(t, 192) for t in (q, k, v, do)), l, d),
+        ValueError, "head dim 192 .*ROADMAP A11, MoE/MLA training"),
     "head_dim_96": (lambda q, k, v, do, l, d: (
         *(_head_dim(t, 96) for t in (q, k, v, do)), l, d),
         ValueError, "head dim 96"),

@@ -1,7 +1,9 @@
-"""Port's dense LM against the JAX package's, on the CPU.
+"""Port's LM (dense, moe and ssm families; GQA and MLA) against the JAX
+package's, on the CPU.
 
 JAX ``Model.init`` params are carried over with ``params_from_numpy``; the
-same numpy tokens go through both. f32 smoke configs, atol = rtol = 1e-4.
+same numpy tokens go through both. f32 smoke configs, atol = rtol = 1e-4;
+the MoE aux loss at 1e-6 relative.
 """
 import dataclasses
 
@@ -19,16 +21,21 @@ from repro.configs.base import replace as jreplace  # noqa: E402
 from repro.models.model import Model as JModel  # noqa: E402
 from repro_torch.checkpoint.io import _items, params_from_numpy  # noqa: E402
 from repro_torch.configs import registry as treg  # noqa: E402
+from repro_torch.configs.base import replace as treplace  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models.model import Model as TModel  # noqa: E402
 
 TOL = 1e-4
 DENSE = ["internlm2-1.8b", "qwen2.5-14b", "gemma3-1b"]
+# the MoE family (granite-moe, qwen3-moe: GQA; deepseek-v2-lite: MLA) and
+# MLA in a dense model (minicpm3, smoke head dim 48 on the plain version)
+MOE_MLA = ["deepseek-v2-lite", "granite-moe-3b-a800m", "qwen3-moe-235b-a22b",
+           "minicpm3-4b"]
 
 
 def _pair(arch, **overrides):
     jcfg = jreplace(jreg.get_smoke_config(arch), **overrides)
-    tcfg = dataclasses.replace(treg.get_smoke_config(arch), **overrides)
+    tcfg = treplace(treg.get_smoke_config(arch), **overrides)
     jm, tm = JModel(jcfg), TModel(tcfg)
     jp = jm.init(jax.random.PRNGKey(0))
     return jm, jp, tm, params_from_numpy(jax.device_get(jp))
@@ -51,7 +58,7 @@ def _flat(tree):
             for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE_MLA)
 def test_params_share_key_paths_and_shapes(arch):
     """The port's own init gives the reference's tree: same paths, shapes."""
     jm = JModel(jreg.get_smoke_config(arch))
@@ -118,6 +125,115 @@ def test_int8_cache_prefill_decode_match_jax(arch):
         jlog, jc = jm.decode(jp, jc, jnp.asarray(tok), S + i)
         tlog, tc = tm.decode(tp, tc, torch.from_numpy(tok).long(), S + i)
         _close(tlog, jlog, tol=1e-3)
+
+
+def _no_drop(cfg):
+    """The capacity factor that drops no token (tests/test_arch_smoke.py),
+    under which prefill + decode reproduce apply."""
+    return {"moe.capacity_factor": cfg.moe.n_experts / cfg.moe.top_k * 1.1}
+
+
+@pytest.mark.parametrize("arch", MOE_MLA)
+def test_moe_mla_apply_with_aux_matches_jax(arch):
+    """Logits and the summed router aux loss of the whole smoke model at a
+    capacity factor of 0.75, which drops tokens at this length (16 slots an
+    expert for 20 assignments on average): the port drops the ones JAX
+    drops."""
+    cfg = treg.get_smoke_config(arch)
+    jm, jp, tm, tp = _pair(arch, **({"moe.capacity_factor": 0.75}
+                                    if cfg.moe else {}))
+    toks = _tokens(jm.cfg, (2, 40), seed=5)
+    jl, jaux = jm.apply(jp, jnp.asarray(toks))
+    tl, taux = tm.apply(tp, torch.from_numpy(toks).long())
+    _close(tl, jl)
+    assert taux.dtype == torch.float32 and taux.shape == ()
+    np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-6)
+    assert (float(taux) > 0) == (jm.cfg.family == "moe")
+
+
+@pytest.mark.parametrize("arch", MOE_MLA)
+def test_moe_mla_prefill_decode_match_jax_and_apply(arch):
+    """Prefill (logits and the latent or K/V cache) and decode steps
+    against JAX, and against the port's own apply, at the no-drop capacity
+    factor; then decode with per-row positions as the engine's slots do."""
+    cfg = treg.get_smoke_config(arch)
+    jm, jp, tm, tp = _pair(arch, **(_no_drop(cfg) if cfg.moe else {}))
+    B, S, T = 2, 24, 3
+    toks = _tokens(jm.cfg, (B, S + T), seed=6)
+    full, _ = tm.apply(tp, torch.from_numpy(toks).long())
+    jlog, jc = jm.prefill(jp, jnp.asarray(toks[:, :S]), cache_len=S + T)
+    tlog, tc = tm.prefill(tp, torch.from_numpy(toks[:, :S]).long(),
+                          cache_len=S + T)
+    _close(tlog, jlog)
+    _close(tlog, full[:, S - 1].numpy())
+    tflat, jflat = dict(_items(tc)), _flat(jc)
+    assert set(tflat) == set(jflat)
+    for key, leaf in jflat.items():
+        assert tuple(tflat[key].shape) == leaf.shape, key
+        _close(tflat[key], leaf)
+    for i in range(T):
+        tok = toks[:, S + i:S + i + 1]
+        jlog, jc = jm.decode(jp, jc, jnp.asarray(tok), S + i)
+        tlog, tc = tm.decode(tp, tc, torch.from_numpy(tok).long(), S + i)
+        _close(tlog, jlog)
+        _close(tlog, full[:, S + i].numpy())
+
+    L = 32
+    jc, tc = jm.empty_cache(B + 1, L), tm.empty_cache(B + 1, L, "cpu")
+    steps = _tokens(jm.cfg, (4, B + 1), seed=7)
+    pos = np.array([0, 9, 20], np.int32)
+    for step in range(4):
+        tok = steps[step][:, None]
+        jlog, jc = jm.decode(jp, jc, jnp.asarray(tok), jnp.asarray(pos + step))
+        tlog, tc = tm.decode(tp, tc, torch.from_numpy(tok).long(),
+                             torch.from_numpy(pos + step).long())
+        _close(tlog, jlog)
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_moe_mla_remat_keeps_logits_aux_and_grads(policy):
+    """Under autograd each pattern unit is rematerialized (the unit returns
+    the hidden state and the running aux loss): the same logits, aux and
+    grads as without remat, bitwise (deepseek-v2-lite smoke: MLA + MoE)."""
+    cfg = treg.get_smoke_config("deepseek-v2-lite")
+    toks = torch.from_numpy(_tokens(cfg, (2, 20), seed=8)).long()
+    params = TModel(cfg).init(torch.Generator().manual_seed(0))
+    out = []
+    for remat in (False, True):
+        m = TModel(treplace(cfg, remat=remat, remat_policy=policy))
+        leaves = [t.detach().clone().requires_grad_() for _, t in
+                  _items(params)]
+        tree = _rebuild(params, iter(leaves))
+        logits, aux = m.apply(tree, toks)
+        grads = torch.autograd.grad(logits.square().mean() + aux, leaves)
+        out.append((logits.detach(), aux.detach(), grads))
+    (l0, a0, g0), (l1, a1, g1) = out
+    assert torch.equal(l0, l1) and torch.equal(a0, a1) and float(a0) > 0
+    assert all(torch.equal(x, y) for x, y in zip(g0, g1))
+
+
+def _rebuild(tree, it):
+    """``tree``'s structure with its leaves, in ``_items`` order, from it."""
+    if isinstance(tree, dict):
+        return {k: _rebuild(tree[k], it) for k in sorted(tree)}
+    return next(it)
+
+
+def test_dense_init_scales_in_place_bitwise():
+    """dense_init and embed_init scale their draw in place: the values are
+    bitwise those of the out-of-place product, with no second copy."""
+    from repro_torch.models import layers
+    shape, lead = (64, 48), (3,)
+    got = layers.dense_init(torch.Generator().manual_seed(11), shape,
+                            fan_in=7, lead=lead)
+    t = torch.empty(lead + shape)
+    torch.nn.init.trunc_normal_(t, mean=0.0, std=1.0, a=-2.0, b=2.0,
+                                generator=torch.Generator().manual_seed(11))
+    assert torch.equal(got, t * (1.0 / 7 ** 0.5))
+    emb = layers.embed_init(torch.Generator().manual_seed(12), (32, 16))
+    draw = torch.empty(32, 16).normal_(
+        0.0, 1.0, generator=torch.Generator().manual_seed(12))
+    assert torch.equal(emb, draw * 0.02)
 
 
 def test_per_request_positions_decode_matches_jax():
@@ -204,9 +320,8 @@ def test_config_validates_impl_without_jax():
                     attention_impl="mosaic")
 
 
-@pytest.mark.parametrize("arch", ["zamba2-7b", "minicpm3-4b",
-                                  "qwen2-vl-72b", "whisper-base",
-                                  "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("arch", ["zamba2-7b", "qwen2-vl-72b",
+                                  "whisper-base"])
 def test_model_refuses_configs_outside_the_slice(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         TModel(treg.get_smoke_config(arch))

@@ -49,8 +49,13 @@ def _serve_both(arch, prompts, *, max_batch, max_seq, n_new, eos=None):
     return jeng.run(jreqs), teng.run(treqs), teng
 
 
+# the MoE family (GQA and MLA) and MLA in a dense model, smoke configs
+MOE_MLA = ["deepseek-v2-lite", "granite-moe-3b-a800m", "qwen3-moe-235b-a22b",
+           "minicpm3-4b"]
+
+
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "gemma3-1b",
-                                  "mamba2-2.7b"])
+                                  "mamba2-2.7b"] + MOE_MLA)
 @pytest.mark.parametrize("engine", ["loop", "compiled"])
 def test_generate_matches_jax(arch, engine):
     jm, jp, tm, tp = _setup(arch)
@@ -73,6 +78,21 @@ def test_engine_five_requests_two_slots_match_jax():
     assert got == want
     assert all(len(v) == 6 for v in got.values())
     assert eng.active == 0 and not eng.waiting
+
+
+@pytest.mark.parametrize("arch", MOE_MLA)
+def test_engine_moe_and_mla_match_jax(arch):
+    """5 prompts through 2 slots: MoE routing per slot, and MLA's latent
+    cache ({c_kv, k_rope}) scattered into a slot from a batch-1 prefill
+    and decoded at per-slot positions."""
+    cfg = treg.get_smoke_config(arch)
+    prompts = _prompts(cfg, [9, 17, 5, 12, 8], seed=7)
+    want, got, eng = _serve_both(arch, prompts, max_batch=2, max_seq=48,
+                                 n_new=5)
+    assert got == want
+    assert all(len(v) == 5 for v in got.values())
+    if cfg.attention == "mla":
+        assert set(eng.cache["units"]["0"]["a"]) == {"c_kv", "k_rope"}
 
 
 def test_engine_window_layers_match_jax():
@@ -158,6 +178,27 @@ def test_main_kv_int8_on_cpu():
     out, _ = tserve.main(["--device", "cpu", "--batch", "1", "--prompt-len",
                           "8", "--new-tokens", "2", "--kv-int8"])
     assert out.shape == (1, 2)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite",
+                                  "granite-moe-3b-a800m"])
+def test_main_serves_moe_smoke_on_cpu(arch, capsys):
+    out, _ = tserve.main(["--arch", arch, "--device", "cpu", "--batch", "2",
+                          "--prompt-len", "12", "--new-tokens", "3"])
+    assert out.shape == (2, 3)
+    assert f"arch={arch}-smoke" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite",
+                                  "granite-moe-3b-a800m"])
+def test_full_moe_entry_point_refuses_a_missing_card(arch):
+    """--full (deepseek-v2-lite: 62.7 GB of f32 params) raises before it
+    allocates anything when no card is visible and the CPU was not asked
+    for."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible here")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tserve.main(["--arch", arch, "--full"])
 
 
 def test_entry_point_refuses_a_missing_card():
