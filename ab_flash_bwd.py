@@ -16,7 +16,8 @@ with a ring of two (``dq_1wg_2cta``). Then, for each
 build: the bf16 cases of ``chip_smoke.py``'s backward grid against the
 plain version's f32 math and against it at the kernels' rounding points,
 at chip_smoke's bounds (a count of failing cases); and device times of the
-dQ and dK/dV kernels at the phase-1 and phase-2 training shapes, taken in
+dQ and dK/dV kernels at the phase-1 and phase-2 training shapes of
+internlm2-1.8b (D 128) and of deepseek-v2-lite (MLA, D 192), taken in
 turns (main, variants, variants reversed, main), beside the library's
 fused backward timed alone in the same call; and the plain-PyTorch forms
 of delta = rowsum(dO * O) that ``kernel.flash_bwd`` could take, timed in
@@ -151,8 +152,11 @@ def main(argv) -> None:
               f"of {len(cases)}", flush=True)
 
     order = list(libs) + list(libs)[::-1]
-    for label, shape in (("phase-1", smoke.TRAIN_SHAPE),
-                         ("phase-2", (32,) + smoke.TRAIN_SHAPE[1:])):
+    for label, shape in (
+            ("phase-1", smoke.TRAIN_SHAPE),
+            ("phase-2", (32,) + smoke.TRAIN_SHAPE[1:]),
+            ("deepseek phase-1", smoke.DEEPSEEK_TRAIN_SHAPE),
+            ("deepseek phase-2", (32,) + smoke.DEEPSEEK_TRAIN_SHAPE[1:])):
         q, k, v = smoke._qkv(shape, torch.bfloat16, seed=7)
         do = smoke._qkv(shape, torch.bfloat16, seed=8)[0]
         out, lse = kernel.flash_fwd(q, k, v, causal=True)

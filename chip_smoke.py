@@ -9,8 +9,8 @@ Phases, each printing its own lines; any failed check exits non-zero:
 2. build: compile the hand-written kernels from the repository's sources,
    one nvcc per source, all started together;
 3. kernels vs plain: hold each kernel against its plain PyTorch version on
-   the card over a grid of shapes, dtypes, head dims (64, 128, 256, and
-   192 for the forward) and masks (the flash forward,
+   the card over a grid of shapes, dtypes, head dims (64, 128, 192, 256)
+   and masks (the flash forward,
    the flash backward's dQ and dK/dV kernels, in bf16 also against the
    plain version at their own rounding points, the streaming average,
    bitwise, the SSD intra-chunk forward and backward, whose bf16 wgmma
@@ -24,7 +24,9 @@ Phases, each printing its own lines; any failed check exits non-zero:
    training shapes, beside the library's backward alone; the same at
    gemma3-1b's shapes, head dim 256: its prefill in a global and in a local
    layer (window 512), its phase-1 forward and backward; the forward at
-   deepseek-v2-lite's MLA prefill, head dim 192, and granite-moe's, G 3;
+   deepseek-v2-lite's MLA prefill and phase-1 shape, head dim 192, and
+   granite-moe's, G 3; the backward at deepseek-v2-lite's phase-1 and
+   phase-2 shapes, head dim 192, G 1;
    the bf16 SSD kernels at the serve prefill and phase 1, beside the f32
    FMA kernels they replace);
 4. full-width serve (internlm2-1.8b, random weights from a seed): a main
@@ -56,12 +58,23 @@ Phases, each printing its own lines; any failed check exits non-zero:
    prefill, each with a profiler window of a prefill and a decode step
    and its memory peak under 75 GB; continuous batching token-exact on
    narrowed f32 configs at head dims the kernels take (``_narrow_moe``);
-9. phases 4-6 again for mamba2-2.7b (the ssm family, on the SSD kernels):
+9. the MoE family and MLA, SWAP-trained at full width through the launcher
+   as in phase 5: deepseek-v2-lite with its depth cut to 3 of 27 layers
+   (DEEPSEEK_TRAIN_LAYERS; 4 run out of memory), the flash backward at head
+   dim 192, and granite-moe-3b-a800m cut to 23 of 32 layers
+   (GRANITE_TRAIN_LAYERS; 24 peak over 75 GB), every flash launch on the
+   bf16 wgmma route and as the layer plan has them; a profiler window of a
+   phase-1 and a phase-2 step of each; one phase-1 step taken twice, its
+   loss bitwise and its grads within MOE_REPEAT_TOL (not bitwise: the
+   dispatch gather's backward adds in bf16 with atomics); and the f32
+   exactness of phase 6 on the ``_narrow_moe`` configs, the plain run's
+   expert choices replayed in the kernel run (``_fixed_routes``);
+10. phases 4-6 again for mamba2-2.7b (the ssm family, on the SSD kernels):
    serving at full width (64 layers), SWAP training at full width with the
    depth cut to 56 layers (MAMBA_TRAIN_LAYERS: 64 layers do not fit the
    card: 62 ran out of memory in phase 2), every SSD launch of both on the
    bf16 wgmma route, and the smoke exactness checks;
-10. the paper-faithful CNN+BatchNorm path at the full width of cifar-cnn
+11. the paper-faithful CNN+BatchNorm path at the full width of cifar-cnn
    ``config()``: Table 1 (``repro_torch.experiments.table1_cifar10``,
    seed 0: small batch, large batch, SWAP before and after averaging) and
    Table 4's large-batch SWA row from Table 1's large-batch model, one main
@@ -75,7 +88,7 @@ Phases, each printing its own lines; any failed check exits non-zero:
    branch (its ReLU masks and max choices replayed), each convolution's
    backward on its own inputs against f64; and a smoke-width SWAP with the
    elastic phase 3, bitwise equal to its plain refold;
-11. the rest of the paper's experiments, one seed each, the CNN ones at the
+12. the rest of the paper's experiments, one seed each, the CNN ones at the
    full width of cifar-cnn ``config()``: Table 2 (20 classes), Figure 1
    (the phase-2 curves), Figures 2/3 (the 9 x 9 plane with BN recomputed
    per point, the ASCII map, the three points), Figure 4 (the cosines),
@@ -83,7 +96,7 @@ Phases, each printing its own lines; any failed check exits non-zero:
    (the internlm2 smoke config in f32, whose three flash kernels must
    launch); each a main path counted as above, every accuracy and cosine
    finite;
-12. checkpoints and resume, the resuming run a new process
+13. checkpoints and resume, the resuming run a new process
    (``python3 chip_smoke.py --resume-child ...``) on a copy of the
    snapshot directory with the snapshots after the cut deleted: Table 1's
    SWAP at the full width of cifar-cnn, and internlm2 smoke through the
@@ -101,7 +114,10 @@ two resumed launcher runs; ``gemma3_launches``: on gemma3's training path,
 and the forward's on its serving path; ``gemma3_*`` shapes: the times at
 head dim 256; the forward's ``deepseek_launches`` and ``granite_launches``:
 on their serving paths, and ``deepseek_prefill`` / ``granite_prefill``: its
-times at their prefill shapes, head dim 192 and 64); the last line is
+times at their prefill shapes, head dim 192 and 64; the backward rows'
+``deepseek_train_shape`` / ``deepseek_phase2_shape``: their times at head
+dim 192; ``deepseek_train_launches`` / ``granite_train_launches`` on the
+flash and swa_avg rows: on those training paths); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -177,6 +193,29 @@ DEEPSEEK = "deepseek-v2-lite"
 DEEPSEEK_PREFILL_SHAPE = (8, 512, 512, 16, 16, 192)
 GRANITE = "granite-moe-3b-a800m"
 GRANITE_PREFILL_SHAPE = (8, 512, 512, 24, 8, 64)
+# their SWAP phase 1 at the launcher's batch and length (phase 2: batch 32)
+DEEPSEEK_TRAIN_SHAPE = (256, 64, 64, 16, 16, 192)
+GRANITE_TRAIN_SHAPE = (256, 64, 64, 24, 8, 64)
+# The depths they are SWAP-trained at (launcher, W 2, elastic phase 3),
+# each the largest whose every phase peaks under PEAK_LIMIT_GB (NVIDIA H100
+# 80GB HBM3, 700.00 W).
+# deepseek-v2-lite: 0.42 B parameters + 0.565 B a layer; at 3 layers the
+# peaks were 39.13 / 60.90 / 69.36 GB, and at 4 phase 2's eval ran out of
+# memory (a 6.25 GiB allocation for the f32 logits, with 63.10 GiB
+# allocated and 10.16 GiB reserved but free in pieces). granite-moe:
+# 0.15 B + 0.1007 B a layer; phase 3 peaked at 65.54 GB at 20 layers,
+# 74.00 GB at 23 and 76.82 GB at 24 (2.82 GB a layer), so 32 layers would
+# need ~99 GB.
+DEEPSEEK_TRAIN_LAYERS = 3
+GRANITE_TRAIN_LAYERS = 23
+# One MoE phase-1 step at full width taken twice from the same params and
+# tokens: its forward has no atomics, so the loss repeats bitwise; the
+# dispatch gather's backward adds each token's K expert grads in bf16 with
+# atomics, so the grads do not, and a leaf's max |diff| / max |grad| came
+# to 1.274e-02 and 1.323e-02 (deepseek-v2-lite), 2.632e-02 and 2.734e-02
+# (granite-moe) in two runs (NVIDIA H100 80GB HBM3, 700.00 W). A race or
+# a read of unwritten memory in a backward kernel moves a leaf by O(1).
+MOE_REPEAT_TOL = 0.1
 # SSD kernels against their plain versions: max |err| / max |ref|, the JAX
 # SSD tests' 1e-4. Both compute in f32 from the same (f32 or bf16) inputs,
 # so bf16 inputs are held to the same bound.
@@ -363,6 +402,11 @@ def _grid():
         cases.append((GEMMA_PREFILL_SHAPE, "bfloat16", True, window, 0))
     cases.append((GEMMA_TRAIN_SHAPE, "bfloat16", True, 0, 0))
     cases.append(((32,) + GEMMA_TRAIN_SHAPE[1:], "bfloat16", True, 0, 0))
+    # deepseek-v2-lite's (D 192, G 1) and granite-moe's (D 64, G 3) two
+    # training phases
+    for shape in (DEEPSEEK_TRAIN_SHAPE, GRANITE_TRAIN_SHAPE):
+        cases.append((shape, "bfloat16", True, 0, 0))
+        cases.append(((32,) + shape[1:], "bfloat16", True, 0, 0))
     # deepseek-v2-lite's MLA prefill at head dim 192 (v padded to qk's
     # 192) and granite-moe's at 64 (G 3), batched and through the engine,
     # in bf16 and (the f32 logits check) f32
@@ -384,7 +428,9 @@ def phase_kernel():
                               (GEMMA_PREFILL_SHAPE, GEMMA_WINDOW),
                               (GEMMA_TRAIN_SHAPE, 0),
                               (DEEPSEEK_PREFILL_SHAPE, 0),
-                              (GRANITE_PREFILL_SHAPE, 0)))
+                              (GRANITE_PREFILL_SHAPE, 0),
+                              (DEEPSEEK_TRAIN_SHAPE, 0),
+                              (GRANITE_TRAIN_SHAPE, 0)))
     for i, (shape, dtype, causal, window, q_offset) in enumerate(_grid()):
         D = shape[-1]
         q, k, v = _qkv(shape, getattr(torch, dtype), seed=i)
@@ -434,6 +480,10 @@ def phase_kernel():
                            seed=1238, cold=True)
     gr_prefill = _fwd_times(GRANITE_PREFILL_SHAPE, "granite prefill",
                             seed=1239)
+    d_train = _fwd_times(DEEPSEEK_TRAIN_SHAPE, "deepseek phase-1 training",
+                         seed=1240)
+    gr_train = _fwd_times(GRANITE_TRAIN_SHAPE, "granite phase-1 training",
+                          seed=1241)
     sys.stdout.flush()
     return {
         "name": "flash_attention_fwd", "route": "cuda",
@@ -454,6 +504,10 @@ def phase_kernel():
             "max_abs_err": path_err[DEEPSEEK_PREFILL_SHAPE, 0], **d_prefill},
         "granite_prefill": {
             "max_abs_err": path_err[GRANITE_PREFILL_SHAPE, 0], **gr_prefill},
+        "deepseek_train_shape": {
+            "max_abs_err": path_err[DEEPSEEK_TRAIN_SHAPE, 0], **d_train},
+        "granite_train_shape": {
+            "max_abs_err": path_err[GRANITE_TRAIN_SHAPE, 0], **gr_train},
     }
 
 
@@ -559,9 +613,13 @@ def _bwd_grid():
         # gemma3's window of 512 where it binds, as in the forward's grid
         cases += [((1, 700, 700, 4, 1, 256), dtype, True, GEMMA_WINDOW, 0),
                   ((1, 100, 700, 4, 1, 256), dtype, True, GEMMA_WINDOW, 600)]
+        # granite-moe's odd group (24 query heads on 8 KV heads), ragged
+        for causal in (True, False):
+            cases.append(((2, 67, 67, 6, 2, 64), dtype, causal, 0, 0))
     # the shapes the training paths give it: phase 1 and phase 2 of
-    # internlm2 and of gemma3
-    for shape in (TRAIN_SHAPE, GEMMA_TRAIN_SHAPE):
+    # internlm2, gemma3, deepseek-v2-lite (MLA, D 192, G 1) and granite-moe
+    for shape in (TRAIN_SHAPE, GEMMA_TRAIN_SHAPE, DEEPSEEK_TRAIN_SHAPE,
+                  GRANITE_TRAIN_SHAPE):
         cases.append((shape, "bfloat16", True, 0, 0))
         cases.append(((32,) + shape[1:], "bfloat16", True, 0, 0))
     return cases
@@ -650,7 +708,8 @@ def phase_kernel_bwd():
         if q_offset < 0:   # rows that see no key: dq = 0
             check(bool((got[0][:, :-q_offset] == 0).all()),
                   f"bwd case {i}: fully masked rows have dq != 0")
-        if shape in (TRAIN_SHAPE, GEMMA_TRAIN_SHAPE):
+        if shape in (TRAIN_SHAPE, GEMMA_TRAIN_SHAPE, DEEPSEEK_TRAIN_SHAPE,
+                     (32,) + DEEPSEEK_TRAIN_SHAPE[1:]):
             train_err[shape] = {
                 n: (g.float() - w.float()).abs().max().item()
                 for n, g, w in zip(("dq", "dk", "dv"), got, want)}
@@ -664,10 +723,14 @@ def phase_kernel_bwd():
           + ", ".join(f"D {d} {e:.3e}" for d, e in sorted(worst_d.items())))
 
     # times at the phase-1 training shape (the JSON rows) and phase 2's;
-    # gemma3's phase 1 at the batch its run takes
+    # gemma3's phase 1 at the batch its run takes; deepseek-v2-lite's
+    # phase 1 and phase 2 at MLA's head dim 192
     phase1 = _bwd_times(TRAIN_SHAPE, "phase-1")
     phase2 = _bwd_times((32,) + TRAIN_SHAPE[1:], "phase-2")
     g_phase1 = _bwd_times(GEMMA_TRAIN_SHAPE, "gemma3 phase-1")
+    d_shape2 = (32,) + DEEPSEEK_TRAIN_SHAPE[1:]
+    d_phase1 = _bwd_times(DEEPSEEK_TRAIN_SHAPE, "deepseek phase-1, MLA")
+    d_phase2 = _bwd_times(d_shape2, "deepseek phase-2, MLA")
 
     def errs(shape, name):
         e = train_err[shape]
@@ -681,7 +744,12 @@ def phase_kernel_bwd():
              **phase1[name], "phase2_shape": phase2[name],
              "gemma3_train_shape": {
                  "max_abs_err": errs(GEMMA_TRAIN_SHAPE, name),
-                 **g_phase1[name]}}
+                 **g_phase1[name]},
+             "deepseek_train_shape": {
+                 "max_abs_err": errs(DEEPSEEK_TRAIN_SHAPE, name),
+                 **d_phase1[name]},
+             "deepseek_phase2_shape": {
+                 "max_abs_err": errs(d_shape2, name), **d_phase2[name]}}
             for name, line in (("flash_attention_bwd_dq", 202),
                                ("flash_attention_bwd_dkv", 232))]
 
@@ -1606,7 +1674,11 @@ def phase_exact_train(arch="internlm2-1.8b", field="attention_impl",
                       cfg=None):
     """Smoke exactness with the kernels (``field`` = "kernel") against the
     plain versions (``field`` = "reference"), on ``cfg`` (f32; the arch's
-    smoke config by default)."""
+    smoke config by default). In an MoE config the plain run goes first
+    and records its expert choices, and the kernel run replays them
+    (``_fixed_routes``): in f32 a near-tie of router probs, moved by the
+    attention's summation order, can flip a top-k choice between the two
+    runs, and then the two compute other functions."""
     import dataclasses
     import torch
     from repro_torch.configs import registry
@@ -1627,13 +1699,18 @@ def phase_exact_train(arch="internlm2-1.8b", field="attention_impl",
     batch = {"tokens": torch.from_numpy(data["train_tokens"][:16]).cuda(),
              "labels": torch.from_numpy(data["train_labels"][:16]).cuda()}
     params = Model(smoke).init(torch.Generator(device="cuda").manual_seed(3))
-    grads = {}
-    for impl in ("kernel", "reference"):
+    # the plain run first: an MoE config's kernel run replays its routes
+    order = ("reference", "kernel")
+    fixed = (lambda routes, impl: _fixed_routes(routes, impl == "kernel")
+             if smoke.moe else contextlib.nullcontext())
+    grads, routes = {}, []
+    for impl in order:
         model = Model(dataclasses.replace(smoke, **{field: impl}))
         req = [t.detach().requires_grad_() for t in tree_leaves(params)]
         it = iter(req)
         tree = _rebuild(params, it)
-        loss, _ = lm_loss_and_metrics(model, tree, batch)
+        with fixed(routes, impl):
+            loss, _ = lm_loss_and_metrics(model, tree, batch)
         grads[impl] = torch.autograd.grad(loss, req)
     err = l2 = 0.0
     for a, b in zip(grads["kernel"], grads["reference"]):
@@ -1642,7 +1719,9 @@ def phase_exact_train(arch="internlm2-1.8b", field="attention_impl",
         err = max(err, (d.abs().max() / b.abs().max()).item())
         l2 = max(l2, (torch.linalg.vector_norm(d)
                       / torch.linalg.vector_norm(b)).item())
-    print(f"[exact] f32 {smoke.name} (head dim {smoke.head_dim}): "
+    moe_note = (f", the plain run's {len(routes)} routing choices replayed"
+                if smoke.moe else "")
+    print(f"[exact] f32 {smoke.name} ({_describe(smoke)}{moe_note}): "
           f"whole-model grads with the kernels "
           f"against plain autograd, worst leaf: max |err|/max |ref| "
           f"{err:.3e} (limit {GRAD_TOL}), relative L2 {l2:.3e} (limit "
@@ -1661,14 +1740,15 @@ def phase_exact_train(arch="internlm2-1.8b", field="attention_impl",
                                         schedule=dataclasses.replace(
                                             sched, peak_lr=0.125,
                                             warmup_steps=0, total_steps=6)))
-    runs = {}
-    for impl in ("kernel", "reference"):
+    runs, routes = {}, []
+    for impl in order:
         adapter = LMAdapter(dataclasses.replace(smoke, **{field: impl}),
                             OptimizerConfig())
         test = Loader({"tokens": data["test_tokens"],
                        "labels": data["test_labels"]}, 64, device="cuda")
-        runs[impl] = SWAP(adapter, cfg, train, test, dist=dist).run(
-            torch.Generator(device="cuda").manual_seed(5))
+        with fixed(routes, impl):
+            runs[impl] = SWAP(adapter, cfg, train, test, dist=dist).run(
+                torch.Generator(device="cuda").manual_seed(5))
     ref_avg, _ = elastic_average_stacked(runs["reference"]["stacked_params"],
                                          dist, impl="reference")
     ref_final = runs["reference"]["final_bundle"]["params"]
@@ -1763,7 +1843,115 @@ def phase_moe(card: str):
 
 
 # ---------------------------------------------------------------------------
-# phase 10: the CNN+BatchNorm path at full width
+# phase 9: SWAP training of the MoE family and MLA
+# ---------------------------------------------------------------------------
+
+
+def _moe_train_cfg(arch, n_layers):
+    """``arch``'s full config at ``n_layers``."""
+    import dataclasses
+    from repro_torch.configs import registry
+    return dataclasses.replace(registry.get_config(arch), n_layers=n_layers)
+
+
+def _train_profile(card, tag, argv, cfg):
+    """One profiler window of a phase-1 step and of a phase-2 step of the
+    launcher's run (``profile_train``, one warm-up and one timed step
+    before each): the step time, the device's busy time and idle share,
+    and its top kernels."""
+    from repro_torch.launch import profile_train
+    report = profile_train.main(argv, cfg=cfg, counts=(1, 1, 1))
+    for ph in ("phase1", "phase2"):
+        r = report[ph]
+        top = "; ".join(f"{k[:90]} {v:.2f}" for k, v in
+                        list(r["top_kernels_ms_per_step"].items())[:10])
+        # the device ms of the kernels each aten op launched (nested ops
+        # count in their callers too)
+        ops = "; ".join(f"{k} {v[1]:.2f} ({v[2]} calls)" for k, v in
+                        [kv for kv in r["top_host_ops_by_device_ms"].items()
+                         if kv[0].startswith("aten::")][:12])
+        print(f"[{tag}] profile of one {ph} step on {card}: window "
+              f"{r['traced_window_ms_per_step']:.2f} ms, device busy "
+              f"{r['device_busy_ms_per_step']:.2f} ms, idle share "
+              f"{r['device_idle_share']:.3f}; top kernels (ms): {top}; "
+              f"top aten ops by their kernels' device ms: {ops}",
+              flush=True)
+    return report
+
+
+def _step_twice(tag, cfg, size=256, seq=64):
+    """The loss and whole-model grads of one phase-1 step (the launcher's
+    batch and length, f32 params, the config's compute dtype) taken twice
+    from the same params and tokens: the loss must repeat bitwise and every
+    grad leaf within MOE_REPEAT_TOL of its largest value."""
+    import torch
+    from repro_torch.models.model import Model
+    from repro_torch.optim.api import tree_leaves
+    from repro_torch.train.steps import lm_loss_and_metrics
+    model = Model(cfg)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    params = model.init(g)
+    tokens = torch.randint(0, cfg.vocab_size, (size, seq + 1), generator=g,
+                           device="cuda")
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    runs = []
+    for _ in range(2):
+        req = [t.detach().requires_grad_() for t in tree_leaves(params)]
+        loss, _ = lm_loss_and_metrics(model, _rebuild(params, iter(req)),
+                                      batch)
+        runs.append((loss.detach(), torch.autograd.grad(loss, req)))
+    (l0, g0), (l1, g1) = runs
+    same = [torch.equal(a, b) for a, b in zip(g0, g1)]
+    worst = max(((a - b).abs().max() / b.abs().max()).item()
+                for a, b in zip(g0, g1))
+    print(f"[{tag}] one phase-1 step ({size}x{seq} tokens) "
+          f"taken twice from the same params and tokens: loss "
+          f"{'bitwise equal' if torch.equal(l0, l1) else 'differs'}, "
+          f"{sum(same)} of {len(same)} grad leaves bitwise equal, worst "
+          f"leaf max |diff|/max |grad| {worst:.3e}", flush=True)
+    check(torch.equal(l0, l1), f"{tag}: a repeated step's loss differs")
+    check(worst <= MOE_REPEAT_TOL,
+          f"{tag}: a repeated step's grads differ by {worst:.3e} of a "
+          f"leaf's largest value (limit {MOE_REPEAT_TOL})")
+    del params, runs, g0, g1
+    torch.cuda.empty_cache()
+
+
+def phase_moe_train(card: str):
+    """SWAP training of deepseek-v2-lite (MLA: the flash kernels at head
+    dim 192, G 1) cut to DEEPSEEK_TRAIN_LAYERS and granite-moe-3b-a800m (at
+    head dim 64, G 3) at GRANITE_TRAIN_LAYERS, at full width through the
+    launcher (``phase_train``: every flash launch on the bf16 wgmma route
+    and as the layer plan has them, losses finite, the elastic average
+    against the plain mean, every phase under PEAK_LIMIT_GB); a profiler
+    window of a phase-1 and a phase-2 step of each; one MoE step taken
+    twice (the loss bitwise, the grads within MOE_REPEAT_TOL); then the f32
+    exactness on the narrowed configs (``_narrow_moe``) with the plain
+    run's routes replayed. Returns each arch's launches on its training
+    path."""
+    t0 = time.perf_counter()
+    launches = {}
+    for arch, layers, tag in ((DEEPSEEK, DEEPSEEK_TRAIN_LAYERS,
+                               "deepseek-train"),
+                              (GRANITE, GRANITE_TRAIN_LAYERS,
+                               "granite-train")):
+        cfg = _moe_train_cfg(arch, layers)
+        argv = ["--arch", arch] + TRAIN_ARGV
+        print(f"[{tag}] {arch} at {layers} layers: {_describe(cfg)}",
+              flush=True)
+        launches[arch] = phase_train(card, argv, cfg, tag=tag,
+                                     sm90_only=FLASH_KERNELS)
+        _train_profile(card, tag, argv, cfg)
+        _step_twice(tag, cfg)
+    for arch in (DEEPSEEK, GRANITE):
+        phase_exact_train(arch, cfg=_narrow_moe(arch))
+    print(f"[moe-train] phase time {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the CNN+BatchNorm path at full width
 # ---------------------------------------------------------------------------
 
 
@@ -2123,7 +2311,7 @@ def phase_cnn(card: str) -> int:
 
 
 # ---------------------------------------------------------------------------
-# phase 11: the rest of the paper's experiments
+# phase 12: the rest of the paper's experiments
 # ---------------------------------------------------------------------------
 
 FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
@@ -2236,7 +2424,7 @@ def phase_experiments(card: str) -> Dict[str, int]:
 
 
 # ---------------------------------------------------------------------------
-# phase 12: checkpoints and bit-exact resume in a new process
+# phase 13: checkpoints and bit-exact resume in a new process
 # ---------------------------------------------------------------------------
 
 # cifar-cnn at full width on Table 1's SWAP (2048 images: 4 steps an epoch
@@ -2464,6 +2652,7 @@ def main() -> None:
     phase_exact_train()
     gemma_serve, gemma_train = phase_gemma(card)
     moe_serve = phase_moe(card)
+    moe_train = phase_moe_train(card)
     # the ssm family: serving at full width, training at a cut depth
     from repro_torch.configs import registry
     ssd_serve = phase_mamba_serve(card)
@@ -2500,6 +2689,9 @@ def main() -> None:
                 row["gemma3_launches"]["serve"] = gemma_serve
                 row["deepseek_launches"] = moe_serve[DEEPSEEK]
                 row["granite_launches"] = moe_serve[GRANITE]
+        if row["name"] in DENSE_TRAIN_KERNELS:
+            row["deepseek_train_launches"] = moe_train[DEEPSEEK][row["name"]]
+            row["granite_train_launches"] = moe_train[GRANITE][row["name"]]
     import torch
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

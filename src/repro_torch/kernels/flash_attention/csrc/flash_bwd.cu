@@ -5,7 +5,7 @@
 //   repro/kernels/flash_attention/kernel.py::_fa_bwd_dq_kernel   (dQ)
 //   repro/kernels/flash_attention/kernel.py::_fa_bwd_dkv_kernel  (dK, dV)
 // and computes what they compute, for q, dO (B,Sq,H,D) and k, v
-// (B,Skv,KVH,D), D in {64, 128, 256}, given the forward's lse
+// (B,Skv,KVH,D), D in {64, 128, 192, 256}, given the forward's lse
 // (B,Sq,H) f32 and delta = rowsum(dO * O) (B,Sq,H) f32 (taken outside, in
 // plain PyTorch, as the JAX package does):
 //   S  = (q * scale) . k^T, with q * scale formed in f32, masked to
@@ -44,6 +44,10 @@
 // D/32 output columns of dK and dV. At D 256 a CTA takes 16 keys (4 a
 // warp), so that its two accumulators stay at 64 registers a thread; shared
 // memory is then 174.6 KB for dK/dV and 206.8 KB for dQ (one CTA an SM).
+// At D 192 (MLA) a dK/dV CTA takes 32 keys: ptxas fits its accumulators
+// (96 registers a thread) in 209 registers with no spills (152 at 16 keys,
+// which would re-read every Q and dO tile twice as often), and its shared
+// memory is 166.4 KB; dQ's is 157.7 KB. One CTA an SM.
 // Tiles are staged in shared memory as f32; operands a lane reads alone (K and V in dQ, Q and dO in dK/dV) are
 // padded by 4 floats a row so that its float4 reads are free of bank
 // conflicts, the others are read as broadcasts.
@@ -498,6 +502,9 @@ extern "C" int fa_bwd_dq(const void* q, const void* k, const void* v,
   if (dtype == 0 && D == 128)
     return launch_dq<float, 128>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, H,
                                  KVH, scale, causal, window, q_offset, st);
+  if (dtype == 0 && D == 192)
+    return launch_dq<float, 192>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, H,
+                                 KVH, scale, causal, window, q_offset, st);
   if (dtype == 0 && D == 256)
     return launch_dq<float, 256>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, H,
                                  KVH, scale, causal, window, q_offset, st);
@@ -519,6 +526,10 @@ extern "C" int fa_bwd_dkv(const void* q, const void* k, const void* v,
                                  H, KVH, scale, causal, window, q_offset, st);
   if (dtype == 0 && D == 128)
     return launch_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, B, Sq,
+                                  Skv, H, KVH, scale, causal, window, q_offset,
+                                  st);
+  if (dtype == 0 && D == 192)
+    return launch_dkv<float, 192>(q, k, v, dout, lse, delta, dk, dv, B, Sq,
                                   Skv, H, KVH, scale, causal, window, q_offset,
                                   st);
   if (dtype == 0 && D == 256)

@@ -8,12 +8,12 @@
 // (f32 inputs stay on the FMA kernels of flash_bwd.cu, which holds the C
 // entries of both routes: the tensor cores would take f32 as TF32). The
 // contract is flash_bwd.cu's: q, dO (B,Sq,H,D) and k, v (B,Skv,KVH,D)
-// bf16, D in {64, 128, 256}, query head h on KV head h / (H / KVH); lse and
-// delta = rowsum(dO * O) (B,Sq,H) f32; padding, causal, window and q_offset
-// masks (NEG_INF = -1e30: a masked P is 0); a row that sees no key has
-// dq = 0 and adds nothing to dk or dv; dK and dV summed over the G = H / KVH
-// query heads inside the kernel, with no atomics; outputs rounded to bf16
-// once.
+// bf16, D in {64, 128, 192, 256}, query head h on KV head h / (H / KVH); lse
+// and delta = rowsum(dO * O) (B,Sq,H) f32; padding, causal, window and
+// q_offset masks (NEG_INF = -1e30: a masked P is 0); a row that sees no
+// key has dq = 0 and adds nothing to dk or dv; dK and dV summed over the
+// G = H / KVH query heads inside the kernel, with no atomics; outputs
+// rounded to bf16 once.
 //
 // Rounding points (ref.flash_attention_bwd_ref(..., rounded=True) is the
 // plain version at these points):
@@ -92,6 +92,22 @@
 //    scaled Q 96 KB, two stages of Q and dO 128 KB, 225.5 KB in all, one CTA
 //    an SM. At KVH 1 the grid is B x ceil(S / 64) CTAs: 128 at B 128, S 64,
 //    under one wave of 132 SMs, each running its G = 4 iterations alone.
+//  * D 192 (NWG = 3, MLA): two 64 x 192 accumulators are 192 registers a
+//    thread, with S^T and dP^T over 255, so the columns are split again.
+//    192 / 2 = 96 columns a warpgroup would start the second warpgroup's
+//    MN-major B operand half way into a 128-byte swizzle atom (a TMA box),
+//    so each of three warpgroups owns one whole box, 64 columns of dK and
+//    dV (32 + 32 registers, as at D 64), and forms the whole S^T and dP^T:
+//    the tensor cores do those products three times. q * scale in its own
+//    tile as at D 256: K, V and the scaled Q 72 KB, two stages of Q and dO
+//    96 KB, 169.5 KB in all, one CTA of 384 threads an SM (168 registers a
+//    thread at most: ptxas spills 48 bytes). MLA runs at G 1 (H = KVH), so
+//    a CTA runs one iteration per visible query tile. A variant that forms
+//    P^T and dS^T in one pass after dP^T, packing each pair straight into
+//    its fragments, fit in 162 registers with no spill, and took 0.2910 ms
+//    at deepseek-v2-lite's phase-1 shape against this one's 0.2868
+//    (ab_flash_bwd.py, one call on an NVIDIA H100 80GB HBM3, 700.00 W):
+//    not kept.
 //
 // dQ kernel (fa_bwd_dq_sm90_kernel):
 //  * A CTA is one (batch, KV head, 64-row query tile) with NWG warpgroups,
@@ -117,7 +133,14 @@
 //    SM ptxas fits the kernel in 168 registers, with no spills. At D 256
 //    the dQ accumulator alone is 128 registers and Q and dO take 64 KB, each
 //    K/V stage 64 KB: one warpgroup a CTA, one CTA an SM, a ring of two
-//    stages (kDq256Stages), dQ += dS K one m64n256k16 a k-step.
+//    stages (kDq256Stages), dQ += dS K one m64n256k16 a k-step. At D 192
+//    the accumulator is 96 registers, Q and dO 48 KB and a K/V stage 48 KB,
+//    dQ += dS K one m64n192k16 a k-step: one warpgroup a CTA, two CTAs an
+//    SM (224 registers, 97 KB each with a ring of one). On an NVIDIA H100
+//    80GB HBM3, 700.00 W, at deepseek-v2-lite's phase-1 shape (B 256, S 64,
+//    H 16, one K/V tile a CTA) that took 0.1721 ms against 0.1958 for D
+//    256's shape, one CTA an SM with a ring of two (ab_flash_bwd.py, one
+//    call; phase 2, B 32: 0.0320 against 0.0337).
 //  * Epilogue: dQ * scale rounded to bf16, staged in the warpgroup's Q tile,
 //    stored for rows < Sq; the query tiles with the most key tiles launch
 //    first.
@@ -139,7 +162,9 @@ constexpr int kStages = 2;               // Q/dO ring depth of dK/dV
 constexpr int kDqHeads = 1;
 constexpr int kDqMinBlocks = 3;
 constexpr int kDqStages = 1;
-// at D 256 one warpgroup a CTA and one CTA an SM, with a K/V ring of two
+// at D 192 two CTAs an SM with the ring above; at D 256 one, with a ring of
+// two
+constexpr int kDq192MinBlocks = 2;
 constexpr int kDq256Stages = 2;
 
 template <int D, int NWG>
@@ -599,7 +624,8 @@ cudaError_t launch_dq(const Maps& m, const void* lse, const void* delta,
                       float scale, int causal, int window, int q_offset,
                       cudaStream_t stream) {
   constexpr int kTile = D / kBox * kBoxBytes;
-  constexpr int kMinBlocks = D == 256 ? 1 : kDqMinBlocks;
+  constexpr int kMinBlocks =
+      D == 256 ? 1 : D == 192 ? kDq192MinBlocks : kDqMinBlocks;
   constexpr int kRing = D == 256 ? kDq256Stages : kDqStages;
   auto kernel = fa_bwd_dq_sm90_kernel<D, NWG, kMinBlocks, kRing>;
   const int smem = 1024 + (2 * NWG + 2 * kRing) * kTile + 8 * (1 + kRing) +
@@ -641,6 +667,9 @@ cudaError_t fa_bwd_dq_sm90(const void* q, const void* k, const void* v,
                                             q_offset, stream)
                  : launch_dq<128, 1>(m, lse, delta, dq, B, Sq, Skv, H, KVH,
                                      scale, causal, window, q_offset, stream);
+  if (D == 192)
+    return launch_dq<192, 1>(m, lse, delta, dq, B, Sq, Skv, H, KVH, scale,
+                             causal, window, q_offset, stream);
   if (D == 256)
     return launch_dq<256, 1>(m, lse, delta, dq, B, Sq, Skv, H, KVH, scale,
                              causal, window, q_offset, stream);
@@ -661,6 +690,9 @@ cudaError_t fa_bwd_dkv_sm90(const void* q, const void* k, const void* v,
                              causal, window, q_offset, stream);
   if (D == 128)
     return launch_dkv<128, 1>(m, lse, delta, dk, dv, B, Sq, Skv, H, KVH,
+                              scale, causal, window, q_offset, stream);
+  if (D == 192)
+    return launch_dkv<192, 3>(m, lse, delta, dk, dv, B, Sq, Skv, H, KVH,
                               scale, causal, window, q_offset, stream);
   if (D == 256)
     return launch_dkv<256, 2>(m, lse, delta, dk, dv, B, Sq, Skv, H, KVH,

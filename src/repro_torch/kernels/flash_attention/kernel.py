@@ -14,17 +14,17 @@
     both.
 
 The two bf16 sources include ``csrc/sm90.cuh``, the Hopper helpers they
-share, which each library lists as a header of its build. The forward
-takes the head dims of ``FWD_HEAD_DIMS``: 64 and 128 (internlm2, qwen2.5,
-granite-moe, the smoke configs), 192 (deepseek-v2-lite's MLA: qk 128 + 64,
-v padded to 192) and 256 (gemma3); the backward those of
-``BWD_HEAD_DIMS``, without 192 until the MoE/MLA training slice. D 192 and
-256 have tilings of their own (one CTA an SM; at 256, dK/dV on two
-warpgroups that split the columns).
+share, which each library lists as a header of its build. Both
+directions take the head dims of ``FWD_HEAD_DIMS`` and ``BWD_HEAD_DIMS``:
+64 and 128 (internlm2, qwen2.5, granite-moe, the smoke configs), 192
+(deepseek-v2-lite's MLA: qk 128 + 64, v padded to 192) and 256 (gemma3).
+D 192 and 256 have tilings of their own (one CTA an SM; dK/dV on
+warpgroups that split the columns, three at 192 and two at 256).
 
 Each launches on PyTorch's current stream, checks device, dtype,
 contiguity and shapes, allocates its outputs with ``torch.empty``, raises if
-the launch is refused, and counts its launches in ``<fn>.launches``. The
+the launch is refused, and counts its launches in ``<fn>.launches`` (those
+on the bf16 wgmma route, bf16 inputs, also in ``<fn>.launches_sm90``). The
 libraries are built from the repository's sources at first use
 (``repro_torch.kernels._build``). The differentiable entry is
 ``ops.flash_attention`` (its autograd Function runs these kernels).
@@ -45,7 +45,7 @@ BWD_SOURCE = SOURCE.with_name("flash_bwd.cu")
 BWD_SM90_SOURCE = SOURCE.with_name("flash_bwd_sm90.cu")
 HEADERS = (SOURCE.with_name("sm90.cuh"),)
 FWD_HEAD_DIMS = (64, 128, 192, 256)
-BWD_HEAD_DIMS = (64, 128, 256)
+BWD_HEAD_DIMS = (64, 128, 192, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -149,11 +149,16 @@ def flash_fwd(q, k, v, *, causal: bool = True, window: int = 0,
     if err != 0:
         raise RuntimeError(f"flash-attention kernel launch failed: "
                            f"{lib.fa_error_string(err).decode()} ({err})")
-    flash_fwd.launches += 1
+    _count(flash_fwd, q)
     return out, lse
 
 
-flash_fwd.launches = 0
+def _count(fn, q):
+    fn.launches += 1
+    fn.launches_sm90 += int(q.dtype == torch.bfloat16)
+
+
+flash_fwd.launches = flash_fwd.launches_sm90 = 0
 
 
 def _check_bwd(q, k, v, do, lse, delta):
@@ -170,12 +175,6 @@ def _check_bwd(q, k, v, do, lse, delta):
             raise ValueError(f"{name} must be contiguous")
     if do.data_ptr() % 16:
         raise ValueError("dO must start on a 16-byte boundary")
-    if q.shape[-1] == 192:
-        raise ValueError(
-            "head dim 192 (MLA) has no backward kernel yet: it comes with "
-            "the SWAP training of the MoE family and MLA (ROADMAP A11, "
-            "MoE/MLA training; its dK/dV wants the D-256 split of columns "
-            "over two warpgroups)")
     _check(q, k, v, BWD_HEAD_DIMS)
     for name, t in (("dO", do), ("lse", lse), ("delta", delta)):
         if t.device != q.device:
@@ -215,7 +214,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
                             dq.data_ptr(),
                             *_bwd_args(q, k, scale, causal, window, q_offset))
     _raise_if(err, lib, "dQ")
-    flash_bwd_dq.launches += 1
+    _count(flash_bwd_dq, q)
     return dq
 
 
@@ -238,7 +237,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
                              *_bwd_args(q, k, scale, causal, window,
                                         q_offset))
     _raise_if(err, lib, "dK/dV")
-    flash_bwd_dkv.launches += 1
+    _count(flash_bwd_dkv, q)
     return dk, dv
 
 
@@ -266,5 +265,5 @@ def flash_bwd(q, k, v, out, lse, do, *, causal: bool = True, window: int = 0,
     return dq, dk, dv
 
 
-flash_bwd_dq.launches = 0
-flash_bwd_dkv.launches = 0
+flash_bwd_dq.launches = flash_bwd_dq.launches_sm90 = 0
+flash_bwd_dkv.launches = flash_bwd_dkv.launches_sm90 = 0

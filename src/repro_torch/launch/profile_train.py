@@ -90,13 +90,15 @@ def _time_us(evt, names) -> float:
     return 0.0
 
 
-def _measure(run_step, tokens_per_step: int):
-    """Host-timed steps, then a profiler window of TRACED steps."""
-    for _ in range(WARMUP):
+def _measure(run_step, tokens_per_step: int, counts=(WARMUP, STEPS, TRACED)):
+    """Host-timed steps, then a profiler window of traced steps; ``counts``
+    are (warm-up, timed, traced) steps."""
+    warmup, steps, traced = counts
+    for _ in range(warmup):
         run_step()
     torch.cuda.synchronize()
     times = []
-    for _ in range(STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         run_step()
         torch.cuda.synchronize()
@@ -105,20 +107,20 @@ def _measure(run_step, tokens_per_step: int):
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(TRACED):
+        for _ in range(traced):
             run_step()
         torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3 / TRACED
+        window_ms = (time.perf_counter() - t0) * 1e3 / traced
     by_cat, by_kernel, host_ops = {}, {}, {}
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             host_ops[evt.key] = (
-                evt.self_cpu_time_total / 1e3 / TRACED,
+                evt.self_cpu_time_total / 1e3 / traced,
                 _time_us(evt, ("device_time_total", "cuda_time_total"))
-                / 1e3 / TRACED, evt.count // TRACED)
+                / 1e3 / traced, evt.count // traced)
             continue
         ms = _time_us(evt, ("self_device_time_total",
-                            "self_cuda_time_total")) / 1e3 / TRACED
+                            "self_cuda_time_total")) / 1e3 / traced
         by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + ms
         cat = _category(evt.key)
         by_cat[cat] = by_cat.get(cat, 0.0) + ms
@@ -126,11 +128,11 @@ def _measure(run_step, tokens_per_step: int):
     total_s = sum(times)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
     host_top = sorted(host_ops.items(), key=lambda kv: -kv[1][0])[:12]
-    dev_top = sorted(host_ops.items(), key=lambda kv: -kv[1][1])[:12]
+    dev_top = sorted(host_ops.items(), key=lambda kv: -kv[1][1])[:40]
     return {
         "step_ms": [t * 1e3 for t in times],
-        "step_ms_mean": total_s * 1e3 / STEPS,
-        "tokens_per_s": tokens_per_step * STEPS / total_s,
+        "step_ms_mean": total_s * 1e3 / steps,
+        "tokens_per_s": tokens_per_step * steps / total_s,
         "traced_window_ms_per_step": window_ms,
         "device_busy_ms_per_step": busy_ms,
         "device_idle_share": 1 - busy_ms / window_ms,
@@ -143,7 +145,10 @@ def _measure(run_step, tokens_per_step: int):
     }
 
 
-def main(argv=None, *, cfg=None):
+def main(argv=None, *, cfg=None, counts=(WARMUP, STEPS, TRACED)):
+    """Profile the run that ``argv`` describes (on ``cfg``, as for
+    ``train.build``); ``counts``: (warm-up, timed, traced) steps a phase.
+    Returns the report."""
     args = launcher.build_parser().parse_args(argv)
     swap = launcher.build(args, cfg)
     dev = torch.device(args.device)
@@ -154,7 +159,7 @@ def main(argv=None, *, cfg=None):
     cfg, W = swap.adapter.cfg, swap.cfg.n_workers
     report = {"card": card, "arch": cfg.name, "dtype": cfg.dtype,
               "n_layers": cfg.n_layers, "seq_len": args.seq_len,
-              "steps": {"warmup": WARMUP, "timed": STEPS, "traced": TRACED}}
+              "steps": dict(zip(("warmup", "timed", "traced"), counts))}
 
     torch.cuda.reset_peak_memory_stats(dev)
     bundle = swap.adapter.init(
@@ -165,7 +170,8 @@ def main(argv=None, *, cfg=None):
     def phase1_step():
         box[0], _ = runner.run_chunk(box[0], 0, 1)
 
-    report["phase1"] = _measure(phase1_step, args.phase1_batch * args.seq_len)
+    report["phase1"] = _measure(phase1_step, args.phase1_batch * args.seq_len,
+                                counts)
     report["phase1"].update(batch=args.phase1_batch,
                             peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
     del box[0], state, runner            # the phase-1 optimizer state goes
@@ -179,7 +185,7 @@ def main(argv=None, *, cfg=None):
         box[0], _ = runner.run_chunk(box[0], list(range(W)), 1)
 
     report["phase2"] = _measure(phase2_step,
-                                W * args.phase2_batch * args.seq_len)
+                                W * args.phase2_batch * args.seq_len, counts)
     report["phase2"].update(batch=args.phase2_batch, workers=W,
                             peak_gb=torch.cuda.max_memory_allocated(dev)
                             / 1e9)

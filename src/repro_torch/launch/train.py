@@ -1,10 +1,11 @@
 """SWAP training launcher: twin of ``repro/launch/train.py``, one process.
 
-Runs the three-phase SWAP schedule on an LM architecture of the dense or
-ssm family with GQA attention (the smoke config by default; ``--full`` for
-the full one) on the synthetic Markov-LM task (the CNN is refused, as by
-the reference: its runs are ``repro_torch.experiments``; the MoE family
-and MLA are refused until their training slice, ROADMAP A11):
+Runs the three-phase SWAP schedule on an LM architecture of the dense,
+moe or ssm family with GQA or MLA attention (the smoke config by default;
+``--full`` for the full one) on the synthetic Markov-LM task (the CNN is
+refused, as by the reference: its runs are ``repro_torch.experiments``;
+the families not ported yet are refused where ``models/model.py`` builds
+the model):
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \
       [--full] [--workers 4] [--phase1-steps 150] [--phase2-steps 60] \
@@ -18,6 +19,18 @@ gemma3-1b at full width on one 80 GB card takes a phase-1 batch of 128
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \
       --full --workers 2 --phase1-batch 128 --elastic-deadline 30
+
+The MoE family and MLA (the router's aux loss is in the step's loss) at
+full width on one 80 GB card take a cut depth, as ``chip_smoke.py`` trains
+them: deepseek-v2-lite at 3 of 27 layers, granite-moe-3b-a800m at 23 of
+32 (``main(argv, cfg=...)``, a Python keyword, takes the cut config):
+
+  PYTHONPATH=src python -c "import dataclasses; \
+      from repro_torch.configs import registry; \
+      from repro_torch.launch import train; \
+      train.main(['--arch', 'deepseek-v2-lite', '--full', '--workers', '2', \
+                  '--elastic-deadline', '30'], cfg=dataclasses.replace( \
+                  registry.get_config('deepseek-v2-lite'), n_layers=3))"
 
 Flags, defaults and the printed summary are the reference launcher's.
 Runs on CUDA unless ``--device cpu`` is given; with no card visible it
@@ -103,13 +116,15 @@ def build(args, cfg=None) -> SWAP:
     if cfg.family == "cnn":
         raise SystemExit("use python -m repro_torch.experiments."
                          "table1_cifar10 for the CNN")
-    if cfg.family == "moe" or cfg.attention == "mla":
-        raise NotImplementedError(
-            f"{cfg.name}: SWAP training of the MoE family and MLA is not "
-            f"ported yet (ROADMAP A11, MoE/MLA training: the router's aux "
-            f"loss in the step, the flash backward at head dim 192, a depth "
-            f"cut of deepseek-v2-lite); they are served: "
-            f"python -m repro_torch.launch.serve --arch {args.arch}")
+
+    lr_small = args.peak_lr * args.phase2_batch / args.phase1_batch
+    opt = OptimizerConfig(kind=args.optimizer,
+                          weight_decay=5e-4 if args.optimizer != "adamw"
+                          else 0.01)
+    if args.optimizer == "adamw":
+        args.peak_lr, lr_small = 3e-3, 1e-3
+    # the model first: a family not ported yet is refused before the data
+    adapter = LMAdapter(cfg, opt)
 
     data = make_markov_lm(args.seed, vocab=min(cfg.vocab_size, 512),
                           n_train=4096, n_test=1024, seq_len=args.seq_len)
@@ -118,14 +133,6 @@ def build(args, cfg=None) -> SWAP:
     test_loader = Loader({"tokens": data["test_tokens"] % cfg.vocab_size,
                           "labels": data["test_labels"] % cfg.vocab_size},
                          256, device=dev)
-
-    lr_small = args.peak_lr * args.phase2_batch / args.phase1_batch
-    opt = OptimizerConfig(kind=args.optimizer,
-                          weight_decay=5e-4 if args.optimizer != "adamw"
-                          else 0.01)
-    if args.optimizer == "adamw":
-        args.peak_lr, lr_small = 3e-3, 1e-3
-    adapter = LMAdapter(cfg, opt)
     swap_cfg = SWAPConfig(
         n_workers=dist.n_workers,
         phase1=PhaseConfig(

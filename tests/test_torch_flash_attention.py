@@ -329,6 +329,8 @@ BWD_CASES = [
     ((1, 48, 48, 4, 2, 64), True, 0, -8),      # rows that see no key
     ((1, 100, 100, 4, 1, 256), True, 32, 0),   # D 256, binding window
     ((1, 33, 129, 4, 1, 256), True, 0, 96),    # D 256, q_offset
+    ((1, 70, 70, 4, 4, 192), True, 0, 0),      # D 192 (MLA), G 1, ragged
+    ((1, 33, 129, 4, 4, 192), True, 0, 96),    # D 192, G 1, q_offset
 ]
 
 
@@ -485,11 +487,13 @@ def test_bwd_kernel_on_cpu_raises_and_needs_nvcc(tmp_path, monkeypatch):
 # the bf16 backward's rounding contract, and its wrappers
 # ---------------------------------------------------------------------------
 
-# CARD_EDGE_CASES and D 128 at G 2 and G 4 (the scale 128 ** -0.5 is not a
-# power of 2, so q * scale in bf16 moves S there)
+# CARD_EDGE_CASES (D 192 among them: G 1 causal, G 2 ragged Skv), D 128 at
+# G 2 and G 4 (the scale 128 ** -0.5 is not a power of 2, so q * scale in
+# bf16 moves S there; nor is 192 ** -0.5), and D 192 at G 1 with q_offset
 ROUNDED_BWD_CASES = CARD_EDGE_CASES + [
     ((2, 67, 67, 4, 2, 128), True, 0, 0),
     ((1, 130, 130, 8, 2, 128), True, 0, 0),
+    ((1, 33, 129, 4, 4, 192), True, 0, 96),
 ]
 
 
@@ -575,7 +579,7 @@ def test_bwd_wrappers_take_both_dtypes_up_to_the_device_check(fn, dtype):
     """f32 (the FMA route) and bf16 (the wgmma route) pass every check of
     the dQ and dK/dV wrappers that needs no card, at every head dim, and
     stop only at the device."""
-    assert tkernel.BWD_HEAD_DIMS == (64, 128, 256)
+    assert tkernel.BWD_HEAD_DIMS == (64, 128, 192, 256)
     for D in tkernel.BWD_HEAD_DIMS:
         args = _bwd_args((1, 8, 8, 4, 2, D), dtype, seed=40)
         with pytest.raises(RuntimeError, match="needs CUDA tensors"):
@@ -586,13 +590,17 @@ BWD_REFUSED = {
     "head_dim_256": (lambda q, k, v, do, l, d: (
         *(_head_dim(t, 256) for t in (q, k, v, do)), l, d),
         RuntimeError, "needs CUDA tensors"),
-    # MLA's D 192 waits for the MoE/MLA training slice, named in the error
+    # MLA's D 192 is taken: it passes every check and stops at the device
     "head_dim_192": (lambda q, k, v, do, l, d: (
         *(_head_dim(t, 192) for t in (q, k, v, do)), l, d),
-        ValueError, "head dim 192 .*ROADMAP A11, MoE/MLA training"),
+        RuntimeError, "needs CUDA tensors"),
+    # minicpm3's MLA D 96 and zamba2's D 112 are not taken yet
     "head_dim_96": (lambda q, k, v, do, l, d: (
         *(_head_dim(t, 96) for t in (q, k, v, do)), l, d),
         ValueError, "head dim 96"),
+    "head_dim_112": (lambda q, k, v, do, l, d: (
+        *(_head_dim(t, 112) for t in (q, k, v, do)), l, d),
+        ValueError, "head dim 112"),
     "float16": (lambda q, k, v, do, l, d: (q.half(), k.half(), v.half(),
                                            do.half(), l, d),
                 TypeError, "float32 or bfloat16"),

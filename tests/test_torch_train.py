@@ -26,6 +26,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.configs import registry as jreg  # noqa: E402
 from repro.configs.base import ModelConfig as JModelConfig  # noqa: E402
 from repro.configs.base import OptimizerConfig as JOpt  # noqa: E402
+from repro.configs.base import replace as jreplace  # noqa: E402
 from repro.configs.base import ScheduleConfig as JSched  # noqa: E402
 from repro.core.adapters import LMAdapter as JAdapter  # noqa: E402
 from repro.core.schedules import schedule_fn as jschedule  # noqa: E402
@@ -41,10 +42,12 @@ from repro_torch.configs import registry as treg  # noqa: E402
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.configs.base import OptimizerConfig  # noqa: E402
 from repro_torch.configs.base import ScheduleConfig  # noqa: E402
+from repro_torch.configs.base import replace as treplace  # noqa: E402
 from repro_torch.core.adapters import LMAdapter  # noqa: E402
 from repro_torch.core.schedules import schedule_fn  # noqa: E402
 from repro_torch.core.swap import _stack_bundles  # noqa: E402
 from repro_torch.data.pipeline import Loader  # noqa: E402
+from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.optim.api import init_optimizer, tree_leaves  # noqa: E402
 from repro_torch.train import loop as tloop  # noqa: E402
 from repro_torch.train import precision as tprec  # noqa: E402
@@ -110,11 +113,52 @@ def _start(jad, key=1):
 # loss and grads
 # ---------------------------------------------------------------------------
 
+# arch -> (registry arch, smoke-config overrides): the dense and ssm smoke
+# configs as they are, minicpm3's MLA (dense FFN), and each MoE smoke
+# config (4 experts top-2) at a capacity factor that drops tokens (0.5) and
+# at one that drops none (E / K * 1.1, as tests/test_arch_smoke.py takes it)
+NO_DROP = {"moe.capacity_factor": 4 / 2 * 1.1}
+DROPS = {"moe.capacity_factor": 0.5}
+LOSS_CASES = {
+    "internlm2-1.8b": ("internlm2-1.8b", {}),
+    "qwen2.5-14b": ("qwen2.5-14b", {}),
+    "mamba2-2.7b": ("mamba2-2.7b", {}),
+    "minicpm3-4b": ("minicpm3-4b", {}),
+    **{f"{arch}-{tag}": (arch, over)
+       for arch in ("deepseek-v2-lite", "granite-moe-3b-a800m",
+                    "qwen3-moe-235b-a22b")
+       for tag, over in (("drops", DROPS), ("nodrop", NO_DROP))},
+}
 
-@pytest.mark.parametrize("arch", ["internlm2-1.8b", "qwen2.5-14b",
-                                  "mamba2-2.7b"])
-def test_lm_loss_metrics_and_grads_match_jax(arch):
-    jcfg, tcfg = jreg.get_smoke_config(arch), treg.get_smoke_config(arch)
+
+def _smoke_pair(case):
+    arch, over = LOSS_CASES[case]
+    return (jreplace(jreg.get_smoke_config(arch), **over),
+            treplace(treg.get_smoke_config(arch), **over))
+
+
+@pytest.fixture
+def kept_pairs(monkeypatch):
+    """The kept masks of every MoE dispatch the port runs."""
+    kept = []
+    real = tmoe.dispatch_slots
+
+    def record(expert_idx, E, C):
+        out = real(expert_idx, E, C)
+        kept.append(out[2])
+        return out
+
+    monkeypatch.setattr(tmoe, "dispatch_slots", record)
+    return kept
+
+
+@pytest.mark.parametrize("arch", list(LOSS_CASES))
+def test_lm_loss_metrics_and_grads_match_jax(arch, kept_pairs):
+    """Loss, router aux loss (0 without MoE layers), accuracy and every
+    grad leaf of the LM loss against ``jax.value_and_grad`` of the
+    reference's, from JAX's init; MoE configs with and without capacity
+    drops (the kept pairs are the reference's: tests/test_torch_moe.py)."""
+    jcfg, tcfg = _smoke_pair(arch)
     jad = JAdapter(jcfg, JOpt())
     tad = LMAdapter(tcfg, OptimizerConfig())
     jb, tb = _start(jad)
@@ -128,8 +172,18 @@ def test_lm_loss_metrics_and_grads_match_jax(arch):
     tl, tm = lm_loss_and_metrics(tad.model, tb["params"], tbatch)
     tg = torch.autograd.grad(tl, leaves)
     np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=STEP_TOL)
+    np.testing.assert_allclose(float(tm["loss"].detach()), float(jm["loss"]),
+                               rtol=STEP_TOL)
     assert float(tm["accuracy"]) == float(jm["accuracy"])
-    assert float(tm["aux"]) == float(jm["aux"]) == 0.0
+    if tcfg.moe:
+        assert len(kept_pairs) == tcfg.n_layers
+        dropped = sum(int((~k).sum()) for k in kept_pairs)
+        assert (dropped > 0) == arch.endswith("-drops"), dropped
+        aux = float(tm["aux"].detach())
+        np.testing.assert_allclose(aux, float(jm["aux"]), rtol=STEP_TOL)
+        assert aux > 0
+    else:
+        assert float(tm["aux"]) == float(jm["aux"]) == 0.0
     jflat = _flat(jax.device_get(jg))
     for (k, want), got in zip(sorted(jflat.items()), tg):
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
