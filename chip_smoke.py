@@ -9,7 +9,8 @@ Phases, each printing its own lines; any failed check exits non-zero:
 2. build: compile the hand-written kernels from the repository's sources,
    one nvcc per source, all started together;
 3. kernels vs plain: hold each kernel against its plain PyTorch version on
-   the card over a grid of shapes, dtypes, head dims (64, 128, 192, 256)
+   the card over a grid of shapes, dtypes, head dims (64, 112, 128, 192,
+   256)
    and masks (the flash forward,
    the flash backward's dQ and dK/dV kernels, in bf16 also against the
    plain version at their own rounding points, the streaming average,
@@ -26,9 +27,11 @@ Phases, each printing its own lines; any failed check exits non-zero:
    layer (window 512), its phase-1 forward and backward; the forward at
    deepseek-v2-lite's MLA prefill and phase-1 shape, head dim 192, and
    granite-moe's, G 3; the backward at deepseek-v2-lite's phase-1 and
-   phase-2 shapes, head dim 192, G 1;
-   the bf16 SSD kernels at the serve prefill and phase 1, beside the f32
-   FMA kernels they replace);
+   phase-2 shapes, head dim 192, G 1; the forward and backward at
+   zamba2-7b's shared block, head dim 112, G 1: its prefill and its two
+   training phases;
+   the bf16 SSD kernels at the serve prefill and phase 1 of mamba2-2.7b
+   and of zamba2-7b, beside the f32 FMA kernels they replace);
 4. full-width serve (internlm2-1.8b, random weights from a seed): a main
    path, with every kernel's launch count set to 0 just before it and read
    just after; then prefill logits with the kernel against the plain
@@ -74,7 +77,18 @@ Phases, each printing its own lines; any failed check exits non-zero:
    depth cut to 56 layers (MAMBA_TRAIN_LAYERS: 64 layers do not fit the
    card: 62 ran out of memory in phase 2), every SSD launch of both on the
    bf16 wgmma route, and the smoke exactness checks;
-11. the paper-faithful CNN+BatchNorm path at the full width of cifar-cnn
+11. the hybrid family, zamba2-7b (81 mamba layers on the SSD kernels, the
+   one shared attention block before each pattern unit of 6 on the flash
+   kernels at head dim 112): served at full width on phase 4's path, 13
+   flash and 81 SSD forwards a prefill, all on the bf16 wgmma route, the
+   logits checks with both kernels switched (``[zamba2-serve]``);
+   SWAP-trained through the launcher at full width with its depth cut to
+   ZAMBA_TRAIN_LAYERS, every flash and SSD launch on the bf16 route and as
+   the layer plan has them, every phase under 75 GB, a profiler window of
+   a phase-1 and a phase-2 step (``[zamba2-train]``); and phase 6's f32
+   exactness on a narrowed config at head dim 112 with a tail
+   (``_narrow_zamba``);
+12. the paper-faithful CNN+BatchNorm path at the full width of cifar-cnn
    ``config()``: Table 1 (``repro_torch.experiments.table1_cifar10``,
    seed 0: small batch, large batch, SWAP before and after averaging) and
    Table 4's large-batch SWA row from Table 1's large-batch model, one main
@@ -88,7 +102,7 @@ Phases, each printing its own lines; any failed check exits non-zero:
    branch (its ReLU masks and max choices replayed), each convolution's
    backward on its own inputs against f64; and a smoke-width SWAP with the
    elastic phase 3, bitwise equal to its plain refold;
-12. the rest of the paper's experiments, one seed each, the CNN ones at the
+13. the rest of the paper's experiments, one seed each, the CNN ones at the
    full width of cifar-cnn ``config()``: Table 2 (20 classes), Figure 1
    (the phase-2 curves), Figures 2/3 (the 9 x 9 plane with BN recomputed
    per point, the ASCII map, the three points), Figure 4 (the cosines),
@@ -96,7 +110,7 @@ Phases, each printing its own lines; any failed check exits non-zero:
    (the internlm2 smoke config in f32, whose three flash kernels must
    launch); each a main path counted as above, every accuracy and cosine
    finite;
-13. checkpoints and resume, the resuming run a new process
+14. checkpoints and resume, the resuming run a new process
    (``python3 chip_smoke.py --resume-child ...``) on a copy of the
    snapshot directory with the snapshots after the cut deleted: Table 1's
    SWAP at the full width of cifar-cnn, and internlm2 smoke through the
@@ -117,8 +131,11 @@ on their serving paths, and ``deepseek_prefill`` / ``granite_prefill``: its
 times at their prefill shapes, head dim 192 and 64; the backward rows'
 ``deepseek_train_shape`` / ``deepseek_phase2_shape``: their times at head
 dim 192; ``deepseek_train_launches`` / ``granite_train_launches`` on the
-flash and swa_avg rows: on those training paths); the last line is
-``{"ok": true, "device": {...}}``.
+flash and swa_avg rows: on those training paths; ``zamba2_launches`` on
+every row: on zamba2-7b's training path and, for the two forwards, its
+serving path; the flash rows' ``zamba2_*`` shapes: the times at head dim
+112, the SSD rows' at zamba2's widths); the line before them gives the
+run's seconds; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -245,6 +262,26 @@ SSD_TRAIN_SHAPE = (256, 64, 80, 64, 1, 128, 64)
 # allocated and 15.08 GiB reserved but free in pieces. 56 is the deepest
 # that ran.
 MAMBA_TRAIN_LAYERS = 56
+# zamba2-7b, the hybrid family: 81 mamba layers (13 pattern units of 6 and
+# a tail of 3), ONE shared attention block (32 heads of 112, G 1, with its
+# MLP) before each unit; served at full depth, batch 8, prompt 512
+ZAMBA = "zamba2-7b"
+ZAMBA_PREFILL_SHAPE = (8, 512, 512, 32, 32, 112)
+# its SWAP phase 1 at the launcher's batch and length (phase 2: batch 32)
+ZAMBA_TRAIN_SHAPE = (256, 64, 64, 32, 32, 112)
+# (B, S, H, P, G, N, chunk): its mamba blocks' SSD at the serving prefill
+# and at phase 1
+ZAMBA_SSD_SERVE_SHAPE = (8, 512, 112, 64, 1, 64, 256)
+ZAMBA_SSD_TRAIN_SHAPE = (256, 64, 112, 64, 1, 64, 64)
+# The depth it is SWAP-trained at (launcher, W 2, elastic phase 3): the
+# deepest of 30, 27 and 24 layers whose every phase peaks under
+# PEAK_LIMIT_GB. On an NVIDIA H100 80GB HBM3 at 700.00 W, at 30 layers
+# phase 2's update ran out of memory (a 5.84 GiB allocation, with 62.08 GiB
+# allocated and 14.18 GiB reserved but free); at 27 the phases peaked at
+# 73.16 / 66.06 / 55.26 GB (phase 3 at 75.58 while it still held phase 2's
+# optimizer state); at 24 at 70.34 / 60.45 / 69.03. 27 is 4 pattern units
+# and the tail of 3, which the full config has too.
+ZAMBA_TRAIN_LAYERS = 27
 # the CNN's f32 forward (against the CPU's), its whole-model grads on one
 # branch and its convolutions' backward (against f32 and f64), max |err| /
 # max |ref| per output: f32 sums in other orders (~1e-6 to ~3e-5); TF32
@@ -415,6 +452,16 @@ def _grid():
             cases.append((shape, dtype, True, 0, 0))
         for S in ENGINE_PROMPTS:
             cases.append(((1, S, S) + shape[3:], "bfloat16", True, 0, 0))
+    # zamba2-7b's shared block (D 112, G 1): its prefill, batched (bf16 and,
+    # for the f32 logits check, f32) and through the engine, and its two
+    # training phases
+    for dtype in ("bfloat16", "float32"):
+        cases.append((ZAMBA_PREFILL_SHAPE, dtype, True, 0, 0))
+    for S in ENGINE_PROMPTS:
+        cases.append(((1, S, S) + ZAMBA_PREFILL_SHAPE[3:], "bfloat16", True,
+                      0, 0))
+    cases.append((ZAMBA_TRAIN_SHAPE, "bfloat16", True, 0, 0))
+    cases.append(((32,) + ZAMBA_TRAIN_SHAPE[1:], "bfloat16", True, 0, 0))
     return cases
 
 
@@ -430,7 +477,10 @@ def phase_kernel():
                               (DEEPSEEK_PREFILL_SHAPE, 0),
                               (GRANITE_PREFILL_SHAPE, 0),
                               (DEEPSEEK_TRAIN_SHAPE, 0),
-                              (GRANITE_TRAIN_SHAPE, 0)))
+                              (GRANITE_TRAIN_SHAPE, 0),
+                              (ZAMBA_PREFILL_SHAPE, 0),
+                              (ZAMBA_TRAIN_SHAPE, 0),
+                              ((32,) + ZAMBA_TRAIN_SHAPE[1:], 0)))
     for i, (shape, dtype, causal, window, q_offset) in enumerate(_grid()):
         D = shape[-1]
         q, k, v = _qkv(shape, getattr(torch, dtype), seed=i)
@@ -484,6 +534,14 @@ def phase_kernel():
                          seed=1240)
     gr_train = _fwd_times(GRANITE_TRAIN_SHAPE, "granite phase-1 training",
                           seed=1241)
+    # zamba2-7b's shared block at head dim 112 (D 128's tiles, G 1): its
+    # prefill and its two training phases
+    z_phase2 = (32,) + ZAMBA_TRAIN_SHAPE[1:]
+    z_prefill = _fwd_times(ZAMBA_PREFILL_SHAPE, "zamba2 prefill, shared block",
+                           seed=1242, cold=True)
+    z_train = _fwd_times(ZAMBA_TRAIN_SHAPE, "zamba2 phase-1 training",
+                         seed=1243)
+    z_train2 = _fwd_times(z_phase2, "zamba2 phase-2 training", seed=1244)
     sys.stdout.flush()
     return {
         "name": "flash_attention_fwd", "route": "cuda",
@@ -508,6 +566,12 @@ def phase_kernel():
             "max_abs_err": path_err[DEEPSEEK_TRAIN_SHAPE, 0], **d_train},
         "granite_train_shape": {
             "max_abs_err": path_err[GRANITE_TRAIN_SHAPE, 0], **gr_train},
+        "zamba2_prefill": {
+            "max_abs_err": path_err[ZAMBA_PREFILL_SHAPE, 0], **z_prefill},
+        "zamba2_train_shape": {
+            "max_abs_err": path_err[ZAMBA_TRAIN_SHAPE, 0], **z_train},
+        "zamba2_phase2_shape": {
+            "max_abs_err": path_err[z_phase2, 0], **z_train2},
     }
 
 
@@ -617,9 +681,10 @@ def _bwd_grid():
         for causal in (True, False):
             cases.append(((2, 67, 67, 6, 2, 64), dtype, causal, 0, 0))
     # the shapes the training paths give it: phase 1 and phase 2 of
-    # internlm2, gemma3, deepseek-v2-lite (MLA, D 192, G 1) and granite-moe
+    # internlm2, gemma3, deepseek-v2-lite (MLA, D 192, G 1), granite-moe and
+    # zamba2-7b (D 112, G 1)
     for shape in (TRAIN_SHAPE, GEMMA_TRAIN_SHAPE, DEEPSEEK_TRAIN_SHAPE,
-                  GRANITE_TRAIN_SHAPE):
+                  GRANITE_TRAIN_SHAPE, ZAMBA_TRAIN_SHAPE):
         cases.append((shape, "bfloat16", True, 0, 0))
         cases.append(((32,) + shape[1:], "bfloat16", True, 0, 0))
     return cases
@@ -709,7 +774,8 @@ def phase_kernel_bwd():
             check(bool((got[0][:, :-q_offset] == 0).all()),
                   f"bwd case {i}: fully masked rows have dq != 0")
         if shape in (TRAIN_SHAPE, GEMMA_TRAIN_SHAPE, DEEPSEEK_TRAIN_SHAPE,
-                     (32,) + DEEPSEEK_TRAIN_SHAPE[1:]):
+                     (32,) + DEEPSEEK_TRAIN_SHAPE[1:], ZAMBA_TRAIN_SHAPE,
+                     (32,) + ZAMBA_TRAIN_SHAPE[1:]):
             train_err[shape] = {
                 n: (g.float() - w.float()).abs().max().item()
                 for n, g, w in zip(("dq", "dk", "dv"), got, want)}
@@ -724,13 +790,17 @@ def phase_kernel_bwd():
 
     # times at the phase-1 training shape (the JSON rows) and phase 2's;
     # gemma3's phase 1 at the batch its run takes; deepseek-v2-lite's
-    # phase 1 and phase 2 at MLA's head dim 192
+    # phase 1 and phase 2 at MLA's head dim 192; zamba2-7b's at 112
     phase1 = _bwd_times(TRAIN_SHAPE, "phase-1")
     phase2 = _bwd_times((32,) + TRAIN_SHAPE[1:], "phase-2")
     g_phase1 = _bwd_times(GEMMA_TRAIN_SHAPE, "gemma3 phase-1")
     d_shape2 = (32,) + DEEPSEEK_TRAIN_SHAPE[1:]
     d_phase1 = _bwd_times(DEEPSEEK_TRAIN_SHAPE, "deepseek phase-1, MLA")
     d_phase2 = _bwd_times(d_shape2, "deepseek phase-2, MLA")
+    # zamba2-7b's shared block at head dim 112, G 1
+    z_shape2 = (32,) + ZAMBA_TRAIN_SHAPE[1:]
+    z_phase1 = _bwd_times(ZAMBA_TRAIN_SHAPE, "zamba2 phase-1")
+    z_phase2 = _bwd_times(z_shape2, "zamba2 phase-2")
 
     def errs(shape, name):
         e = train_err[shape]
@@ -749,7 +819,12 @@ def phase_kernel_bwd():
                  "max_abs_err": errs(DEEPSEEK_TRAIN_SHAPE, name),
                  **d_phase1[name]},
              "deepseek_phase2_shape": {
-                 "max_abs_err": errs(d_shape2, name), **d_phase2[name]}}
+                 "max_abs_err": errs(d_shape2, name), **d_phase2[name]},
+             "zamba2_train_shape": {
+                 "max_abs_err": errs(ZAMBA_TRAIN_SHAPE, name),
+                 **z_phase1[name]},
+             "zamba2_phase2_shape": {
+                 "max_abs_err": errs(z_shape2, name), **z_phase2[name]}}
             for name, line in (("flash_attention_bwd_dq", 202),
                                ("flash_attention_bwd_dkv", 232))]
 
@@ -938,7 +1013,8 @@ def _ssd_grid():
     chunk 256), with 1 to 3 chunks, 1 or 2 groups, both (P, N); then the
     bf16 route's widths (N 128, mamba2-2.7b; N 64, the zamba2-7b mamba
     blocks) with groups of 20 and 16 heads: 20 is not a multiple of the
-    head blocks (8 forward, 16 / 8 / 5 / 4 backward), 16 is."""
+    head blocks (8 forward, 16 / 8 / 5 / 4 backward), 16 is; and zamba2's
+    own, 112 heads in one group."""
     cases = []
     for dtype in ("float32", "bfloat16"):
         for P, N in ((64, 128), (32, 16)):
@@ -947,7 +1023,7 @@ def _ssd_grid():
                     nc = 1 + (k + G + P // 32) % 3
                     cases.append(((2, L * nc, 4, P, G, N), L, dtype))
     for N, H, G in ((128, 20, 1), (128, 32, 2), (64, 4, 1), (64, 4, 2),
-                    (64, 20, 1), (64, 32, 2)):
+                    (64, 20, 1), (64, 32, 2), (64, 112, 1)):
         for k, L in enumerate((1, 37, 64, 200, 256)):
             nc = 1 + (k + H) % 2
             cases.append(((2, L * nc, H, 64, G, N), L, "bfloat16"))
@@ -1077,7 +1153,12 @@ def phase_ssd():
     for name, shape7, bwd, where in (
             ("ssd_fwd", SSD_SERVE_SHAPE, False, "serve prefill"),
             ("ssd_fwd", SSD_TRAIN_SHAPE, False, "training phase 1"),
-            ("ssd_bwd", SSD_TRAIN_SHAPE, True, "training phase 1")):
+            ("ssd_bwd", SSD_TRAIN_SHAPE, True, "training phase 1"),
+            ("ssd_fwd", ZAMBA_SSD_SERVE_SHAPE, False, "zamba2 serve prefill"),
+            ("ssd_fwd", ZAMBA_SSD_TRAIN_SHAPE, False,
+             "zamba2 training phase 1"),
+            ("ssd_bwd", ZAMBA_SSD_TRAIN_SHAPE, True,
+             "zamba2 training phase 1")):
         *shape, chunk = shape7
         args = _ssd_inputs(tuple(shape), torch.bfloat16, seed=7)
         if bwd:
@@ -1135,11 +1216,14 @@ def phase_ssd():
          **{k: v for k, v in serve.items() if k != "shape"},
          "shape": serve["shape"],
          "train_shape": dict(times["ssd_fwd", "training phase 1"],
-                             launches=None)},
+                             launches=None),
+         "zamba2_serve_shape": times["ssd_fwd", "zamba2 serve prefill"],
+         "zamba2_train_shape": times["ssd_fwd", "zamba2 training phase 1"]},
         {"name": "ssd_bwd", "route": "cuda",
          "source": src + "ssd_bwd_sm90.cu",
          "replaces": "src/repro/kernels/ssd/kernel.py:61", "launches": None,
-         **times["ssd_bwd", "training phase 1"]}]
+         **times["ssd_bwd", "training phase 1"],
+         "zamba2_train_shape": times["ssd_bwd", "zamba2 training phase 1"]}]
 
 
 # ---------------------------------------------------------------------------
@@ -1164,6 +1248,12 @@ def _describe(cfg) -> str:
         attn += (f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k} d_ff "
                  f"{cfg.moe.d_ff}, capacity factor "
                  f"{cfg.moe.capacity_factor}")
+    if cfg.family == "hybrid":
+        s = cfg.ssm
+        attn = (f"one shared block of {attn} before every "
+                f"{cfg.shared_attn_every} mamba layers; SSD heads "
+                f"{s.expand * cfg.d_model // s.head_dim}x{s.head_dim}, state "
+                f"{s.d_state}, groups {s.n_groups}, chunk {s.chunk_size}")
     return attn
 
 
@@ -1236,8 +1326,12 @@ def phase_serve(card: str, arch="internlm2-1.8b", S=512, engine=True,
     engines at batch 8, prompt S, and with ``engine`` the ServingEngine's
     requests through 2 slots; then the prefill logits' checks, a profiler
     window of one prefill and one decode step, and the device memory peak
-    of the phase (params included) against PEAK_LIMIT_GB. Returns the
-    forward kernel's launches on the main path."""
+    of the phase (params included) against PEAK_LIMIT_GB. The flash
+    forward launches once an attention block a prefill; in the hybrid
+    family (zamba2) that is once a pattern unit (its shared block), the SSD
+    forward once a mamba layer, and every launch of both takes the bf16
+    wgmma route, and the logits' checks switch both kernels. Returns every
+    kernel's launches on the main path."""
     import dataclasses
     import torch
     from repro_torch.configs import registry
@@ -1260,6 +1354,8 @@ def phase_serve(card: str, arch="internlm2-1.8b", S=512, engine=True,
         0, cfg.vocab_size, (L,), generator=g, device="cuda"),
         max_new_tokens=n_new) for i, L in enumerate(lengths)] if engine else []
     n_layers = cfg.n_layers
+    hybrid = cfg.family == "hybrid"
+    n_attn = model.n_units if hybrid else n_layers   # attention blocks
     windows = sorted({k.window for k in model.unit_kinds + model.tail_kinds})
     print(f"[{tag}] {cfg.name}: {n_layers} layers, d_model {cfg.d_model}, "
           f"{_describe(cfg)}, windows {windows}, vocab {cfg.vocab_size}, "
@@ -1280,7 +1376,10 @@ def phase_serve(card: str, arch="internlm2-1.8b", S=512, engine=True,
             done = serving.run(reqs)
         torch.cuda.synchronize()
         t_engine = time.perf_counter() - t0
-    launches = kernel.flash_fwd.launches
+    counted = _launch_counts()
+    launches = {name: fn.launches for name, fn in counted.items()}
+    on_sm90 = {name: fn.launches_sm90 for name, fn in counted.items()
+               if hasattr(fn, "launches_sm90")}
     # -------------------------------------------------------------
 
     check(out_loop.shape == (B, T) and torch.equal(out_loop, out_comp),
@@ -1302,13 +1401,28 @@ def phase_serve(card: str, arch="internlm2-1.8b", S=512, engine=True,
         print(f"[{tag}] ServingEngine: {len(reqs)} requests (prompts "
               f"{list(lengths)}) through 2 slots, max_seq {max_seq}: "
               f"{n_new} tokens each in {t_engine:.2f} s")
+    fwd = launches["flash_attention_fwd"]
     print(f"[{tag}] flash_attention_fwd launches on the main path: "
-          f"{launches} for {n_prefills} prefills of {n_layers} layers")
-    # one launch a layer a prefill (exactly, without the engine)
-    check(launches >= n_layers * n_prefills
-          and (engine or launches == n_layers * n_prefills),
-          f"{arch}: kernel launched {launches} times for {n_prefills} "
-          f"prefills of {n_layers} layers")
+          f"{fwd} for {n_prefills} prefills of {n_attn} attention blocks")
+    # one launch an attention block a prefill (exactly, without the engine)
+    check(fwd >= n_attn * n_prefills
+          and (engine or fwd == n_attn * n_prefills),
+          f"{arch}: kernel launched {fwd} times for {n_prefills} "
+          f"prefills of {n_attn} attention blocks")
+    if hybrid:
+        ssd = launches["ssd_fwd"]
+        print(f"[{tag}] ssd_fwd launches on the main path: {ssd} for "
+              f"{n_prefills} prefills of {n_layers} mamba layers; on the "
+              f"bf16 wgmma route: flash_attention_fwd "
+              f"{on_sm90['flash_attention_fwd']}, ssd_fwd "
+              f"{on_sm90['ssd_fwd']}")
+        check(ssd >= n_layers * n_prefills,
+              f"{arch}: ssd_fwd launched {ssd} times, fewer than "
+              f"{n_layers} a prefill")
+        for name in ("flash_attention_fwd", "ssd_fwd"):
+            check(on_sm90[name] == launches[name],
+                  f"{arch}: only {on_sm90[name]} of {launches[name]} {name} "
+                  f"launches on the serving path took the bf16 wgmma route")
 
     # prefill logits, kernel against the plain attention on the card. The
     # limit of 1e-2 is held in f32 compute, where the kernel is the only
@@ -1332,7 +1446,12 @@ def phase_serve(card: str, arch="internlm2-1.8b", S=512, engine=True,
             ("float32", "kernel"), ("float32", "reference"),
             ("float32", "naive"), ("bfloat16", "kernel"),
             ("bfloat16", "reference"))):
-        m = Model(dataclasses.replace(cfg, dtype=dtype, attention_impl=impl))
+        # the hybrid family switches the SSD with the attention (the naive
+        # oracle takes the plain SSD)
+        ssd = ({"ssd_impl": "reference" if impl == "naive" else impl}
+               if hybrid else {})
+        m = Model(dataclasses.replace(cfg, dtype=dtype, attention_impl=impl,
+                                      **ssd))
         with torch.inference_mode(), _fixed_routes(routes, replay=i > 0):
             logits[dtype, impl] = m.prefill(params, prompts)[0].float()
     if cfg.moe:
@@ -1574,16 +1693,33 @@ DENSE_TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
 MAMBA_TRAIN_KERNELS = ("ssd_fwd", "ssd_bwd", "swa_avg")
 
 
+def _blocks(model) -> Dict[str, Tuple[int, int]]:
+    """The blocks of a forward that run the flash kernels (attention) and
+    the SSD kernels (mamba), each (all of them, those inside a
+    rematerialized pattern unit): in the hybrid family the shared
+    attention block runs once in each unit, and no tail layer is
+    rematerialized."""
+    cfg = model.cfg
+    in_units = model.n_units * len(model.unit_kinds) if cfg.remat else 0
+    if cfg.family == "hybrid":
+        return {"flash": (model.n_units, model.n_units if cfg.remat else 0),
+                "ssd": (cfg.n_layers, in_units)}
+    if cfg.family == "ssm":
+        return {"ssd": (cfg.n_layers, in_units)}
+    return {"flash": (cfg.n_layers, in_units)}
+
+
 def phase_train(card: str, argv=TRAIN_ARGV, cfg=None,
                 required=DENSE_TRAIN_KERNELS, tag="train", sm90_only=()):
     """The launcher's own run (``train.main(argv, cfg=cfg)``) as a main
     path: every kernel in ``required`` must launch in it, every launch of a
     kernel in ``sm90_only`` must take its bf16 wgmma route, and where the
-    flash kernels are required they must launch as the layer plan has
-    them: a (worker) step runs 1 forward, 1 dQ and 1 dK/dV a layer, and a
-    second forward in each layer of a rematerialized pattern unit (the
-    tail's layers are not); an eval batch 1 forward a layer. Every phase's
-    memory peak must stay under PEAK_LIMIT_GB."""
+    flash or SSD kernels are required they must launch as the layer plan
+    has them (``_blocks``): a (worker) step runs 1 forward and its backward
+    (the flash dQ and dK/dV, or the SSD backward) a block, and a second
+    forward in each block of a rematerialized pattern unit; an eval batch
+    1 forward a block. Every phase's memory peak must stay under
+    PEAK_LIMIT_GB."""
     import math
     import torch
     from repro_torch.configs import registry
@@ -1622,22 +1758,23 @@ def phase_train(card: str, argv=TRAIN_ARGV, cfg=None,
     check(res["phase2_live_workers"] == 2, "elastic phase 3 dropped a worker")
     args = train.build_parser().parse_args(argv)
     p1, p2, W = res["phase1_steps"], res["phase2_steps"], args.workers
-    if "flash_attention_fwd" in required:
-        mcfg = cfg or (registry.get_config(args.arch) if args.full
-                       else registry.get_smoke_config(args.arch))
-        plan, n = Model(mcfg), mcfg.n_layers
-        per_step = n + (plan.n_units * len(plan.unit_kinds)
-                        if mcfg.remat else 0)
-        steps = p1 + W * p2
-        fwd, dq, dkv = (launches[k] for k in FLASH_KERNELS)
+    mcfg = cfg or (registry.get_config(args.arch) if args.full
+                   else registry.get_smoke_config(args.arch))
+    steps = p1 + W * p2
+    for family, (n, remat) in _blocks(Model(mcfg)).items():
+        names = FLASH_KERNELS if family == "flash" else ("ssd_fwd", "ssd_bwd")
+        if names[0] not in required:
+            continue
+        per_step = n + remat
+        fwd, *bwd = (launches[k] for k in names)
         evals, rem = divmod(fwd - per_step * steps, n)
-        print(f"[{tag}] flash launches a (worker) step over {steps} steps: "
-              f"forward {per_step}, dQ {dq / steps:g}, dK/dV {dkv / steps:g};"
-              f" and {evals} eval forwards of {n} layers")
-        check(dq == dkv == n * steps and evals >= 0 and rem == 0,
-              f"flash launches {fwd}/{dq}/{dkv} on the {tag} path are not "
-              f"{per_step}/{n}/{n} a step of {steps}, with whole eval "
-              f"forwards")
+        print(f"[{tag}] {family} launches a (worker) step over {steps} "
+              f"steps: forward {per_step}, "
+              + ", ".join(f"{k} {b / steps:g}" for k, b in zip(names[1:], bwd))
+              + f"; and {evals} eval forwards of {n} blocks")
+        check(all(b == n * steps for b in bwd) and evals >= 0 and rem == 0,
+              f"{family} launches {fwd}/{bwd} on the {tag} path are not "
+              f"{per_step}/{n} a step of {steps}, with whole eval forwards")
     rel = _rel_l2(res["final_bundle"]["params"],
                   average_stacked(res["stacked_params"]))
     print(f"[{tag}] elastic average (swa_avg kernel) against the plain mean "
@@ -1674,7 +1811,8 @@ def phase_exact_train(arch="internlm2-1.8b", field="attention_impl",
                       cfg=None):
     """Smoke exactness with the kernels (``field`` = "kernel") against the
     plain versions (``field`` = "reference"), on ``cfg`` (f32; the arch's
-    smoke config by default). In an MoE config the plain run goes first
+    smoke config by default); ``field`` may be a tuple of such fields,
+    switched together. In an MoE config the plain run goes first
     and records its expert choices, and the kernel run replays them
     (``_fixed_routes``): in f32 a near-tie of router probs, moved by the
     attention's summation order, can flip a top-k choice between the two
@@ -1694,6 +1832,7 @@ def phase_exact_train(arch="internlm2-1.8b", field="attention_impl",
     from repro_torch.train.steps import lm_loss_and_metrics
 
     smoke = cfg or registry.get_smoke_config(arch)           # f32
+    fields = (field,) if isinstance(field, str) else field
     data = make_markov_lm(1, vocab=smoke.vocab_size, n_train=1024,
                           n_test=256, seq_len=64)
     batch = {"tokens": torch.from_numpy(data["train_tokens"][:16]).cuda(),
@@ -1705,7 +1844,8 @@ def phase_exact_train(arch="internlm2-1.8b", field="attention_impl",
              if smoke.moe else contextlib.nullcontext())
     grads, routes = {}, []
     for impl in order:
-        model = Model(dataclasses.replace(smoke, **{field: impl}))
+        model = Model(dataclasses.replace(smoke,
+                                          **dict.fromkeys(fields, impl)))
         req = [t.detach().requires_grad_() for t in tree_leaves(params)]
         it = iter(req)
         tree = _rebuild(params, it)
@@ -1742,8 +1882,8 @@ def phase_exact_train(arch="internlm2-1.8b", field="attention_impl",
                                             warmup_steps=0, total_steps=6)))
     runs, routes = {}, []
     for impl in order:
-        adapter = LMAdapter(dataclasses.replace(smoke, **{field: impl}),
-                            OptimizerConfig())
+        adapter = LMAdapter(dataclasses.replace(
+            smoke, **dict.fromkeys(fields, impl)), OptimizerConfig())
         test = Loader({"tokens": data["test_tokens"],
                        "labels": data["test_labels"]}, 64, device="cuda")
         with fixed(routes, impl):
@@ -1784,7 +1924,7 @@ def phase_gemma(card: str):
     from repro_torch.configs import registry
     t0 = time.perf_counter()
     serve = phase_serve(card, GEMMA, S=GEMMA_PROMPT, engine=False,
-                        tag="gemma3-serve")
+                        tag="gemma3-serve")["flash_attention_fwd"]
     launches = phase_train(card, GEMMA_TRAIN_ARGV, tag="gemma3-train")
     narrow = dataclasses.replace(registry.get_smoke_config(GEMMA),
                                  head_dim=256)
@@ -1835,7 +1975,8 @@ def phase_moe(card: str):
     launches = {}
     for arch, tag in ((DEEPSEEK, "deepseek-serve"),
                       (GRANITE, "granite-serve")):
-        launches[arch] = phase_serve(card, arch, tag=tag)
+        launches[arch] = phase_serve(card, arch,
+                                     tag=tag)["flash_attention_fwd"]
     for arch in (DEEPSEEK, GRANITE):
         phase_exact(arch, _narrow_moe(arch))
     print(f"[moe] phase time {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1951,7 +2092,56 @@ def phase_moe_train(card: str):
 
 
 # ---------------------------------------------------------------------------
-# phase 11: the CNN+BatchNorm path at full width
+# phase 11: zamba2-7b, the hybrid family (the flash kernels at head dim 112)
+# ---------------------------------------------------------------------------
+
+
+def _narrow_zamba():
+    """The f32 exactness config of zamba2: its smoke config at head dim 112
+    (2 heads, d_model 224), SSD heads of 64 with a state of 64, and 5
+    layers with the shared block before every 2 (2 units and a tail of 1).
+    The smoke config's head dim of 32 is one the kernels refuse."""
+    import dataclasses
+    from repro_torch.configs import registry
+    cfg = registry.get_smoke_config(ZAMBA)
+    return dataclasses.replace(
+        cfg, d_model=224, n_heads=2, n_kv_heads=2, head_dim=112, n_layers=5,
+        ssm=dataclasses.replace(cfg.ssm, head_dim=64, d_state=64))
+
+
+def phase_zamba(card: str):
+    """zamba2-7b at full width: served at its 81 layers on phase 4's path
+    (13 flash forwards and 81 SSD forwards a prefill, all on the bf16 wgmma
+    route; the logits checks with both kernels switched), and SWAP-trained
+    through the launcher with its depth cut to ZAMBA_TRAIN_LAYERS (the
+    flash and SSD launches a step as the layer plan has them, all on the
+    bf16 route; every phase under PEAK_LIMIT_GB), with a profiler window of
+    a phase-1 and a phase-2 step; then the f32 exactness on
+    ``_narrow_zamba``. Returns (every kernel's launches on the serving
+    path, on the training path)."""
+    import dataclasses
+    from repro_torch.configs import registry
+    t0 = time.perf_counter()
+    serve = phase_serve(card, ZAMBA, tag="zamba2-serve")
+    cfg = dataclasses.replace(registry.get_config(ZAMBA),
+                              n_layers=ZAMBA_TRAIN_LAYERS)
+    argv = ["--arch", ZAMBA] + TRAIN_ARGV
+    print(f"[zamba2-train] {ZAMBA} at {ZAMBA_TRAIN_LAYERS} layers: "
+          f"{_describe(cfg)}", flush=True)
+    kernels = FLASH_KERNELS + ("ssd_fwd", "ssd_bwd")
+    train = phase_train(card, argv, cfg, kernels + ("swa_avg",),
+                        tag="zamba2-train", sm90_only=kernels)
+    _train_profile(card, "zamba2-train", argv, cfg)
+    narrow = _narrow_zamba()
+    phase_exact(ZAMBA, narrow)
+    phase_exact_train(ZAMBA, ("attention_impl", "ssd_impl"), narrow)
+    print(f"[zamba2] phase time {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return serve, train
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the CNN+BatchNorm path at full width
 # ---------------------------------------------------------------------------
 
 
@@ -2311,7 +2501,7 @@ def phase_cnn(card: str) -> int:
 
 
 # ---------------------------------------------------------------------------
-# phase 12: the rest of the paper's experiments
+# phase 13: the rest of the paper's experiments
 # ---------------------------------------------------------------------------
 
 FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
@@ -2424,7 +2614,7 @@ def phase_experiments(card: str) -> Dict[str, int]:
 
 
 # ---------------------------------------------------------------------------
-# phase 13: checkpoints and bit-exact resume in a new process
+# phase 14: checkpoints and bit-exact resume in a new process
 # ---------------------------------------------------------------------------
 
 # cifar-cnn at full width on Table 1's SWAP (2048 images: 4 steps an epoch
@@ -2642,6 +2832,7 @@ def _rebuild(tree, it):
 
 def main() -> None:
     import dataclasses
+    t_start = time.perf_counter()
     card = phase_device()
     phase_build()
     rows = [phase_kernel(), *phase_kernel_bwd(), phase_swa_avg(),
@@ -2663,6 +2854,7 @@ def main() -> None:
                             sm90_only=("ssd_fwd", "ssd_bwd"))
     phase_exact(MAMBA)
     phase_exact_train(MAMBA, "ssd_impl")
+    zamba_serve, zamba_train = phase_zamba(card)
     cnn_launches = phase_cnn(card)
     table3 = phase_experiments(card)
     resumed = phase_resume(card)
@@ -2692,7 +2884,14 @@ def main() -> None:
         if row["name"] in DENSE_TRAIN_KERNELS:
             row["deepseek_train_launches"] = moe_train[DEEPSEEK][row["name"]]
             row["granite_train_launches"] = moe_train[GRANITE][row["name"]]
+        # zamba2-7b: the flash and SSD kernels on its serving (forwards)
+        # and training paths, swa_avg on its training path
+        row["zamba2_launches"] = {"train": zamba_train[row["name"]]}
+        if row["name"] in ("flash_attention_fwd", "ssd_fwd"):
+            row["zamba2_launches"]["serve"] = zamba_serve[row["name"]]
     import torch
+    print(f"[chip_smoke] all phases in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

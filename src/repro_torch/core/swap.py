@@ -295,13 +295,17 @@ class SWAP:
                              "phase2_train_time": prior_t2 + tt,
                              "n_workers": W},
                          on_chunk=hooks)
-        state2 = res2.state
+        # phase 2's optimizer state (W momentum trees, as large as the
+        # stacked params) is dead from here on: the evaluations and phase 3
+        # run without it
+        state2 = res2.state._replace(opt_state=None)
         W_live = int(state2.step.shape[0])
         results["phase2_worker_ids"] = workers
         results["phase2_steps"] = state_step(state2)
         # train time only, cumulative over resumes
         results["phase2_time"] = prior_t2 + res2.train_time
         results["phase2_eval_time"] = res2.hook_time
+        del res2
 
         worker_accs = [
             adapter.eval_accuracy(tree_map(lambda a: a[w], state2.bundle),

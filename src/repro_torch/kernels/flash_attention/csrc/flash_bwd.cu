@@ -5,7 +5,7 @@
 //   repro/kernels/flash_attention/kernel.py::_fa_bwd_dq_kernel   (dQ)
 //   repro/kernels/flash_attention/kernel.py::_fa_bwd_dkv_kernel  (dK, dV)
 // and computes what they compute, for q, dO (B,Sq,H,D) and k, v
-// (B,Skv,KVH,D), D in {64, 128, 192, 256}, given the forward's lse
+// (B,Skv,KVH,D), D in {64, 112, 128, 192, 256}, given the forward's lse
 // (B,Sq,H) f32 and delta = rowsum(dO * O) (B,Sq,H) f32 (taken outside, in
 // plain PyTorch, as the JAX package does):
 //   S  = (q * scale) . k^T, with q * scale formed in f32, masked to
@@ -48,6 +48,9 @@
 // (96 registers a thread) in 209 registers with no spills (152 at 16 keys,
 // which would re-read every Q and dO tile twice as often), and its shared
 // memory is 166.4 KB; dQ's is 157.7 KB. One CTA an SM.
+// At D 112 (zamba2-7b) a lane owns ceil(112 / 32) = 4 output columns, the
+// fourth only in lanes 0-15 (the others read 0 for it and store nothing);
+// dK/dV takes 32 keys a CTA, 102.5 KB, and dQ 94.0 KB.
 // Tiles are staged in shared memory as f32; operands a lane reads alone (K and V in dQ, Q and dO in dK/dV) are
 // padded by 4 floats a row so that its float4 reads are free of bank
 // conflicts, the others are read as broadcasts.
@@ -90,6 +93,13 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   acc = fmaf(a.y, b.y, acc);
   acc = fmaf(a.z, b.z, acc);
   return fmaf(a.w, b.w, acc);
+}
+
+// whether output column lane + 32 cc lies inside D (always, where 32 divides
+// D)
+template <int D>
+__device__ __forceinline__ bool has_col(int lane, int cc) {
+  return D % 32 == 0 || lane + 32 * cc < D;
 }
 
 __device__ __forceinline__ bool visible(int kpos, int qpos, int Skv,
@@ -138,7 +148,7 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const float* __restrict__ delta, T* __restrict__ dq,
                  int Sq, int Skv, int H, int KVH, float scale, int causal,
                  int window, int q_offset) {
-  constexpr int kCols = D / 32;
+  constexpr int kCols = (D + 31) / 32;
   constexpr int kStride = D + 4;
   extern __shared__ __align__(16) float smem[];
   float* sQ = smem;                      // [kQRows][D], q * scale
@@ -242,7 +252,8 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int cc = 0; cc < kCols; ++cc)
-          kk[j][cc] = sK[(c + j) * kStride + lane + 32 * cc];
+          kk[j][cc] = has_col<D>(lane, cc)
+                          ? sK[(c + j) * kStride + lane + 32 * cc] : 0.f;
 #pragma unroll
       for (int r = 0; r < kQRowsPerWarp; ++r) {
         const float4 ds =
@@ -266,7 +277,8 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       T* out = dq + (((int64_t)b * Sq + row) * H + h) * D;
 #pragma unroll
       for (int cc = 0; cc < kCols; ++cc)
-        store_f32(out + lane + 32 * cc, acc[r][cc] * scale);
+        if (has_col<D>(lane, cc))
+          store_f32(out + lane + 32 * cc, acc[r][cc] * scale);
     }
   }
 }
@@ -285,7 +297,7 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const float* __restrict__ delta, T* __restrict__ dk,
                   T* __restrict__ dv, int Sq, int Skv, int H, int KVH,
                   float scale, int causal, int window, int q_offset) {
-  constexpr int kCols = D / 32;
+  constexpr int kCols = (D + 31) / 32;
   constexpr int kStride = D + 4;
   constexpr int kKVKeys = kv_keys<D>();
   constexpr int kKVKeysPerWarp = kKVKeys / kWarps;
@@ -392,8 +404,9 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int j = 0; j < 4; ++j)
 #pragma unroll
           for (int cc = 0; cc < kCols; ++cc) {
-            oo[j][cc] = sdO[(c + j) * kStride + lane + 32 * cc];
-            qq[j][cc] = sQ[(c + j) * kStride + lane + 32 * cc];
+            const bool in = has_col<D>(lane, cc);
+            oo[j][cc] = in ? sdO[(c + j) * kStride + lane + 32 * cc] : 0.f;
+            qq[j][cc] = in ? sQ[(c + j) * kStride + lane + 32 * cc] : 0.f;
           }
 #pragma unroll
         for (int r = 0; r < kKVKeysPerWarp; ++r) {
@@ -425,6 +438,7 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int64_t at = (((int64_t)b * Skv + kpos) * KVH + kvh) * D;
 #pragma unroll
       for (int cc = 0; cc < kCols; ++cc) {
+        if (!has_col<D>(lane, cc)) continue;
         store_f32(dk + at + lane + 32 * cc, acc_k[r][cc]);
         store_f32(dv + at + lane + 32 * cc, acc_v[r][cc]);
       }
@@ -499,6 +513,9 @@ extern "C" int fa_bwd_dq(const void* q, const void* k, const void* v,
   if (dtype == 0 && D == 64)
     return launch_dq<float, 64>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, H,
                                 KVH, scale, causal, window, q_offset, st);
+  if (dtype == 0 && D == 112)
+    return launch_dq<float, 112>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, H,
+                                 KVH, scale, causal, window, q_offset, st);
   if (dtype == 0 && D == 128)
     return launch_dq<float, 128>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, H,
                                  KVH, scale, causal, window, q_offset, st);
@@ -524,6 +541,10 @@ extern "C" int fa_bwd_dkv(const void* q, const void* k, const void* v,
   if (dtype == 0 && D == 64)
     return launch_dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv,
                                  H, KVH, scale, causal, window, q_offset, st);
+  if (dtype == 0 && D == 112)
+    return launch_dkv<float, 112>(q, k, v, dout, lse, delta, dk, dv, B, Sq,
+                                  Skv, H, KVH, scale, causal, window, q_offset,
+                                  st);
   if (dtype == 0 && D == 128)
     return launch_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, B, Sq,
                                   Skv, H, KVH, scale, causal, window, q_offset,

@@ -8,7 +8,7 @@
 // (f32 inputs stay on the FMA kernels of flash_bwd.cu, which holds the C
 // entries of both routes: the tensor cores would take f32 as TF32). The
 // contract is flash_bwd.cu's: q, dO (B,Sq,H,D) and k, v (B,Skv,KVH,D)
-// bf16, D in {64, 128, 192, 256}, query head h on KV head h / (H / KVH); lse
+// bf16, D in {64, 112, 128, 192, 256}, query head h on KV head h / (H / KVH); lse
 // and delta = rowsum(dO * O) (B,Sq,H) f32; padding, causal, window and
 // q_offset masks (NEG_INF = -1e30: a masked P is 0); a row that sees no
 // key has dq = 0 and adds nothing to dk or dv; dK and dV summed over the
@@ -141,6 +141,12 @@
 //    H 16, one K/V tile a CTA) that took 0.1721 ms against 0.1958 for D
 //    256's shape, one CTA an SM with a ring of two (ab_flash_bwd.py, one
 //    call; phase 2, B 32: 0.0320 against 0.0337).
+//  * D 112 (zamba2-7b's shared attention block, G 1) runs both kernels on
+//    D 128's tiles and CTA shapes, as the forward does: TMA zero-fills
+//    columns 112-127 of Q, K, V and dO. Zero columns leave S and dP as they
+//    are, and give zero columns of dQ (dS K), dK (dS^T q) and dV (P^T dO),
+//    which the epilogues do not store (14 of a row's 16 chunks, at the real
+//    D's strides).
 //  * Epilogue: dQ * scale rounded to bf16, staged in the warpgroup's Q tile,
 //    stored for rows < Sq; the query tiles with the most key tiles launch
 //    first.
@@ -167,7 +173,8 @@ constexpr int kDqStages = 1;
 constexpr int kDq192MinBlocks = 2;
 constexpr int kDq256Stages = 2;
 
-template <int D, int NWG>
+// DG: the head dim of the tensors; D: the tile's columns (tile_cols)
+template <int DG, int NWG>
 __global__ void __launch_bounds__(NWG * 128, NWG == 1 ? 2 : 1)
 fa_bwd_dkv_sm90_kernel(__grid_constant__ const CUtensorMap tq,
                        __grid_constant__ const CUtensorMap tk,
@@ -179,6 +186,7 @@ fa_bwd_dkv_sm90_kernel(__grid_constant__ const CUtensorMap tq,
                        __nv_bfloat16* __restrict__ dv, int Sq, int Skv, int H,
                        int KVH, float scale, int causal, int window,
                        int q_offset) {
+  constexpr int D = tile_cols(DG);
   constexpr int kTile = D / kBox * kBoxBytes;  // one 64-row tile
   constexpr int kThreads = NWG * 128;
   constexpr int kCols = D / NWG;   // the dK, dV columns a warpgroup owns
@@ -399,13 +407,13 @@ fa_bwd_dkv_sm90_kernel(__grid_constant__ const CUtensorMap tq,
   stage_acc<D, kCols>(sK, acc_dk, scale, warp, lane, wg * kCols);
   stage_acc<D, kCols>(sV, acc_dv, 1.f, warp, lane, wg * kCols);
   cta_sync();
-  const int64_t row_stride = (int64_t)KVH * D;  // between positions
-  const int64_t at = (((int64_t)b * Skv + k0) * KVH + kvh) * D;
-  store_tile<D>(sK, dk + at, row_stride, Skv - k0, tid, kThreads);
-  store_tile<D>(sV, dv + at, row_stride, Skv - k0, tid, kThreads);
+  const int64_t row_stride = (int64_t)KVH * DG;  // between positions
+  const int64_t at = (((int64_t)b * Skv + k0) * KVH + kvh) * DG;
+  store_tile<D, DG>(sK, dk + at, row_stride, Skv - k0, tid, kThreads);
+  store_tile<D, DG>(sV, dv + at, row_stride, Skv - k0, tid, kThreads);
 }
 
-template <int D, int NWG, int MIN_BLOCKS, int STAGES>
+template <int DG, int NWG, int MIN_BLOCKS, int STAGES>
 __global__ void __launch_bounds__(NWG * 128, MIN_BLOCKS)
 fa_bwd_dq_sm90_kernel(__grid_constant__ const CUtensorMap tq,
                       __grid_constant__ const CUtensorMap tk,
@@ -416,6 +424,7 @@ fa_bwd_dq_sm90_kernel(__grid_constant__ const CUtensorMap tq,
                       __nv_bfloat16* __restrict__ dq, int Sq, int Skv, int H,
                       int KVH, float scale, int causal, int window,
                       int q_offset) {
+  constexpr int D = tile_cols(DG);
   constexpr int kTile = D / kBox * kBoxBytes;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -580,9 +589,9 @@ fa_bwd_dq_sm90_kernel(__grid_constant__ const CUtensorMap tq,
   // dQ * scale in bf16, staged in this warpgroup's Q tile, rows < Sq
   stage_acc<D>(my_q, acc, scale, warp, lane);
   warpgroup_sync(wg);
-  const int64_t row_stride = (int64_t)H * D;  // between positions in dq
-  store_tile<D>(my_q, dq + (((int64_t)b * Sq + q0) * H + h) * D, row_stride,
-                Sq - q0, tid % 128, 128);
+  const int64_t row_stride = (int64_t)H * DG;  // between positions in dq
+  store_tile<D, DG>(my_q, dq + (((int64_t)b * Sq + q0) * H + h) * DG,
+                    row_stride, Sq - q0, tid % 128, 128);
 }
 
 struct Maps {
@@ -597,20 +606,20 @@ bool encode_all(Maps* m, const void* q, const void* k, const void* v,
          encode(&m->dout, dout, D, H, Sq, B);
 }
 
-template <int D, int NWG>
+template <int DG, int NWG>
 cudaError_t launch_dkv(const Maps& m, const void* lse, const void* delta,
                        void* dk, void* dv, int B, int Sq, int Skv, int H,
                        int KVH, float scale, int causal, int window,
                        int q_offset, cudaStream_t stream) {
-  constexpr int kTile = D / kBox * kBoxBytes;
+  constexpr int kTile = tile_cols(DG) / kBox * kBoxBytes;
   const int smem = 1024 + (2 + 2 * kStages + (NWG > 1)) * kTile +
                    2 * kTileRows * (int)sizeof(float) + 8 * (1 + kStages);
   const cudaError_t err = cudaFuncSetAttribute(
-      fa_bwd_dkv_sm90_kernel<D, NWG>,
+      fa_bwd_dkv_sm90_kernel<DG, NWG>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(KVH, B, (Skv + kTileRows - 1) / kTileRows);
-  fa_bwd_dkv_sm90_kernel<D, NWG><<<grid, NWG * 128, smem, stream>>>(
+  fa_bwd_dkv_sm90_kernel<DG, NWG><<<grid, NWG * 128, smem, stream>>>(
       m.q, m.k, m.v, m.dout, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), Sq, Skv, H, KVH, scale, causal,
@@ -618,16 +627,17 @@ cudaError_t launch_dkv(const Maps& m, const void* lse, const void* delta,
   return cudaGetLastError();
 }
 
-template <int D, int NWG>
+template <int DG, int NWG>
 cudaError_t launch_dq(const Maps& m, const void* lse, const void* delta,
                       void* dq, int B, int Sq, int Skv, int H, int KVH,
                       float scale, int causal, int window, int q_offset,
                       cudaStream_t stream) {
+  constexpr int D = tile_cols(DG);
   constexpr int kTile = D / kBox * kBoxBytes;
   constexpr int kMinBlocks =
       D == 256 ? 1 : D == 192 ? kDq192MinBlocks : kDqMinBlocks;
   constexpr int kRing = D == 256 ? kDq256Stages : kDqStages;
-  auto kernel = fa_bwd_dq_sm90_kernel<D, NWG, kMinBlocks, kRing>;
+  auto kernel = fa_bwd_dq_sm90_kernel<DG, NWG, kMinBlocks, kRing>;
   const int smem = 1024 + (2 * NWG + 2 * kRing) * kTile + 8 * (1 + kRing) +
                    4 * kRing;
   const cudaError_t err = cudaFuncSetAttribute(
@@ -661,6 +671,12 @@ cudaError_t fa_bwd_dq_sm90(const void* q, const void* k, const void* v,
                                            q_offset, stream)
                  : launch_dq<64, 1>(m, lse, delta, dq, B, Sq, Skv, H, KVH,
                                     scale, causal, window, q_offset, stream);
+  if (D == 112)
+    return group ? launch_dq<112, kDqHeads>(m, lse, delta, dq, B, Sq, Skv, H,
+                                            KVH, scale, causal, window,
+                                            q_offset, stream)
+                 : launch_dq<112, 1>(m, lse, delta, dq, B, Sq, Skv, H, KVH,
+                                     scale, causal, window, q_offset, stream);
   if (D == 128)
     return group ? launch_dq<128, kDqHeads>(m, lse, delta, dq, B, Sq, Skv, H,
                                             KVH, scale, causal, window,
@@ -688,6 +704,9 @@ cudaError_t fa_bwd_dkv_sm90(const void* q, const void* k, const void* v,
   if (D == 64)
     return launch_dkv<64, 1>(m, lse, delta, dk, dv, B, Sq, Skv, H, KVH, scale,
                              causal, window, q_offset, stream);
+  if (D == 112)
+    return launch_dkv<112, 1>(m, lse, delta, dk, dv, B, Sq, Skv, H, KVH,
+                              scale, causal, window, q_offset, stream);
   if (D == 128)
     return launch_dkv<128, 1>(m, lse, delta, dk, dv, B, Sq, Skv, H, KVH,
                               scale, causal, window, q_offset, stream);

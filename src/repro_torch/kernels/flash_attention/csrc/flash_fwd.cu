@@ -4,7 +4,7 @@
 // Replaces the Pallas TPU kernel
 //   repro/kernels/flash_attention/kernel.py::_fa_kernel
 // and computes what it computes, for q (B,Sq,H,D) and k, v (B,Skv,KVH,D),
-// D in {64, 128, 192, 256}:
+// D in {64, 112, 128, 192, 256}:
 //   * GQA: query head h reads KV head h / (H / KVH), straight from the
 //     strided (B,S,KVH,D) tensor (no repeated heads, no D padding);
 //   * online softmax in f32 (running max, running sum, f32 accumulator);
@@ -39,6 +39,9 @@
 // 91.1 KB per CTA at D = 128 (two CTAs per SM), 49.9 KB at D = 64, and
 // 132.1 KB at D = 192 and 173.1 KB at D = 256 (one CTA per SM). A lane
 // holds kRows x D/32 accumulators: 48 registers at D 192, 64 at D 256.
+// At D 112 (zamba2-7b) a lane owns ceil(112 / 32) = 4 output columns and
+// lanes 16-31 have no fourth one (their reads of V give 0, their sums are
+// not stored); shared memory is 79.0 KB.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,6 +72,13 @@ __device__ __forceinline__ float round_to(float x, const float*) { return x; }
 
 __device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
 
+// whether output column lane + 32 cc lies inside D (always, where 32 divides
+// D)
+template <int D>
+__device__ __forceinline__ bool has_col(int lane, int cc) {
+  return D % 32 == 0 || lane + 32 * cc < D;
+}
+
 template <int D>
 constexpr int smem_floats() {
   return kBlockQ * D + kBlockK * (D + 4) + kBlockK * D + kBlockQ * kBlockK;
@@ -80,7 +90,7 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ o,
               float* __restrict__ lse, int Sq, int Skv, int H, int KVH,
               float scale, int causal, int window, int q_offset) {
-  constexpr int kCols = D / 32;          // output columns per lane
+  constexpr int kCols = (D + 31) / 32;   // output columns per lane
   constexpr int kVec = Vec16<T>::n;      // elements per 16-byte load
   constexpr int kChunks = D / kVec;      // 16-byte loads per row
   constexpr int kKStride = D + 4;        // padded row of the K tile
@@ -233,7 +243,8 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
 #pragma unroll
         for (int cc = 0; cc < kCols; ++cc)
-          vv[j][cc] = sV[(c + j) * D + lane + 32 * cc];
+          vv[j][cc] = has_col<D>(lane, cc)
+                          ? sV[(c + j) * D + lane + 32 * cc] : 0.f;
       }
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
@@ -260,7 +271,8 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       T* orow = o + (((int64_t)b * Sq + row) * H + h) * D;
 #pragma unroll
       for (int cc = 0; cc < kCols; ++cc)
-        store_f32(orow + lane + 32 * cc, acc[r][cc] / denom);
+        if (has_col<D>(lane, cc))
+          store_f32(orow + lane + 32 * cc, acc[r][cc] / denom);
       if (lane == 0)
         lse[((int64_t)b * Sq + row) * H + h] =
             empty ? 0.f : m[r] + logf(denom);
@@ -303,6 +315,9 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o,
   if (dtype == 0 && D == 64)
     return launch<float, 64>(q, k, v, o, lse, B, Sq, Skv, H, KVH, scale,
                              causal, window, q_offset, st);
+  if (dtype == 0 && D == 112)
+    return launch<float, 112>(q, k, v, o, lse, B, Sq, Skv, H, KVH, scale,
+                              causal, window, q_offset, st);
   if (dtype == 0 && D == 128)
     return launch<float, 128>(q, k, v, o, lse, B, Sq, Skv, H, KVH, scale,
                               causal, window, q_offset, st);

@@ -5,7 +5,7 @@
 //   repro/kernels/flash_attention/kernel.py::_fa_kernel
 // (f32 inputs stay on fa_fwd_kernel<float, D> in flash_fwd.cu: the tensor
 // cores would take f32 as TF32). The contract is flash_fwd.cu's: q
-// (B,Sq,H,D), k, v (B,Skv,KVH,D), D in {64, 128, 192, 256}, GQA with
+// (B,Sq,H,D), k, v (B,Skv,KVH,D), D in {64, 112, 128, 192, 256}, GQA with
 // query head h on KV head h / (H / KVH); padding, causal, window and
 // q_offset masks;
 // NEG_INF = -1e30 with the same live/alpha rules; out (B,Sq,H,D) bf16 and
@@ -27,7 +27,9 @@
 // and a local layer of window 512 does 30.1 GFLOP (30.4 us). At D 192 the
 // deepseek-v2-lite MLA prefill (B 8, S 512, H = KVH 16, v padded to 192,
 // causal) moves ~100.9 MB (30.1 us) and does ~12.9 GFLOP (13.1 us): bound
-// by bytes. The design
+// by bytes. At D 112 the zamba2-7b prefill of its shared attention block
+// (B 8, S 512, H = KVH 32, causal) moves ~118.0 MB (35.2 us) and does ~15.1
+// GFLOP (15.2 us): bound by bytes. The design
 // reads each K/V byte once per (KV head, query tile) and keeps S, P and O
 // out of device memory.
 //
@@ -73,6 +75,12 @@
 //    m + log(l), or 0 where l = 0 (also in a CTA with no visible tile).
 //  * The query tiles with the most KV tiles launch first (the slowest grid
 //    axis, reversed), so causal imbalance does not leave a short last wave.
+//  * D 112 (zamba2-7b) runs on D 128's tiles: its maps' innermost extent is
+//    the real 112, so TMA zero-fills columns 112-127 of Q, K and V. The zero
+//    columns of Q and K leave S as it is and those of V give zero O columns;
+//    the epilogue stores 14 of a row's 16 chunks, at the real D's strides.
+//    The tensor cores do 8/7 of the products, which the bytes bound leaves
+//    room for.
 //  * __launch_bounds__(threads, 2): two CTAs an SM (four warpgroups) hide
 //    each other's latency; at D 128 that caps the kernel at 128 registers
 //    (127 used, no spills; 160 without the bound, and slower). At D 256 the
@@ -101,14 +109,16 @@ constexpr int kRows = kTileRows;         // query rows per warpgroup (M)
 constexpr int kBlockK = kTileRows;       // keys per KV tile
 constexpr int kStages = 2;               // K/V ring depth
 
-template <int D, int NWG>
-__global__ void __launch_bounds__(NWG * 128, D >= 192 ? 1 : 2)
+// DG: the head dim of q, k, v and o; D: the tile's columns (tile_cols)
+template <int DG, int NWG>
+__global__ void __launch_bounds__(NWG * 128, tile_cols(DG) >= 192 ? 1 : 2)
 fa_fwd_sm90_kernel(__grid_constant__ const CUtensorMap tq,
                    __grid_constant__ const CUtensorMap tk,
                    __grid_constant__ const CUtensorMap tv,
                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                    int Sq, int Skv, int H, int KVH, float scale, int causal,
                    int window, int q_offset) {
+  constexpr int D = tile_cols(DG);
   constexpr int kBoxes = D / kBox;
   constexpr int kTile = kBoxes * kBoxBytes;  // one 64-row tile of Q, K or V
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -308,7 +318,7 @@ fa_fwd_sm90_kernel(__grid_constant__ const CUtensorMap tq,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
-  const int64_t row_stride = (int64_t)H * D;  // between positions in o
+  const int64_t row_stride = (int64_t)H * DG;  // between positions in o
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + 8 * r;
@@ -324,24 +334,24 @@ fa_fwd_sm90_kernel(__grid_constant__ const CUtensorMap tq,
           empty ? 0.f : m[r] + logf(denom);
   }
   warpgroup_sync(wg);
-  store_tile<D>(my_q, o + (((int64_t)b * Sq + q0) * H + h) * D, row_stride,
-                Sq - q0, tid % 128, 128);
+  store_tile<D, DG>(my_q, o + (((int64_t)b * Sq + q0) * H + h) * DG,
+                    row_stride, Sq - q0, tid % 128, 128);
 }
 
-template <int D, int NWG>
+template <int DG, int NWG>
 cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
                    const CUtensorMap& tv, void* o, void* lse, int B, int Sq,
                    int Skv, int H, int KVH, float scale, int causal,
                    int window, int q_offset, cudaStream_t stream) {
-  constexpr int kTile = D / kBox * kBoxBytes;
+  constexpr int kTile = tile_cols(DG) / kBox * kBoxBytes;
   const int smem =
       1024 + (NWG + 2 * kStages) * kTile + 8 * (1 + kStages) + 4 * kStages;
   const cudaError_t err = cudaFuncSetAttribute(
-      fa_fwd_sm90_kernel<D, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fa_fwd_sm90_kernel<DG, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(H / NWG, B, (Sq + kRows - 1) / kRows);
-  fa_fwd_sm90_kernel<D, NWG><<<grid, NWG * 128, smem, stream>>>(
+  fa_fwd_sm90_kernel<DG, NWG><<<grid, NWG * 128, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
       Sq, Skv, H, KVH, scale, causal, window, q_offset);
   return cudaGetLastError();
@@ -365,6 +375,11 @@ cudaError_t fa_fwd_sm90(const void* q, const void* k, const void* v, void* o,
                                 causal, window, q_offset, stream)
                 : launch<64, 1>(tq, tk, tv, o, lse, B, Sq, Skv, H, KVH, scale,
                                 causal, window, q_offset, stream);
+  if (D == 112)
+    return pair ? launch<112, 2>(tq, tk, tv, o, lse, B, Sq, Skv, H, KVH,
+                                 scale, causal, window, q_offset, stream)
+                : launch<112, 1>(tq, tk, tv, o, lse, B, Sq, Skv, H, KVH,
+                                 scale, causal, window, q_offset, stream);
   if (D == 128)
     return pair ? launch<128, 2>(tq, tk, tv, o, lse, B, Sq, Skv, H, KVH,
                                  scale, causal, window, q_offset, stream)

@@ -11,7 +11,11 @@
 // box; SBO 1024 bytes, 8 rows) and the MN-major B operand of a product over
 // its 64 rows (start +2 KB a k-step of 16 rows; LBO 8 KB, a box along N;
 // SBO 1024 bytes, 8 rows); N columns from column c0 (a multiple of 64)
-// start c0 / 64 boxes in.
+// start c0 / 64 boxes in. A head dim that is not a multiple of 64 (D 112)
+// takes the tile of the next multiple (tile_cols: 128), as the TPU kernel
+// pads D to a multiple of 128: the tensor map's innermost extent is the
+// real D, so TMA fills the columns past it with zeros, which leave every
+// product over D unchanged and give zero output columns, never stored.
 //
 // Everything here has internal linkage: each kernel source includes it
 // once, and the library links both sources.
@@ -32,6 +36,12 @@ constexpr int kBox = 64;                 // columns per TMA box (128 bytes)
 constexpr int kBoxBytes = kBox * kTileRows * 2;  // one 64-row box, 8 KB
 constexpr int kSwizzleRow = 128;         // bytes per swizzled row
 constexpr int kSwizzleAtom = 8 * kSwizzleRow;  // 8 rows: the SBO
+
+// the columns of the tile that holds a row of head dim d: d rounded up to
+// whole 64-column boxes
+__host__ __device__ constexpr int tile_cols(int d) {
+  return (d + kBox - 1) / kBox * kBox;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -434,13 +444,16 @@ __device__ __forceinline__ void stage_acc(uint8_t* tile,
 
 // the first n_rows rows of a tile staged as stage_acc lays it out, to dst
 // (row i at dst + i * row_stride elements), 16 bytes a thread and
-// coalesced, by the n threads t = 0..n-1
-template <int D>
+// coalesced, by the n threads t = 0..n-1; the first DG columns of each of
+// the tile's D (DG 112 of a 128-column tile: 14 of 16 chunks, so a row
+// never spills into the next head's)
+template <int D, int DG = D>
 __device__ __forceinline__ void store_tile(const uint8_t* tile,
                                            __nv_bfloat16* dst,
                                            int64_t row_stride, int n_rows,
                                            int t, int n) {
-  constexpr int kChunks = D / 8;             // 16-byte chunks per row
+  static_assert(DG % 8 == 0 && DG <= D, "whole 16-byte chunks of the tile");
+  constexpr int kChunks = DG / 8;            // 16-byte chunks stored per row
   for (int i = t; i < kTileRows * kChunks; i += n) {
     const int row = i / kChunks, c = i % kChunks;
     if (row < n_rows)
@@ -478,8 +491,9 @@ EncodeTiled encode_tiled() {
 
 // a contiguous bf16 (B, S, heads, D) tensor as a 4-D map over
 // (D, heads, S, B), in boxes of 64 columns x 64 rows of one head; rows
-// past S come in zero-filled, and batch edges stay edges. S = 0 is encoded
-// as 1 (a tensor with no rows has no tile that is ever loaded)
+// past S and columns past D (the last box of D 112) come in zero-filled,
+// and batch edges stay edges. S = 0 is encoded as 1 (a tensor with no rows
+// has no tile that is ever loaded)
 bool encode(CUtensorMap* map, const void* base, int D, int heads, int S,
             int B) {
   const EncodeTiled fn = encode_tiled();

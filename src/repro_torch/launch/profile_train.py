@@ -39,6 +39,12 @@ the depth ``chip_smoke.py`` trains it at:
       p.main(['--arch', 'mamba2-2.7b', '--full', '--workers', '2', \
               '--elastic-deadline', '30'], cfg=dataclasses.replace( \
               registry.get_config('mamba2-2.7b'), n_layers=56))"
+
+and zamba2-7b, the hybrid family, at its cut depth (``chip_smoke.py``'s
+ZAMBA_TRAIN_LAYERS: 27 of 81 layers, 4 pattern units of 6 with the shared
+attention block before each, and the tail of 3): the same command with
+``'--arch', 'zamba2-7b'`` and ``registry.get_config('zamba2-7b'),
+n_layers=27``.
 """
 from __future__ import annotations
 

@@ -17,7 +17,10 @@ gemma3-1b at full width, with a prompt past its local layers' window of
 ``--arch deepseek-v2-lite --full`` (MLA, the flash forward at head dim 192;
 15.7 B parameters, 62.7 GB in f32 on an 80 GB card) and ``--arch
 granite-moe-3b-a800m --full``; ``--device cpu`` without ``--full`` serves
-their smoke configs on the plain versions.
+their smoke configs on the plain versions. The hybrid family: ``--arch
+zamba2-7b --full`` (81 mamba layers on the SSD kernels, the one shared
+attention block before every 6 on the flash forward at head dim 112; 6.75
+B parameters, 27.0 GB in f32).
 
 Prefill and decode rates are reported separately (prompt tok/s vs generated
 tok/s), plus an overall rate that includes prefill. Runs on CUDA unless

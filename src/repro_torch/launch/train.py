@@ -1,11 +1,11 @@
 """SWAP training launcher: twin of ``repro/launch/train.py``, one process.
 
 Runs the three-phase SWAP schedule on an LM architecture of the dense,
-moe or ssm family with GQA or MLA attention (the smoke config by default;
-``--full`` for the full one) on the synthetic Markov-LM task (the CNN is
-refused, as by the reference: its runs are ``repro_torch.experiments``;
-the families not ported yet are refused where ``models/model.py`` builds
-the model):
+moe, ssm or hybrid family with GQA or MLA attention (the smoke config by
+default; ``--full`` for the full one) on the synthetic Markov-LM task (the
+CNN is refused, as by the reference: its runs are
+``repro_torch.experiments``; the families not ported yet are refused where
+``models/model.py`` builds the model):
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \
       [--full] [--workers 4] [--phase1-steps 150] [--phase2-steps 60] \
@@ -31,6 +31,13 @@ them: deepseek-v2-lite at 3 of 27 layers, granite-moe-3b-a800m at 23 of
       train.main(['--arch', 'deepseek-v2-lite', '--full', '--workers', '2', \
                   '--elastic-deadline', '30'], cfg=dataclasses.replace( \
                   registry.get_config('deepseek-v2-lite'), n_layers=3))"
+
+The hybrid family (zamba2-7b: mamba layers on the SSD kernels, the shared
+attention block on the flash kernels at head dim 112) takes the same
+keyword: at full width on one 80 GB card ``chip_smoke.py`` trains it at
+ZAMBA_TRAIN_LAYERS of its 81 layers (``--arch zamba2-7b --full`` with
+``cfg=dataclasses.replace(registry.get_config('zamba2-7b'),
+n_layers=...)``); ``--arch zamba2-7b --device cpu`` runs its smoke config.
 
 Flags, defaults and the printed summary are the reference launcher's.
 Runs on CUDA unless ``--device cpu`` is given; with no card visible it

@@ -1,6 +1,6 @@
 """Model assembly for the dense (internlm2, qwen2.5, gemma3, minicpm3), moe
-(granite-moe, qwen3-moe, deepseek-v2-lite) and ssm (mamba2) families, with
-GQA or MLA attention.
+(granite-moe, qwen3-moe, deepseek-v2-lite), ssm (mamba2) and hybrid
+(zamba2) families, with GQA or MLA attention.
 
 Twin of ``repro/models/model.py``. Layers are grouped into *pattern units*
 exactly as in the reference (gemma3: unit = 5 local + 1 global layers), and
@@ -12,6 +12,13 @@ and stacked across units on the leading axis: an attention layer's is
 ``{"a": {k, v}}`` (MLA's the latent ``{"a": {c_kv, k_rope}}``), a mamba
 layer's ``{"m": {conv, state}}``. ``apply`` returns the MoE layers' summed
 router aux loss beside the logits, as the reference's scan carries it.
+
+The hybrid family (zamba2): a pattern unit is ``shared_attn_every`` mamba
+layers, and ONE attention block with its MLP, unstacked at
+``params["shared"]``, runs before each unit (not before the tail's
+layers). Each application keeps its own KV cache, under ``"shared"`` in its
+unit's cache; in training it is recomputed with its unit under remat, and
+its gradient is the sum over its applications.
 
 Training (``apply`` under autograd) rematerializes each pattern unit when
 ``cfg.remat`` is set, as the reference's ``jax.checkpoint`` does:
@@ -43,6 +50,10 @@ class LayerKind:
     block: str = "attn"    # "attn" | "mamba"
     window: int = 0        # sliding window for attn (0 = full)
     use_moe: bool = False  # MoE FFN in place of the MLP
+
+
+# the hybrid family's shared attention block: full attention with its MLP
+SHARED = LayerKind()
 
 
 def _tree_map(fn, tree):
@@ -85,17 +96,12 @@ def _save_dots_context():
 def check_supported(cfg: ModelConfig) -> None:
     """Refuse configs outside the ported slice, naming the ROADMAP item
     that will add them."""
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            f"{cfg.name}: the hybrid family is not ported yet (ROADMAP A11: "
-            f"zamba2's shared attention block at head_dim {cfg.head_dim}, "
-            f"which the flash kernels do not take yet)")
     if cfg.family == "cnn":
         raise NotImplementedError(
             f"{cfg.name}: the cnn family is not a Model: it is the functional "
             f"repro_torch.models.cnn (init_cnn, apply_cnn), as in the "
             f"reference")
-    if cfg.family not in ("dense", "moe", "ssm"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
             f"A11 other families)")
@@ -127,6 +133,8 @@ class Model:
     def _plan(cfg: ModelConfig) -> Tuple[List[LayerKind], int, List[LayerKind]]:
         if cfg.family == "ssm":
             unit = [LayerKind("mamba")]
+        elif cfg.family == "hybrid":
+            unit = [LayerKind("mamba")] * cfg.shared_attn_every
         elif cfg.local_global_pattern != (0, 0):
             loc, glob = cfg.local_global_pattern
             unit = ([LayerKind(window=cfg.sliding_window)] * loc
@@ -142,11 +150,13 @@ class Model:
     # init
     # ------------------------------------------------------------------
 
-    def _init_blocks(self, gen: torch.Generator, lead: Tuple[int, ...]):
-        """Params of ``prod(lead)`` blocks, stacked on the ``lead`` axes
-        (every block of a ported family has the same kind of params)."""
+    def _init_blocks(self, gen: torch.Generator, lead: Tuple[int, ...],
+                     kind: Optional[LayerKind] = None):
+        """Params of ``prod(lead)`` blocks of ``kind`` (the unit's: every
+        block of a ported family's units has the same kind of params),
+        stacked on the ``lead`` axes."""
         cfg = self.cfg
-        kind = self.unit_kinds[0]
+        kind = kind or self.unit_kinds[0]
         if kind.block == "mamba":
             return {"ln1": init_norm(cfg.d_model, cfg.norm, gen.device, lead),
                     "mamba": mamba2.init_mamba(gen, cfg, lead)}
@@ -176,6 +186,8 @@ class Model:
                 gen, (self.n_units, len(self.unit_kinds)))
         if self.tail_kinds:
             params["tail"] = self._init_blocks(gen, (len(self.tail_kinds),))
+        if cfg.family == "hybrid":
+            params["shared"] = self._init_blocks(gen, (), SHARED)
         return params
 
     # ------------------------------------------------------------------
@@ -242,15 +254,20 @@ class Model:
                 if self.tail_kinds else [])
 
     def _layers(self, params):
-        """(unit index or None for the tail, position, kind, block params)
-        for every layer in order."""
+        """(unit index or None for the tail, cache key, kind, block params)
+        for every block in order: a unit's layers under keys "0", "1", ...,
+        preceded in the hybrid family by the shared block under "shared";
+        the tail's under "t0", "t1", ..."""
+        hybrid = self.cfg.family == "hybrid"
         for u, unit_p in enumerate(self._units(params)):
+            if hybrid:
+                yield u, "shared", SHARED, params["shared"]
             layers = _tree_unbind(unit_p, len(self.unit_kinds))
             for i, kind in enumerate(self.unit_kinds):
-                yield u, i, kind, layers[i]
+                yield u, str(i), kind, layers[i]
         for i, (kind, p) in enumerate(zip(self.tail_kinds,
                                           self._tail(params))):
-            yield None, i, kind, p
+            yield None, f"t{i}", kind, p
 
     # ------------------------------------------------------------------
     # embedding / head
@@ -296,15 +313,18 @@ class Model:
             h, _, a = self._block_full(p, h, kind, positions, "train")
             return h, aux if a is None else aux + a
 
-        def unit(h, aux, unit_p):
+        def unit(h, aux, unit_p, shared_p):
+            if shared_p is not None:      # the hybrid's shared block
+                h, aux = layer(h, aux, shared_p, SHARED)
             layers = _tree_unbind(unit_p, len(self.unit_kinds))
             for p, kind in zip(layers, self.unit_kinds):
                 h, aux = layer(h, aux, p, kind)
             return h, aux
 
+        shared_p = params.get("shared")
         for unit_p in self._units(params):
-            h, aux = (self._remat(unit, h, aux, unit_p) if cfg.remat
-                      else unit(h, aux, unit_p))
+            h, aux = (self._remat(unit, h, aux, unit_p, shared_p)
+                      if cfg.remat else unit(h, aux, unit_p, shared_p))
         for kind, p in zip(self.tail_kinds, self._tail(params)):
             h, aux = layer(h, aux, p, kind)
         h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
@@ -336,12 +356,9 @@ class Model:
 
         per_unit: List[Dict[str, Any]] = [{} for _ in range(self.n_units)]
         cache: Dict[str, Any] = {}
-        for u, i, kind, p in self._layers(params):
+        for u, key, kind, p in self._layers(params):
             h, c, _ = self._block_full(p, h, kind, positions, "prefill")
-            if u is None:
-                cache[f"t{i}"] = pad_cache(c, kind)
-            else:
-                per_unit[u][str(i)] = pad_cache(c, kind)
+            (cache if u is None else per_unit[u])[key] = pad_cache(c, kind)
         if "blocks" in params and self.n_units:
             cache["units"] = _tree_stack(per_unit)
         h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
@@ -357,13 +374,13 @@ class Model:
         h = self._embed(params, token)
         per_unit: List[Dict[str, Any]] = [{} for _ in range(self.n_units)]
         new_cache: Dict[str, Any] = {}
-        for u, i, kind, p in self._layers(params):
+        for u, key, kind, p in self._layers(params):
             if u is None:
-                h, new_cache[f"t{i}"] = self._block_decode(
-                    p, h, kind, cache[f"t{i}"], pos)
+                h, new_cache[key] = self._block_decode(p, h, kind, cache[key],
+                                                       pos)
             else:
-                h, per_unit[u][str(i)] = self._block_decode(
-                    p, h, kind, _tree_index(cache["units"], u)[str(i)], pos)
+                h, per_unit[u][key] = self._block_decode(
+                    p, h, kind, _tree_index(cache["units"], u)[key], pos)
         if "units" in cache:
             new_cache["units"] = _tree_stack(per_unit)
         h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
@@ -392,6 +409,9 @@ class Model:
         if self.n_units:
             cache["units"] = {str(i): block_cache(k, (self.n_units,))
                               for i, k in enumerate(self.unit_kinds)}
+            if cfg.family == "hybrid":
+                cache["units"]["shared"] = block_cache(SHARED,
+                                                       (self.n_units,))
         for i, kind in enumerate(self.tail_kinds):
             cache[f"t{i}"] = block_cache(kind)
         return cache

@@ -204,9 +204,18 @@ def test_mamba_forward_refuses_compiled_engine_arguments():
         tmamba.mamba_forward(p, u, tm.cfg, init_cache={})
 
 
-def test_hybrid_is_refused_naming_its_item():
-    with pytest.raises(NotImplementedError, match="A11.*112"):
-        TModel(treg.get_config("zamba2-7b"))
+def test_hybrid_builds_on_the_mamba_blocks():
+    """The hybrid family (zamba2-7b) is a model of this package: at full
+    config its mamba layers form 13 pattern units of 6 and a tail of 3,
+    each unit preceded by the one shared attention block (at head dim 112,
+    which the flash kernels take)."""
+    model = TModel(treg.get_config("zamba2-7b"))
+    assert (model.n_units, len(model.unit_kinds), len(model.tail_kinds)) == (
+        13, 6, 3)
+    assert {k.block for k in model.unit_kinds + model.tail_kinds} == {"mamba"}
+    s = model.cfg.ssm       # the SSD widths of the bf16 wgmma route
+    assert (s.expand * model.cfg.d_model // s.head_dim, s.head_dim,
+            s.d_state, s.n_groups) == (112, 64, 64, 1)
 
 
 # ---------------------------------------------------------------------------

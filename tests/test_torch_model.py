@@ -320,8 +320,22 @@ def test_config_validates_impl_without_jax():
                     attention_impl="mosaic")
 
 
-@pytest.mark.parametrize("arch", ["zamba2-7b", "qwen2-vl-72b",
-                                  "whisper-base"])
+@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "whisper-base"])
 def test_model_refuses_configs_outside_the_slice(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         TModel(treg.get_smoke_config(arch))
+
+
+def test_hybrid_smoke_model_and_training_launcher_build():
+    """zamba2-7b left the refused families: its smoke model builds (2
+    units of 2 mamba layers, the shared block's params at ``shared``) and
+    the training launcher builds its run on the CPU."""
+    from repro_torch.launch import train as tlaunch
+    model = TModel(treg.get_smoke_config("zamba2-7b"))
+    params = model.init(torch.Generator().manual_seed(0))
+    assert (model.n_units, len(model.unit_kinds), model.tail_kinds) == (
+        2, 2, [])
+    assert set(params["shared"]) == {"ln1", "ln2", "attn", "mlp"}
+    swap = tlaunch.build(tlaunch.build_parser().parse_args(
+        ["--arch", "zamba2-7b", "--device", "cpu", "--workers", "2"]))
+    assert swap.adapter.cfg.family == "hybrid"

@@ -28,6 +28,7 @@ from repro_torch.configs import registry as treg  # noqa: E402
 from repro_torch.configs.base import replace as treplace  # noqa: E402
 from repro_torch.launch import train as tlaunch  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
+from repro_torch.models.model import Model as TModel  # noqa: E402
 
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 AUX_RTOL = 1e-6
@@ -184,12 +185,25 @@ def test_init_moe_shapes_and_fan_in():
         assert abs(float(t.std()) / (trunc_std * scale) - 1) < 0.05, name
 
 
-@pytest.mark.parametrize("arch", ["zamba2-7b", "whisper-base",
-                                  "qwen2-vl-72b"])
+@pytest.mark.parametrize("arch", ["whisper-base", "qwen2-vl-72b"])
 def test_training_launcher_refuses_the_unported_families(arch):
-    """The training launcher takes the MoE family and MLA; the hybrid,
-    audio and vlm families stay refused where the model is built
-    (``models/model.py``), before any data is made."""
+    """The training launcher takes the MoE family, MLA and the hybrid
+    family; the audio and vlm families stay refused where the model is
+    built (``models/model.py``), before any data is made."""
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         tlaunch.build(tlaunch.build_parser().parse_args(
             ["--arch", arch, "--device", "cpu", "--workers", "2"]))
+
+
+def test_training_launcher_takes_the_hybrid_family():
+    """zamba2-7b: its smoke and full models build (no MoE layer: the
+    router aux loss of a step is 0) and the training launcher builds the
+    smoke run on the CPU."""
+    for get in (treg.get_smoke_config, treg.get_config):
+        model = TModel(get("zamba2-7b"))
+        assert model.cfg.moe is None
+        assert not any(k.use_moe for k in model.unit_kinds + model.tail_kinds)
+    swap = tlaunch.build(tlaunch.build_parser().parse_args(
+        ["--arch", "zamba2-7b", "--device", "cpu", "--workers", "2"]))
+    assert swap.adapter.cfg.family == "hybrid"
+    assert swap.adapter.model.n_units == 2

@@ -55,7 +55,7 @@ MOE_MLA = ["deepseek-v2-lite", "granite-moe-3b-a800m", "qwen3-moe-235b-a22b",
 
 
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "gemma3-1b",
-                                  "mamba2-2.7b"] + MOE_MLA)
+                                  "mamba2-2.7b", "zamba2-7b"] + MOE_MLA)
 @pytest.mark.parametrize("engine", ["loop", "compiled"])
 def test_generate_matches_jax(arch, engine):
     jm, jp, tm, tp = _setup(arch)
@@ -80,11 +80,12 @@ def test_engine_five_requests_two_slots_match_jax():
     assert eng.active == 0 and not eng.waiting
 
 
-@pytest.mark.parametrize("arch", MOE_MLA)
+@pytest.mark.parametrize("arch", MOE_MLA + ["zamba2-7b"])
 def test_engine_moe_and_mla_match_jax(arch):
-    """5 prompts through 2 slots: MoE routing per slot, and MLA's latent
-    cache ({c_kv, k_rope}) scattered into a slot from a batch-1 prefill
-    and decoded at per-slot positions."""
+    """5 prompts through 2 slots: MoE routing per slot, MLA's latent cache
+    ({c_kv, k_rope}) and the hybrid's per-unit shared-block K/V beside its
+    mamba states, each scattered into a slot from a batch-1 prefill and
+    decoded at per-slot positions."""
     cfg = treg.get_smoke_config(arch)
     prompts = _prompts(cfg, [9, 17, 5, 12, 8], seed=7)
     want, got, eng = _serve_both(arch, prompts, max_batch=2, max_seq=48,
@@ -93,6 +94,8 @@ def test_engine_moe_and_mla_match_jax(arch):
     assert all(len(v) == 5 for v in got.values())
     if cfg.attention == "mla":
         assert set(eng.cache["units"]["0"]["a"]) == {"c_kv", "k_rope"}
+    if cfg.family == "hybrid":
+        assert set(eng.cache["units"]["shared"]["a"]) == {"k", "v"}
 
 
 def test_engine_window_layers_match_jax():
