@@ -9,9 +9,8 @@ Phases, each printing its own lines; any failed check exits non-zero:
 2. build: compile the hand-written kernels from the repository's sources,
    one nvcc per source, all started together;
 3. kernels vs plain: hold each kernel against its plain PyTorch version on
-   the card over a grid of shapes, dtypes, head dims (64, 112, 128, 192,
-   256)
-   and masks (the flash forward,
+   the card over a grid of shapes, dtypes, head dims (64, 96, 112, 128,
+   192, 256) and masks (the flash forward,
    the flash backward's dQ and dK/dV kernels, in bf16 also against the
    plain version at their own rounding points, the streaming average,
    bitwise, the SSD intra-chunk forward and backward, whose bf16 wgmma
@@ -29,7 +28,9 @@ Phases, each printing its own lines; any failed check exits non-zero:
    granite-moe's, G 3; the backward at deepseek-v2-lite's phase-1 and
    phase-2 shapes, head dim 192, G 1; the forward and backward at
    zamba2-7b's shared block, head dim 112, G 1: its prefill and its two
-   training phases;
+   training phases; the same at minicpm3-4b's MLA, head dim 96, G 1; the
+   forward at whisper-base's non-causal encoder (S 1500) and cross
+   attention (64 queries on 1500 frames), head dim 64;
    the bf16 SSD kernels at the serve prefill and phase 1 of mamba2-2.7b
    and of zamba2-7b, beside the f32 FMA kernels they replace);
 4. full-width serve (internlm2-1.8b, random weights from a seed): a main
@@ -88,7 +89,25 @@ Phases, each printing its own lines; any failed check exits non-zero:
    a phase-1 and a phase-2 step (``[zamba2-train]``); and phase 6's f32
    exactness on a narrowed config at head dim 112 with a tail
    (``_narrow_zamba``);
-12. the paper-faithful CNN+BatchNorm path at the full width of cifar-cnn
+12. minicpm3-4b (MLA at qk 64 + 32: the flash kernels at head dim 96, on
+   D 128's tiles): served at full width and depth (62 layers) on phase 4's
+   path, 62 forwards a prefill, all on the bf16 wgmma route
+   (``[minicpm3-serve]``); SWAP-trained through the launcher at full width
+   with its depth cut to MINICPM_TRAIN_LAYERS, every flash launch on the
+   bf16 route and as the layer plan has them, every phase under 75 GB, a
+   profiler window of a phase-1 and a phase-2 step (``[minicpm3-train]``);
+   and phase 6's f32 exactness on ``_narrow_mla96`` (head dim 96);
+13. whisper-base (the audio family: a non-causal encoder over 1500 stub
+   frames, a decoder with causal self and non-causal cross attention, head
+   dim 64): served at full width through ``launch.serve.generate`` with
+   frames (8, 1500, 512) from the seed, batch 8, decoder prompt 64, both
+   engines, 18 forwards a prefill on the bf16 route, the logits checks and
+   a profiler window (``[whisper-serve]``); WHISPER_TRAIN_STEPS SGD steps
+   of the LM train step at full width, batch WHISPER_TRAIN_BATCH, the
+   flash forward, dQ and dK/dV launches as the layer plan has them, the
+   peak under 75 GB (``[whisper-train]``); f32 on ``_narrow_whisper``,
+   generation token-exact and the grads against the plain attention;
+14. the paper-faithful CNN+BatchNorm path at the full width of cifar-cnn
    ``config()``: Table 1 (``repro_torch.experiments.table1_cifar10``,
    seed 0: small batch, large batch, SWAP before and after averaging) and
    Table 4's large-batch SWA row from Table 1's large-batch model, one main
@@ -102,7 +121,7 @@ Phases, each printing its own lines; any failed check exits non-zero:
    branch (its ReLU masks and max choices replayed), each convolution's
    backward on its own inputs against f64; and a smoke-width SWAP with the
    elastic phase 3, bitwise equal to its plain refold;
-13. the rest of the paper's experiments, one seed each, the CNN ones at the
+15. the rest of the paper's experiments, one seed each, the CNN ones at the
    full width of cifar-cnn ``config()``: Table 2 (20 classes), Figure 1
    (the phase-2 curves), Figures 2/3 (the 9 x 9 plane with BN recomputed
    per point, the ASCII map, the three points), Figure 4 (the cosines),
@@ -110,7 +129,7 @@ Phases, each printing its own lines; any failed check exits non-zero:
    (the internlm2 smoke config in f32, whose three flash kernels must
    launch); each a main path counted as above, every accuracy and cosine
    finite;
-14. checkpoints and resume, the resuming run a new process
+16. checkpoints and resume, the resuming run a new process
    (``python3 chip_smoke.py --resume-child ...``) on a copy of the
    snapshot directory with the snapshots after the cut deleted: Table 1's
    SWAP at the full width of cifar-cnn, and internlm2 smoke through the
@@ -134,8 +153,13 @@ dim 192; ``deepseek_train_launches`` / ``granite_train_launches`` on the
 flash and swa_avg rows: on those training paths; ``zamba2_launches`` on
 every row: on zamba2-7b's training path and, for the two forwards, its
 serving path; the flash rows' ``zamba2_*`` shapes: the times at head dim
-112, the SSD rows' at zamba2's widths); the line before them gives the
-run's seconds; the last line is ``{"ok": true, "device": {...}}``.
+112, the SSD rows' at zamba2's widths; ``minicpm3_launches`` on the flash
+and swa_avg rows: on minicpm3-4b's training path and, for the forward,
+its serving path, and the flash rows' ``minicpm3_*`` shapes: the times at
+head dim 96; ``whisper_launches`` on the flash rows: on whisper-base's
+train steps and, for the forward, its serving path, and the forward's
+``whisper_encoder`` / ``whisper_cross``: its times there); the line before
+them gives the run's seconds; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -282,6 +306,38 @@ ZAMBA_SSD_TRAIN_SHAPE = (256, 64, 112, 64, 1, 64, 64)
 # optimizer state); at 24 at 70.34 / 60.45 / 69.03. 27 is 4 pattern units
 # and the tail of 3, which the full config has too.
 ZAMBA_TRAIN_LAYERS = 27
+# minicpm3-4b: MLA at qk 64 + 32 (the flash head dim 96, v 64 padded to
+# 96), 40 heads (G 1), 62 layers; served at full depth, batch 8, prompt 512
+MINICPM = "minicpm3-4b"
+MINICPM_PREFILL_SHAPE = (8, 512, 512, 40, 40, 96)
+# its SWAP phase 1 at the launcher's batch and length (phase 2: batch 32)
+MINICPM_TRAIN_SHAPE = (256, 64, 64, 40, 40, 96)
+# The depth it is SWAP-trained at (launcher, W 2, elastic phase 3): the
+# deepest whose every phase peaks under PEAK_LIMIT_GB. 62.67 M parameters a
+# layer and 376 M of untied embeddings; phase 1 binds (the saved MLA
+# activations of 256 x 64 tokens and the f32 logits), 1.50 GB a layer. On
+# an NVIDIA H100 80GB HBM3 at 700.00 W the phases peaked at 60.34 / 54.89 /
+# 41.39 GB at 28 layers, 66.34 / 61.43 / 45.40 at 32, 72.35 / 67.97 / 49.41
+# at 36, 73.85 / 69.61 / 50.42 at 37 and 75.36 / 71.25 / 51.43 at 38 (over
+# the line), one process a depth.
+MINICPM_TRAIN_LAYERS = 37
+# whisper-base, the audio family: 6 encoder layers over 1500 stub frames
+# (non-causal), 6 decoder layers (causal self attention, then non-causal
+# cross attention over the encoder output), 8 heads of 64 (G 1); served at
+# batch 8 with decoder prompts of 64 (its decoder context is 448)
+WHISPER = "whisper-base"
+WHISPER_PROMPT = 64
+WHISPER_ENCODER_SHAPE = (8, 1500, 1500, 8, 8, 64)     # non-causal
+WHISPER_CROSS_SHAPE = (8, WHISPER_PROMPT, 1500, 8, 8, 64)   # non-causal
+WHISPER_DECODER_SHAPE = (8, WHISPER_PROMPT, WHISPER_PROMPT, 8, 8, 64)
+# its train step at decoder S 64 with frames (B, 1500, 512): the largest of
+# 256, 128 and 64 whose peak stays under PEAK_LIMIT_GB. On an NVIDIA H100
+# 80GB HBM3 at 700.00 W, B 256 ran out of memory (a 750 MiB allocation with
+# 76.84 GiB allocated: the encoder, not rematerialized, as in the
+# reference, keeps every layer's activations over 1500 frames); B 128
+# peaked at 51.21 GB and B 64 at 26.38.
+WHISPER_TRAIN_BATCH = 128
+WHISPER_TRAIN_STEPS = 3
 # the CNN's f32 forward (against the CPU's), its whole-model grads on one
 # branch and its convolutions' backward (against f32 and f64), max |err| /
 # max |ref| per output: f32 sums in other orders (~1e-6 to ~3e-5); TF32
@@ -462,6 +518,22 @@ def _grid():
                       0, 0))
     cases.append((ZAMBA_TRAIN_SHAPE, "bfloat16", True, 0, 0))
     cases.append(((32,) + ZAMBA_TRAIN_SHAPE[1:], "bfloat16", True, 0, 0))
+    # minicpm3-4b's MLA (D 96, G 1): its prefill, batched (bf16 and, for the
+    # f32 logits check, f32) and through the engine, and its two training
+    # phases
+    for dtype in ("bfloat16", "float32"):
+        cases.append((MINICPM_PREFILL_SHAPE, dtype, True, 0, 0))
+    for S in ENGINE_PROMPTS:
+        cases.append(((1, S, S) + MINICPM_PREFILL_SHAPE[3:], "bfloat16",
+                      True, 0, 0))
+    cases.append((MINICPM_TRAIN_SHAPE, "bfloat16", True, 0, 0))
+    cases.append(((32,) + MINICPM_TRAIN_SHAPE[1:], "bfloat16", True, 0, 0))
+    # whisper-base (D 64, G 1): the encoder and the cross attention, both
+    # non-causal, and the decoder's causal prefill, in bf16 and f32
+    for dtype in ("bfloat16", "float32"):
+        for shape in (WHISPER_ENCODER_SHAPE, WHISPER_CROSS_SHAPE):
+            cases.append((shape, dtype, False, 0, 0))
+        cases.append((WHISPER_DECODER_SHAPE, dtype, True, 0, 0))
     return cases
 
 
@@ -480,7 +552,11 @@ def phase_kernel():
                               (GRANITE_TRAIN_SHAPE, 0),
                               (ZAMBA_PREFILL_SHAPE, 0),
                               (ZAMBA_TRAIN_SHAPE, 0),
-                              ((32,) + ZAMBA_TRAIN_SHAPE[1:], 0)))
+                              ((32,) + ZAMBA_TRAIN_SHAPE[1:], 0),
+                              (MINICPM_PREFILL_SHAPE, 0),
+                              (MINICPM_TRAIN_SHAPE, 0),
+                              (WHISPER_ENCODER_SHAPE, 0),
+                              (WHISPER_CROSS_SHAPE, 0)))
     for i, (shape, dtype, causal, window, q_offset) in enumerate(_grid()):
         D = shape[-1]
         q, k, v = _qkv(shape, getattr(torch, dtype), seed=i)
@@ -542,6 +618,17 @@ def phase_kernel():
     z_train = _fwd_times(ZAMBA_TRAIN_SHAPE, "zamba2 phase-1 training",
                          seed=1243)
     z_train2 = _fwd_times(z_phase2, "zamba2 phase-2 training", seed=1244)
+    # minicpm3-4b's MLA at head dim 96 (D 128's tiles, G 1): its prefill
+    # and phase 1; whisper-base's encoder and cross attention (D 64, G 1,
+    # non-causal, Skv 1500)
+    m_prefill = _fwd_times(MINICPM_PREFILL_SHAPE, "minicpm3 prefill, MLA",
+                           seed=1245, cold=True)
+    m_train = _fwd_times(MINICPM_TRAIN_SHAPE, "minicpm3 phase-1 training",
+                         seed=1246)
+    w_enc = _fwd_times(WHISPER_ENCODER_SHAPE, "whisper encoder", seed=1247,
+                       causal=False)
+    w_cross = _fwd_times(WHISPER_CROSS_SHAPE, "whisper cross", seed=1248,
+                         causal=False)
     sys.stdout.flush()
     return {
         "name": "flash_attention_fwd", "route": "cuda",
@@ -572,6 +659,14 @@ def phase_kernel():
             "max_abs_err": path_err[ZAMBA_TRAIN_SHAPE, 0], **z_train},
         "zamba2_phase2_shape": {
             "max_abs_err": path_err[z_phase2, 0], **z_train2},
+        "minicpm3_prefill": {
+            "max_abs_err": path_err[MINICPM_PREFILL_SHAPE, 0], **m_prefill},
+        "minicpm3_train_shape": {
+            "max_abs_err": path_err[MINICPM_TRAIN_SHAPE, 0], **m_train},
+        "whisper_encoder": {
+            "max_abs_err": path_err[WHISPER_ENCODER_SHAPE, 0], **w_enc},
+        "whisper_cross": {
+            "max_abs_err": path_err[WHISPER_CROSS_SHAPE, 0], **w_cross},
     }
 
 
@@ -606,7 +701,7 @@ def _device_ms(fn, iters: int, flush: bool = False) -> float:
     return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
-def _fwd_times(shape, label, seed, cold=False, window=0):
+def _fwd_times(shape, label, seed, cold=False, window=0, causal=True):
     """The bf16 forward's device time at one shape, warm (and, with cold,
     with L2 flushed), beside its bound, its plain version and SDPA, timed
     the same way. With a window, SDPA takes it as a boolean mask, which
@@ -616,10 +711,10 @@ def _fwd_times(shape, label, seed, cold=False, window=0):
     from repro_torch.kernels.flash_attention import kernel, ops
     B, Sq, Skv, H, KVH, D = shape
     q, k, v = _qkv(shape, torch.bfloat16, seed=seed)
-    run = lambda: kernel.flash_fwd(q, k, v, causal=True, window=window)
+    run = lambda: kernel.flash_fwd(q, k, v, causal=causal, window=window)
     ms = _device_ms(run, 50)
     plain_ms = _cuda_ms(lambda: ops._blockwise_fwd(
-        q, k, v, causal=True, window=window, scale=None, q_offset=0,
+        q, k, v, causal=causal, window=window, scale=None, q_offset=0,
         chunk=512), 5)
     # yardstick only, never called by the port: one fused library call on
     # the same function (K/V heads repeated beforehand, outside the timing)
@@ -634,13 +729,14 @@ def _fwd_times(shape, label, seed, cold=False, window=0):
             qt, kt, vt, attn_mask=mask)
     else:
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True)
+            qt, kt, vt, is_causal=causal)
     lib_ms = _device_ms(sdpa, 50)
     nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel()) + B * Sq * H * 4
-    flops = 4 * D * B * H * _visible_pairs(Sq, Skv, True, window, 0)
+    flops = 4 * D * B * H * _visible_pairs(Sq, Skv, causal, window, 0)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
-    mask_name = f"window {window}" if window else "causal"
+    mask_name = (f"window {window}" if window
+                 else "causal" if causal else "non-causal")
     times = {"shape": f"B{B} S{Sq} H{H} KVH{KVH} D{D} bf16 {mask_name}",
              "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -684,9 +780,16 @@ def _bwd_grid():
     # internlm2, gemma3, deepseek-v2-lite (MLA, D 192, G 1), granite-moe and
     # zamba2-7b (D 112, G 1)
     for shape in (TRAIN_SHAPE, GEMMA_TRAIN_SHAPE, DEEPSEEK_TRAIN_SHAPE,
-                  GRANITE_TRAIN_SHAPE, ZAMBA_TRAIN_SHAPE):
+                  GRANITE_TRAIN_SHAPE, ZAMBA_TRAIN_SHAPE,
+                  MINICPM_TRAIN_SHAPE):
         cases.append((shape, "bfloat16", True, 0, 0))
         cases.append(((32,) + shape[1:], "bfloat16", True, 0, 0))
+    # whisper-base's train step: the encoder's and the cross attention's
+    # non-causal backward over 1500 frames, and the decoder's causal one
+    for shape, causal in ((WHISPER_ENCODER_SHAPE, False),
+                          (WHISPER_CROSS_SHAPE, False),
+                          (WHISPER_DECODER_SHAPE, True)):
+        cases.append((shape, "bfloat16", causal, 0, 0))
     return cases
 
 
@@ -775,7 +878,8 @@ def phase_kernel_bwd():
                   f"bwd case {i}: fully masked rows have dq != 0")
         if shape in (TRAIN_SHAPE, GEMMA_TRAIN_SHAPE, DEEPSEEK_TRAIN_SHAPE,
                      (32,) + DEEPSEEK_TRAIN_SHAPE[1:], ZAMBA_TRAIN_SHAPE,
-                     (32,) + ZAMBA_TRAIN_SHAPE[1:]):
+                     (32,) + ZAMBA_TRAIN_SHAPE[1:], MINICPM_TRAIN_SHAPE,
+                     (32,) + MINICPM_TRAIN_SHAPE[1:]):
             train_err[shape] = {
                 n: (g.float() - w.float()).abs().max().item()
                 for n, g, w in zip(("dq", "dk", "dv"), got, want)}
@@ -801,6 +905,10 @@ def phase_kernel_bwd():
     z_shape2 = (32,) + ZAMBA_TRAIN_SHAPE[1:]
     z_phase1 = _bwd_times(ZAMBA_TRAIN_SHAPE, "zamba2 phase-1")
     z_phase2 = _bwd_times(z_shape2, "zamba2 phase-2")
+    # minicpm3-4b's MLA at head dim 96, G 1
+    m_shape2 = (32,) + MINICPM_TRAIN_SHAPE[1:]
+    m_phase1 = _bwd_times(MINICPM_TRAIN_SHAPE, "minicpm3 phase-1, MLA")
+    m_phase2 = _bwd_times(m_shape2, "minicpm3 phase-2, MLA")
 
     def errs(shape, name):
         e = train_err[shape]
@@ -824,7 +932,12 @@ def phase_kernel_bwd():
                  "max_abs_err": errs(ZAMBA_TRAIN_SHAPE, name),
                  **z_phase1[name]},
              "zamba2_phase2_shape": {
-                 "max_abs_err": errs(z_shape2, name), **z_phase2[name]}}
+                 "max_abs_err": errs(z_shape2, name), **z_phase2[name]},
+             "minicpm3_train_shape": {
+                 "max_abs_err": errs(MINICPM_TRAIN_SHAPE, name),
+                 **m_phase1[name]},
+             "minicpm3_phase2_shape": {
+                 "max_abs_err": errs(m_shape2, name), **m_phase2[name]}}
             for name, line in (("flash_attention_bwd_dq", 202),
                                ("flash_attention_bwd_dkv", 232))]
 
@@ -1248,6 +1361,10 @@ def _describe(cfg) -> str:
         attn += (f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k} d_ff "
                  f"{cfg.moe.d_ff}, capacity factor "
                  f"{cfg.moe.capacity_factor}")
+    if cfg.is_encoder_decoder:
+        attn += (f"; encoder of {cfg.n_encoder_layers} layers over "
+                 f"{cfg.encoder_seq} frames (non-causal), cross attention "
+                 f"in every decoder layer")
     if cfg.family == "hybrid":
         s = cfg.ssm
         attn = (f"one shared block of {attn} before every "
@@ -1327,11 +1444,14 @@ def phase_serve(card: str, arch="internlm2-1.8b", S=512, engine=True,
     requests through 2 slots; then the prefill logits' checks, a profiler
     window of one prefill and one decode step, and the device memory peak
     of the phase (params included) against PEAK_LIMIT_GB. The flash
-    forward launches once an attention block a prefill; in the hybrid
-    family (zamba2) that is once a pattern unit (its shared block), the SSD
-    forward once a mamba layer, and every launch of both takes the bf16
-    wgmma route, and the logits' checks switch both kernels. Returns every
-    kernel's launches on the main path."""
+    forward launches once an attention block a prefill, every launch on the
+    bf16 wgmma route; in the hybrid family (zamba2) that is once a pattern
+    unit (its shared block), the SSD forward once a mamba layer (all on the
+    bf16 route too), and the logits' checks switch both kernels; in the
+    audio family (whisper) once an encoder layer and twice a decoder layer
+    (self and cross attention), every prefill and model taking the same
+    stub frames (batch, encoder_seq, d_model) made from the seed. Returns
+    every kernel's launches on the main path."""
     import dataclasses
     import torch
     from repro_torch.configs import registry
@@ -1349,13 +1469,18 @@ def phase_serve(card: str, arch="internlm2-1.8b", S=512, engine=True,
     B, T = 8, 32
     prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
                             device="cuda")
+    extras = ({"frames": torch.randn((B, cfg.encoder_seq, cfg.d_model),
+                                     generator=g, device="cuda")}
+              if cfg.is_encoder_decoder else {})
     lengths, n_new, max_seq = ENGINE_PROMPTS, 16, 1024
     reqs = [Request(rid=i, prompt=torch.randint(
         0, cfg.vocab_size, (L,), generator=g, device="cuda"),
         max_new_tokens=n_new) for i, L in enumerate(lengths)] if engine else []
     n_layers = cfg.n_layers
     hybrid = cfg.family == "hybrid"
-    n_attn = model.n_units if hybrid else n_layers   # attention blocks
+    n_attn = (model.n_units if hybrid       # attention blocks
+              else cfg.n_encoder_layers + 2 * n_layers
+              if cfg.is_encoder_decoder else n_layers)
     windows = sorted({k.window for k in model.unit_kinds + model.tail_kinds})
     print(f"[{tag}] {cfg.name}: {n_layers} layers, d_model {cfg.d_model}, "
           f"{_describe(cfg)}, windows {windows}, vocab {cfg.vocab_size}, "
@@ -1363,11 +1488,13 @@ def phase_serve(card: str, arch="internlm2-1.8b", S=512, engine=True,
           f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B f32",
           flush=True)
 
-    generate(model, params, prompts, 2, engine="compiled")   # warm-up
+    generate(model, params, prompts, 2, extras,
+             engine="compiled")                              # warm-up
     # --- the main path, with the launch counts read around it ---
     _reset_launches()
-    out_loop, st_loop = generate(model, params, prompts, T, engine="loop")
-    out_comp, st_comp = generate(model, params, prompts, T,
+    out_loop, st_loop = generate(model, params, prompts, T, extras,
+                                 engine="loop")
+    out_comp, st_comp = generate(model, params, prompts, T, extras,
                                  engine="compiled")
     if engine:
         serving = ServingEngine(model, params, max_batch=2, max_seq=max_seq)
@@ -1409,6 +1536,9 @@ def phase_serve(card: str, arch="internlm2-1.8b", S=512, engine=True,
           and (engine or fwd == n_attn * n_prefills),
           f"{arch}: kernel launched {fwd} times for {n_prefills} "
           f"prefills of {n_attn} attention blocks")
+    check(on_sm90["flash_attention_fwd"] == fwd,
+          f"{arch}: only {on_sm90['flash_attention_fwd']} of {fwd} flash "
+          f"forwards on the serving path took the bf16 wgmma route")
     if hybrid:
         ssd = launches["ssd_fwd"]
         print(f"[{tag}] ssd_fwd launches on the main path: {ssd} for "
@@ -1453,7 +1583,8 @@ def phase_serve(card: str, arch="internlm2-1.8b", S=512, engine=True,
         m = Model(dataclasses.replace(cfg, dtype=dtype, attention_impl=impl,
                                       **ssd))
         with torch.inference_mode(), _fixed_routes(routes, replay=i > 0):
-            logits[dtype, impl] = m.prefill(params, prompts)[0].float()
+            logits[dtype, impl] = m.prefill(params, prompts,
+                                            **extras)[0].float()
     if cfg.moe:
         print(f"[{tag}] logits checks with the routes of the f32 kernel "
               f"prefill fixed: {len(routes)} MoE layers")
@@ -1482,8 +1613,9 @@ def phase_serve(card: str, arch="internlm2-1.8b", S=512, engine=True,
     del logits
     with torch.inference_mode():
         _serve_profile(card, tag, f"prefill of {B} x {S}",
-                       lambda: model.prefill(params, prompts), B * S)
-        _, cache = model.prefill(params, prompts, cache_len=S + 1)
+                       lambda: model.prefill(params, prompts, **extras),
+                       B * S)
+        _, cache = model.prefill(params, prompts, cache_len=S + 1, **extras)
         tok = prompts[:, -1:]
         _serve_profile(card, tag, f"decode step at batch {B}",
                        lambda: model.decode(params, cache, tok, S), B)
@@ -2141,7 +2273,250 @@ def phase_zamba(card: str):
 
 
 # ---------------------------------------------------------------------------
-# phase 12: the CNN+BatchNorm path at full width
+# phase 12: minicpm3-4b (MLA, the flash kernels at head dim 96)
+# ---------------------------------------------------------------------------
+
+
+def _narrow_mla96():
+    """The f32 exactness config of minicpm3: its smoke config (2 layers,
+    d_model 256, 4 heads) at its full config's MLA head dims, qk 64 + 32 =
+    96 (the flash head dim) and v 64. The smoke config's qk 32 + 16 = 48 is
+    a head dim the kernels refuse."""
+    import dataclasses
+    from repro_torch.configs import registry
+    cfg = registry.get_smoke_config(MINICPM)
+    return dataclasses.replace(cfg, head_dim=64, mla=dataclasses.replace(
+        cfg.mla, qk_nope_head_dim=64, qk_rope_head_dim=32, v_head_dim=64))
+
+
+def phase_minicpm(card: str):
+    """minicpm3-4b at full width: served at its 62 layers on phase 4's path
+    (62 flash forwards a prefill at head dim 96, all on the bf16 wgmma
+    route; the engine's prompts as internlm2's), and SWAP-trained through
+    the launcher with its depth cut to MINICPM_TRAIN_LAYERS (the flash
+    launches a step as the layer plan has them, all on the bf16 route;
+    every phase under PEAK_LIMIT_GB), with a profiler window of a phase-1
+    and a phase-2 step; then the f32 exactness on ``_narrow_mla96``.
+    Returns (every kernel's launches on the serving path, on the training
+    path)."""
+    import dataclasses
+    from repro_torch.configs import registry
+    t0 = time.perf_counter()
+    serve = phase_serve(card, MINICPM, tag="minicpm3-serve")
+    cfg = dataclasses.replace(registry.get_config(MINICPM),
+                              n_layers=MINICPM_TRAIN_LAYERS)
+    argv = ["--arch", MINICPM] + TRAIN_ARGV
+    print(f"[minicpm3-train] {MINICPM} at {MINICPM_TRAIN_LAYERS} layers: "
+          f"{_describe(cfg)}", flush=True)
+    train = phase_train(card, argv, cfg, tag="minicpm3-train",
+                        sm90_only=FLASH_KERNELS)
+    _train_profile(card, "minicpm3-train", argv, cfg)
+    narrow = _narrow_mla96()
+    phase_exact(MINICPM, narrow)
+    phase_exact_train(MINICPM, cfg=narrow)
+    print(f"[minicpm3] phase time {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return serve, train
+
+
+# ---------------------------------------------------------------------------
+# phase 13: whisper-base, the audio family (encoder-decoder)
+# ---------------------------------------------------------------------------
+
+
+def _whisper_flash_plan(cfg, steps):
+    """The flash launches of ``steps`` train steps: a forward and a
+    backward an encoder layer, and each of a decoder layer's self and cross
+    attention, whose forward runs twice under remat (the encoder is not
+    rematerialized, as in the reference)."""
+    dec = 2 * cfg.n_layers
+    fwd = cfg.n_encoder_layers + dec * (2 if cfg.remat else 1)
+    bwd = cfg.n_encoder_layers + dec
+    return {"flash_attention_fwd": steps * fwd,
+            "flash_attention_bwd_dq": steps * bwd,
+            "flash_attention_bwd_dkv": steps * bwd}
+
+
+def phase_whisper_train(card: str, batch=WHISPER_TRAIN_BATCH,
+                        steps=WHISPER_TRAIN_STEPS):
+    """``steps`` SGD steps of whisper-base at full width (bf16 compute, f32
+    params) through ``train.steps.make_lm_train_step``, on batches of
+    ``batch`` decoder sequences of WHISPER_PROMPT tokens with stub frames
+    (batch, 1500, 512): a main path with the launch counts read around it.
+    Every loss finite, the params moved and finite, the flash launches as
+    ``_whisper_flash_plan`` has them, all on the bf16 route, and the peak
+    under PEAK_LIMIT_GB. Returns the launches."""
+    import math
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import OptimizerConfig, ScheduleConfig
+    from repro_torch.core.schedules import schedule_fn
+    from repro_torch.models.model import Model
+    from repro_torch.optim.api import tree_leaves
+    from repro_torch.train.steps import make_lm_train_step
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = registry.get_config(WHISPER)
+    model = Model(cfg)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init(g)
+    start = [t.clone() for t in tree_leaves(params)]
+    opt_init, train_step = make_lm_train_step(
+        model, OptimizerConfig(kind="sgd"),
+        schedule_fn(ScheduleConfig(kind="const", peak_lr=0.01)))
+    opt_state = opt_init(params)
+    S = WHISPER_PROMPT
+    batches = []
+    for _ in range(steps):
+        tokens = torch.randint(0, cfg.vocab_size, (batch, S + 1),
+                               generator=g, device="cuda")
+        batches.append({"tokens": tokens[:, :-1], "labels": tokens[:, 1:],
+                        "frames": torch.randn(
+                            (batch, cfg.encoder_seq, cfg.d_model),
+                            generator=g, device="cuda").to(model.dtype)})
+    print(f"[whisper-train] {cfg.name}: {steps} SGD steps at batch {batch}, "
+          f"decoder S {S}, frames ({batch}, {cfg.encoder_seq}, "
+          f"{cfg.d_model}), {cfg.dtype}, remat {cfg.remat_policy} "
+          f"(decoder layers)", flush=True)
+    # --- the main path, with every launch count read around it ---
+    _reset_launches()
+    losses, step_ms = [], []
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        params, opt_state, metrics = train_step(params, opt_state, b, i)
+        losses.append(float(metrics["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    counted = _launch_counts()
+    launches = {name: fn.launches for name, fn in counted.items()}
+    on_sm90 = {name: counted[name].launches_sm90 for name in FLASH_KERNELS}
+    # -------------------------------------------------------------
+    want = _whisper_flash_plan(cfg, steps)
+    print(f"[whisper-train] losses {[f'{x:.4f}' for x in losses]}; step ms "
+          f"{[f'{x:.1f}' for x in step_ms]} on {card} ({batch * S} decoder "
+          f"tokens and {batch * cfg.encoder_seq} frames a step); flash "
+          f"launches {launches} (plan {want}; on the bf16 route {on_sm90})",
+          flush=True)
+    check(all(math.isfinite(x) for x in losses),
+          f"whisper: non-finite loss {losses}")
+    moved = max((a - b).abs().max().item()
+                for a, b in zip(tree_leaves(params), start))
+    check(moved > 0, "whisper: the train steps left the params unchanged")
+    check(all(bool(torch.isfinite(t).all()) for t in tree_leaves(params)),
+          "whisper: non-finite params after the train steps")
+    for name, n in want.items():
+        check(launches[name] == n and on_sm90[name] == n,
+              f"whisper: {name} launched {launches[name]} times "
+              f"({on_sm90[name]} on the bf16 route), not {n}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[whisper-train] params moved by up to {moved:.3e}; device "
+          f"memory peak {peak:.2f} GB (limit {PEAK_LIMIT_GB} GB)",
+          flush=True)
+    check(peak <= PEAK_LIMIT_GB, f"whisper: train peak {peak:.2f} GB over "
+                                 f"{PEAK_LIMIT_GB} GB")
+    del params, opt_state, batches, start
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _narrow_whisper():
+    """The f32 exactness config of whisper: its smoke config (2 + 2 layers,
+    d_model 128, 64 frames) at whisper-base's head dim of 64 (2 heads). The
+    smoke config's head dim of 32 is one the kernels refuse."""
+    import dataclasses
+    from repro_torch.configs import registry
+    return dataclasses.replace(registry.get_smoke_config(WHISPER),
+                               n_heads=2, n_kv_heads=2, head_dim=64)
+
+
+def _whisper_exact():
+    """f32 on ``_narrow_whisper``: greedy generation with frames, both
+    engines, on the kernels token for token as on the plain attention; the
+    LM loss's whole-model grads on the kernels against plain autograd, leaf
+    by leaf at GRAD_TOL / GRAD_L2_TOL. The key biases' true grads are 0
+    (a bias of k adds one value to every score of a query's row, which the
+    softmax takes away): those leaves are held to f32 noise, 1e-6 of the
+    largest grad, on both paths."""
+    import dataclasses
+    import torch
+    from repro_torch.checkpoint.io import _items
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.model import Model
+    from repro_torch.optim.api import tree_leaves
+    from repro_torch.train.steps import lm_loss_and_metrics
+
+    narrow = _narrow_whisper()
+    models = {impl: Model(dataclasses.replace(narrow, attention_impl=impl))
+              for impl in ("kernel", "reference")}
+    g = torch.Generator(device="cuda").manual_seed(1)
+    params = models["kernel"].init(g)
+    prompts = torch.randint(0, narrow.vocab_size, (3, 10), generator=g,
+                            device="cuda")
+    frames = torch.randn((3, narrow.encoder_seq, narrow.d_model),
+                         generator=g, device="cuda")
+    for engine in ("loop", "compiled"):
+        got, want = (generate(models[impl], params, prompts, 6,
+                              {"frames": frames}, engine=engine)[0]
+                     for impl in ("kernel", "reference"))
+        check(torch.equal(got, want),
+              f"whisper {engine}: kernel tokens {got.tolist()} != plain "
+              f"{want.tolist()}")
+    tokens = torch.randint(0, narrow.vocab_size, (4, 17), generator=g,
+                           device="cuda")
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:],
+             "frames": torch.randn((4, narrow.encoder_seq, narrow.d_model),
+                                   generator=g, device="cuda")}
+    grads = {}
+    for impl, model in models.items():
+        req = [t.detach().requires_grad_() for t in tree_leaves(params)]
+        loss, _ = lm_loss_and_metrics(model, _rebuild(params, iter(req)),
+                                      batch)
+        grads[impl] = torch.autograd.grad(loss, req)
+    keys = [k for k, _ in _items(params)]
+    scale = max(b.abs().max().item() for b in grads["reference"])
+    err = l2 = 0.0
+    for key, a, b in zip(keys, grads["kernel"], grads["reference"]):
+        if key.endswith("/bk"):
+            check(max(a.abs().max().item(), b.abs().max().item())
+                  <= 1e-6 * scale, f"whisper grad {key} is not ~0")
+            continue
+        check(bool(b.abs().max() > 0), f"zero grad leaf {key}")
+        d = a - b
+        err = max(err, (d.abs().max() / b.abs().max()).item())
+        l2 = max(l2, (torch.linalg.vector_norm(d)
+                      / torch.linalg.vector_norm(b)).item())
+    print(f"[exact] f32 {narrow.name} ({_describe(narrow)}): generate "
+          f"with frames, both engines, token for token on the kernels as on "
+          f"the plain attention; whole-model grads with the kernels against "
+          f"plain autograd, worst leaf: max |err|/max |ref| {err:.3e} (limit "
+          f"{GRAD_TOL}), relative L2 {l2:.3e} (limit {GRAD_L2_TOL})",
+          flush=True)
+    check(err <= GRAD_TOL and l2 <= GRAD_L2_TOL,
+          f"whisper smoke grads differ: {err:.3e}, relative L2 {l2:.3e}")
+
+
+def phase_whisper(card: str):
+    """whisper-base at full width: served on phase 4's path with frames
+    (8, 1500, 512) from the seed, decoder prompts of WHISPER_PROMPT (18
+    flash forwards a prefill: 6 encoder layers, 6 decoder self and 6 cross
+    attentions; the continuous engine takes no frames, as the reference's
+    takes none), and WHISPER_TRAIN_STEPS train steps
+    (``phase_whisper_train``); then the f32 exactness on
+    ``_narrow_whisper``. Returns (the launches on the serving path, on the
+    training path)."""
+    t0 = time.perf_counter()
+    serve = phase_serve(card, WHISPER, S=WHISPER_PROMPT, engine=False,
+                        tag="whisper-serve")
+    train = phase_whisper_train(card)
+    _whisper_exact()
+    print(f"[whisper] phase time {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return serve, train
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the CNN+BatchNorm path at full width
 # ---------------------------------------------------------------------------
 
 
@@ -2501,7 +2876,7 @@ def phase_cnn(card: str) -> int:
 
 
 # ---------------------------------------------------------------------------
-# phase 13: the rest of the paper's experiments
+# phase 15: the rest of the paper's experiments
 # ---------------------------------------------------------------------------
 
 FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
@@ -2614,7 +2989,7 @@ def phase_experiments(card: str) -> Dict[str, int]:
 
 
 # ---------------------------------------------------------------------------
-# phase 14: checkpoints and bit-exact resume in a new process
+# phase 16: checkpoints and bit-exact resume in a new process
 # ---------------------------------------------------------------------------
 
 # cifar-cnn at full width on Table 1's SWAP (2048 images: 4 steps an epoch
@@ -2855,6 +3230,8 @@ def main() -> None:
     phase_exact(MAMBA)
     phase_exact_train(MAMBA, "ssd_impl")
     zamba_serve, zamba_train = phase_zamba(card)
+    minicpm_serve, minicpm_train = phase_minicpm(card)
+    whisper_serve, whisper_train = phase_whisper(card)
     cnn_launches = phase_cnn(card)
     table3 = phase_experiments(card)
     resumed = phase_resume(card)
@@ -2889,6 +3266,17 @@ def main() -> None:
         row["zamba2_launches"] = {"train": zamba_train[row["name"]]}
         if row["name"] in ("flash_attention_fwd", "ssd_fwd"):
             row["zamba2_launches"]["serve"] = zamba_serve[row["name"]]
+        # minicpm3-4b: the flash kernels and swa_avg on its training path,
+        # the forward on its serving path; whisper-base: the flash kernels
+        # on its train steps, the forward on its serving path
+        if row["name"] in DENSE_TRAIN_KERNELS:
+            row["minicpm3_launches"] = {"train": minicpm_train[row["name"]]}
+        if row["name"] in FLASH_KERNELS:
+            row["whisper_launches"] = {"train": whisper_train[row["name"]]}
+        if row["name"] == "flash_attention_fwd":
+            for key, serve in (("minicpm3_launches", minicpm_serve),
+                               ("whisper_launches", whisper_serve)):
+                row[key]["serve"] = serve[row["name"]]
     import torch
     print(f"[chip_smoke] all phases in {time.perf_counter() - t_start:.1f} s",
           flush=True)

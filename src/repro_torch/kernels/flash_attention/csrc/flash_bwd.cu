@@ -5,7 +5,7 @@
 //   repro/kernels/flash_attention/kernel.py::_fa_bwd_dq_kernel   (dQ)
 //   repro/kernels/flash_attention/kernel.py::_fa_bwd_dkv_kernel  (dK, dV)
 // and computes what they compute, for q, dO (B,Sq,H,D) and k, v
-// (B,Skv,KVH,D), D in {64, 112, 128, 192, 256}, given the forward's lse
+// (B,Skv,KVH,D), D in {64, 96, 112, 128, 192, 256}, given the forward's lse
 // (B,Sq,H) f32 and delta = rowsum(dO * O) (B,Sq,H) f32 (taken outside, in
 // plain PyTorch, as the JAX package does):
 //   S  = (q * scale) . k^T, with q * scale formed in f32, masked to
@@ -50,7 +50,9 @@
 // memory is 166.4 KB; dQ's is 157.7 KB. One CTA an SM.
 // At D 112 (zamba2-7b) a lane owns ceil(112 / 32) = 4 output columns, the
 // fourth only in lanes 0-15 (the others read 0 for it and store nothing);
-// dK/dV takes 32 keys a CTA, 102.5 KB, and dQ 94.0 KB.
+// dK/dV takes 32 keys a CTA, 102.5 KB, and dQ 94.0 KB. At D 96
+// (minicpm3-4b's MLA) a lane owns exactly 3 columns (96 = 3 x 32); dK/dV
+// takes 90.5 KB and dQ 82.0 KB.
 // Tiles are staged in shared memory as f32; operands a lane reads alone (K and V in dQ, Q and dO in dK/dV) are
 // padded by 4 floats a row so that its float4 reads are free of bank
 // conflicts, the others are read as broadcasts.
@@ -513,6 +515,9 @@ extern "C" int fa_bwd_dq(const void* q, const void* k, const void* v,
   if (dtype == 0 && D == 64)
     return launch_dq<float, 64>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, H,
                                 KVH, scale, causal, window, q_offset, st);
+  if (dtype == 0 && D == 96)
+    return launch_dq<float, 96>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, H,
+                                KVH, scale, causal, window, q_offset, st);
   if (dtype == 0 && D == 112)
     return launch_dq<float, 112>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, H,
                                  KVH, scale, causal, window, q_offset, st);
@@ -541,6 +546,10 @@ extern "C" int fa_bwd_dkv(const void* q, const void* k, const void* v,
   if (dtype == 0 && D == 64)
     return launch_dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv,
                                  H, KVH, scale, causal, window, q_offset, st);
+  if (dtype == 0 && D == 96)
+    return launch_dkv<float, 96>(q, k, v, dout, lse, delta, dk, dv, B, Sq,
+                                 Skv, H, KVH, scale, causal, window, q_offset,
+                                 st);
   if (dtype == 0 && D == 112)
     return launch_dkv<float, 112>(q, k, v, dout, lse, delta, dk, dv, B, Sq,
                                   Skv, H, KVH, scale, causal, window, q_offset,

@@ -8,7 +8,8 @@
 // (f32 inputs stay on the FMA kernels of flash_bwd.cu, which holds the C
 // entries of both routes: the tensor cores would take f32 as TF32). The
 // contract is flash_bwd.cu's: q, dO (B,Sq,H,D) and k, v (B,Skv,KVH,D)
-// bf16, D in {64, 112, 128, 192, 256}, query head h on KV head h / (H / KVH); lse
+// bf16, D in {64, 96, 112, 128, 192, 256}, query head h on KV head h / (H /
+// KVH); lse
 // and delta = rowsum(dO * O) (B,Sq,H) f32; padding, causal, window and
 // q_offset masks (NEG_INF = -1e30: a masked P is 0); a row that sees no
 // key has dq = 0 and adds nothing to dk or dv; dK and dV summed over the
@@ -141,12 +142,12 @@
 //    H 16, one K/V tile a CTA) that took 0.1721 ms against 0.1958 for D
 //    256's shape, one CTA an SM with a ring of two (ab_flash_bwd.py, one
 //    call; phase 2, B 32: 0.0320 against 0.0337).
-//  * D 112 (zamba2-7b's shared attention block, G 1) runs both kernels on
-//    D 128's tiles and CTA shapes, as the forward does: TMA zero-fills
-//    columns 112-127 of Q, K, V and dO. Zero columns leave S and dP as they
-//    are, and give zero columns of dQ (dS K), dK (dS^T q) and dV (P^T dO),
-//    which the epilogues do not store (14 of a row's 16 chunks, at the real
-//    D's strides).
+//  * D 112 (zamba2-7b's shared attention block, G 1) and D 96 (minicpm3-4b's
+//    MLA, G 1) run both kernels on D 128's tiles and CTA shapes, as the
+//    forward does: TMA zero-fills columns D-127 of Q, K, V and dO. Zero
+//    columns leave S and dP as they are, and give zero columns of dQ (dS K),
+//    dK (dS^T q) and dV (P^T dO), which the epilogues do not store (14 or 12
+//    of a row's 16 chunks, at the real D's strides).
 //  * Epilogue: dQ * scale rounded to bf16, staged in the warpgroup's Q tile,
 //    stored for rows < Sq; the query tiles with the most key tiles launch
 //    first.
@@ -671,6 +672,12 @@ cudaError_t fa_bwd_dq_sm90(const void* q, const void* k, const void* v,
                                            q_offset, stream)
                  : launch_dq<64, 1>(m, lse, delta, dq, B, Sq, Skv, H, KVH,
                                     scale, causal, window, q_offset, stream);
+  if (D == 96)
+    return group ? launch_dq<96, kDqHeads>(m, lse, delta, dq, B, Sq, Skv, H,
+                                           KVH, scale, causal, window,
+                                           q_offset, stream)
+                 : launch_dq<96, 1>(m, lse, delta, dq, B, Sq, Skv, H, KVH,
+                                    scale, causal, window, q_offset, stream);
   if (D == 112)
     return group ? launch_dq<112, kDqHeads>(m, lse, delta, dq, B, Sq, Skv, H,
                                             KVH, scale, causal, window,
@@ -703,6 +710,9 @@ cudaError_t fa_bwd_dkv_sm90(const void* q, const void* k, const void* v,
     return cudaErrorInvalidValue;
   if (D == 64)
     return launch_dkv<64, 1>(m, lse, delta, dk, dv, B, Sq, Skv, H, KVH, scale,
+                             causal, window, q_offset, stream);
+  if (D == 96)
+    return launch_dkv<96, 1>(m, lse, delta, dk, dv, B, Sq, Skv, H, KVH, scale,
                              causal, window, q_offset, stream);
   if (D == 112)
     return launch_dkv<112, 1>(m, lse, delta, dk, dv, B, Sq, Skv, H, KVH,

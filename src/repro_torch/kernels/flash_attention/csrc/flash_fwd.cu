@@ -4,7 +4,7 @@
 // Replaces the Pallas TPU kernel
 //   repro/kernels/flash_attention/kernel.py::_fa_kernel
 // and computes what it computes, for q (B,Sq,H,D) and k, v (B,Skv,KVH,D),
-// D in {64, 112, 128, 192, 256}:
+// D in {64, 96, 112, 128, 192, 256}:
 //   * GQA: query head h reads KV head h / (H / KVH), straight from the
 //     strided (B,S,KVH,D) tensor (no repeated heads, no D padding);
 //   * online softmax in f32 (running max, running sum, f32 accumulator);
@@ -41,7 +41,9 @@
 // holds kRows x D/32 accumulators: 48 registers at D 192, 64 at D 256.
 // At D 112 (zamba2-7b) a lane owns ceil(112 / 32) = 4 output columns and
 // lanes 16-31 have no fourth one (their reads of V give 0, their sums are
-// not stored); shared memory is 79.0 KB.
+// not stored); shared memory is 79.0 KB. At D 96 (minicpm3-4b's MLA, qk 64
+// + 32, v padded to 96) a lane owns exactly 3 columns (96 = 3 x 32), so no
+// lane lacks one; shared memory is 69.0 KB.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -314,6 +316,9 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 64)
     return launch<float, 64>(q, k, v, o, lse, B, Sq, Skv, H, KVH, scale,
+                             causal, window, q_offset, st);
+  if (dtype == 0 && D == 96)
+    return launch<float, 96>(q, k, v, o, lse, B, Sq, Skv, H, KVH, scale,
                              causal, window, q_offset, st);
   if (dtype == 0 && D == 112)
     return launch<float, 112>(q, k, v, o, lse, B, Sq, Skv, H, KVH, scale,

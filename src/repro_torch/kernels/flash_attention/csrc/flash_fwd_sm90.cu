@@ -5,7 +5,7 @@
 //   repro/kernels/flash_attention/kernel.py::_fa_kernel
 // (f32 inputs stay on fa_fwd_kernel<float, D> in flash_fwd.cu: the tensor
 // cores would take f32 as TF32). The contract is flash_fwd.cu's: q
-// (B,Sq,H,D), k, v (B,Skv,KVH,D), D in {64, 112, 128, 192, 256}, GQA with
+// (B,Sq,H,D), k, v (B,Skv,KVH,D), D in {64, 96, 112, 128, 192, 256}, GQA with
 // query head h on KV head h / (H / KVH); padding, causal, window and
 // q_offset masks;
 // NEG_INF = -1e30 with the same live/alpha rules; out (B,Sq,H,D) bf16 and
@@ -29,7 +29,10 @@
 // causal) moves ~100.9 MB (30.1 us) and does ~12.9 GFLOP (13.1 us): bound
 // by bytes. At D 112 the zamba2-7b prefill of its shared attention block
 // (B 8, S 512, H = KVH 32, causal) moves ~118.0 MB (35.2 us) and does ~15.1
-// GFLOP (15.2 us): bound by bytes. The design
+// GFLOP (15.2 us): bound by bytes. At D 96 the minicpm3-4b MLA prefill (B
+// 8, S 512, H = KVH 40, qk 64 + 32, v padded to 96, causal) moves ~125.8 MB
+// (37.6 us) and does ~16.1 GFLOP of real products (21.5 on D 128's tiles,
+// 21.7 us): bound by bytes. The design
 // reads each K/V byte once per (KV head, query tile) and keeps S, P and O
 // out of device memory.
 //
@@ -75,12 +78,12 @@
 //    m + log(l), or 0 where l = 0 (also in a CTA with no visible tile).
 //  * The query tiles with the most KV tiles launch first (the slowest grid
 //    axis, reversed), so causal imbalance does not leave a short last wave.
-//  * D 112 (zamba2-7b) runs on D 128's tiles: its maps' innermost extent is
-//    the real 112, so TMA zero-fills columns 112-127 of Q, K and V. The zero
-//    columns of Q and K leave S as it is and those of V give zero O columns;
-//    the epilogue stores 14 of a row's 16 chunks, at the real D's strides.
-//    The tensor cores do 8/7 of the products, which the bytes bound leaves
-//    room for.
+//  * D 112 (zamba2-7b) and D 96 (minicpm3-4b) run on D 128's tiles: their
+//    maps' innermost extent is the real D, so TMA zero-fills columns D-127
+//    of Q, K and V. The zero columns of Q and K leave S as it is and those
+//    of V give zero O columns; the epilogue stores 14 (12) of a row's 16
+//    chunks, at the real D's strides. The tensor cores do 8/7 (4/3) of the
+//    products, which the bytes bound leaves room for.
 //  * __launch_bounds__(threads, 2): two CTAs an SM (four warpgroups) hide
 //    each other's latency; at D 128 that caps the kernel at 128 registers
 //    (127 used, no spills; 160 without the bound, and slower). At D 256 the
@@ -374,6 +377,11 @@ cudaError_t fa_fwd_sm90(const void* q, const void* k, const void* v, void* o,
     return pair ? launch<64, 2>(tq, tk, tv, o, lse, B, Sq, Skv, H, KVH, scale,
                                 causal, window, q_offset, stream)
                 : launch<64, 1>(tq, tk, tv, o, lse, B, Sq, Skv, H, KVH, scale,
+                                causal, window, q_offset, stream);
+  if (D == 96)
+    return pair ? launch<96, 2>(tq, tk, tv, o, lse, B, Sq, Skv, H, KVH, scale,
+                                causal, window, q_offset, stream)
+                : launch<96, 1>(tq, tk, tv, o, lse, B, Sq, Skv, H, KVH, scale,
                                 causal, window, q_offset, stream);
   if (D == 112)
     return pair ? launch<112, 2>(tq, tk, tv, o, lse, B, Sq, Skv, H, KVH,

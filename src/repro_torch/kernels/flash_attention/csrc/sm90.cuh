@@ -11,7 +11,7 @@
 // box; SBO 1024 bytes, 8 rows) and the MN-major B operand of a product over
 // its 64 rows (start +2 KB a k-step of 16 rows; LBO 8 KB, a box along N;
 // SBO 1024 bytes, 8 rows); N columns from column c0 (a multiple of 64)
-// start c0 / 64 boxes in. A head dim that is not a multiple of 64 (D 112)
+// start c0 / 64 boxes in. A head dim that is not a multiple of 64 (D 96, 112)
 // takes the tile of the next multiple (tile_cols: 128), as the TPU kernel
 // pads D to a multiple of 128: the tensor map's innermost extent is the
 // real D, so TMA fills the columns past it with zeros, which leave every
@@ -445,8 +445,8 @@ __device__ __forceinline__ void stage_acc(uint8_t* tile,
 // the first n_rows rows of a tile staged as stage_acc lays it out, to dst
 // (row i at dst + i * row_stride elements), 16 bytes a thread and
 // coalesced, by the n threads t = 0..n-1; the first DG columns of each of
-// the tile's D (DG 112 of a 128-column tile: 14 of 16 chunks, so a row
-// never spills into the next head's)
+// the tile's D (DG 112 or 96 of a 128-column tile: 14 or 12 of 16 chunks,
+// so a row never spills into the next head's)
 template <int D, int DG = D>
 __device__ __forceinline__ void store_tile(const uint8_t* tile,
                                            __nv_bfloat16* dst,
@@ -491,7 +491,7 @@ EncodeTiled encode_tiled() {
 
 // a contiguous bf16 (B, S, heads, D) tensor as a 4-D map over
 // (D, heads, S, B), in boxes of 64 columns x 64 rows of one head; rows
-// past S and columns past D (the last box of D 112) come in zero-filled,
+// past S and columns past D (the last box of D 96 or 112) come in zero-filled,
 // and batch edges stay edges. S = 0 is encoded as 1 (a tensor with no rows
 // has no tile that is ever loaded)
 bool encode(CUtensorMap* map, const void* base, int D, int heads, int S,

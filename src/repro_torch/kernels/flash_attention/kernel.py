@@ -16,12 +16,13 @@
 The two bf16 sources include ``csrc/sm90.cuh``, the Hopper helpers they
 share, which each library lists as a header of its build. Both
 directions take the head dims of ``FWD_HEAD_DIMS`` and ``BWD_HEAD_DIMS``:
-64 and 128 (internlm2, qwen2.5, granite-moe, the smoke configs), 112
+64 and 128 (internlm2, qwen2.5, granite-moe, whisper-base, the smoke
+configs), 96 (minicpm3-4b's MLA: qk 64 + 32, v padded to 96), 112
 (zamba2-7b's shared attention block), 192 (deepseek-v2-lite's MLA: qk 128
-+ 64, v padded to 192) and 256 (gemma3). D 112 runs on D 128's tiles, the
-columns past 112 zero-filled by TMA and never stored. D 192 and 256 have
-tilings of their own (one CTA an SM; dK/dV on warpgroups that split the
-columns, three at 192 and two at 256).
++ 64, v padded to 192) and 256 (gemma3). D 96 and 112 run on D 128's
+tiles, the columns past D zero-filled by TMA and never stored. D 192 and
+256 have tilings of their own (one CTA an SM; dK/dV on warpgroups that
+split the columns, three at 192 and two at 256).
 
 Each launches on PyTorch's current stream, checks device, dtype,
 contiguity and shapes, allocates its outputs with ``torch.empty``, raises if
@@ -46,8 +47,8 @@ SM90_SOURCE = SOURCE.with_name("flash_fwd_sm90.cu")
 BWD_SOURCE = SOURCE.with_name("flash_bwd.cu")
 BWD_SM90_SOURCE = SOURCE.with_name("flash_bwd_sm90.cu")
 HEADERS = (SOURCE.with_name("sm90.cuh"),)
-FWD_HEAD_DIMS = (64, 112, 128, 192, 256)
-BWD_HEAD_DIMS = (64, 112, 128, 192, 256)
+FWD_HEAD_DIMS = (64, 96, 112, 128, 192, 256)
+BWD_HEAD_DIMS = (64, 96, 112, 128, 192, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -20,7 +20,11 @@ granite-moe-3b-a800m --full``; ``--device cpu`` without ``--full`` serves
 their smoke configs on the plain versions. The hybrid family: ``--arch
 zamba2-7b --full`` (81 mamba layers on the SSD kernels, the one shared
 attention block before every 6 on the flash forward at head dim 112; 6.75
-B parameters, 27.0 GB in f32).
+B parameters, 27.0 GB in f32). minicpm3-4b: ``--arch minicpm3-4b --full``
+(MLA, the flash forward at head dim 96). The audio family: ``--arch
+whisper-base --full`` (encoder-decoder; stub frame embeddings (batch, 1500,
+512) made from the seed, as the reference makes them; decoder prompts up
+to its context of 448 tokens).
 
 Prefill and decode rates are reported separately (prompt tok/s vs generated
 tok/s), plus an overall rate that includes prefill. Runs on CUDA unless
@@ -68,19 +72,22 @@ def _decode_compiled(model, params, cache, tok, S, new_tokens):
 
 @torch.inference_mode()
 def generate(model: Model, params, prompts, new_tokens: int,
-             engine: str = "loop"):
+             extras=None, engine: str = "loop"):
     """Batched greedy generation. prompts: (B, S) integer tensor on the
-    params' device. Returns (tokens (B, new_tokens) long on the CPU,
+    params' device; ``extras``: keywords of the prefill (the audio
+    family's ``frames``). Returns (tokens (B, new_tokens) long on the CPU,
     stats)."""
     if engine not in ("loop", "compiled"):
         raise ValueError(f"unknown engine {engine!r}")
+    extras = extras or {}
     prompts = prompts.long()
     device = prompts.device
     B, S = prompts.shape
 
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, prompts, cache_len=S + new_tokens)
+    logits, cache = model.prefill(params, prompts, cache_len=S + new_tokens,
+                                  **extras)
     _sync(device)
     t_prefill = time.perf_counter() - t0
 
@@ -145,8 +152,13 @@ def main(argv=None):
     g = torch.Generator(device=dev).manual_seed(args.seed)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=g, device=dev)
+    extras = {}
+    if cfg.family == "audio":       # stub frame embeddings from the seed
+        extras["frames"] = torch.randn(
+            (args.batch, cfg.encoder_seq, cfg.d_model), generator=g,
+            device=dev).to(model.dtype)
     out, stats = generate(model, params, prompts, args.new_tokens,
-                          engine=args.engine)
+                          extras=extras, engine=args.engine)
     print(f"arch={cfg.name} engine={args.engine} batch={args.batch} "
           f"prompt={args.prompt_len} new={args.new_tokens} "
           f"device={stats['device']}")

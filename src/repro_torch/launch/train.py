@@ -4,8 +4,11 @@ Runs the three-phase SWAP schedule on an LM architecture of the dense,
 moe, ssm or hybrid family with GQA or MLA attention (the smoke config by
 default; ``--full`` for the full one) on the synthetic Markov-LM task (the
 CNN is refused, as by the reference: its runs are
-``repro_torch.experiments``; the families not ported yet are refused where
-``models/model.py`` builds the model):
+``repro_torch.experiments``; the audio family too, since this token data
+has no encoder frames, nor has the reference launcher's: its train step is
+``train.steps.make_lm_train_step`` on batches with ``frames``; the vlm
+family, not ported yet, is refused where ``models/model.py`` builds the
+model):
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \
       [--full] [--workers 4] [--phase1-steps 150] [--phase2-steps 60] \
@@ -38,6 +41,8 @@ keyword: at full width on one 80 GB card ``chip_smoke.py`` trains it at
 ZAMBA_TRAIN_LAYERS of its 81 layers (``--arch zamba2-7b --full`` with
 ``cfg=dataclasses.replace(registry.get_config('zamba2-7b'),
 n_layers=...)``); ``--arch zamba2-7b --device cpu`` runs its smoke config.
+minicpm3-4b (MLA at the flash head dim 96) likewise, at MINICPM_TRAIN_LAYERS
+= 37 of its 62 layers (``--arch minicpm3-4b --full`` with its config cut).
 
 Flags, defaults and the printed summary are the reference launcher's.
 Runs on CUDA unless ``--device cpu`` is given; with no card visible it
@@ -123,6 +128,13 @@ def build(args, cfg=None) -> SWAP:
     if cfg.family == "cnn":
         raise SystemExit("use python -m repro_torch.experiments."
                          "table1_cifar10 for the CNN")
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: the training launcher makes token data only, and "
+            f"the encoder-decoder model needs frames; the reference's "
+            f"launcher (repro/launch/train.py) builds none either. Train it "
+            f"with train.steps.make_lm_train_step on batches that carry "
+            f"'frames'")
 
     lr_small = args.peak_lr * args.phase2_batch / args.phase1_batch
     opt = OptimizerConfig(kind=args.optimizer,

@@ -1,11 +1,16 @@
-"""GQA attention (+bias, sliding window) and MLA: train, prefill and decode.
+"""GQA attention (+bias, sliding window, cross) and MLA: train, prefill and
+decode.
 
 Twin of the GQA and MLA parts of ``repro/models/attention.py``. Prefill
 attention goes through the flash-attention op (the hand-written kernel on
-CUDA; MLA's at qk's head dim, 192 for deepseek-v2-lite); single-token
-decode attends over the cache in plain PyTorch, as the reference does in
-plain jnp (MLA's absorbed decode in the latent space). Caches are plain
-dicts of tensors; MLA's is the latent ``{c_kv, k_rope}``, not per-head K/V.
+CUDA; MLA's at qk's head dim, 192 for deepseek-v2-lite and 96 for
+minicpm3-4b); single-token decode attends over the cache in plain PyTorch,
+as the reference does in plain jnp (MLA's absorbed decode in the latent
+space). Cross attention (whisper's decoder) takes k and v from the encoder
+output, with no rope and no mask, and caches them once at prefill; its
+decode computes q alone and attends over that static cache. Caches are
+plain dicts of tensors; MLA's is the latent ``{c_kv, k_rope}``, not
+per-head K/V.
 """
 from __future__ import annotations
 
@@ -23,7 +28,9 @@ from repro_torch.models.layers import (
 # ---------------------------------------------------------------------------
 
 
-def init_gqa(gen: torch.Generator, cfg: ModelConfig, lead=()):
+def init_gqa(gen: torch.Generator, cfg: ModelConfig, lead=(),
+             cross: bool = False):
+    """Self or (``cross``) cross attention: the same params either way."""
     d, H, KVH, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     p = {
         "wq": dense_init(gen, (d, H * Dh), lead=lead),
@@ -60,14 +67,19 @@ def _rope(cfg: ModelConfig, q, k, positions):
 
 
 def gqa_forward(params, x, cfg: ModelConfig, *, positions=None,
-                window: int = 0, causal: bool = True,
+                window: int = 0, causal: bool = True, cross_x=None,
                 return_cache: bool = False):
-    """Train/prefill path. x: (B,S,d). Returns out or (out, cache)."""
+    """Train/prefill path. x: (B,S,d). cross_x: the encoder output for
+    cross attention (k and v from it; no rope, no mask). Returns out or
+    (out, cache)."""
     dtype = x.dtype
-    q, k, v = _qkv(params, x, x, cfg, dtype)
-    q, k = _rope(cfg, q, k, positions)
-    out = flash_attention(q, k, v, causal=causal, window=window,
-                          chunk=cfg.attention_chunk, impl=cfg.attention_impl)
+    kv_src = cross_x if cross_x is not None else x
+    q, k, v = _qkv(params, x, kv_src, cfg, dtype)
+    if cross_x is None:
+        q, k = _rope(cfg, q, k, positions)
+    out = flash_attention(q, k, v, causal=causal and cross_x is None,
+                          window=window, chunk=cfg.attention_chunk,
+                          impl=cfg.attention_impl)
     B, S = x.shape[:2]
     out = mdot(out.reshape(B, S, -1), params["wo"], dtype)
     if not return_cache:
@@ -155,18 +167,30 @@ def _slot_positions(pos, cache_len: int, window: int):
     return torch.where(i <= pos, i, -1)
 
 
-def gqa_decode(params, x, cache, pos, cfg: ModelConfig, *, window: int = 0):
+def gqa_decode(params, x, cache, pos, cfg: ModelConfig, *, window: int = 0,
+               cross: bool = False, use_rope: bool = True):
     """One-token decode. x: (B,1,d); cache{k,v}: (B,L,KVH,Dh); pos: a Python
     int (one position for the batch) or a (B,) long tensor (per-request
-    positions, continuous batching). Returns (out, new_cache); the input
+    positions, continuous batching). ``cross``: the cache is the encoder's
+    static K/V, and only q is computed. Returns (out, new_cache); the input
     cache is left as it was."""
     dtype = x.dtype
     B = x.shape[0]
+    H, Dh = cfg.n_heads, cfg.head_dim
+    if cross:
+        q = mdot(x, params["wq"], dtype)
+        if cfg.qkv_bias:
+            q = q + params["bq"].to(dtype)
+        k, v = _cache_kv(cache, dtype)
+        out = _cache_attend(q.reshape(B, 1, H, Dh), k, v, kpos=None)
+        return mdot(out.reshape(B, 1, -1), params["wo"], dtype), cache
+
     q, k_new, v_new = _qkv(params, x, x, cfg, dtype)
     vec = isinstance(pos, torch.Tensor)
-    positions = (pos[:, None] if vec
-                 else torch.full((B, 1), pos, device=x.device))
-    q, k_new = _rope(cfg, q, k_new, positions)
+    if use_rope:
+        positions = (pos[:, None] if vec
+                     else torch.full((B, 1), pos, device=x.device))
+        q, k_new = _rope(cfg, q, k_new, positions)
 
     L = cache["k"].shape[1]
     slot = (torch.remainder(pos, L) if vec else pos % L) if window > 0 else pos
@@ -189,14 +213,16 @@ def gqa_decode(params, x, cache, pos, cfg: ModelConfig, *, window: int = 0):
 
 def _cache_attend(q, k, v, kpos):
     """Single-query attention over a cache. q: (B,1,H,Dh); k/v:
-    (B,L,KVH,Dh); kpos: (L,) or per-request (B,L) absolute positions."""
+    (B,L,KVH,Dh); kpos: (L,) or per-request (B,L) absolute positions, or
+    None (cross attention: every row is visible)."""
     B, _, H, Dh = q.shape
     KVH = k.shape[2]
     G = H // KVH
     qf = (q.float() * Dh ** -0.5).reshape(B, KVH, G, Dh)
     s = torch.einsum("bhgd,blhd->bhgl", qf, k.float())
-    kp = kpos if kpos.dim() == 2 else kpos[None, :]
-    s = torch.where(kp[:, None, None, :] >= 0, s, -1e30)
+    if kpos is not None:
+        kp = kpos if kpos.dim() == 2 else kpos[None, :]
+        s = torch.where(kp[:, None, None, :] >= 0, s, -1e30)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgl,blhd->bhgd", p, v.float())
     return o.reshape(B, 1, H * Dh).to(q.dtype)

@@ -1,6 +1,7 @@
 """Shared layer primitives: inits, norms, RoPE, MLP, embeds.
 
-Twin of ``repro/models/layers.py`` for the dense and ssm families. Params
+Twin of ``repro/models/layers.py`` for the dense, moe, ssm, hybrid and
+audio families (whisper's fixed sinusoidal positions). Params
 stay f32 and are cast to the compute dtype at each matmul (``mdot``).
 """
 from __future__ import annotations
@@ -121,6 +122,17 @@ def apply_rope(x, cos, sin):
     cos, sin = cos[:, :, None, :], sin[:, :, None, :]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
+
+
+def sinusoidal_embedding(positions, d_model: int):
+    """Whisper-style fixed sinusoidal embeddings, f32. positions: (S,) or
+    (B, S) integers; returns (..., d_model): sines then cosines."""
+    half = d_model // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device)
+        / max(half - 1, 1))
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

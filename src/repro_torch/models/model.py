@@ -1,6 +1,6 @@
 """Model assembly for the dense (internlm2, qwen2.5, gemma3, minicpm3), moe
-(granite-moe, qwen3-moe, deepseek-v2-lite), ssm (mamba2) and hybrid
-(zamba2) families, with GQA or MLA attention.
+(granite-moe, qwen3-moe, deepseek-v2-lite), ssm (mamba2), hybrid (zamba2)
+and audio (whisper) families, with GQA or MLA attention.
 
 Twin of ``repro/models/model.py``. Layers are grouped into *pattern units*
 exactly as in the reference (gemma3: unit = 5 local + 1 global layers), and
@@ -20,6 +20,17 @@ layers). Each application keeps its own KV cache, under ``"shared"`` in its
 unit's cache; in training it is recomputed with its unit under remat, and
 its gradient is the sum over its applications.
 
+The audio family (whisper): an encoder stack at ``params["encoder"]``
+(``blocks`` stacked on one leading axis, and a ``norm``) runs
+non-causal self attention over stub frame embeddings (B, encoder_seq,
+d_model) plus sinusoidal positions; every decoder layer adds, after its
+causal self attention, cross attention (``lnx``, ``xattn``) over the
+encoder output. The decoder has no rope: sinusoidal positions are added to
+its token embeddings. ``apply`` and ``prefill`` take the ``frames``; the
+prefill caches each layer's encoder K/V under ``"x"``, which decode reads
+and never changes. As in the reference, the encoder is not
+rematerialized.
+
 Training (``apply`` under autograd) rematerializes each pattern unit when
 ``cfg.remat`` is set, as the reference's ``jax.checkpoint`` does:
 ``torch.utils.checkpoint`` (non-reentrant); with ``remat_policy="dots"`` the
@@ -27,8 +38,8 @@ outputs of the weight matmuls (``aten.mm``/``aten.addmm``, which have no
 batch dims) are saved and everything else is recomputed, the twin of
 ``dots_with_no_batch_dims_saveable``. Remat changes memory, not numbers.
 
-Families, attention kinds and M-RoPE outside this slice are refused at
-construction.
+Families, attention kinds and M-RoPE outside this slice (the vlm family,
+qwen2-vl) are refused at construction.
 """
 from __future__ import annotations
 
@@ -42,6 +53,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn, mamba2, moe
 from repro_torch.models.layers import (
     apply_mlp, apply_norm, dense_init, embed_init, init_mlp, init_norm, mdot,
+    sinusoidal_embedding,
 )
 
 
@@ -50,6 +62,7 @@ class LayerKind:
     block: str = "attn"    # "attn" | "mamba"
     window: int = 0        # sliding window for attn (0 = full)
     use_moe: bool = False  # MoE FFN in place of the MLP
+    cross: bool = False    # adds cross attention (whisper's decoder)
 
 
 # the hybrid family's shared attention block: full attention with its MLP
@@ -101,7 +114,7 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name}: the cnn family is not a Model: it is the functional "
             f"repro_torch.models.cnn (init_cnn, apply_cnn), as in the "
             f"reference")
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "audio"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
             f"A11 other families)")
@@ -124,6 +137,7 @@ class Model:
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.dtype)
         self.unit_kinds, self.n_units, self.tail_kinds = self._plan(cfg)
+        self.use_rope = cfg.family != "audio"
 
     # ------------------------------------------------------------------
     # layer plan
@@ -135,6 +149,8 @@ class Model:
             unit = [LayerKind("mamba")]
         elif cfg.family == "hybrid":
             unit = [LayerKind("mamba")] * cfg.shared_attn_every
+        elif cfg.family == "audio":
+            unit = [LayerKind(cross=True)]
         elif cfg.local_global_pattern != (0, 0):
             loc, glob = cfg.local_global_pattern
             unit = ([LayerKind(window=cfg.sliding_window)] * loc
@@ -164,6 +180,9 @@ class Model:
              "ln2": init_norm(cfg.d_model, cfg.norm, gen.device, lead),
              "attn": (attn.init_mla(gen, cfg, lead) if cfg.attention == "mla"
                       else attn.init_gqa(gen, cfg, lead))}
+        if kind.cross and cfg.is_encoder_decoder:
+            p["lnx"] = init_norm(cfg.d_model, cfg.norm, gen.device, lead)
+            p["xattn"] = attn.init_gqa(gen, cfg, lead, cross=True)
         if kind.use_moe:
             p["moe"] = moe.init_moe(gen, cfg, lead)
         else:
@@ -188,6 +207,11 @@ class Model:
             params["tail"] = self._init_blocks(gen, (len(self.tail_kinds),))
         if cfg.family == "hybrid":
             params["shared"] = self._init_blocks(gen, (), SHARED)
+        if cfg.is_encoder_decoder:
+            params["encoder"] = {
+                "blocks": self._init_blocks(gen, (cfg.n_encoder_layers,),
+                                            LayerKind()),
+                "norm": init_norm(cfg.d_model, cfg.norm, gen.device)}
         return params
 
     # ------------------------------------------------------------------
@@ -201,9 +225,12 @@ class Model:
             return moe.moe_forward(p["moe"], x, self.cfg)
         return apply_mlp(p["mlp"], x, self.cfg.act, self.dtype), None
 
-    def _block_full(self, p, h, kind: LayerKind, positions, mode: str):
+    def _block_full(self, p, h, kind: LayerKind, positions, mode: str,
+                    enc_out=None):
         """Returns (h, cache, aux); cache is {} unless mode == "prefill",
-        aux is None unless the layer is MoE."""
+        aux is None unless the layer is MoE. mode "encode" is the audio
+        encoder's non-causal self attention; ``enc_out``: the encoder
+        output that a cross layer attends to."""
         cfg = self.cfg
         cache = {}
         x = apply_norm(p["ln1"], h, cfg.norm, cfg.norm_eps)
@@ -219,11 +246,21 @@ class Model:
             y = attn.mla_forward(p["attn"], x, cfg, positions=positions,
                                  return_cache=prefill)
         else:
-            y = attn.gqa_forward(p["attn"], x, cfg, positions=positions,
-                                 window=kind.window, return_cache=prefill)
+            y = attn.gqa_forward(
+                p["attn"], x, cfg,
+                positions=positions if self.use_rope else None,
+                window=kind.window, causal=mode != "encode",
+                return_cache=prefill)
         if prefill:
             y, cache["a"] = y
         h = h + y
+        if kind.cross and enc_out is not None:
+            x = apply_norm(p["lnx"], h, cfg.norm, cfg.norm_eps)
+            y = attn.gqa_forward(p["xattn"], x, cfg, cross_x=enc_out,
+                                 return_cache=prefill)
+            if prefill:
+                y, cache["x"] = y
+            h = h + y
         x = apply_norm(p["ln2"], h, cfg.norm, cfg.norm_eps)
         y, aux = self._ffn(p, x, kind)
         return h + y, cache, aux
@@ -238,10 +275,17 @@ class Model:
             y, ac = attn.mla_decode(p["attn"], x, cache["a"], pos, cfg)
         else:
             y, ac = attn.gqa_decode(p["attn"], x, cache["a"], pos, cfg,
-                                    window=kind.window)
+                                    window=kind.window,
+                                    use_rope=self.use_rope)
         h = h + y
+        new_cache = {"a": ac}
+        if kind.cross and "x" in cache:
+            x = apply_norm(p["lnx"], h, cfg.norm, cfg.norm_eps)
+            y, new_cache["x"] = attn.gqa_decode(p["xattn"], x, cache["x"],
+                                                pos, cfg, cross=True)
+            h = h + y
         x = apply_norm(p["ln2"], h, cfg.norm, cfg.norm_eps)
-        return h + self._ffn(p, x, kind)[0], {"a": ac}
+        return h + self._ffn(p, x, kind)[0], new_cache
 
     def _units(self, params):
         """Each pattern unit's params (leading axis unit_len)."""
@@ -273,13 +317,36 @@ class Model:
     # embedding / head
     # ------------------------------------------------------------------
 
-    def _embed(self, params, tokens):
+    def _embed(self, params, tokens, positions):
+        """Token embeddings; the audio decoder adds sinusoidal positions
+        (``positions``: (B, S))."""
         # a gather then a cast gives the values of the reference's cast
         # then gather, without casting the whole table
-        return params["embed"]["table"][tokens].to(self.dtype)
+        h = params["embed"]["table"][tokens].to(self.dtype)
+        if self.cfg.family == "audio":
+            h = h + sinusoidal_embedding(positions,
+                                         self.cfg.d_model).to(self.dtype)
+        return h
 
     def _default_positions(self, B, S, device):
         return torch.arange(S, device=device)[None, :].expand(B, S)
+
+    def _encode(self, params, frames):
+        """The audio encoder on stub frame embeddings (B, encoder_seq,
+        d_model): sinusoidal positions, the stacked blocks (non-causal
+        self attention), the final norm."""
+        cfg = self.cfg
+        if frames is None:
+            raise ValueError(f"{cfg.name}: the encoder-decoder model needs "
+                             f"frames (B, encoder_seq, d_model)")
+        h = frames.to(self.dtype)
+        h = h + sinusoidal_embedding(
+            torch.arange(h.shape[1], device=h.device),
+            cfg.d_model).to(self.dtype)
+        enc = params["encoder"]
+        for p in _tree_unbind(enc["blocks"], cfg.n_encoder_layers):
+            h = self._block_full(p, h, LayerKind(), None, "encode")[0]
+        return apply_norm(enc["norm"], h, cfg.norm, cfg.norm_eps)
 
     def _head(self, params, h):
         if self.cfg.tie_embeddings:
@@ -300,44 +367,53 @@ class Model:
             kw["context_fn"] = _save_dots_context
         return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
 
-    def apply(self, params, tokens):
+    def apply(self, params, tokens, frames=None):
         """Full-sequence forward. Returns (logits, aux_loss): the sum of the
-        MoE layers' router aux losses (0 without MoE layers)."""
+        MoE layers' router aux losses (0 without MoE layers). ``frames``:
+        the audio family's encoder input (B, encoder_seq, d_model)."""
         cfg = self.cfg
         B, S = tokens.shape
         positions = self._default_positions(B, S, tokens.device)
-        h = self._embed(params, tokens)
+        enc_out = (self._encode(params, frames) if cfg.is_encoder_decoder
+                   else None)
+        h = self._embed(params, tokens, positions)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
 
-        def layer(h, aux, p, kind):
-            h, _, a = self._block_full(p, h, kind, positions, "train")
+        def layer(h, aux, p, kind, enc_out):
+            h, _, a = self._block_full(p, h, kind, positions, "train",
+                                       enc_out)
             return h, aux if a is None else aux + a
 
-        def unit(h, aux, unit_p, shared_p):
+        def unit(h, aux, unit_p, shared_p, enc_out):
             if shared_p is not None:      # the hybrid's shared block
-                h, aux = layer(h, aux, shared_p, SHARED)
+                h, aux = layer(h, aux, shared_p, SHARED, enc_out)
             layers = _tree_unbind(unit_p, len(self.unit_kinds))
             for p, kind in zip(layers, self.unit_kinds):
-                h, aux = layer(h, aux, p, kind)
+                h, aux = layer(h, aux, p, kind, enc_out)
             return h, aux
 
         shared_p = params.get("shared")
         for unit_p in self._units(params):
-            h, aux = (self._remat(unit, h, aux, unit_p, shared_p)
-                      if cfg.remat else unit(h, aux, unit_p, shared_p))
+            args = (h, aux, unit_p, shared_p, enc_out)
+            h, aux = (self._remat(unit, *args) if cfg.remat
+                      else unit(*args))
         for kind, p in zip(self.tail_kinds, self._tail(params)):
-            h, aux = layer(h, aux, p, kind)
+            h, aux = layer(h, aux, p, kind, enc_out)
         h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
         return self._head(params, h), aux
 
-    def prefill(self, params, tokens, *, cache_len: Optional[int] = None):
+    def prefill(self, params, tokens, *, cache_len: Optional[int] = None,
+                frames=None):
         """Returns (last-token logits (B, vocab), cache) with caches padded
-        to ``cache_len`` (window layers: to min(cache_len, window))."""
+        to ``cache_len`` (window layers: to min(cache_len, window); a cross
+        layer's encoder K/V as they are). ``frames``: as for ``apply``."""
         cfg = self.cfg
         B, S = tokens.shape
         cache_len = cache_len or S
         positions = self._default_positions(B, S, tokens.device)
-        h = self._embed(params, tokens)
+        enc_out = (self._encode(params, frames) if cfg.is_encoder_decoder
+                   else None)
+        h = self._embed(params, tokens, positions)
 
         def pad_cache(c, kind: LayerKind):
             if kind.block == "mamba":
@@ -349,15 +425,16 @@ class Model:
                 tgt = (min(cache_len, kind.window) if kind.window > 0
                        else cache_len)
             if L < tgt:
-                c = {"a": {kk: torch.cat(
+                c = dict(c, a={kk: torch.cat(
                     [vv, vv.new_zeros((vv.shape[0], tgt - L) + vv.shape[2:])],
-                    dim=1) for kk, vv in c["a"].items()}}
+                    dim=1) for kk, vv in c["a"].items()})
             return c
 
         per_unit: List[Dict[str, Any]] = [{} for _ in range(self.n_units)]
         cache: Dict[str, Any] = {}
         for u, key, kind, p in self._layers(params):
-            h, c, _ = self._block_full(p, h, kind, positions, "prefill")
+            h, c, _ = self._block_full(p, h, kind, positions, "prefill",
+                                       enc_out)
             (cache if u is None else per_unit[u])[key] = pad_cache(c, kind)
         if "blocks" in params and self.n_units:
             cache["units"] = _tree_stack(per_unit)
@@ -371,7 +448,12 @@ class Model:
         positions (continuous batching). Returns (logits (B, vocab),
         new_cache); the input cache is left as it was."""
         cfg = self.cfg
-        h = self._embed(params, token)
+        positions = None
+        if cfg.family == "audio":       # sinusoidal positions of the token
+            positions = (pos[:, None] if isinstance(pos, torch.Tensor)
+                         else torch.full((token.shape[0], 1), pos,
+                                         device=token.device))
+        h = self._embed(params, token, positions)
         per_unit: List[Dict[str, Any]] = [{} for _ in range(self.n_units)]
         new_cache: Dict[str, Any] = {}
         for u, key, kind, p in self._layers(params):
@@ -402,8 +484,14 @@ class Model:
                 key = "a"
                 c = attn.gqa_empty_cache(cfg, batch, cache_len, kind.window,
                                          self.dtype, device)
+            out = {key: c}
+            if kind.cross and cfg.is_encoder_decoder:   # encoder K/V
+                z = torch.zeros((batch, cfg.encoder_seq, cfg.n_kv_heads,
+                                 cfg.head_dim), dtype=self.dtype,
+                                device=device)
+                out["x"] = {"k": z, "v": z.clone()}
             return {key: {k: v.expand(lead + v.shape).clone()
-                          for k, v in c.items()}}
+                          for k, v in c.items()} for key, c in out.items()}
 
         cache: Dict[str, Any] = {}
         if self.n_units:

@@ -44,6 +44,12 @@ def _insert(dst, src, slot: int, batch_dim: int) -> None:
 class ServingEngine:
     def __init__(self, model: Model, params, *, max_batch: int = 4,
                  max_seq: int = 256):
+        if model.cfg.is_encoder_decoder:
+            raise NotImplementedError(
+                f"{model.cfg.name}: the continuous engine takes no encoder "
+                f"frames (nor does the reference's, repro/serve/engine.py); "
+                f"serve the audio family with launch.serve.generate("
+                f"..., extras={{'frames': ...}})")
         self.model = model
         self.params = params
         self.max_batch = max_batch

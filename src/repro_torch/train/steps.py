@@ -30,8 +30,10 @@ def lm_loss_and_metrics(model: Model, params, batch: Dict):
     copy of a 256 x 64 x 92544 batch is 6 GB). Without a graph (eval) the
     shift and the exp run in place on one f32 copy: the same values, with
     two f32 copies fewer alive at once (gemma3-1b's eval batch of 256 x 64
-    x 262144 logits is 17.2 GB a copy)."""
-    logits, aux = model.apply(params, batch["tokens"])
+    x 262144 logits is 17.2 GB a copy). The audio family's encoder input
+    is ``batch["frames"]``."""
+    logits, aux = model.apply(params, batch["tokens"],
+                              frames=batch.get("frames"))
     labels = batch["labels"].long()
     acc = (torch.argmax(logits, dim=-1) == labels).float().mean()
     m = logits.detach().amax(dim=-1, keepdim=True).float()

@@ -34,7 +34,8 @@ GRAD_TOL = 5e-4     # tests/test_kernels_flash_attention.py:73
 
 # (B, Sq, Skv, H, KVH, D): the JAX kernel tests' grid, then D = 64, 128,
 # 112 (zamba2-7b's shared block, one KV head a query head; the Pallas
-# kernel pads it to 128), 192 (deepseek-v2-lite's MLA: qk 128 + 64, one KV
+# kernel pads it to 128), 96 (minicpm3-4b's MLA: qk 64 + 32, one KV head a
+# query head; padded to 128 likewise), 192 (deepseek-v2-lite's MLA: qk 128 + 64, one KV
 # head a query head) and 256 (gemma3's, one KV head for four query heads)
 SHAPES = [
     (1, 16, 16, 4, 4, 16),      # MHA tiny
@@ -43,6 +44,7 @@ SHAPES = [
     (1, 33, 129, 4, 2, 24),     # cross-length, odd dims
     (1, 70, 70, 8, 2, 128),     # full-width head dim
     (1, 70, 70, 4, 4, 112),     # zamba2-7b's head dim
+    (1, 70, 70, 4, 4, 96),      # minicpm3-4b's MLA head dim
     (1, 70, 70, 4, 4, 192),     # deepseek-v2-lite's MLA head dim
     (1, 70, 70, 4, 1, 256),     # gemma3's head dim
 ]
@@ -99,6 +101,7 @@ def test_blockwise_and_oracle_match_jax(shape, dtype, causal, window):
                                    (1, 64, 64, 4, 1, 64),
                                    (1, 33, 129, 4, 2, 128),
                                    (1, 70, 70, 4, 4, 112),
+                                   (1, 70, 70, 4, 4, 96),
                                    (1, 70, 70, 4, 4, 192),
                                    (1, 70, 70, 4, 1, 256)])
 def test_bf16_fwd_matches_pallas_kernel(shape):
@@ -121,6 +124,7 @@ def test_bf16_fwd_matches_pallas_kernel(shape):
     ((1, 33, 129, 4, 1, 256), 96),       # the same at gemma3's head dim
     ((1, 33, 129, 4, 4, 192), 96),       # and at deepseek's MLA head dim
     ((1, 33, 129, 4, 2, 112), 96),       # and at zamba2's, G 2
+    ((1, 33, 129, 4, 4, 96), 96),        # and at minicpm3's MLA, G 1
 ])
 def test_q_offset_matches_pallas_kernel(shape, q_offset):
     (jq, jk, jv), (tq, tk, tv) = _inputs(shape, seed=3)
@@ -196,7 +200,7 @@ def test_wrapper_takes_both_dtypes_up_to_the_device_check(dtype):
     """f32 (the FMA route) and bf16 (the wgmma route) pass every check that
     needs no card, at every head dim of the forward, and stop only at the
     device."""
-    assert tkernel.FWD_HEAD_DIMS == (64, 112, 128, 192, 256)
+    assert tkernel.FWD_HEAD_DIMS == (64, 96, 112, 128, 192, 256)
     for D in tkernel.FWD_HEAD_DIMS:
         (_, _, _), (tq, tk, tv) = _inputs((1, 8, 8, 4, 2, D), dtype, seed=9)
         with pytest.raises(RuntimeError, match="needs CUDA tensors"):
@@ -216,9 +220,10 @@ def _head_dim(t, D):
     return t.repeat(1, 1, 1, -(-D // t.shape[-1]))[..., :D].contiguous()
 
 
-# D 112, 192 and 256 are head dims the forward takes (zamba2-7b's,
-# deepseek-v2-lite's MLA, gemma3's): they pass every check and stop only at
-# the device; D 96 is one it does not take yet
+# D 96, 112, 192 and 256 are head dims the forward takes (minicpm3-4b's
+# MLA, zamba2-7b's, deepseek-v2-lite's MLA, gemma3's): they pass every
+# check and stop only at the device; D 80 is one no family needs, which it
+# refuses
 REFUSED = {
     "head_dim_112": (lambda q, k, v: tuple(_head_dim(t, 112)
                                            for t in (q, k, v)),
@@ -231,7 +236,10 @@ REFUSED = {
                      RuntimeError, "needs CUDA tensors"),
     "head_dim_96": (lambda q, k, v: tuple(_head_dim(t, 96)
                                           for t in (q, k, v)),
-                    ValueError, "head dim 96"),
+                    RuntimeError, "needs CUDA tensors"),
+    "head_dim_80": (lambda q, k, v: tuple(_head_dim(t, 80)
+                                          for t in (q, k, v)),
+                    ValueError, "head dim 80"),
     "float16": (lambda q, k, v: (q.half(), k.half(), v.half()),
                 TypeError, "float32 or bfloat16"),
     "non_contiguous": (lambda q, k, v: (q.transpose(1, 2).contiguous()
@@ -296,6 +304,9 @@ CARD_EDGE_CASES = [
     ((1, 33, 129, 4, 2, 192), False, 0, 0),    # D 192, G 2, ragged Skv
     ((1, 150, 150, 4, 4, 112), True, 0, 0),    # D 112, G 1, ragged
     ((1, 33, 129, 4, 2, 112), True, 16, 96),   # D 112, G 2, window, q_offset
+    ((1, 70, 70, 4, 4, 96), True, 0, 0),       # D 96 (MLA), G 1, ragged
+    ((1, 33, 129, 4, 2, 96), True, 16, 96),    # D 96, G 2, window, q_offset
+    ((1, 64, 150, 4, 4, 64), False, 0, 0),     # cross attention, Sq != Skv
 ]
 
 
@@ -342,6 +353,9 @@ BWD_CASES = [
     ((1, 33, 129, 4, 4, 192), True, 0, 96),    # D 192, G 1, q_offset
     ((1, 70, 70, 4, 4, 112), True, 0, 0),      # D 112 (zamba2), G 1, ragged
     ((1, 33, 129, 4, 2, 112), True, 16, 96),   # D 112, G 2, window, q_offset
+    ((1, 70, 70, 4, 4, 96), True, 0, 0),       # D 96 (minicpm3), G 1, ragged
+    ((1, 33, 129, 4, 4, 96), True, 0, 96),     # D 96, G 1, q_offset
+    ((2, 33, 150, 4, 4, 64), False, 0, 0),     # whisper's cross, D 64
 ]
 
 
@@ -498,8 +512,9 @@ def test_bwd_kernel_on_cpu_raises_and_needs_nvcc(tmp_path, monkeypatch):
 # the bf16 backward's rounding contract, and its wrappers
 # ---------------------------------------------------------------------------
 
-# CARD_EDGE_CASES (D 192 among them: G 1 causal, G 2 ragged Skv; and D 112:
-# G 1 causal, G 2 with a window and q_offset), D 128 at
+# CARD_EDGE_CASES (D 192 among them: G 1 causal, G 2 ragged Skv; D 112
+# and 96: G 1 causal, G 2 with a window and q_offset; whisper's cross
+# attention at D 64, non-causal, Sq != Skv), D 128 at
 # G 2 and G 4 (the scale 128 ** -0.5 is not a power of 2, so q * scale in
 # bf16 moves S there; nor is 192 ** -0.5), and D 192 at G 1 with q_offset
 ROUNDED_BWD_CASES = CARD_EDGE_CASES + [
@@ -591,7 +606,7 @@ def test_bwd_wrappers_take_both_dtypes_up_to_the_device_check(fn, dtype):
     """f32 (the FMA route) and bf16 (the wgmma route) pass every check of
     the dQ and dK/dV wrappers that needs no card, at every head dim, and
     stop only at the device."""
-    assert tkernel.BWD_HEAD_DIMS == (64, 112, 128, 192, 256)
+    assert tkernel.BWD_HEAD_DIMS == (64, 96, 112, 128, 192, 256)
     for D in tkernel.BWD_HEAD_DIMS:
         args = _bwd_args((1, 8, 8, 4, 2, D), dtype, seed=40)
         with pytest.raises(RuntimeError, match="needs CUDA tensors"):
@@ -610,10 +625,14 @@ BWD_REFUSED = {
     "head_dim_112": (lambda q, k, v, do, l, d: (
         *(_head_dim(t, 112) for t in (q, k, v, do)), l, d),
         RuntimeError, "needs CUDA tensors"),
-    # minicpm3's MLA D 96 is not taken yet
+    # minicpm3's MLA D 96 is taken, on D 128's tiles
     "head_dim_96": (lambda q, k, v, do, l, d: (
         *(_head_dim(t, 96) for t in (q, k, v, do)), l, d),
-        ValueError, "head dim 96"),
+        RuntimeError, "needs CUDA tensors"),
+    # D 80 is one no family needs, which the backward refuses
+    "head_dim_80": (lambda q, k, v, do, l, d: (
+        *(_head_dim(t, 80) for t in (q, k, v, do)), l, d),
+        ValueError, "head dim 80"),
     "float16": (lambda q, k, v, do, l, d: (q.half(), k.half(), v.half(),
                                            do.half(), l, d),
                 TypeError, "float32 or bfloat16"),

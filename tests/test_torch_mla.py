@@ -3,8 +3,10 @@ mla_decode, mla_empty_cache) against the JAX package's, on the CPU.
 
 The same numpy params and inputs go through ``repro.models.attention`` and
 its twin: the smoke configs of deepseek-v2-lite (qk 32 + 16) and minicpm3-4b,
-and deepseek-v2-lite's smoke config at its full MLA head dims (qk 128 + 64 =
-192, the flash head dim the kernels take). Here the flash op is the plain
+deepseek-v2-lite's smoke config at its full MLA head dims (qk 128 + 64 =
+192, the flash head dim the kernels take), and minicpm3-4b's at its own
+(qk 64 + 32 = 96, v 64 padded to 96: the flash head dim of its full
+config). Here the flash op is the plain
 version in both packages. Outputs and latent caches are held at 1e-5 in f32
 and 3e-2 in bf16 (the flash tests' bounds), relative to the largest |value|.
 """
@@ -28,10 +30,13 @@ from repro_torch.models import attention as tattn  # noqa: E402
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 HEAD_192 = {"d_model": 256, "head_dim": 128, "mla.qk_nope_head_dim": 128,
             "mla.qk_rope_head_dim": 64, "mla.v_head_dim": 128}
+HEAD_96 = {"head_dim": 64, "mla.qk_nope_head_dim": 64,
+           "mla.qk_rope_head_dim": 32, "mla.v_head_dim": 64}
 CONFIGS = {
     "deepseek_smoke": ("deepseek-v2-lite", {}),
     "minicpm3_smoke": ("minicpm3-4b", {}),
     "deepseek_head_dim_192": ("deepseek-v2-lite", HEAD_192),
+    "minicpm3_head_dim_96": ("minicpm3-4b", HEAD_96),
 }
 
 

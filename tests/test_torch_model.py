@@ -320,10 +320,25 @@ def test_config_validates_impl_without_jax():
                     attention_impl="mosaic")
 
 
-@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "whisper-base"])
+@pytest.mark.parametrize("arch", ["qwen2-vl-72b"])
 def test_model_refuses_configs_outside_the_slice(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         TModel(treg.get_smoke_config(arch))
+
+
+def test_audio_family_left_the_refused_configs():
+    """whisper-base builds at its smoke and full configs: one cross layer
+    a pattern unit, no rope, the encoder's blocks stacked at
+    ``encoder/blocks`` (its twin against JAX: tests/test_torch_whisper.py)."""
+    for get in (treg.get_smoke_config, treg.get_config):
+        cfg = get("whisper-base")
+        model = TModel(cfg)
+        assert model.unit_kinds[0].cross and not model.use_rope
+        assert (model.n_units, model.tail_kinds) == (cfg.n_layers, [])
+    params = TModel(treg.get_smoke_config("whisper-base")).init(
+        torch.Generator().manual_seed(0))
+    assert set(params["encoder"]) == {"blocks", "norm"}
+    assert {"lnx", "xattn"} <= set(params["blocks"])
 
 
 def test_hybrid_smoke_model_and_training_launcher_build():

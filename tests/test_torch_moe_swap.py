@@ -1,9 +1,10 @@
 """SWAP training of the MoE family and MLA through the port's launcher,
 against the JAX package's, on the CPU.
 
-``repro_torch.launch.train.main`` runs deepseek-v2-lite (MoE + MLA) and
-granite-moe-3b-a800m (MoE + GQA) at their smoke configs through all three
-phases (W 2, elastic phase 3), its adapter initialized with JAX's params;
+``repro_torch.launch.train.main`` runs deepseek-v2-lite (MoE + MLA),
+granite-moe-3b-a800m (MoE + GQA) and minicpm3-4b (MLA, dense FFN) at their
+smoke configs through all three phases (W 2, elastic phase 3), its adapter
+initialized with JAX's params;
 the reference runs the SWAP that ``repro/launch/train.py`` builds from the
 same flags (the same Markov data, schedules and optimizer), from the same
 params. Tolerances as ``tests/test_torch_swap.py`` holds the dense model:
@@ -142,10 +143,10 @@ def _replayed_route(records, calls):
     return route
 
 
-@pytest.fixture(scope="module",
-                params=["deepseek-v2-lite", "granite-moe-3b-a800m"])
-def runs(request):
-    argv = ["--arch", request.param] + ARGV
+def _launcher_runs(arch):
+    """(the reference's results, the port's, the port's router calls) of
+    the two launchers' SWAP runs of ``arch`` from the same params."""
+    argv = ["--arch", arch] + ARGV
     args = tlaunch.build_parser().parse_args(argv)
     jad, jswap = _jax_launcher_swap(args)
     key = jax.random.PRNGKey(args.seed)
@@ -161,6 +162,18 @@ def runs(request):
         mp.setattr(tmoe, "route", _replayed_route(records, calls))
         tres = tlaunch.main(argv)
     return jres, tres, calls
+
+
+@pytest.fixture(scope="module",
+                params=["deepseek-v2-lite", "granite-moe-3b-a800m"])
+def runs(request):
+    return _launcher_runs(request.param)
+
+
+@pytest.fixture(scope="module")
+def dense_runs():
+    """minicpm3-4b: MLA with a dense FFN, so no router call to replay."""
+    return _launcher_runs("minicpm3-4b")
 
 
 def test_moe_swap_router_picks_the_reference_experts(runs):
@@ -193,7 +206,21 @@ def _close_trees(t_tree, j_tree):
 
 
 def test_moe_swap_counts_and_masks_match_jax(runs):
-    jres, tres, _ = runs
+    _check_counts(*runs)
+
+
+def test_mla_dense_swap_matches_jax(dense_runs):
+    """minicpm3-4b's smoke run through both launchers: no router call, and
+    the counts, the phase-1 log, the accuracies and every param as the MoE
+    runs are held."""
+    jres, tres, calls = dense_runs
+    assert calls == []
+    _check_counts(*dense_runs)
+    _check_phase1_log(*dense_runs)
+    _check_accuracies_and_params(*dense_runs)
+
+
+def _check_counts(jres, tres, _):
     for key in ("phase1_steps", "phase2_steps", "phase1_skipped_steps",
                 "phase2_live_workers", "worker_live_mask",
                 "phase2_worker_ids"):
@@ -202,7 +229,10 @@ def test_moe_swap_counts_and_masks_match_jax(runs):
 
 
 def test_moe_swap_phase1_log_matches_jax(runs):
-    jres, tres, _ = runs
+    _check_phase1_log(*runs)
+
+
+def _check_phase1_log(jres, tres, _):
     jl, tl = jres["phase1_log"], tres["phase1_log"]
     assert [e["step"] for e in tl] == [e["step"] for e in jl]
     for key in ("loss", "lr", "ema"):
@@ -215,7 +245,10 @@ def test_moe_swap_phase1_log_matches_jax(runs):
 
 
 def test_moe_swap_accuracies_and_averaged_params_match_jax(runs):
-    jres, tres, _ = runs
+    _check_accuracies_and_params(*runs)
+
+
+def _check_accuracies_and_params(jres, tres, _):
     hit = 1 / (256 * 16)           # one argmax hit in a test batch
     for key in ("phase1_test_acc", "before_avg_test_acc",
                 "after_avg_test_acc", "phase1_train_acc"):

@@ -3,7 +3,8 @@
 The port's twin of ``tests/test_arch_smoke.py::test_one_train_step`` for
 deepseek-v2-lite (MoE + MLA), granite-moe-3b-a800m and
 qwen3-moe-235b-a22b (MoE + GQA), each with and without capacity drops, and
-minicpm3-4b (MLA, dense FFN): the same JAX-initialized params and numpy
+minicpm3-4b (MLA, dense FFN; its smoke config and the same at its full
+MLA head dims, qk 64 + 32 = 96, v 64): the same JAX-initialized params and numpy
 tokens through ``repro.train.steps.make_lm_train_step`` (jitted) and
 ``repro_torch.train.steps.make_lm_train_step``. The metrics (loss, router
 aux loss) and every updated param are held at 1e-5 relative, the
@@ -45,6 +46,10 @@ NO_DROP = {"moe.capacity_factor": 4 / 2 * 1.1}
 DROPS = {"moe.capacity_factor": 0.5}
 CASES = {
     "minicpm3-4b": ("minicpm3-4b", {}),
+    # at minicpm3-4b's own MLA head dims: the flash op at D 96
+    "minicpm3-4b-d96": ("minicpm3-4b", {
+        "head_dim": 64, "mla.qk_nope_head_dim": 64,
+        "mla.qk_rope_head_dim": 32, "mla.v_head_dim": 64}),
     **{f"{arch}-{tag}": (arch, over)
        for arch in ("deepseek-v2-lite", "granite-moe-3b-a800m",
                     "qwen3-moe-235b-a22b")

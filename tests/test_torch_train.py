@@ -124,6 +124,10 @@ LOSS_CASES = {
     "qwen2.5-14b": ("qwen2.5-14b", {}),
     "mamba2-2.7b": ("mamba2-2.7b", {}),
     "minicpm3-4b": ("minicpm3-4b", {}),
+    # at minicpm3-4b's own MLA head dims: the flash op at D 96
+    "minicpm3-4b-d96": ("minicpm3-4b", {
+        "head_dim": 64, "mla.qk_nope_head_dim": 64,
+        "mla.qk_rope_head_dim": 32, "mla.v_head_dim": 64}),
     **{f"{arch}-{tag}": (arch, over)
        for arch in ("deepseek-v2-lite", "granite-moe-3b-a800m",
                     "qwen3-moe-235b-a22b")
