@@ -19,10 +19,10 @@ at chip_smoke's bounds (a count of failing cases); and device times of the
 dQ and dK/dV kernels at the phase-1 and phase-2 training shapes of
 internlm2-1.8b (D 128) and of deepseek-v2-lite (MLA, D 192), taken in
 turns (main, variants, variants reversed, main), beside the library's
-fused backward timed alone in the same call; and the plain-PyTorch forms
-of delta = rowsum(dO * O) that ``kernel.flash_bwd`` could take, timed in
-turns, with their largest difference. Needs a card; compare variants only
-within one run.
+fused backward timed alone in the same call; and each build's delta
+kernel (``fa_bwd_delta``, which ``kernel.flash_bwd`` runs) beside the
+plain-PyTorch forms of delta = rowsum(dO * O), timed in turns, with their
+largest difference. Needs a card; compare variants only within one run.
 """
 from __future__ import annotations
 
@@ -60,6 +60,8 @@ def _load(built):
     lib.fa_bwd_dq.argtypes = [ptr] * 7 + common
     lib.fa_bwd_dkv.argtypes = [ptr] * 8 + common
     lib.fa_bwd_dq.restype = lib.fa_bwd_dkv.restype = i32
+    lib.fa_bwd_delta.argtypes = [ptr] * 3 + [ctypes.c_int64, i32, i32, ptr]
+    lib.fa_bwd_delta.restype = i32
     return lib
 
 
@@ -90,13 +92,25 @@ def _runners(lib, q, k, v, do, lse, delta, causal=True, window=0,
     return run_dq, run_dkv
 
 
-def _delta_forms(do, out):
-    """Plain-PyTorch forms of delta = rowsum(dO * O) in f32: each product
-    of two bf16 values is exact in f32, so they differ by summation order
-    only."""
+def _delta_forms(do, out, libs):
+    """delta = rowsum(dO * O) in f32: each build's kernel, then plain-PyTorch
+    forms. Each product of two bf16 values is exact in f32, so they differ
+    by summation order only."""
     import torch
     B, Sq, H, D = do.shape
+    delta = torch.empty((B, Sq, H), dtype=torch.float32, device=do.device)
+
+    def kernel_form(lib):
+        def run():
+            err = lib.fa_bwd_delta(do.data_ptr(), out.data_ptr(),
+                                   delta.data_ptr(), delta.numel(), D, 1,
+                                   torch.cuda.current_stream().cuda_stream)
+            if err:
+                smoke.fail(f"delta launch failed ({err})")
+            return delta
+        return run
     return {
+        **{f"kernel_{n}": kernel_form(lib) for n, lib in libs.items()},
         "two_casts": lambda: (do.float() * out.float()).sum(-1),
         "one_cast": lambda: (do.float() * out).sum(-1),
         "bmm_f32_out": lambda: torch.bmm(
@@ -170,7 +184,7 @@ def main(argv) -> None:
             print(f"[time] {label} {shape} {which} ms: " + ", ".join(
                 f"{n} {sum(t) / len(t):.4f} ({' '.join(f'{x:.4f}' for x in t)})"
                 for n, t in times.items()), flush=True)
-        forms = _delta_forms(do, out)
+        forms = _delta_forms(do, out, libs)
         ref = forms["two_casts"]()
         times = {n: [] for n in forms}
         for n in list(forms) + list(forms)[::-1]:

@@ -1,28 +1,70 @@
 #!/usr/bin/env python3
 """Compare sources of the bf16 flash-attention forward kernel on one card.
 
-    python3 ab_flash_fwd.py [VARIANT.cu ...]
+    python3 ab_flash_fwd.py [--routes] [VARIANT.cu ...]
 
 Builds the ``flash_fwd`` library once with the repository's bf16 kernel
 (``csrc/flash_fwd_sm90.cu``, named "main") and once with each VARIANT.cu in
 its place (named by its stem), all nvcc runs started together, and prints
-each build's ``-Xptxas -v`` lines. Then, for each build: the bf16 cases of
+each build's ``-Xptxas -v`` lines. ``--routes`` adds variants made from the
+main source by setting its constants (written under ``build/``): the
+two-tile CTA at odd G also at D 64 (``row_pair_d64``: kRowPairMinCols 64);
+a ring of two stages also when Skv <= 64 (``ring2``: kShortRing 2); and a
+K/V ring of three stages (``stages3``). Then, for each build: the bf16
+cases of
 ``chip_smoke.py``'s forward grid against the plain version at its bounds
-(a count of failing cases); warm times at the prefill and the phase-1
-training shape, taken in turns (main, variants, variants reversed, main)
-beside SDPA's in the same call; times with L2 flushed; and the host cost of
-one call of the C entry for bf16 against f32. Needs a card; compare
-variants only within one run.
+(a count of failing cases, and of those the build refuses to launch);
+warm times at the main paths' shapes
+(internlm2's prefill and phase 1, G 2; minicpm3's, zamba2's and
+deepseek's prefill and phase 1, G 1; whisper's encoder and cross
+attention, G 1, non-causal; granite's prefill and phase 1, G 3), taken in
+turns (main, variants, variants reversed, main) beside SDPA's in the same
+call; times with L2 flushed; and the host cost of one call of the C entry
+for bf16 against f32. Needs a card; compare variants only within one run.
 """
 from __future__ import annotations
 
 import ctypes
+import re
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import chip_smoke as smoke
+
+# name: {constant: value} set in the main source
+ROUTES = {"row_pair_d64": {"kRowPairMinCols": 64},
+          "ring2": {"kShortRing": 2},
+          "stages3": {"kStages": 3}}
+# (label, shape, causal): the shapes the main paths give the forward
+SHAPES = (
+    ("internlm2 prefill", smoke.PREFILL_SHAPE, True),
+    ("internlm2 phase-1", smoke.TRAIN_SHAPE, True),
+    ("minicpm3 prefill", smoke.MINICPM_PREFILL_SHAPE, True),
+    ("minicpm3 phase-1", smoke.MINICPM_TRAIN_SHAPE, True),
+    ("zamba2 prefill", smoke.ZAMBA_PREFILL_SHAPE, True),
+    ("zamba2 phase-1", smoke.ZAMBA_TRAIN_SHAPE, True),
+    ("deepseek prefill", smoke.DEEPSEEK_PREFILL_SHAPE, True),
+    ("deepseek phase-1", smoke.DEEPSEEK_TRAIN_SHAPE, True),
+    ("whisper encoder", smoke.WHISPER_ENCODER_SHAPE, False),
+    ("whisper cross", smoke.WHISPER_CROSS_SHAPE, False),
+    ("granite prefill", smoke.GRANITE_PREFILL_SHAPE, True),
+    ("granite phase-1", smoke.GRANITE_TRAIN_SHAPE, True),
+)
+
+
+def _route_variant(name, main_src: Path) -> Path:
+    text = main_src.read_text()
+    for const, value in ROUTES[name].items():
+        text, n = re.subn(rf"constexpr int {const} = \d+;",
+                          f"constexpr int {const} = {value};", text)
+        if n != 1:
+            smoke.fail(f"{main_src.name} has no single {const} constant")
+    out = smoke.ROOT / "build" / "ab_flash_fwd" / f"{name}.cu"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(text)
+    return out
 
 
 def _load(built):
@@ -48,8 +90,8 @@ def _runner(lib, q, k, v, causal=True, window=0, q_offset=0):
 
     def run():
         err = lib.fa_fwd(*args)
-        if err:
-            smoke.fail(f"launch failed ({err})")
+        if err:   # a variant may refuse a shape (too much shared memory)
+            raise RuntimeError(f"launch failed ({err})")
         return out, lse
     return run
 
@@ -60,6 +102,10 @@ def main(argv) -> None:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel, ops
     sources = {"main": kernel.SM90_SOURCE}
+    if "--routes" in argv:
+        argv = [a for a in argv if a != "--routes"]
+        for name in ROUTES:
+            sources[name] = _route_variant(name, kernel.SM90_SOURCE)
     sources.update({Path(p).stem: Path(p).resolve() for p in argv})
     with ThreadPoolExecutor(len(sources)) as pool:
         jobs = {n: pool.submit(_build.build_library, f"flash_fwd_ab_{n}",
@@ -68,34 +114,45 @@ def main(argv) -> None:
         built = {n: job.result() for n, job in jobs.items()}
     libs = {}
     for n, b in built.items():
+        fn = ""
         for line in b.log.splitlines():
-            if "registers" in line or "spill" in line or "C7518" in line:
+            entry = re.search(r"(fa_fwd_sm90_kernelILi\d+ELi\d+E)", line)
+            if "Compiling entry function" in line:
+                fn = entry.group(1) if entry else ""
+            elif fn and ("registers" in line or "spill" in line):
+                print(f"[{n}] {fn}: {line.strip()}")
+            elif "C7518" in line:
                 print(f"[{n}] {line.strip()}")
         libs[n] = _load(b)
 
-    for n, lib in libs.items():
-        bad = 0
-        for i, (shape, dtype, causal, window, q_offset) in enumerate(
-                smoke._grid()):
-            if dtype != "bfloat16":
+    bad, refused = {n: 0 for n in libs}, {n: 0 for n in libs}
+    cases = [c for c in smoke._grid() if c[1] == "bfloat16"]
+    for i, (shape, dtype, causal, window, q_offset) in enumerate(cases):
+        q, k, v = smoke._qkv(shape, torch.bfloat16, seed=i)
+        ref, ref_lse = ops._blockwise_fwd(
+            q, k, v, causal=causal, window=window, scale=None,
+            q_offset=q_offset, chunk=512)
+        bound = smoke.TOL[dtype] * (1 + ref.float().abs())
+        for n, lib in libs.items():
+            try:
+                out, lse = _runner(lib, q, k, v, causal, window, q_offset)()
+            except RuntimeError:
+                refused[n] += 1
                 continue
-            q, k, v = smoke._qkv(shape, torch.bfloat16, seed=i)
-            out, lse = _runner(lib, q, k, v, causal, window, q_offset)()
-            ref, ref_lse = ops._blockwise_fwd(
-                q, k, v, causal=causal, window=window, scale=None,
-                q_offset=q_offset, chunk=512)
-            bound = smoke.TOL[dtype] * (1 + ref.float().abs())
             ok = bool(((out.float() - ref.float()).abs() <= bound).all())
             ok &= bool(((lse - ref_lse).abs()
                         <= smoke.LSE_TOL * (1 + ref_lse.abs())).all())
-            bad += not ok
-        print(f"[{n}] bf16 grid cases outside the bounds: {bad}", flush=True)
+            bad[n] += not ok
+    for n in libs:
+        print(f"[{n}] bf16 grid cases outside the bounds: {bad[n]} of "
+              f"{len(cases)}; refused (launch failed): {refused[n]}",
+              flush=True)
 
     order = list(libs) + list(libs)[::-1]
-    for shape in (smoke.PREFILL_SHAPE, smoke.TRAIN_SHAPE):
+    for label, shape, causal in SHAPES:
         B, Sq, Skv, H, KVH, D = shape
         q, k, v = smoke._qkv(shape, torch.bfloat16, seed=7)
-        runs = {n: _runner(lib, q, k, v) for n, lib in libs.items()}
+        runs = {n: _runner(lib, q, k, v, causal) for n, lib in libs.items()}
         warm = {n: [] for n in libs}
         for n in order:
             warm[n].append(smoke._device_ms(runs[n], 100))
@@ -103,12 +160,14 @@ def main(argv) -> None:
         kt = k.repeat_interleave(H // KVH, dim=2).transpose(1, 2).contiguous()
         vt = v.repeat_interleave(H // KVH, dim=2).transpose(1, 2).contiguous()
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True)
-        print(f"[time] {shape} warm ms: " + ", ".join(
-            f"{n} {sum(t) / len(t):.4f} ({' '.join(f'{x:.4f}' for x in t)})"
-            for n, t in warm.items())
-            + f"; SDPA {smoke._device_ms(sdpa, 100):.4f}")
-        print(f"[time] {shape} L2 flushed ms: " + ", ".join(
+            qt, kt, vt, is_causal=causal)
+        print(f"[time] {label} {shape} {'causal' if causal else 'non-causal'}"
+              f" warm ms: " + ", ".join(
+                  f"{n} {sum(t) / len(t):.4f} "
+                  f"({' '.join(f'{x:.4f}' for x in t)})"
+                  for n, t in warm.items())
+              + f"; SDPA {smoke._device_ms(sdpa, 100):.4f}")
+        print(f"[time] {label} L2 flushed ms: " + ", ".join(
             f"{n} {smoke._device_ms(runs[n], 30, flush=True):.4f}"
             for n in libs)
             + f"; SDPA {smoke._device_ms(sdpa, 30, flush=True):.4f}",

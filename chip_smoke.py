@@ -10,9 +10,10 @@ Phases, each printing its own lines; any failed check exits non-zero:
    one nvcc per source, all started together;
 3. kernels vs plain: hold each kernel against its plain PyTorch version on
    the card over a grid of shapes, dtypes, head dims (64, 96, 112, 128,
-   192, 256) and masks (the flash forward,
-   the flash backward's dQ and dK/dV kernels, in bf16 also against the
-   plain version at their own rounding points, the streaming average,
+   192, 256) and masks (the flash forward, its odd-G route's two-tile
+   CTA at G 1 and 3 among them, the flash backward's dQ and dK/dV kernels,
+   in bf16 also against the plain version at their own rounding points,
+   and its delta kernel, row by row, the streaming average,
    bitwise, the SSD intra-chunk forward and backward, whose bf16 wgmma
    route is also held to the plain versions at its rounding points and to
    its own bits from a second launch), and time each at the shape the
@@ -20,8 +21,11 @@ Phases, each printing its own lines; any failed check exits non-zero:
    call where one computes the same function (the flash forward, whose
    bf16 route is the wgmma kernel, at both the prefill and the phase-1
    training shape, and at the prefill also with L2 flushed; the bf16 flash
-   backward, the whole call and its delta at the phase-1 and phase-2
-   training shapes, beside the library's backward alone; the same at
+   backward's dQ, dK/dV and delta kernels, the whole call and delta's
+   plain chain at the phase-1 and phase-2 training shapes, beside the
+   library's backward alone (and, for delta, a batched product); the
+   same at granite-moe's phase 1 (D 64, G 3) and whisper-base's encoder
+   at its train batch (non-causal over 1500 frames); the same at
    gemma3-1b's shapes, head dim 256: its prefill in a global and in a local
    layer (window 512), its phase-1 forward and backward; the forward at
    deepseek-v2-lite's MLA prefill and phase-1 shape, head dim 192, and
@@ -30,7 +34,8 @@ Phases, each printing its own lines; any failed check exits non-zero:
    zamba2-7b's shared block, head dim 112, G 1: its prefill and its two
    training phases; the same at minicpm3-4b's MLA, head dim 96, G 1; the
    forward at whisper-base's non-causal encoder (S 1500) and cross
-   attention (64 queries on 1500 frames), head dim 64;
+   attention (64 queries on 1500 frames), head dim 64, and its decoder's
+   causal self attention at the train batch;
    the bf16 SSD kernels at the serve prefill and phase 1 of mamba2-2.7b
    and of zamba2-7b, beside the f32 FMA kernels they replace);
 4. full-width serve (internlm2-1.8b, random weights from a seed): a main
@@ -141,7 +146,12 @@ Phases, each printing its own lines; any failed check exits non-zero:
    swa_avg launched in the resumed launcher runs.
 
 The line before the last is one JSON object with each kernel's numbers
-(the swa_avg row's ``cnn_launches``: its launches on the CNN path; the
+(the ``flash_attention_bwd_delta`` row: delta's kernel, which replaces no
+Pallas kernel but the plain jnp delta of the reference's backward; the
+backward rows' ``granite_train_shape`` and ``whisper_encoder_train_shape``:
+their times at D 64, G 3 and G 1, non-causal, the latter without the
+plain backward (``plain_ms`` null);
+the swa_avg row's ``cnn_launches``: its launches on the CNN path; the
 flash rows' ``table3_launches``: on Table 3; ``resume_launches``: in the
 two resumed launcher runs; ``gemma3_launches``: on gemma3's training path,
 and the forward's on its serving path; ``gemma3_*`` shapes: the times at
@@ -158,7 +168,8 @@ and swa_avg rows: on minicpm3-4b's training path and, for the forward,
 its serving path, and the flash rows' ``minicpm3_*`` shapes: the times at
 head dim 96; ``whisper_launches`` on the flash rows: on whisper-base's
 train steps and, for the forward, its serving path, and the forward's
-``whisper_encoder`` / ``whisper_cross``: its times there); the line before
+``whisper_encoder`` / ``whisper_cross`` /
+``whisper_decoder_train_shape``: its times there); the line before
 them gives the run's seconds; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -189,6 +200,11 @@ LSE_TOL = 1e-4
 # f32, P = exp(S - lse) is not that forward's softmax (its rows miss 1 by
 # up to ~3e-3 at D 128) and the gradient is another function's
 BWD_TOL = {"float32": 2e-4, "bfloat16": 1e-2}
+# delta's kernel against its plain version (kernel.bwd_delta), row by row,
+# relative to rowsum(|dO * O|): the same f32 products (exact for bf16
+# inputs) summed in another order, ~1e-7 of that sum at D 256; a wrong
+# chunk or lane moves a row by O(1)
+DELTA_TOL = 1e-6
 
 # bf16 kernels against the plain backward at their own rounding points
 # (ref.flash_attention_bwd_ref(..., rounded=True)), fed the same lse: the
@@ -338,6 +354,8 @@ WHISPER_DECODER_SHAPE = (8, WHISPER_PROMPT, WHISPER_PROMPT, 8, 8, 64)
 # peaked at 51.21 GB and B 64 at 26.38.
 WHISPER_TRAIN_BATCH = 128
 WHISPER_TRAIN_STEPS = 3
+# its encoder's attention at that batch (non-causal over 1500 frames)
+WHISPER_ENCODER_TRAIN_SHAPE = (WHISPER_TRAIN_BATCH,) + WHISPER_ENCODER_SHAPE[1:]
 # the CNN's f32 forward (against the CPU's), its whole-model grads on one
 # branch and its convolutions' backward (against f32 and f64), max |err| /
 # max |ref| per output: f32 sums in other orders (~1e-6 to ~3e-5); TF32
@@ -482,6 +500,22 @@ def _grid():
         # queries after a cached prefix (Sq != Skv, q_offset)
         cases += [((1, 700, 700, 4, 1, 256), dtype, True, GEMMA_WINDOW, 0),
                   ((1, 100, 700, 4, 1, 256), dtype, True, GEMMA_WINDOW, 600)]
+        # the bf16 route's odd-G CTA (two 64-row tiles of one head) at G 1
+        # and 3: odd tile counts (a lone last tile), a window splitting
+        # the two tiles' KV ranges at both ends, a chunk after a cached
+        # prefix, Sq <= 64 (one warpgroup), rows that see no key
+        for D in (64, 96, 112, 192):
+            for H, KVH in ((2, 2), (6, 2)):
+                for S in (65, 129, 191):
+                    for causal in (True, False):
+                        cases.append(((1, S, S, H, KVH, D), dtype, causal, 0,
+                                      0))
+                cases += [((1, 200, 200, H, KVH, D), dtype, True, 48, 0),
+                          ((1, 200, 200, H, KVH, D), dtype, True, 100, 0),
+                          ((1, 97, 129, H, KVH, D), dtype, True, 0, 96),
+                          ((1, 33, 129, H, KVH, D), dtype, True, 0, 96),
+                          ((2, 64, 64, H, KVH, D), dtype, True, 0, 0),
+                          ((1, 130, 130, H, KVH, D), dtype, True, 0, -8)]
     # the shapes the main paths give the kernel: generate's batched
     # prefill, the engine's batch-1 prefills, and the training steps of
     # phase 1 (batch 256) and phase 2 (batch 32 per worker); gemma3's
@@ -629,6 +663,10 @@ def phase_kernel():
                        causal=False)
     w_cross = _fwd_times(WHISPER_CROSS_SHAPE, "whisper cross", seed=1248,
                          causal=False)
+    # and its decoder's causal self attention at the train batch (D 64, G 1)
+    w_dec_shape = (WHISPER_TRAIN_BATCH,) + WHISPER_DECODER_SHAPE[1:]
+    w_dec = _fwd_times(w_dec_shape, "whisper decoder, train batch",
+                       seed=1249)
     sys.stdout.flush()
     return {
         "name": "flash_attention_fwd", "route": "cuda",
@@ -667,6 +705,7 @@ def phase_kernel():
             "max_abs_err": path_err[WHISPER_ENCODER_SHAPE, 0], **w_enc},
         "whisper_cross": {
             "max_abs_err": path_err[WHISPER_CROSS_SHAPE, 0], **w_cross},
+        "whisper_decoder_train_shape": w_dec,
     }
 
 
@@ -853,10 +892,22 @@ def phase_kernel_bwd():
     from repro_torch.kernels.flash_attention import kernel
     worst, worst_r, train_err = {}, {"ratio": 0.0, "l2": 0.0}, {}
     worst_d = {}
+    worst_delta = 0.0
     for i, (shape, dtype, causal, window, q_offset) in enumerate(_bwd_grid()):
         args, kw, want, want_r = _bwd_case(i)
         got = kernel.flash_bwd(*args, **kw)
+        # delta's kernel against its plain version, relative to each row's
+        # rowsum(|dO * O|): the two sum the same f32 products in other orders
+        _, _, _, out, _, do = args
+        delta = kernel.flash_bwd_delta(do, out)
         torch.cuda.synchronize()
+        d_err = ((delta - kernel.bwd_delta(do, out)).abs()
+                 / (do.float() * out.float()).abs().sum(-1).clamp_min(
+                     torch.finfo(torch.float32).tiny)).max().item()
+        check(d_err <= DELTA_TOL,
+              f"bwd case {i} {shape} {dtype}: delta's kernel {d_err:.3e} "
+              f"from the plain version (limit {DELTA_TOL})")
+        worst_delta = max(worst_delta, d_err)
         for name, g, w in zip(("dq", "dk", "dv"), got, want):
             check(g.dtype == w.dtype and g.shape == w.shape,
                   f"bwd case {i}: {name} shape/dtype")
@@ -883,6 +934,8 @@ def phase_kernel_bwd():
             train_err[shape] = {
                 n: (g.float() - w.float()).abs().max().item()
                 for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+            train_err[shape]["delta"] = (
+                delta - kernel.bwd_delta(do, out)).abs().max().item()
     print(f"[kernel-bwd] {len(_bwd_grid())} cases match the plain version's "
           f"f32 math; max |err|/(1+|ref|) f32 {worst['float32']:.3e} (limit "
           f"{BWD_TOL['float32']}), bf16 {worst['bfloat16']:.3e} (limit "
@@ -890,7 +943,9 @@ def phase_kernel_bwd():
           f"kernels' rounding points: worst {worst_r['ratio']:.3f} of the "
           f"bound (1 bf16 ulp + {BWD_ROUNDED_ABS:.2e} max|ref|), relative L2 "
           f"{worst_r['l2']:.3e} (limit {BWD_ROUNDED_L2}); worst by head dim "
-          + ", ".join(f"D {d} {e:.3e}" for d, e in sorted(worst_d.items())))
+          + ", ".join(f"D {d} {e:.3e}" for d, e in sorted(worst_d.items()))
+          + f"; delta's kernel within {worst_delta:.3e} of rowsum(|dO * O|) "
+          f"of the plain version (limit {DELTA_TOL})")
 
     # times at the phase-1 training shape (the JSON rows) and phase 2's;
     # gemma3's phase 1 at the batch its run takes; deepseek-v2-lite's
@@ -909,15 +964,26 @@ def phase_kernel_bwd():
     m_shape2 = (32,) + MINICPM_TRAIN_SHAPE[1:]
     m_phase1 = _bwd_times(MINICPM_TRAIN_SHAPE, "minicpm3 phase-1, MLA")
     m_phase2 = _bwd_times(m_shape2, "minicpm3 phase-2, MLA")
+    # granite-moe's phase 1 (D 64, G 3) and whisper-base's encoder at its
+    # train batch (D 64, G 1, non-causal over 1500 frames)
+    gr_phase1 = _bwd_times(GRANITE_TRAIN_SHAPE, "granite phase-1")
+    w_phase1 = _bwd_times(WHISPER_ENCODER_TRAIN_SHAPE, "whisper encoder",
+                          causal=False, plain=False)
 
     def errs(shape, name):
         e = train_err[shape]
+        if name.endswith("delta"):
+            return e["delta"]
         return e["dq"] if name.endswith("dq") else max(e["dk"], e["dv"])
 
     return [{"name": name, "route": "cuda",
              "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                       "flash_bwd_sm90.cu",
+                       + ("flash_bwd.cu" if name.endswith("delta")
+                          else "flash_bwd_sm90.cu"),
              "replaces": f"src/repro/kernels/flash_attention/kernel.py:{line}",
+             **({"replaces_note": "no Pallas kernel: the plain jnp delta "
+                                  "inside flash_attention_pallas_bwd"}
+                if name.endswith("delta") else {}),
              "launches": None, "max_abs_err": errs(TRAIN_SHAPE, name),
              **phase1[name], "phase2_shape": phase2[name],
              "gemma3_train_shape": {
@@ -937,34 +1003,46 @@ def phase_kernel_bwd():
                  "max_abs_err": errs(MINICPM_TRAIN_SHAPE, name),
                  **m_phase1[name]},
              "minicpm3_phase2_shape": {
-                 "max_abs_err": errs(m_shape2, name), **m_phase2[name]}}
+                 "max_abs_err": errs(m_shape2, name), **m_phase2[name]},
+             "granite_train_shape": gr_phase1[name],
+             "whisper_encoder_train_shape": w_phase1[name]}
             for name, line in (("flash_attention_bwd_dq", 202),
-                               ("flash_attention_bwd_dkv", 232))]
+                               ("flash_attention_bwd_dkv", 232),
+                               ("flash_attention_bwd_delta", 288))]
 
 
-def _bwd_times(shape, label):
-    """Device times of the bf16 dQ and dK/dV kernels, of the whole
-    ``kernel.flash_bwd`` call (delta included) and of delta alone
-    (``kernel.bwd_delta``, plain PyTorch), each behind the sleep kernel,
-    beside their bounds, the plain backward and the library's fused
-    attention backward timed alone (one forward with its graph kept, then
-    the backward again and again)."""
+def _bwd_times(shape, label, causal=True, plain=True):
+    """Device times of the bf16 dQ, dK/dV and delta kernels, of the whole
+    ``kernel.flash_bwd`` call (delta, dQ, dK/dV) and of delta's plain
+    version (``kernel.bwd_delta``), each behind the sleep kernel, beside
+    their bounds, the plain backward (left out with ``plain=False``: at
+    whisper's encoder train shape its (B, H, S, S) f32 tensors take tens of
+    GB), the library's fused attention backward timed alone (one forward
+    with its graph kept, then the backward again and again) and, for
+    delta, one library call that computes it (a batched product with f32
+    output)."""
     import torch
     from repro_torch.kernels.flash_attention import kernel, ref
     B, Sq, Skv, H, KVH, D = shape
     q, k, v = _qkv(shape, torch.bfloat16, seed=4321)
     do = _qkv(shape, torch.bfloat16, seed=4322)[0]
-    out, lse = kernel.flash_fwd(q, k, v, causal=True)
-    delta = kernel.bwd_delta(do, out)
+    out, lse = kernel.flash_fwd(q, k, v, causal=causal)
+    delta = kernel.flash_bwd_delta(do, out)
     dq_ms = _device_ms(lambda: kernel.flash_bwd_dq(q, k, v, do, lse, delta,
-                                                   causal=True), 50)
+                                                   causal=causal), 50)
     dkv_ms = _device_ms(lambda: kernel.flash_bwd_dkv(q, k, v, do, lse, delta,
-                                                     causal=True), 50)
+                                                     causal=causal), 50)
     bwd_ms = _device_ms(lambda: kernel.flash_bwd(q, k, v, out, lse, do,
-                                                 causal=True), 50)
-    delta_ms = _device_ms(lambda: kernel.bwd_delta(do, out), 50)
+                                                 causal=causal), 50)
+    delta_ms = _device_ms(lambda: kernel.flash_bwd_delta(do, out), 50)
+    delta_plain_ms = _device_ms(lambda: kernel.bwd_delta(do, out), 50)
+    # yardstick only, never called by the port: delta as one library call
+    rows = B * Sq * H
+    delta_lib_ms = _device_ms(lambda: torch.bmm(
+        do.view(rows, 1, D), out.view(rows, D, 1), out_dtype=torch.float32),
+        50)
     plain_ms = _cuda_ms(lambda: ref.flash_attention_bwd_ref(
-        q, k, v, out, lse, do, causal=True), 5)
+        q, k, v, out, lse, do, causal=causal), 5) if plain else None
     # yardstick only, never called by the port: the library's fused
     # attention backward alone, on K/V with their heads repeated beforehand
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -974,34 +1052,43 @@ def _bwd_times(shape, label):
     kt.requires_grad_()
     vt.requires_grad_()
     dot = do.transpose(1, 2).contiguous()
-    o = sdpa(qt, kt, vt, is_causal=True)
+    o = sdpa(qt, kt, vt, is_causal=causal)
     lib_ms = _device_ms(lambda: torch.autograd.grad(
         o, (qt, kt, vt), dot, retain_graph=True), 50)
     del o
-    pairs = _visible_pairs(Sq, Skv, True, 0, 0) * B * H
+    mask = "causal" if causal else "non-causal"
+    pairs = _visible_pairs(Sq, Skv, causal, 0, 0) * B * H
     elt = 2                                            # bf16
     read = (q.numel() * 2 + k.numel() + v.numel()) * elt \
         + 2 * B * Sq * H * 4                       # q, dO, k, v, lse, delta
     times = {}
-    for name, ms, written, flops in (
-            ("flash_attention_bwd_dq", dq_ms, q.numel() * elt, 6 * D * pairs),
-            ("flash_attention_bwd_dkv", dkv_ms, 2 * k.numel() * elt,
-             8 * D * pairs)):
-        nbytes = read + written
+    for name, ms, nbytes, flops, p_ms, l_ms in (
+            ("flash_attention_bwd_dq", dq_ms, read + q.numel() * elt,
+             6 * D * pairs, plain_ms, lib_ms),
+            ("flash_attention_bwd_dkv", dkv_ms, read + 2 * k.numel() * elt,
+             8 * D * pairs, plain_ms, lib_ms),
+            # delta: read dO and O, write delta
+            ("flash_attention_bwd_delta", delta_ms,
+             2 * do.numel() * elt + rows * 4, 2 * D * rows, delta_plain_ms,
+             delta_lib_ms)):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        which = ("plain" if name.endswith("delta")
+                 else "plain (dq, dk, dv together)")
+        lib = ("library bmm, f32 out" if name.endswith("delta") else
+               "library backward alone (dq, dk, dv together)")
         print(f"[kernel-bwd] {label} {name} at B{B} S{Sq} H{H} KVH{KVH} D{D} "
-              f"bf16 causal: kernel {ms:.4f} ms, bound "
+              f"bf16 {mask}: kernel {ms:.4f} ms, bound "
               f"{max(t_bytes, t_ops) * 1e3:.2f} us ({nbytes / 1e6:.1f} MB, "
-              f"{flops / 1e9:.2f} GFLOP), plain (dq, dk, dv together) "
-              f"{plain_ms:.4f} ms, library backward alone (dq, dk, dv "
-              f"together) {lib_ms:.4f} ms")
-        times[name] = {"shape": f"B{B} S{Sq} H{H} KVH{KVH} D{D} bf16 causal",
-                       "ms": ms, "plain_ms": plain_ms,
+              f"{flops / 1e9:.2f} GFLOP), {which} "
+              f"{'not timed' if p_ms is None else f'{p_ms:.4f} ms'}, {lib} "
+              f"{l_ms:.4f} ms")
+        times[name] = {"shape": f"B{B} S{Sq} H{H} KVH{KVH} D{D} bf16 {mask}",
+                       "ms": ms, "plain_ms": p_ms,
                        "bound_ms": max(t_bytes, t_ops),
                        "bound_by": ("bytes" if t_bytes >= t_ops
                                     else "operations"),
-                       "library_ms": lib_ms}
+                       "library_ms": l_ms}
     # the whole backward: read q, out, dO, k, v, lse; write dq, dk, dv
     nbytes = 4 * (q.numel() + k.numel()) * elt + B * Sq * H * 4
     t_whole = max(nbytes / HBM_BYTES_PER_S,
@@ -1009,11 +1096,11 @@ def _bwd_times(shape, label):
     print(f"[kernel-bwd] {label} kernel.flash_bwd (delta, dQ, dK/dV): "
           f"{bwd_ms:.4f} ms, bound {t_whole * 1e3:.2f} us ({nbytes / 1e6:.1f}"
           f" MB), library backward alone {lib_ms:.4f} ms "
-          f"({bwd_ms / lib_ms:.2f}x); delta's chain alone {delta_ms:.4f} ms",
-          flush=True)
+          f"({bwd_ms / lib_ms:.2f}x); delta's kernel {delta_ms:.4f} ms, its "
+          f"plain chain {delta_plain_ms:.4f} ms", flush=True)
     for t in times.values():
         t.update(flash_bwd_ms=bwd_ms, flash_bwd_bound_ms=t_whole,
-                 delta_ms=delta_ms)
+                 flash_bwd_library_ms=lib_ms)
     return times
 
 
@@ -1806,6 +1893,7 @@ def _launch_counts():
     return {"flash_attention_fwd": kernel.flash_fwd,
             "flash_attention_bwd_dq": kernel.flash_bwd_dq,
             "flash_attention_bwd_dkv": kernel.flash_bwd_dkv,
+            "flash_attention_bwd_delta": kernel.flash_bwd_delta,
             "swa_avg": swa_kernel.running_average,
             "ssd_fwd": ssd_kernel.ssd_fwd,
             "ssd_bwd": ssd_kernel.ssd_bwd}
@@ -1821,7 +1909,8 @@ def _reset_launches():
 
 
 DENSE_TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
-                       "flash_attention_bwd_dkv", "swa_avg")
+                       "flash_attention_bwd_dkv", "flash_attention_bwd_delta",
+                       "swa_avg")
 MAMBA_TRAIN_KERNELS = ("ssd_fwd", "ssd_bwd", "swa_avg")
 
 
@@ -2334,7 +2423,8 @@ def _whisper_flash_plan(cfg, steps):
     bwd = cfg.n_encoder_layers + dec
     return {"flash_attention_fwd": steps * fwd,
             "flash_attention_bwd_dq": steps * bwd,
-            "flash_attention_bwd_dkv": steps * bwd}
+            "flash_attention_bwd_dkv": steps * bwd,
+            "flash_attention_bwd_delta": steps * bwd}
 
 
 def phase_whisper_train(card: str, batch=WHISPER_TRAIN_BATCH,
@@ -2879,8 +2969,10 @@ def phase_cnn(card: str) -> int:
 # phase 15: the rest of the paper's experiments
 # ---------------------------------------------------------------------------
 
+# the forward, then the backward's kernels: each of dQ, dK/dV and delta
+# launches once a backward, so the launch checks hold delta's count to dQ's
 FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
-                 "flash_attention_bwd_dkv")
+                 "flash_attention_bwd_dkv", "flash_attention_bwd_delta")
 
 
 def _counted(tag, fn):
@@ -2934,6 +3026,10 @@ def phase_experiments(card: str) -> Dict[str, int]:
     _table_rows("Table 3", out)
     for name in FLASH_KERNELS:
         check(launches[name] > 0, f"{name} was not launched on Table 3")
+    check(launches["flash_attention_bwd_delta"]
+          == launches["flash_attention_bwd_dq"],
+          f"Table 3: delta launched {launches['flash_attention_bwd_delta']} "
+          f"times, dQ {launches['flash_attention_bwd_dq']}")
     table3 = {name: launches[name] for name in FLASH_KERNELS}
 
     f1, _, _ = _counted("Figure 1 (phase-2 curves, W 4)",
@@ -3192,6 +3288,11 @@ def phase_resume(card: str) -> Dict[str, int]:
             for name in FLASH_KERNELS + ("swa_avg",):
                 check(got[name] > 0, f"{name} was not launched in the "
                                      f"resumed launcher run ({cut})")
+            check(got["flash_attention_bwd_delta"]
+                  == got["flash_attention_bwd_dq"],
+                  f"delta and dQ launched {got['flash_attention_bwd_delta']} "
+                  f"and {got['flash_attention_bwd_dq']} times in the resumed "
+                  f"launcher run ({cut})")
             for name, n in got.items():
                 launches[name] = launches.get(name, 0) + n
     torch.cuda.empty_cache()

@@ -1,13 +1,14 @@
 // Flash-attention backward for NVIDIA Hopper (sm_90a), written by hand: the
-// f32 route, and the C entries fa_bwd_dq and fa_bwd_dkv of both routes.
+// f32 route, the C entries fa_bwd_dq and fa_bwd_dkv of both routes, and
+// fa_bwd_delta, the delta = rowsum(dO * O) both routes read (below).
 //
 // Replaces the Pallas TPU kernels
 //   repro/kernels/flash_attention/kernel.py::_fa_bwd_dq_kernel   (dQ)
 //   repro/kernels/flash_attention/kernel.py::_fa_bwd_dkv_kernel  (dK, dV)
 // and computes what they compute, for q, dO (B,Sq,H,D) and k, v
 // (B,Skv,KVH,D), D in {64, 96, 112, 128, 192, 256}, given the forward's lse
-// (B,Sq,H) f32 and delta = rowsum(dO * O) (B,Sq,H) f32 (taken outside, in
-// plain PyTorch, as the JAX package does):
+// (B,Sq,H) f32 and delta = rowsum(dO * O) (B,Sq,H) f32 (taken before them
+// by fa_bwd_delta, where the JAX package takes it in plain jnp):
 //   S  = (q * scale) . k^T, with q * scale formed in f32, masked to
 //        NEG_INF = -1e30 (padding, causal, window, as kernel.py::_mask),
 //        P = exp(S - lse) (0 where masked);
@@ -57,6 +58,7 @@
 // padded by 4 floats a row so that its float4 reads are free of bank
 // conflicts, the others are read as broadcasts.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -489,6 +491,106 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// delta = rowsum(dO * O): one f32 per row of D values of dO and O, for
+// the B * Sq * H rows of two contiguous (B, Sq, H, D) tensors.
+//
+// Replaces no Pallas kernel: the JAX package forms delta in plain jnp
+// outside its kernels, at repro/kernels/flash_attention/kernel.py:287-288
+// inside flash_attention_pallas_bwd, the function kernel.flash_bwd ports.
+// Formed in plain PyTorch ((dO.float() * O).sum(-1)) it wrote an f32
+// product tensor and read it back, about half of the whole backward's
+// time at the SWAP phase-1 shapes. What bounds it on an H100: the bytes of
+// dO and O, read once, and of delta, written once (internlm2-1.8b's phase
+// 1 in bf16, B 256, S 64, H 16, D 128: 134.2 MB, 40.1 us at 3.35 TB/s);
+// its 2 D flops a row are nothing beside them. Design: kDeltaLanes lanes
+// own a row; each issues all of its 16-byte loads of dO and O (in the
+// input dtype) before it sums, so a warp keeps 8 to 32 loads a lane in
+// flight, takes the products in f32 (exact for bf16 inputs) and sums them
+// in its own order; three shuffles join the lanes' sums. No atomics and a
+// fixed order: a launch repeats bitwise.
+constexpr int kDeltaLanes = 8;           // lanes a row
+constexpr int kDeltaThreads = 256;       // 32 rows a CTA
+
+__device__ __forceinline__ float dot_chunk(uint4 a, uint4 b, const float*) {
+  const float4 x = *reinterpret_cast<const float4*>(&a);
+  const float4 y = *reinterpret_cast<const float4*>(&b);
+  return dot4(x, y, 0.f);
+}
+
+__device__ __forceinline__ float dot_chunk(uint4 a, uint4 b,
+                                           const __nv_bfloat16*) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+  float acc = 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 fx = __bfloat1622float2(x[j]);
+    const float2 fy = __bfloat1622float2(y[j]);
+    acc = fmaf(fx.x, fy.x, acc);
+    acc = fmaf(fx.y, fy.y, acc);
+  }
+  return acc;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kDeltaThreads)
+fa_bwd_delta_kernel(const T* __restrict__ dout, const T* __restrict__ out,
+                    float* __restrict__ delta, int64_t rows) {
+  constexpr int kChunks = D * (int)sizeof(T) / 16;   // 16-byte chunks a row
+  constexpr int kPer = (kChunks + kDeltaLanes - 1) / kDeltaLanes;
+  static_assert(D * sizeof(T) % 16 == 0, "whole 16-byte chunks a row");
+  const int64_t row = (int64_t)blockIdx.x * (kDeltaThreads / kDeltaLanes) +
+                      threadIdx.x / kDeltaLanes;
+  const int part = threadIdx.x % kDeltaLanes;
+  float sum = 0.f;
+  if (row < rows) {
+    const uint4* a = reinterpret_cast<const uint4*>(dout + row * D);
+    const uint4* b = reinterpret_cast<const uint4*>(out + row * D);
+    uint4 va[kPer], vb[kPer];
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int c = part + j * kDeltaLanes;
+      if (c < kChunks) {
+        va[j] = __ldg(a + c);
+        vb[j] = __ldg(b + c);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kPer; ++j)
+      if (part + j * kDeltaLanes < kChunks)
+        sum += dot_chunk(va[j], vb[j], dout);
+  }
+#pragma unroll
+  for (int off = kDeltaLanes / 2; off > 0; off /= 2)
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (part == 0 && row < rows) delta[row] = sum;
+}
+
+template <typename T, int D>
+cudaError_t launch_delta(const void* dout, const void* out, void* delta,
+                         int64_t rows, cudaStream_t stream) {
+  constexpr int kRowsPerCta = kDeltaThreads / kDeltaLanes;
+  const int64_t grid = (rows + kRowsPerCta - 1) / kRowsPerCta;
+  fa_bwd_delta_kernel<T, D><<<(unsigned)grid, kDeltaThreads, 0, stream>>>(
+      static_cast<const T*>(dout), static_cast<const T*>(out),
+      static_cast<float*>(delta), rows);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_delta_d(const void* dout, const void* out, void* delta,
+                           int64_t rows, int D, cudaStream_t stream) {
+  switch (D) {
+    case 64: return launch_delta<T, 64>(dout, out, delta, rows, stream);
+    case 96: return launch_delta<T, 96>(dout, out, delta, rows, stream);
+    case 112: return launch_delta<T, 112>(dout, out, delta, rows, stream);
+    case 128: return launch_delta<T, 128>(dout, out, delta, rows, stream);
+    case 192: return launch_delta<T, 192>(dout, out, delta, rows, stream);
+    case 256: return launch_delta<T, 256>(dout, out, delta, rows, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // the bf16 routes (flash_bwd_sm90.cu)
@@ -569,6 +671,18 @@ extern "C" int fa_bwd_dkv(const void* q, const void* k, const void* v,
   if (dtype == 1)
     return fa_bwd_dkv_sm90(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, H,
                            KVH, D, scale, causal, window, q_offset, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// delta = rowsum(dO * O) (rows f32) from dO and O (rows x D, contiguous,
+// dtype 0 = float32, 1 = bfloat16). Returns a cudaError_t (0 = launched).
+extern "C" int fa_bwd_delta(const void* dout, const void* out, void* delta,
+                            int64_t rows, int D, int dtype, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_delta_d<float>(dout, out, delta, rows, D, st);
+  if (dtype == 1)
+    return launch_delta_d<__nv_bfloat16>(dout, out, delta, rows, D, st);
   return (int)cudaErrorInvalidValue;
 }
 

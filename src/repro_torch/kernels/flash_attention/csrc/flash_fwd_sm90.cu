@@ -37,18 +37,39 @@
 // out of device memory.
 //
 // Design:
-//  * A CTA is one (batch, KV head, 64-row query tile) with NWG consumer
-//    warpgroups (2 when the group size G is even, else 1); warpgroup w owns
-//    the 64 rows of one query head of the group. G = 4 splits the group
-//    over two CTAs. Every K/V tile in shared memory serves all of the CTA's
-//    warpgroups.
+//  * A CTA has NWG consumer warpgroups, each owning one 64-row query tile
+//    of one head, and every K/V tile in shared memory serves all of them.
+//    Which tiles, by the group size G = H / KVH:
+//    - G even: a CTA is one (batch, KV head, 64-row query tile), and its
+//      two warpgroups own the same rows of two query heads of the group
+//      (G = 4 splits the group over two CTAs);
+//    - G odd (MLA's and zamba2's G = 1, granite-moe's G = 3) and Sq > 64:
+//      a CTA is one (batch, query head, 128-row query block), and its two
+//      warpgroups own the block's two 64-row tiles (2t, 2t + 1). The CTA
+//      loads the union of the tiles' visible KV ranges; under a causal
+//      mask the lower tile's range is a prefix of the upper one's, so the
+//      lower warpgroup passes over the last tile, and under a window over
+//      tiles at both ends. A warpgroup that passes over a tile still
+//      waits for it and releases its stage, so the ring's refill count
+//      stays 4 NWG warps; it writes its epilogue before it passes over the
+//      trailing ones. When ceil(Sq / 64) is odd the last block's upper
+//      tile lies past Sq: TMA zero-fills it, that warpgroup sees no tile,
+//      and none of its rows is stored;
+//    - G odd and Sq <= 64 (a decode row, whisper's cross attention over 64
+//      queries): one warpgroup a CTA, as one 64-row tile has no partner.
+//    The host entry chooses (fa_fwd_sm90 below). D 64 (whisper-base at G
+//    1, granite-moe at G 3) keeps the one-warpgroup CTA at every Sq
+//    (kRowPairMinCols): its CTA, 94 registers a thread and 41 KB, fits
+//    five an SM, more warpgroups than two-tile CTAs give.
 //  * TMA: 4-D tensor maps over (D, heads, S, B) with boxes of 64 columns x
 //    64 rows of one head and 128-byte swizzle (a D-128 row, 256 bytes, is
 //    two boxes). Rows past Sq or Skv come in zero-filled and batch edges
 //    stay edges. One thread issues each copy; an mbarrier with expect_tx
 //    reports each arrival. K/V tiles of 64 keys sit in a ring of two
 //    stages, so the next tile's copy is in flight while this one is
-//    computed. A stage is refilled by the last of the CTA's warps to be
+//    computed; when Skv <= 64 (the SWAP training steps at S 64) every CTA
+//    has one KV tile, and the ring has one stage (kShortRing), so that more
+//    CTAs fit an SM. A stage is refilled by the last of the CTA's warps to be
 //    done with it (a shared-memory count), so no warp waits for the other
 //    warpgroup.
 //  * S = Q.K^T: wgmma m64n64k16, A (Q) and B (K) from shared memory, both
@@ -62,7 +83,9 @@
 //    bounds are skipped, and tiles wholly inside them skip the mask.
 //    exp(s - m) is 2^(s log2 e - m log2 e), one FFMA and one ex2.approx,
 //    where __expf takes a subtract, a multiply and the ex2: the softmax's
-//    FP32 and special-function work, not the tensor cores, paces a tile.
+//    FP32 and special-function work, not the tensor cores, paces a tile,
+//    so a warpgroup alone on its SM (or with one neighbour) leaves the SM
+//    idle while it runs; the two-tile CTA at odd G exists for that.
 //  * O += P.V: wgmma m64nDk16 (at D 192 and 256 one m64n192k16 or
 //    m64n256k16 a k-step, N = D spanning three or four boxes) with
 //    A = p in registers (the fragment of S columns 16j..16j+15 is the A
@@ -86,14 +109,16 @@
 //    products, which the bytes bound leaves room for.
 //  * __launch_bounds__(threads, 2): two CTAs an SM (four warpgroups) hide
 //    each other's latency; at D 128 that caps the kernel at 128 registers
-//    (127 used, no spills; 160 without the bound, and slower). At D 256 the
-//    O accumulator alone is 64 x 256 f32, 128 registers a thread, and a CTA
-//    of two warpgroups takes 192 KB of shared memory (two Q tiles of 32 KB,
-//    a K/V ring of 2 x 2 x 32 KB): one CTA an SM, bounded at 255 registers.
-//    At D 192 the O accumulator is 96 registers a thread beside S's 32,
-//    and a CTA takes 121 KB of shared memory with one warpgroup (G odd, as
-//    MLA's G = 1: a Q tile of 24 KB, a K/V ring of 2 x 2 x 24 KB) or 145 KB
-//    with two: one CTA an SM there too, so one warpgroup an SM at G = 1.
+//    (127 used, no spills; 160 without the bound, and slower). A CTA of
+//    two warpgroups on D 128's tiles takes 97 KB of shared memory (two Q
+//    tiles of 16 KB, a K/V ring of 2 x 2 x 16 KB), so two fit an SM. At D
+//    256 the O accumulator alone is 64 x 256 f32, 128 registers a thread,
+//    and a CTA of two warpgroups takes 192 KB of shared memory (two Q
+//    tiles of 32 KB, a K/V ring of 2 x 2 x 32 KB): one CTA an SM, bounded
+//    at 255 registers. At D 192 the O accumulator is 96 registers a thread
+//    beside S's 32, and a CTA takes 145 KB of shared memory with two
+//    warpgroups (121 KB with one): one CTA an SM there too, two
+//    warpgroups an SM at every G with Sq > 64.
 // Not here: a producer warp with setmaxnreg, persistent CTAs, clusters,
 // the ping-pong of two warpgroups, or overlap of one tile's softmax with
 // the next tile's S (that needs a second S accumulator, 32 more registers
@@ -111,26 +136,64 @@ namespace {
 constexpr int kRows = kTileRows;         // query rows per warpgroup (M)
 constexpr int kBlockK = kTileRows;       // keys per KV tile
 constexpr int kStages = 2;               // K/V ring depth
+// the ring's stages when Skv <= 64: every CTA then has one KV tile, and
+// the smaller CTA lets more of them share an SM
+constexpr int kShortRing = 1;
+// at odd G the two-tile CTA takes head dims whose tiles have this many
+// columns or more (see the host entry); below, one warpgroup a CTA
+constexpr int kRowPairMinCols = 128;
+
+// How a CTA's warpgroups split the work: two query heads of a group (G
+// even), one 64-row tile (G odd, Sq <= 64), two 64-row tiles of one head
+enum Split { kHeadPair, kOneTile, kRowPair };
+
+// consumer warpgroups (of 128 threads) a CTA of a split
+__host__ __device__ constexpr int split_wgs(int split) {
+  return split == kOneTile ? 1 : 2;
+}
+
+// the KV tiles [*tb, *te) that some row of the 64-row query tile from
+// row q0 can see; empty (0, 0) when the tile lies past Sq or sees no key
+__device__ __forceinline__ void visible_tiles(int q0, int Sq, int Skv,
+                                              int causal, int window,
+                                              int q_offset, int* tb,
+                                              int* te) {
+  *tb = *te = 0;
+  if (q0 >= Sq) return;
+  const int q_last = min(q0 + kRows, Sq) - 1;
+  int kv_end = Skv;
+  if (causal) kv_end = min(kv_end, q_last + q_offset + 1);
+  int kv_begin = 0;
+  if (window > 0) kv_begin = max(0, q0 + q_offset - window + 1);
+  if (kv_end <= kv_begin) return;
+  *tb = kv_begin / kBlockK;
+  *te = (kv_end + kBlockK - 1) / kBlockK;
+}
 
 // DG: the head dim of q, k, v and o; D: the tile's columns (tile_cols)
-template <int DG, int NWG>
-__global__ void __launch_bounds__(NWG * 128, tile_cols(DG) >= 192 ? 1 : 2)
+template <int DG, int SPLIT>
+__global__ void __launch_bounds__(split_wgs(SPLIT) * 128,
+                                  tile_cols(DG) >= 192 ? 1 : 2)
 fa_fwd_sm90_kernel(__grid_constant__ const CUtensorMap tq,
                    __grid_constant__ const CUtensorMap tk,
                    __grid_constant__ const CUtensorMap tv,
                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                    int Sq, int Skv, int H, int KVH, float scale, int causal,
                    int window, int q_offset) {
+  constexpr int NWG = split_wgs(SPLIT);
+  constexpr bool kRowTiles = SPLIT == kRowPair;
   constexpr int D = tile_cols(DG);
   constexpr int kBoxes = D / kBox;
   constexpr int kTile = kBoxes * kBoxBytes;  // one 64-row tile of Q, K or V
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   // every tile on a 1024-byte boundary: the period of the 128-byte swizzle
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  // the ring's stages in shared memory (as the host entry sizes it)
+  const int ring = Skv > kBlockK ? kStages : kShortRing;
   uint8_t* sQ = smem;                         // [NWG][kTile]
-  uint8_t* sK = sQ + NWG * kTile;             // [kStages][kTile]
-  uint8_t* sV = sK + kStages * kTile;         // [kStages][kTile]
-  uint64_t* bars = reinterpret_cast<uint64_t*>(sV + kStages * kTile);
+  uint8_t* sK = sQ + NWG * kTile;             // [ring][kTile]
+  uint8_t* sV = sK + ring * kTile;            // [ring][kTile]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sV + ring * kTile);
   const uint32_t bar_q = smem_u32(bars);      // Q arrived
   const uint32_t bar_full = bar_q + 8;        // [kStages]: K/V arrived
   // [kStages]: warps done with the stage; the last one refills it
@@ -141,21 +204,39 @@ fa_fwd_sm90_kernel(__grid_constant__ const CUtensorMap tq,
   const int warp = (tid % 128) / 32;
   const int lane = tid % 32;
   const int G = H / KVH;
-  const int kvh = blockIdx.x / (G / NWG);
-  const int h0 = kvh * G + (blockIdx.x % (G / NWG)) * NWG;
-  const int h = h0 + wg;
+  int kvh, h0;                  // the KV head; the query head of warpgroup 0
+  if (kRowTiles) {
+    h0 = blockIdx.x;
+    kvh = h0 / G;
+  } else {
+    kvh = blockIdx.x / (G / NWG);
+    h0 = kvh * G + (blockIdx.x % (G / NWG)) * NWG;
+  }
+  const int h = kRowTiles ? h0 : h0 + wg;
   const int b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * kRows;  // longest first
+  // the CTA's first query row (longest first), and this warpgroup's
+  const int qb = (gridDim.z - 1 - blockIdx.z) * (kRowTiles ? 2 : 1) * kRows;
+  const int q0 = qb + (kRowTiles ? wg * kRows : 0);
 
-  // KV tiles that some row of this query tile can see
-  const int q_last = min(q0 + kRows, Sq) - 1;
-  int kv_end = Skv;
-  if (causal) kv_end = min(kv_end, q_last + q_offset + 1);
-  int kv_begin = 0;
-  if (window > 0) kv_begin = max(0, q0 + q_offset - window + 1);
-  const int t_begin = kv_begin / kBlockK;
-  const int n_tiles =
-      kv_end > kv_begin ? (kv_end + kBlockK - 1) / kBlockK - t_begin : 0;
+  // the KV tiles of the CTA: those that some row of its query tiles can
+  // see (with two row tiles, the union of two ranges that touch), and the
+  // CTA's i-th tiles that this warpgroup's rows see, [i_lo, i_hi)
+  int t_begin, t_end;
+  visible_tiles(qb, Sq, Skv, causal, window, q_offset, &t_begin, &t_end);
+  int i_lo = 0, i_hi = t_end - t_begin;
+  if (kRowTiles) {
+    int tb1, te1;
+    visible_tiles(qb + kRows, Sq, Skv, causal, window, q_offset, &tb1, &te1);
+    const int tb0 = t_begin, te0 = t_end;
+    if (te1 > tb1) {
+      t_begin = te0 > tb0 ? min(tb0, tb1) : tb1;
+      t_end = max(te0, te1);
+    }
+    const int my_tb = wg == 0 ? tb0 : tb1, my_te = wg == 0 ? te0 : te1;
+    i_lo = my_te > my_tb ? my_tb - t_begin : 0;
+    i_hi = my_te > my_tb ? my_te - t_begin : 0;
+  }
+  const int n_tiles = t_end - t_begin;
 
   auto load_kv = [&](int i) {  // the CTA's i-th KV tile into stage i % kStages
     const int s = i % kStages;
@@ -175,12 +256,42 @@ fa_fwd_sm90_kernel(__grid_constant__ const CUtensorMap tq,
   }
   __syncthreads();
   if (tid == 0) {
-    mbar_expect_tx(bar_q, NWG * kTile);
-    for (int w = 0; w < NWG; ++w)
-      tma_load_tile<D>(sQ + w * kTile, &tq, bar_q, h0 + w, q0, b);
+    // Q tiles; a lone last row tile's partner, wholly past Sq, is not
+    // loaded (its warpgroup sees no tile and stores nothing)
+    const int n_q = kRowTiles && qb + kRows >= Sq ? 1 : NWG;
+    mbar_expect_tx(bar_q, n_q * kTile);
+    for (int w = 0; w < n_q; ++w) {
+      if (kRowTiles)
+        tma_load_tile<D>(sQ + w * kTile, &tq, bar_q, h0, qb + w * kRows, b);
+      else
+        tma_load_tile<D>(sQ + w * kTile, &tq, bar_q, h0 + w, qb, b);
+    }
     for (int i = 0; i < min(kStages, n_tiles); ++i) load_kv(i);
   }
   __syncwarp();
+
+  // release the CTA's i-th tile's stage: the last of the CTA's warps to be
+  // done with it issues the copy of the tile that goes there next, so no
+  // warp waits for another warpgroup
+  auto release = [&](int i) {
+    const int s = i % kStages;
+    __syncwarp();
+    if (lane == 0) {
+      __threadfence_block();   // this warp's reads of the stage are done
+      if (atomicAdd(&released[s], 1) == 4 * NWG - 1) {
+        released[s] = 0;
+        if (i + kStages < n_tiles) load_kv(i + kStages);
+      }
+    }
+    __syncwarp();
+  };
+  // a tile none of this warpgroup's rows sees: wait for it to land (so
+  // that no stage is released twice before the other warpgroup is done
+  // with it), then release it
+  auto pass = [&](int i) {
+    mbar_wait(bar_full + 8 * (i % kStages), (i / kStages) & 1);
+    release(i);
+  };
 
   // q * scale in bf16 on this warpgroup's Q tile, as the plain version
   // takes it (elementwise, so the swizzle does not matter)
@@ -211,9 +322,11 @@ fa_fwd_sm90_kernel(__grid_constant__ const CUtensorMap tq,
     wgmma_tiles_abt<D>(sc, q_addr, k_addr);
     wgmma_commit();
   };
-  if (n_tiles > 0) issue_s(0);
+  if (kRowTiles)
+    for (int i = 0; i < i_lo; ++i) pass(i);
+  if (i_lo < i_hi) issue_s(i_lo);
 
-  for (int i = 0; i < n_tiles; ++i) {
+  for (int i = i_lo; i < i_hi; ++i) {
     const int s = i % kStages;
     const int k0 = (t_begin + i) * kBlockK;
     const uint32_t v_addr = smem_u32(sV + s * kTile);
@@ -290,7 +403,7 @@ fa_fwd_sm90_kernel(__grid_constant__ const CUtensorMap tq,
     wgmma_frags_b<D>(acc, pa, v_addr);
     wgmma_commit();
     // the next tile's S runs on the tensor cores behind this P.V
-    if (i + 1 < n_tiles) {
+    if (i + 1 < i_hi) {
       issue_s(i + 1);
       wgmma_wait<1>();   // this P.V; the next S may still run
     } else {
@@ -298,19 +411,7 @@ fa_fwd_sm90_kernel(__grid_constant__ const CUtensorMap tq,
     }
     pin(acc);
     pin(pa);
-
-    // release the stage: the last of the CTA's warps to be done with it
-    // issues the copy of the tile that goes there next, so no warp waits
-    // for another warpgroup
-    __syncwarp();
-    if (lane == 0) {
-      __threadfence_block();   // this warp's reads of the stage are done
-      if (atomicAdd(&released[s], 1) == 4 * NWG - 1) {
-        released[s] = 0;
-        if (i + kStages < n_tiles) load_kv(i + kStages);
-      }
-    }
-    __syncwarp();
+    release(i);
   }
 
   // epilogue: O / l in bf16, staged in this warpgroup's Q tile as [64][D]
@@ -339,25 +440,49 @@ fa_fwd_sm90_kernel(__grid_constant__ const CUtensorMap tq,
   warpgroup_sync(wg);
   store_tile<D, DG>(my_q, o + (((int64_t)b * Sq + q0) * H + h) * DG,
                     row_stride, Sq - q0, tid % 128, 128);
+  // the tiles past this warpgroup's last visible one
+  if (kRowTiles)
+    for (int i = i_hi; i < n_tiles; ++i) pass(i);
 }
 
-template <int DG, int NWG>
+template <int DG, int SPLIT>
 cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
                    const CUtensorMap& tv, void* o, void* lse, int B, int Sq,
                    int Skv, int H, int KVH, float scale, int causal,
                    int window, int q_offset, cudaStream_t stream) {
+  constexpr int NWG = split_wgs(SPLIT);
   constexpr int kTile = tile_cols(DG) / kBox * kBoxBytes;
+  const int ring = Skv > kBlockK ? kStages : kShortRing;
   const int smem =
-      1024 + (NWG + 2 * kStages) * kTile + 8 * (1 + kStages) + 4 * kStages;
+      1024 + (NWG + 2 * ring) * kTile + 8 * (1 + kStages) + 4 * kStages;
   const cudaError_t err = cudaFuncSetAttribute(
-      fa_fwd_sm90_kernel<DG, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      fa_fwd_sm90_kernel<DG, SPLIT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(H / NWG, B, (Sq + kRows - 1) / kRows);
-  fa_fwd_sm90_kernel<DG, NWG><<<grid, NWG * 128, smem, stream>>>(
+  // (query heads, or their pairs; batch; query blocks of 64 or 128 rows)
+  const int block_rows = (SPLIT == kRowPair ? 2 : 1) * kRows;
+  const dim3 grid(SPLIT == kHeadPair ? H / 2 : H, B,
+                  (Sq + block_rows - 1) / block_rows);
+  fa_fwd_sm90_kernel<DG, SPLIT><<<grid, NWG * 128, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
       Sq, Skv, H, KVH, scale, causal, window, q_offset);
   return cudaGetLastError();
+}
+
+template <int DG>
+cudaError_t launch_split(Split split, const CUtensorMap& tq,
+                         const CUtensorMap& tk, const CUtensorMap& tv,
+                         void* o, void* lse, int B, int Sq, int Skv, int H,
+                         int KVH, float scale, int causal, int window,
+                         int q_offset, cudaStream_t stream) {
+  if (split == kHeadPair)
+    return launch<DG, kHeadPair>(tq, tk, tv, o, lse, B, Sq, Skv, H, KVH,
+                                 scale, causal, window, q_offset, stream);
+  if (split == kRowPair)
+    return launch<DG, kRowPair>(tq, tk, tv, o, lse, B, Sq, Skv, H, KVH,
+                                scale, causal, window, q_offset, stream);
+  return launch<DG, kOneTile>(tq, tk, tv, o, lse, B, Sq, Skv, H, KVH, scale,
+                              causal, window, q_offset, stream);
 }
 
 }  // namespace
@@ -372,36 +497,32 @@ cudaError_t fa_fwd_sm90(const void* q, const void* k, const void* v, void* o,
   if (!encode(&tq, q, D, H, Sq, B) || !encode(&tk, k, D, KVH, Skv, B) ||
       !encode(&tv, v, D, KVH, Skv, B))
     return cudaErrorInvalidValue;
-  const bool pair = (H / KVH) % 2 == 0;  // two query heads a CTA
-  if (D == 64)
-    return pair ? launch<64, 2>(tq, tk, tv, o, lse, B, Sq, Skv, H, KVH, scale,
-                                causal, window, q_offset, stream)
-                : launch<64, 1>(tq, tk, tv, o, lse, B, Sq, Skv, H, KVH, scale,
-                                causal, window, q_offset, stream);
-  if (D == 96)
-    return pair ? launch<96, 2>(tq, tk, tv, o, lse, B, Sq, Skv, H, KVH, scale,
-                                causal, window, q_offset, stream)
-                : launch<96, 1>(tq, tk, tv, o, lse, B, Sq, Skv, H, KVH, scale,
-                                causal, window, q_offset, stream);
-  if (D == 112)
-    return pair ? launch<112, 2>(tq, tk, tv, o, lse, B, Sq, Skv, H, KVH,
-                                 scale, causal, window, q_offset, stream)
-                : launch<112, 1>(tq, tk, tv, o, lse, B, Sq, Skv, H, KVH,
-                                 scale, causal, window, q_offset, stream);
-  if (D == 128)
-    return pair ? launch<128, 2>(tq, tk, tv, o, lse, B, Sq, Skv, H, KVH,
-                                 scale, causal, window, q_offset, stream)
-                : launch<128, 1>(tq, tk, tv, o, lse, B, Sq, Skv, H, KVH,
-                                 scale, causal, window, q_offset, stream);
-  if (D == 192)
-    return pair ? launch<192, 2>(tq, tk, tv, o, lse, B, Sq, Skv, H, KVH,
-                                 scale, causal, window, q_offset, stream)
-                : launch<192, 1>(tq, tk, tv, o, lse, B, Sq, Skv, H, KVH,
-                                 scale, causal, window, q_offset, stream);
-  if (D == 256)
-    return pair ? launch<256, 2>(tq, tk, tv, o, lse, B, Sq, Skv, H, KVH,
-                                 scale, causal, window, q_offset, stream)
-                : launch<256, 1>(tq, tk, tv, o, lse, B, Sq, Skv, H, KVH,
-                                 scale, causal, window, q_offset, stream);
+  // two query heads a CTA when G is even; at odd G two 64-row tiles of one
+  // head when Sq has two, else one warpgroup (the design note above)
+  const int G = H / KVH;
+  const Split split = G % 2 == 0 ? kHeadPair
+                      : Sq > kRows && tile_cols(D) >= kRowPairMinCols
+                          ? kRowPair
+                          : kOneTile;
+  switch (D) {
+    case 64:
+      return launch_split<64>(split, tq, tk, tv, o, lse, B, Sq, Skv, H, KVH,
+                              scale, causal, window, q_offset, stream);
+    case 96:
+      return launch_split<96>(split, tq, tk, tv, o, lse, B, Sq, Skv, H, KVH,
+                              scale, causal, window, q_offset, stream);
+    case 112:
+      return launch_split<112>(split, tq, tk, tv, o, lse, B, Sq, Skv, H, KVH,
+                               scale, causal, window, q_offset, stream);
+    case 128:
+      return launch_split<128>(split, tq, tk, tv, o, lse, B, Sq, Skv, H, KVH,
+                               scale, causal, window, q_offset, stream);
+    case 192:
+      return launch_split<192>(split, tq, tk, tv, o, lse, B, Sq, Skv, H, KVH,
+                               scale, causal, window, q_offset, stream);
+    case 256:
+      return launch_split<256>(split, tq, tk, tv, o, lse, B, Sq, Skv, H, KVH,
+                               scale, causal, window, q_offset, stream);
+  }
   return cudaErrorInvalidValue;
 }

@@ -10,8 +10,11 @@
     bf16 inputs run ``csrc/flash_bwd_sm90.cu`` (wgmma tensor cores fed by
     TMA, q * scale in bf16 as the bf16 forward takes it), f32 inputs the f32
     FMA kernels of ``csrc/flash_bwd.cu``, which holds the C entries of both;
-    ``flash_bwd`` takes delta = rowsum(dO * O) in plain PyTorch and runs
-    both.
+  * ``flash_bwd_delta`` launches that library's ``fa_bwd_delta``, delta =
+    rowsum(dO * O) in f32 from dO and O in their own dtype; it replaces no
+    Pallas kernel (the JAX package forms delta in plain jnp) but the plain
+    PyTorch chain ``bwd_delta``, which wrote an f32 product tensor and read
+    it back. ``flash_bwd`` runs the three: delta, dQ, then dK/dV.
 
 The two bf16 sources include ``csrc/sm90.cuh``, the Hopper helpers they
 share, which each library lists as a header of its build. Both
@@ -82,6 +85,10 @@ def _bwd_library():
     lib.fa_bwd_dq.argtypes = [ptr] * 7 + common   # q k v dO lse delta dq
     lib.fa_bwd_dkv.argtypes = [ptr] * 8 + common  # ... dk dv
     lib.fa_bwd_dq.restype = lib.fa_bwd_dkv.restype = i32
+    lib.fa_bwd_delta.argtypes = [ptr, ptr, ptr,             # dO O delta
+                                 ctypes.c_int64, i32, i32,  # rows D dtype
+                                 ptr]                       # stream
+    lib.fa_bwd_delta.restype = i32
     lib.fa_bwd_error_string.argtypes = [i32]
     lib.fa_bwd_error_string.restype = ctypes.c_char_p
     return built, lib
@@ -245,12 +252,51 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
 
 
 def bwd_delta(do, out):
-    """delta = rowsum(dO * O) in f32, (B,Sq,H), in plain PyTorch outside the
-    kernels (as the JAX package's kernel.py:288). A bf16 O is promoted
-    inside the product rather than copied to f32 first: the same values
-    (each product of two bf16 values is exact in f32) with one f32 copy
-    fewer."""
+    """delta = rowsum(dO * O) in f32, (B,Sq,H): the plain version of
+    ``flash_bwd_delta``, as the JAX package forms it (its kernel.py:288). A
+    bf16 O is promoted inside the product rather than copied to f32 first:
+    the same values (each product of two bf16 values is exact in f32) with
+    one f32 copy fewer."""
     return (do.float() * out).sum(-1)
+
+
+def flash_bwd_delta(do, out):
+    """delta = rowsum(dO * O) (B,Sq,H) f32 on the card, from dO and the
+    forward's out, (B,Sq,H,D) contiguous, both f32 or both bf16, D in
+    BWD_HEAD_DIMS. Sums in its own order: within 1e-6 of ``bwd_delta``
+    relative to rowsum(|dO * O|)."""
+    if out.shape != do.shape or out.dtype != do.dtype:
+        raise ValueError(f"dO must match out {tuple(out.shape)} {out.dtype}; "
+                         f"got {tuple(do.shape)} {do.dtype}")
+    if do.dtype not in _DTYPES:
+        raise TypeError(f"dO and out must be float32 or bfloat16; got "
+                        f"{do.dtype}")
+    if do.dim() != 4 or do.shape[3] not in BWD_HEAD_DIMS:
+        raise ValueError(f"head dim {do.shape[-1]} of dO {tuple(do.shape)} "
+                         f"not supported by the kernel (supported: "
+                         f"{BWD_HEAD_DIMS})")
+    for name, t in (("dO", do), ("out", out)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+    if do.device.type != "cuda":
+        raise RuntimeError(f"the flash-attention kernel needs CUDA tensors; "
+                           f"got {do.device}")
+    if out.device != do.device:
+        raise ValueError(f"out must lie on {do.device}; got {out.device}")
+    delta = torch.empty(do.shape[:3], dtype=torch.float32, device=do.device)
+    if delta.numel() == 0:
+        return delta
+    _, lib = _bwd_library()
+    with torch.cuda.device(do.device):
+        err = lib.fa_bwd_delta(do.data_ptr(), out.data_ptr(),
+                               delta.data_ptr(), delta.numel(), do.shape[3],
+                               _DTYPES[do.dtype],
+                               torch.cuda.current_stream(do.device).cuda_stream)
+    _raise_if(err, lib, "delta")
+    _count(flash_bwd_delta, do)
+    return delta
 
 
 def flash_bwd(q, k, v, out, lse, do, *, causal: bool = True, window: int = 0,
@@ -261,7 +307,7 @@ def flash_bwd(q, k, v, out, lse, do, *, causal: bool = True, window: int = 0,
     if out.shape != q.shape or out.dtype != q.dtype:
         raise ValueError(f"out must match q {tuple(q.shape)} {q.dtype}; got "
                          f"{tuple(out.shape)} {out.dtype}")
-    delta = bwd_delta(do, out)
+    delta = flash_bwd_delta(do, out)
     kw = dict(causal=causal, window=window, scale=scale, q_offset=q_offset)
     dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
@@ -270,3 +316,4 @@ def flash_bwd(q, k, v, out, lse, do, *, causal: bool = True, window: int = 0,
 
 flash_bwd_dq.launches = flash_bwd_dq.launches_sm90 = 0
 flash_bwd_dkv.launches = flash_bwd_dkv.launches_sm90 = 0
+flash_bwd_delta.launches = flash_bwd_delta.launches_sm90 = 0

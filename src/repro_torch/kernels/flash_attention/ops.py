@@ -3,7 +3,7 @@
 ``impl="kernel"``: the hand-written Hopper kernels (``kernel.py``), run by
 the autograd Function ``FlashAttention``: its forward launches
 ``csrc/flash_fwd.cu`` and saves (q, k, v, out, lse); its backward launches
-the dQ and dK/dV kernels of ``csrc/flash_bwd.cu`` (the twin of the JAX
+the delta, dQ and dK/dV kernels of ``csrc/flash_bwd.cu`` (the twin of the JAX
 ``custom_vjp`` in ``repro/kernels/flash_attention/ops.py``). The phase-2
 ensemble runs it worker by worker (``repro_torch.train.loop``), so it has
 no ``vmap`` rule.

@@ -8,6 +8,8 @@ for autograd against ``jax.grad``. The autograd Function that runs the
 CUDA kernels is tested here with its two launch functions replaced by the
 plain versions (the kernels themselves run only on the card).
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -308,6 +310,30 @@ CARD_EDGE_CASES = [
     ((1, 33, 129, 4, 2, 96), True, 16, 96),    # D 96, G 2, window, q_offset
     ((1, 64, 150, 4, 4, 64), False, 0, 0),     # cross attention, Sq != Skv
 ]
+# The bf16 forward's odd-G route (G 1, and granite-moe's G 3): a CTA takes
+# two 64-row tiles of one head, 128 rows, sharing each K/V tile; Sq <= 64
+# keeps one warpgroup. Odd tile counts leave a lone last tile; a window
+# splits the two tiles' KV ranges at both ends; a chunk after a cached
+# prefix; rows that see no key. chip_smoke._grid holds the kernel to the
+# plain version on the same schedule at every one of these head dims.
+ODD_G_CASES = [
+    ((1, 65, 65, 2, 2, 64), True, 0, 0),       # two tiles, the upper 1 row
+    ((1, 129, 129, 6, 2, 96), True, 0, 0),     # three tiles, G 3
+    ((1, 191, 191, 2, 2, 112), False, 0, 0),   # three tiles, non-causal
+    ((1, 129, 129, 2, 2, 192), False, 0, 0),   # D 192, three tiles
+    ((1, 191, 191, 6, 2, 192), True, 0, 0),    # D 192, G 3, causal
+    ((1, 65, 65, 6, 2, 112), False, 0, 0),     # G 3, non-causal
+    ((1, 200, 200, 2, 2, 96), True, 48, 0),    # window: both ends split
+    ((1, 200, 200, 6, 2, 64), True, 100, 0),   # window 100, G 3
+    ((1, 200, 200, 2, 2, 192), True, 100, 0),  # window 100, D 192
+    ((1, 97, 129, 2, 2, 192), True, 0, 96),    # chunk after a cached prefix
+    ((1, 97, 129, 6, 2, 64), True, 0, 96),     # the same at G 3
+    ((1, 33, 129, 6, 2, 112), True, 0, 96),    # Sq <= 64: one warpgroup
+    ((1, 64, 64, 2, 2, 96), True, 0, 0),       # Sq 64: one warpgroup
+    ((1, 130, 130, 6, 2, 64), True, 0, -8),    # rows that see no key, G 3
+    ((1, 130, 130, 2, 2, 112), True, 0, -8),   # the same at G 1
+]
+CARD_EDGE_CASES += ODD_G_CASES
 
 
 @pytest.mark.parametrize("shape,causal,window,q_offset", CARD_EDGE_CASES)
@@ -516,12 +542,13 @@ def test_bwd_kernel_on_cpu_raises_and_needs_nvcc(tmp_path, monkeypatch):
 # and 96: G 1 causal, G 2 with a window and q_offset; whisper's cross
 # attention at D 64, non-causal, Sq != Skv), D 128 at
 # G 2 and G 4 (the scale 128 ** -0.5 is not a power of 2, so q * scale in
-# bf16 moves S there; nor is 192 ** -0.5), and D 192 at G 1 with q_offset
-ROUNDED_BWD_CASES = CARD_EDGE_CASES + [
+# bf16 moves S there; nor is 192 ** -0.5), and D 192 at G 1 with q_offset;
+# the odd-G cases last, so that every earlier case keeps its place
+ROUNDED_BWD_CASES = [c for c in CARD_EDGE_CASES if c not in ODD_G_CASES] + [
     ((2, 67, 67, 4, 2, 128), True, 0, 0),
     ((1, 130, 130, 8, 2, 128), True, 0, 0),
     ((1, 33, 129, 4, 4, 192), True, 0, 96),
-]
+] + ODD_G_CASES
 
 
 @pytest.mark.parametrize("shape,causal,window,q_offset", ROUNDED_BWD_CASES)
@@ -590,7 +617,12 @@ def test_split_bf16_keeps_sixteen_bits():
     assert float(((hi - x).abs() / x.abs()).max()) > 2.0 ** -10
 
 
-BWD_FNS = {"dq": tkernel.flash_bwd_dq, "dkv": tkernel.flash_bwd_dkv}
+BWD_FNS = {"dq": tkernel.flash_bwd_dq, "dkv": tkernel.flash_bwd_dkv,
+           # delta takes dO and the forward's out (here q, of dO's shape)
+           "delta": lambda q, k, v, do, lse, delta:
+           tkernel.flash_bwd_delta(do, q)}
+# what delta does not read: its call reaches the device check
+DELTA_IGNORES = ("lse_dtype", "delta_shape")
 
 
 def _bwd_args(shape, dtype, seed):
@@ -604,8 +636,8 @@ def _bwd_args(shape, dtype, seed):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_bwd_wrappers_take_both_dtypes_up_to_the_device_check(fn, dtype):
     """f32 (the FMA route) and bf16 (the wgmma route) pass every check of
-    the dQ and dK/dV wrappers that needs no card, at every head dim, and
-    stop only at the device."""
+    the dQ, dK/dV and delta wrappers that needs no card, at every head dim,
+    and stop only at the device."""
     assert tkernel.BWD_HEAD_DIMS == (64, 96, 112, 128, 192, 256)
     for D in tkernel.BWD_HEAD_DIMS:
         args = _bwd_args((1, 8, 8, 4, 2, D), dtype, seed=40)
@@ -660,6 +692,8 @@ BWD_REFUSED = {
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_bwd_wrappers_refuse_what_the_kernels_cannot_take(case, fn, dtype):
     make, exc, msg = BWD_REFUSED[case]
+    if fn == "delta" and case in DELTA_IGNORES:
+        exc, msg = RuntimeError, "needs CUDA tensors"
     args = make(*_bwd_args((1, 8, 8, 4, 2, 128), dtype, seed=41))
     with pytest.raises(exc, match=msg):
         BWD_FNS[fn](*args)
@@ -676,6 +710,111 @@ def test_backward_library_is_built_from_both_sources(monkeypatch):
                                   ["sm90.cuh"])}
     assert all((tkernel.SOURCE.parent / n).is_file()
                for n in sum(seen["flash_bwd"], []))
+
+
+class _FakeLib:
+    """Stands in for ctypes.CDLL: every attribute a fresh namespace."""
+
+    def __init__(self, path):
+        self.path = path
+
+    def __getattr__(self, name):
+        import types
+        fn = types.SimpleNamespace()
+        setattr(self, name, fn)
+        return fn
+
+
+def test_backward_library_binds_the_delta_entry(monkeypatch):
+    """fa_bwd_delta's argtypes are set as its C signature has them (dO, O,
+    delta pointers; rows as int64, D and dtype as int; the stream), so no
+    pointer or row count is cut to 32 bits."""
+    import ctypes
+    monkeypatch.setattr(_build, "build_library", lambda name, sources,
+                        headers=(): _build.Built(path=Path("libfake.so"),
+                                                 seconds=0.0, log=""))
+    monkeypatch.setattr(tkernel.ctypes, "CDLL", _FakeLib)
+    tkernel._bwd_library.cache_clear()
+    try:
+        _, lib = tkernel._bwd_library()
+    finally:
+        tkernel._bwd_library.cache_clear()
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    assert lib.fa_bwd_delta.argtypes == [ptr, ptr, ptr, ctypes.c_int64, i32,
+                                         i32, ptr]
+    assert lib.fa_bwd_delta.restype is i32
+    assert lib.fa_bwd_dq.argtypes[:7] == [ptr] * 7
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_delta_matches_the_reference_expression(dtype):
+    """The plain delta (the kernel's yardstick on the card) against the JAX
+    package's own expression, jnp.sum(do.astype(f32) * out.astype(f32),
+    -1), on the same seeded inputs: within 1e-6 of rowsum(|dO * O|) on
+    every row, at every head dim the kernel takes."""
+    rng = np.random.default_rng(50)
+    for D in tkernel.BWD_HEAD_DIMS:
+        do, out = (rng.standard_normal((2, 9, 3, D)).astype(np.float32)
+                   for _ in range(2))
+        tdo, tout = (torch.from_numpy(a).to(getattr(torch, dtype))
+                     for a in (do, out))
+        jdo, jout = (jnp.asarray(a, getattr(jnp, dtype)) for a in (do, out))
+        want = np.asarray(jnp.sum(jdo.astype(jnp.float32)
+                                  * jout.astype(jnp.float32), -1))
+        got = tkernel.bwd_delta(tdo, tout)
+        assert got.dtype == torch.float32 and got.shape == (2, 9, 3)
+        scale = (tdo.float() * tout.float()).abs().sum(-1).numpy()
+        assert float((np.abs(got.numpy() - want) / scale).max()) <= 1e-6
+
+
+def test_profile_files_delta_kernel_under_its_own_name():
+    """The profiler's kernel categories give delta's kernel a row of its
+    own beside dQ's and dK/dV's (both routes), not "other"."""
+    from repro_torch.launch import profile_train
+    cat = profile_train._category
+    assert cat("void (anonymous namespace)::fa_bwd_delta_kernel"
+               "<__nv_bfloat16, 128>(__nv_bfloat16 const*)") \
+        == "flash_attention_bwd_delta"
+    assert cat("fa_bwd_dq_sm90_kernel<128, 1, 3, 1>") \
+        == "flash_attention_bwd_dq"
+    assert cat("fa_bwd_dkv_kernel<float, 64>") == "flash_attention_bwd_dkv"
+
+
+def test_flash_bwd_forms_delta_with_the_kernel(monkeypatch):
+    """kernel.flash_bwd runs delta's kernel wrapper first and hands its
+    output to the dQ and dK/dV wrappers; the plain chain is not on it."""
+    calls, plain_delta = [], tkernel.bwd_delta
+
+    def delta_fn(do, out):
+        calls.append("delta")
+        return plain_delta(do, out)
+
+    def dq_fn(q, k, v, do, lse, delta, **kw):
+        calls.append("dq")
+        seen["dq"] = delta
+        return torch.zeros_like(q)
+
+    def dkv_fn(q, k, v, do, lse, delta, **kw):
+        calls.append("dkv")
+        seen["dkv"] = delta
+        return torch.zeros_like(k), torch.zeros_like(v)
+
+    def plain(*args):
+        raise AssertionError("the plain delta ran on the kernel path")
+
+    seen = {}
+    monkeypatch.setattr(tkernel, "flash_bwd_delta", delta_fn)
+    monkeypatch.setattr(tkernel, "flash_bwd_dq", dq_fn)
+    monkeypatch.setattr(tkernel, "flash_bwd_dkv", dkv_fn)
+    (_, _, _), (tq, tk, tv) = _inputs((1, 8, 8, 4, 2, 64), seed=51)
+    do = _grad_out((1, 8, 8, 4, 2, 64), seed=52)[1]
+    lse = torch.zeros(tq.shape[:3])
+    monkeypatch.setattr(tkernel, "bwd_delta", plain)
+    tkernel.flash_bwd(tq, tk, tv, tq, lse, do)
+    assert calls == ["delta", "dq", "dkv"]
+    assert seen["dq"] is seen["dkv"]
+    want = (do * tq).sum(-1)
+    torch.testing.assert_close(seen["dq"], want, rtol=1e-6, atol=1e-6)
 
 
 def test_build_hashes_headers_and_puts_them_on_the_include_path(
