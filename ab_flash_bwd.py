@@ -1,28 +1,47 @@
 #!/usr/bin/env python3
 """Compare sources of the bf16 flash-attention backward kernels on one card.
 
-    python3 ab_flash_bwd.py [--occupancy] [VARIANT.cu ...]
+    python3 ab_flash_bwd.py [--occupancy] [--ring] [--fold] [VARIANT.cu ...]
 
 Builds the ``flash_bwd`` library once with the repository's bf16 kernels
 (``csrc/flash_bwd_sm90.cu``, named "main") and once with each VARIANT.cu
 in its place (named by its stem), all nvcc runs started together, and
-prints each build's ``-Xptxas -v`` lines for its sm90 kernels.
-``--occupancy`` adds the dQ kernel's other CTA shapes as variants, made
-from the main source (one warpgroup a CTA, three CTAs an SM, a K/V ring of
-one stage so that three fit in shared memory) by setting its constants
-(written under ``build/``): two warpgroups a CTA, one CTA an SM, a ring of
-two stages (``dq_2wg_1cta``), and one warpgroup asked for two CTAs an SM
-with a ring of two (``dq_1wg_2cta``). Then, for each
-build: the bf16 cases of ``chip_smoke.py``'s backward grid against the
-plain version's f32 math and against it at the kernels' rounding points,
-at chip_smoke's bounds (a count of failing cases); and device times of the
-dQ and dK/dV kernels at the phase-1 and phase-2 training shapes of
-internlm2-1.8b (D 128) and of deepseek-v2-lite (MLA, D 192), taken in
-turns (main, variants, variants reversed, main), beside the library's
-fused backward timed alone in the same call; and each build's delta
-kernel (``fa_bwd_delta``, which ``kernel.flash_bwd`` runs) beside the
-plain-PyTorch forms of delta = rowsum(dO * O), timed in turns, with their
-largest difference. Needs a card; compare variants only within one run.
+prints each build's ``-Xptxas -v`` lines and wgmma notes for its sm90
+kernels; a build that fails is reported and left out. The flags add
+variants made from the main source by setting its constants (written
+under ``build/ab_flash_bwd/``):
+
+* ``--occupancy``: the dQ kernel's other CTA shapes from D 96 to 128 (the
+  main one: one warpgroup a CTA, three CTAs an SM, a K/V ring of one
+  stage): two warpgroups a CTA, one CTA an SM, a ring of two
+  (``dq_2wg_1cta``), and one warpgroup asked for two CTAs an SM with a ring
+  of two (``dq_1wg_2cta``); at D 64, dQ at three CTAs an SM instead of four
+  (``dq64_3cta``) and the folded dK/dV loop at two instead of three
+  (``dkv64_fold2cta``);
+* ``--ring``: the rings at D 64 at other depths: dQ's K/V ring
+  (``kDq64Stages``, one stage in the main source) of two and three
+  (``dq64_ring2``, ``dq64_ring3``), and the folded dK/dV loop's Q/dO ring
+  (``kFoldStages``, two) of three and four (``dkv64_ring3`` ...);
+* ``--fold``: the dK/dV kernel at D 64 without its folded loop
+  (``dkv_inplace``: the loop of the other head dims, q * scale in place
+  each iteration).
+
+To hold a change against an earlier source, pass that source as a variant
+(``git show <commit>:src/repro_torch/kernels/flash_attention/csrc/
+flash_bwd_sm90.cu > results/var/old.cu``). Then, for each build: the bf16
+cases of ``chip_smoke.py``'s backward grid against the plain version's f32
+math and against it at the kernels' rounding points, at chip_smoke's
+bounds (a count of failing cases); and device times of the dQ and dK/dV
+kernels, taken in turns (main, variants, variants reversed, main), beside
+the library's fused backward timed alone in the same call, at the
+phase-1 and phase-2 training shapes of internlm2-1.8b (D 128) and of
+deepseek-v2-lite (MLA, D 192), granite-moe's phase 1 (D 64, G 3), and
+whisper-base's encoder (D 64, G 1, non-causal over 1500 frames) at its
+train batch of 128 and its serving batch of 8; at the four S-64 shapes
+also each build's delta kernel (``fa_bwd_delta``, which
+``kernel.flash_bwd`` runs) beside the plain-PyTorch forms of delta =
+rowsum(dO * O), timed in turns, with their largest difference. Needs a
+card; compare variants only within one run.
 """
 from __future__ import annotations
 
@@ -34,19 +53,44 @@ from pathlib import Path
 
 import chip_smoke as smoke
 
-# name: (query heads a dQ CTA, CTAs an SM asked of ptxas, K/V stages)
-OCCUPANCY = {"dq_2wg_1cta": (2, 1, 2), "dq_1wg_2cta": (1, 2, 2)}
+# flag: {variant: {constant of the main source: value}}
+CONST_VARIANTS = {
+    "--occupancy": {
+        "dq_2wg_1cta": {"kDqHeads": 2, "kDqMinBlocks": 1, "kDqStages": 2},
+        "dq_1wg_2cta": {"kDqHeads": 1, "kDqMinBlocks": 2, "kDqStages": 2},
+        "dq64_3cta": {"kDq64MinBlocks": 3},
+        "dkv64_fold2cta": {"kFoldMinBlocks": 2}},
+    "--ring": {**{f"dq64_ring{n}": {"kDq64Stages": n} for n in (2, 3)},
+               **{f"dkv64_ring{n}": {"kFoldStages": n} for n in (3, 4)}},
+    "--fold": {"dkv_inplace": {"kFolded": "false"}},
+}
+# (label, shape, causal, timed launches): the S-64 training shapes, then
+# whisper-base's encoder at its train and serving batch
+SHAPES = (("phase-1", smoke.TRAIN_SHAPE, True, 100),
+          ("phase-2", (32,) + smoke.TRAIN_SHAPE[1:], True, 100),
+          ("deepseek phase-1", smoke.DEEPSEEK_TRAIN_SHAPE, True, 100),
+          ("deepseek phase-2", (32,) + smoke.DEEPSEEK_TRAIN_SHAPE[1:], True,
+           100),
+          ("granite phase-1", smoke.GRANITE_TRAIN_SHAPE, True, 100),
+          ("whisper encoder", smoke.WHISPER_ENCODER_TRAIN_SHAPE, False, 20),
+          ("whisper encoder", smoke.WHISPER_ENCODER_SHAPE, False, 100))
+DELTA_SHAPES = 4          # delta's forms at the first four
 
 
-def _occupancy_variant(name, main_src: Path) -> Path:
-    heads, blocks, stages = OCCUPANCY[name]
+def _const_variant(name, values, main_src: Path):
+    """The main source with ``values`` for its constants, or None where
+    they already hold there."""
     text = main_src.read_text()
-    for const, value in (("kDqHeads", heads), ("kDqMinBlocks", blocks),
-                         ("kDqStages", stages)):
-        text, n = re.subn(rf"constexpr int {const} = \d+;",
-                          f"constexpr int {const} = {value};", text)
-        if n != 1:
+    same = True
+    for const, value in values.items():
+        pat = rf"constexpr (int|bool) {const} = (\w+);"
+        found = re.findall(pat, text)
+        if len(found) != 1:
             smoke.fail(f"{main_src.name} has no single {const} constant")
+        same = same and found[0][1] == str(value)
+        text = re.sub(pat, rf"constexpr \g<1> {const} = {value};", text)
+    if same:
+        return None
     out = smoke.ROOT / "build" / "ab_flash_bwd" / f"{name}.cu"
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(text)
@@ -125,16 +169,26 @@ def main(argv) -> None:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel
     sources = {"main": kernel.BWD_SM90_SOURCE}
-    if "--occupancy" in argv:
-        argv = [a for a in argv if a != "--occupancy"]
-        for name in OCCUPANCY:
-            sources[name] = _occupancy_variant(name, kernel.BWD_SM90_SOURCE)
+    for flag, variants in CONST_VARIANTS.items():
+        if flag in argv:
+            argv = [a for a in argv if a != flag]
+            for name, values in variants.items():
+                src = _const_variant(name, values, kernel.BWD_SM90_SOURCE)
+                if src is not None:
+                    sources[name] = src
     sources.update({Path(p).stem: Path(p).resolve() for p in argv})
     with ThreadPoolExecutor(len(sources)) as pool:
         jobs = {n: pool.submit(_build.build_library, f"flash_bwd_ab_{n}",
                                [kernel.BWD_SOURCE, p], kernel.HEADERS)
                 for n, p in sources.items()}
-        built = {n: job.result() for n, job in jobs.items()}
+        built = {}
+        for n, job in jobs.items():
+            try:
+                built[n] = job.result()
+            except RuntimeError as e:
+                if n == "main":
+                    raise
+                print(f"[{n}] build failed, left out: {e}", flush=True)
     libs = {}
     for n, b in built.items():
         fn = ""
@@ -145,7 +199,7 @@ def main(argv) -> None:
                 fn = entry.group(1) if entry else ""
             elif fn and ("registers" in line or "spill" in line):
                 print(f"[{n}] {fn}: {line.strip()}")
-            elif "C7518" in line and "bwd" in line:
+            elif re.search(r"C75\d\d", line) and "bwd" in line:
                 print(f"[{n}] {line.strip()}")
         libs[n] = _load(b)
 
@@ -166,24 +220,47 @@ def main(argv) -> None:
               f"of {len(cases)}", flush=True)
 
     order = list(libs) + list(libs)[::-1]
-    for label, shape in (
-            ("phase-1", smoke.TRAIN_SHAPE),
-            ("phase-2", (32,) + smoke.TRAIN_SHAPE[1:]),
-            ("deepseek phase-1", smoke.DEEPSEEK_TRAIN_SHAPE),
-            ("deepseek phase-2", (32,) + smoke.DEEPSEEK_TRAIN_SHAPE[1:])):
+    for si, (label, shape, causal, iters) in enumerate(SHAPES):
         q, k, v = smoke._qkv(shape, torch.bfloat16, seed=7)
         do = smoke._qkv(shape, torch.bfloat16, seed=8)[0]
-        out, lse = kernel.flash_fwd(q, k, v, causal=True)
+        out, lse = kernel.flash_fwd(q, k, v, causal=causal)
         delta = kernel.bwd_delta(do, out)
-        runs = {n: _runners(lib, q, k, v, do, lse, delta)
+        runs = {n: _runners(lib, q, k, v, do, lse, delta, causal=causal)
                 for n, lib in libs.items()}
+        # each build's dq, dk, dv against main's, bitwise
+        want = (runs["main"][0]().clone(),
+                *(t.clone() for t in runs["main"][1]()))
+        same = {}
+        for n, (run_dq, run_dkv) in runs.items():
+            got = (run_dq(), *run_dkv())
+            same[n] = all(torch.equal(g, w) for g, w in zip(got, want))
+        mask = "causal" if causal else "non-causal"
+        print(f"[bitwise] {label} {shape} {mask}: dq, dk, dv equal to main's "
+              f"in " + ", ".join(f"{n} {'yes' if e else 'NO'}"
+                                 for n, e in same.items()), flush=True)
         for which, idx in (("dQ", 0), ("dK/dV", 1)):
             times = {n: [] for n in libs}
             for n in order:
-                times[n].append(smoke._device_ms(runs[n][idx], 100))
-            print(f"[time] {label} {shape} {which} ms: " + ", ".join(
+                times[n].append(smoke._device_ms(runs[n][idx], iters))
+            print(f"[time] {label} {shape} {mask} {which} ms: " + ", ".join(
                 f"{n} {sum(t) / len(t):.4f} ({' '.join(f'{x:.4f}' for x in t)})"
                 for n, t in times.items()), flush=True)
+        B, Sq, Skv, H, KVH, D = shape
+        qt = q.transpose(1, 2).contiguous().requires_grad_()
+        kt = k.repeat_interleave(H // KVH, dim=2).transpose(1, 2).contiguous()
+        vt = v.repeat_interleave(H // KVH, dim=2).transpose(1, 2).contiguous()
+        kt.requires_grad_()
+        vt.requires_grad_()
+        o = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal)
+        dot = do.transpose(1, 2).contiguous()
+        lib_ms = smoke._device_ms(lambda: torch.autograd.grad(
+            o, (qt, kt, vt), dot, retain_graph=True), iters)
+        del o
+        print(f"[time] {label} {shape} {mask} library backward alone (dq, "
+              f"dk, dv): {lib_ms:.4f} ms", flush=True)
+        if si >= DELTA_SHAPES:
+            continue
         forms = _delta_forms(do, out, libs)
         ref = forms["two_casts"]()
         times = {n: [] for n in forms}
@@ -193,19 +270,6 @@ def main(argv) -> None:
             f"{n} {sum(t) / len(t):.4f} (max |diff| "
             f"{smoke._rel_err(forms[n](), ref):.2e})"
             for n, t in times.items()), flush=True)
-        B, Sq, Skv, H, KVH, D = shape
-        qt = q.transpose(1, 2).contiguous().requires_grad_()
-        kt = k.repeat_interleave(H // KVH, dim=2).transpose(1, 2).contiguous()
-        vt = v.repeat_interleave(H // KVH, dim=2).transpose(1, 2).contiguous()
-        kt.requires_grad_()
-        vt.requires_grad_()
-        o = torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True)
-        dot = do.transpose(1, 2).contiguous()
-        lib_ms = smoke._device_ms(lambda: torch.autograd.grad(
-            o, (qt, kt, vt), dot, retain_graph=True), 100)
-        print(f"[time] {label} {shape} library backward alone (dq, dk, dv): "
-              f"{lib_ms:.4f} ms", flush=True)
 
 
 if __name__ == "__main__":

@@ -25,7 +25,9 @@ Phases, each printing its own lines; any failed check exits non-zero:
    plain chain at the phase-1 and phase-2 training shapes, beside the
    library's backward alone (and, for delta, a batched product); the
    same at granite-moe's phase 1 (D 64, G 3) and whisper-base's encoder
-   at its train batch (non-causal over 1500 frames); the same at
+   at its train batch (non-causal over 1500 frames), where dq, dk and dv
+   of its first 8 batches must also equal, bitwise, a launch on those
+   batches alone; the same at
    gemma3-1b's shapes, head dim 256: its prefill in a global and in a local
    layer (window 512), its phase-1 forward and backward; the forward at
    deepseek-v2-lite's MLA prefill and phase-1 shape, head dim 192, and
@@ -33,9 +35,10 @@ Phases, each printing its own lines; any failed check exits non-zero:
    phase-2 shapes, head dim 192, G 1; the forward and backward at
    zamba2-7b's shared block, head dim 112, G 1: its prefill and its two
    training phases; the same at minicpm3-4b's MLA, head dim 96, G 1; the
-   forward at whisper-base's non-causal encoder (S 1500) and cross
-   attention (64 queries on 1500 frames), head dim 64, and its decoder's
-   causal self attention at the train batch;
+   forward at whisper-base's non-causal encoder (S 1500), at its serving
+   and its train batch, and cross attention (64 queries on 1500 frames),
+   head dim 64, and its decoder's causal self attention at the train
+   batch;
    the bf16 SSD kernels at the serve prefill and phase 1 of mamba2-2.7b
    and of zamba2-7b, beside the f32 FMA kernels they replace);
 4. full-width serve (internlm2-1.8b, random weights from a seed): a main
@@ -168,8 +171,8 @@ and swa_avg rows: on minicpm3-4b's training path and, for the forward,
 its serving path, and the flash rows' ``minicpm3_*`` shapes: the times at
 head dim 96; ``whisper_launches`` on the flash rows: on whisper-base's
 train steps and, for the forward, its serving path, and the forward's
-``whisper_encoder`` / ``whisper_cross`` /
-``whisper_decoder_train_shape``: its times there); the line before
+``whisper_encoder`` / ``whisper_cross`` / ``whisper_decoder_train_shape``
+/ ``whisper_encoder_train_shape``: its times there); the line before
 them gives the run's seconds; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -663,6 +666,10 @@ def phase_kernel():
                        causal=False)
     w_cross = _fwd_times(WHISPER_CROSS_SHAPE, "whisper cross", seed=1248,
                          causal=False)
+    # the encoder at the train batch: six of these a train step
+    w_enc_train = _fwd_times(WHISPER_ENCODER_TRAIN_SHAPE,
+                             "whisper encoder, train batch", seed=1250,
+                             causal=False)
     # and its decoder's causal self attention at the train batch (D 64, G 1)
     w_dec_shape = (WHISPER_TRAIN_BATCH,) + WHISPER_DECODER_SHAPE[1:]
     w_dec = _fwd_times(w_dec_shape, "whisper decoder, train batch",
@@ -706,6 +713,7 @@ def phase_kernel():
         "whisper_cross": {
             "max_abs_err": path_err[WHISPER_CROSS_SHAPE, 0], **w_cross},
         "whisper_decoder_train_shape": w_dec,
+        "whisper_encoder_train_shape": w_enc_train,
     }
 
 
@@ -969,6 +977,7 @@ def phase_kernel_bwd():
     gr_phase1 = _bwd_times(GRANITE_TRAIN_SHAPE, "granite phase-1")
     w_phase1 = _bwd_times(WHISPER_ENCODER_TRAIN_SHAPE, "whisper encoder",
                           causal=False, plain=False)
+    _bwd_batch_slice(WHISPER_ENCODER_TRAIN_SHAPE, "whisper encoder")
 
     def errs(shape, name):
         e = train_err[shape]
@@ -1009,6 +1018,35 @@ def phase_kernel_bwd():
             for name, line in (("flash_attention_bwd_dq", 202),
                                ("flash_attention_bwd_dkv", 232),
                                ("flash_attention_bwd_delta", 288))]
+
+
+def _bwd_batch_slice(shape, label, batch=8):
+    """The bf16 backward at ``shape`` (non-causal, the whole grid: at
+    whisper's encoder train shape 24576 CTAs a kernel) against the same
+    call on its first ``batch`` batches alone, bitwise. Both kernels sum in
+    a fixed order with no atomics, so what a CTA writes depends on neither
+    its place in the grid nor the order the grid runs in; the plain version
+    cannot run at that shape (its (B, H, S, S) f32 tensors), and the B-8
+    encoder case of the grid holds the values against it."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel
+    q, k, v = _qkv(shape, torch.bfloat16, seed=4331)
+    do = _qkv(shape, torch.bfloat16, seed=4332)[0]
+    out, lse = kernel.flash_fwd(q, k, v, causal=False)
+    full = kernel.flash_bwd(q, k, v, out, lse, do, causal=False)
+    part = kernel.flash_bwd(*(t[:batch] for t in (q, k, v, out, lse, do)),
+                            causal=False)
+    torch.cuda.synchronize()
+    for name, f, g in zip(("dq", "dk", "dv"), full, part):
+        check(bool(torch.isfinite(f).all()),
+              f"{label} at {shape}: non-finite {name}")
+        check(torch.equal(f[:batch], g),
+              f"{label} at {shape}: {name} of the first {batch} batches "
+              f"differs from a launch on those batches alone (max |diff| "
+              f"{(f[:batch].float() - g.float()).abs().max().item():.3e})")
+    print(f"[kernel-bwd] {label} at {shape}, non-causal: dq, dk, dv of the "
+          f"first {batch} batches equal, bitwise, a launch on those batches "
+          f"alone", flush=True)
 
 
 def _bwd_times(shape, label, causal=True, plain=True):

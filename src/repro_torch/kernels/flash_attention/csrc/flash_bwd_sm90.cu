@@ -27,8 +27,10 @@
 //   * P, then dS = P (dP - delta), enter their products as hi + lo, two
 //     bf16 values (~16 significant bits), so each product is two wgmma
 //     sets that sum in f32. One bf16 value each (8 bits) moved dV and dK
-//     past the f32 reference's 1e-2 on the test grid: the tensor cores
-//     have time to spare, as the function is bound by bytes;
+//     past the f32 reference's 1e-2 on the test grid. At the S-64 training
+//     shapes the tensor cores have time to spare (the kernels are bound by
+//     bytes there); over long sequences this doubles the products that
+//     bound them (below);
 //   * S, dP and every sum in f32 on the tensor cores; outputs rounded to
 //     bf16 once.
 //
@@ -41,6 +43,27 @@
 // and 101.2 MB for dK/dV, 30.2 us). So each reads a K/V tile once per (KV
 // head, query tile) and a Q/dO tile once per (KV head, key tile), and keeps
 // S, P, dP and dS out of device memory.
+//
+// Over long sequences they are bound by operations. At whisper-base's
+// encoder at its train batch (B 128, S 1500, H = KVH 8, D 64, non-causal)
+// dQ's three products of 2 S^2 D each are 884.7 GFLOP (0.8946 ms at 989
+// TFLOP/s) and dK/dV's four 1179.6 (1.1928 ms); with P and dS as hi + lo
+// the tensor cores do 8 S^2 D and 12 S^2 D, floors of 1.19 and 1.79 ms.
+// There each kernel streams its operand from L2, not HBM: the grid's
+// fastest index is the tile, so the 24 CTAs of one (batch, head) launch
+// together and walk the same Q/dO (K/V) tiles in the same order. In PR 24's
+// order (heads, then batches, then tiles) the CTAs resident at once were
+// one tile of ~33 batches, each reading its whole operand set: ~9.4 GB a
+// launch. On an NVIDIA H100 80GB HBM3 at 700.00 W (ab_flash_bwd.py, one
+// call): dQ 4.0336 -> 3.2430 ms, the serial dK/dV 6.5873 -> 6.2061. The
+// same call showed the re-reads were not the main loss: at B 8, where a
+// (batch, head)'s operands fit L2 in either order, 16x PR 24's times
+// (3.61, 6.71 ms) were as long as B 128's. What bounds the kernels there
+// is that the tensor cores and the CUDA cores take turns: the dK/dV kernel
+// with its softmax and fragment work removed took 2.6938 ms, with its
+// wgmma removed 1.8474, and whole 5.1955 (dQ: 0.9941, 0.7886, 3.2571; one
+// call). What paid there was fewer CUDA-core instructions and more CTAs an
+// SM (below), not overlap within a warpgroup.
 //
 // dK/dV kernel (fa_bwd_dkv_sm90_kernel):
 //  * A CTA is one (batch, KV head, 64-key tile), one warpgroup. K and V
@@ -71,6 +94,38 @@
 //    one iteration ahead.
 //  * Masks on tiles that cross a bound only; the padding mask on query
 //    rows past Sq is explicit (TMA's zero fill gives S = 0, not -inf).
+//  * D 64 with a power-of-2 scale (1/8 by default) over more than one
+//    query tile (Sq > 64) runs the folded loop (FOLD). There q * scale in
+//    bf16 is exact, so S^T = scale (K q^T) bitwise: the scale goes into
+//    exp2's factor, and the in-place scaling, its put-back, two proxy
+//    fences and two barriers an iteration go. P^T's hi and lo fragments
+//    are formed with P^T (probs_t_frags: hi = bf16(p), lo = bf16(p - hi),
+//    P^T = hi + lo, split_round's value), not split again from it; the
+//    fragments differ from PR 24's only where that second split landed on
+//    a tie. 168 registers (40 bytes of stack), three CTAs an SM, a Q/dO
+//    ring of kFoldStages. On an NVIDIA H100 80GB HBM3 at 700.00 W
+//    (ab_flash_bwd.py --ring --occupancy, one call), whisper's encoder at
+//    B 128: rings of two, three and four 4.5357, 4.7146 and 5.7659 ms
+//    (four fits two CTAs an SM); at three CTAs an SM 4.7146, at two
+//    5.5062. In an earlier call, with a ring of three: 4.6037 ms
+//    against 5.2195 for the pipelined loop it replaced (below), 4.8398 for
+//    that loop with the fragments formed with P^T (218 registers, two CTAs
+//    an SM); at granite's phase 1 (S 64, three iterations a CTA) it took
+//    0.1064 against 0.0956, so S 64 keeps the loop of the other head dims
+//    (0.0974 in PR 24). Not kept, on the same card, each against the loop
+//    in use then: a pipelined loop, issuing the next tile's S^T and dP^T
+//    and this tile's products in one iteration and waiting within it, with
+//    iteration 0's front and the last products peeled (245 registers, two
+//    CTAs an SM; 5.1650 ms against the in-place loop's 6.1536); the same
+//    with two register sets for S^T and dP^T, unrolled by two (254
+//    registers, 320 bytes of spills, ptxas C7511: 8.0491), or with them in
+//    flight across the back edge (C7515: 6.4891); dV's and dK's products
+//    as two groups (5.2489 against 5.2443); bf16 rounding on the bits in
+//    split_round (bitwise equal; 5.4549 against 5.2410); two warpgroups a
+//    CTA on adjacent key tiles, sharing each Q/dO tile and taking turns on
+//    named barriers (6.4103 against 5.2141); the in-place loop at three
+//    CTAs an SM (5.1041 against the pipelined loop's 5.2161, less than the
+//    folded loop gained).
 //  * Registers, D 128: dK and dV accumulators 64 + 64, S^T and dP^T
 //    32 + 32, the kept chunks of q 32 (until S^T is done); then the hi and
 //    lo fragments of P^T and dS^T, 64, in place of S^T and dP^T: ptxas
@@ -149,34 +204,138 @@
 //    dK (dS^T q) and dV (P^T dO), which the epilogues do not store (14 or 12
 //    of a row's 16 chunks, at the real D's strides).
 //  * Epilogue: dQ * scale rounded to bf16, staged in the warpgroup's Q tile,
-//    stored for rows < Sq; the query tiles with the most key tiles launch
-//    first.
-// Not here: a producer warp with setmaxnreg, persistent CTAs, overlap of
-// one iteration's tail with the next one's products, or a fused delta.
+//    stored for rows < Sq; within each (batch, head group) the query tiles
+//    with the most key tiles launch first.
+//  * D 64: four CTAs an SM (kDq64MinBlocks; 128 registers, no spills), a
+//    ring of one stage (kDq64Stages). On an NVIDIA H100 80GB HBM3 at 700.00
+//    W (ab_flash_bwd.py, one call each): at whisper's encoder at B 128 four
+//    CTAs took 3.0617 ms against three's 3.2613, at granite's phase 1
+//    0.0751 against 0.0789; rings of one, two and three took 3.2464,
+//    3.2468 and 3.2430 at B 128 and 0.0789, 0.0803 and 0.0808 at granite.
+//    The dK/dV kernel's pipelined loop, here with a ring of three (168
+//    registers, three CTAs an SM), took 3.2283 against 3.2727 and 0.0806
+//    against 0.0789: not kept. Nor two CTAs an SM (196 registers): 3.6142.
+// Not here: a producer warp with setmaxnreg, persistent CTAs, dQ in the
+// dK/dV kernel (its sum over key tiles needs atomics or a second pass), or
+// a fused delta.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cmath>
+
 #include "sm90.cuh"
 
 namespace {
 
 constexpr int kStages = 2;               // Q/dO ring depth of dK/dV
+// dK/dV at D 64 with a power-of-2 scale over more than one query tile:
+// the scale folded into exp2's factor, P^T's fragments formed with its
+// softmax, a Q/dO ring of kFoldStages, kFoldMinBlocks CTAs an SM
+constexpr bool kFolded = true;
+constexpr int kFoldStages = 2;
+constexpr int kFoldMinBlocks = 3;
 // the dQ CTA: query heads (one warpgroup each) a CTA, the CTAs an SM asked
-// of ptxas, and the K/V ring depth
+// of ptxas (kDq64MinBlocks at D 64), and the K/V ring depth (kDq64Stages
+// at D 64)
 constexpr int kDqHeads = 1;
 constexpr int kDqMinBlocks = 3;
 constexpr int kDqStages = 1;
+constexpr int kDq64Stages = 1;
+constexpr int kDq64MinBlocks = 4;
 // at D 192 two CTAs an SM with the ring above; at D 256 one, with a ring of
 // two
 constexpr int kDq192MinBlocks = 2;
 constexpr int kDq256Stages = 2;
 
-// DG: the head dim of the tensors; D: the tile's columns (tile_cols)
-template <int DG, int NWG>
-__global__ void __launch_bounds__(NWG * 128, NWG == 1 ? 2 : 1)
+// whether a tile of keys from k0 and query rows from q0 crosses a bound:
+// masks are applied on such tiles only
+__device__ __forceinline__ bool tile_edge(int k0, int q0, int Sq, int Skv,
+                                          int causal, int window,
+                                          int q_offset) {
+  return k0 + kTileRows > Skv || q0 + kTileRows > Sq ||
+         (causal && k0 + kTileRows - 1 > q0 + q_offset) ||
+         (window > 0 && k0 <= q0 + kTileRows - 1 + q_offset - window);
+}
+
+// one element of P^T = exp(S^T - lse): s of S^T, mul log2 e times whatever
+// scale S^T still lacks, nl = -lse log2 e; 0 where key kpos is masked from
+// query row `row` (checked on an edge tile only)
+__device__ __forceinline__ float prob_t(float s, float mul, float nl,
+                                       bool edge, int kpos, int row, int Sq,
+                                       int Skv, int causal, int window,
+                                       int q_offset) {
+  float p = exp2_approx(fmaf(s, mul, nl));
+  if (edge) {
+    const int qpos = row + q_offset;
+    bool ok = kpos < Skv && row < Sq;
+    if (causal) ok = ok && kpos <= qpos;
+    if (window > 0) ok = ok && kpos > qpos - window;
+    if (!ok) p = 0.f;
+  }
+  return p;
+}
+
+// P^T of one 64 x 64 tile as hi + lo, in place: st[4j + e] is key r0 + 8
+// (e >> 1), query row 8j + c0 + (e & 1); nlse holds the tile's 64 values of
+// -lse log2 e
+__device__ __forceinline__ void probs_t(float (&st)[32], const float* nlse,
+                                        float mul, int k0, int q0, int r0,
+                                        int c0, int Sq, int Skv, int causal,
+                                        int window, int q_offset) {
+  const bool edge = tile_edge(k0, q0, Sq, Skv, causal, window, q_offset);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 nl = *reinterpret_cast<const float2*>(nlse + 8 * j + c0);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      st[4 * j + e] = split_round(
+          prob_t(st[4 * j + e], mul, e & 1 ? nl.y : nl.x, edge,
+                 k0 + r0 + 8 * (e >> 1), q0 + 8 * j + c0 + (e & 1), Sq, Skv,
+                 causal, window, q_offset));
+  }
+}
+
+// probs_t with P^T's hi and lo fragments formed as it goes: each pair's hi
+// = bf16(p), lo = bf16(p - hi), st = hi + lo (split_round's value)
+__device__ __forceinline__ void probs_t_frags(
+    float (&st)[32], uint32_t (&hi)[4][4], uint32_t (&lo)[4][4],
+    const float* nlse, float mul, int k0, int q0, int r0, int c0, int Sq,
+    int Skv, int causal, int window, int q_offset) {
+  const bool edge = tile_edge(k0, q0, Sq, Skv, causal, window, q_offset);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 nl = *reinterpret_cast<const float2*>(nlse + 8 * j + c0);
+#pragma unroll
+    for (int e2 = 0; e2 < 2; ++e2) {
+      float p[2];
+#pragma unroll
+      for (int e1 = 0; e1 < 2; ++e1)
+        p[e1] = prob_t(st[4 * j + 2 * e2 + e1], mul, e1 ? nl.y : nl.x, edge,
+                       k0 + r0 + 8 * e2, q0 + 8 * j + c0 + e1, Sq, Skv,
+                       causal, window, q_offset);
+      const int m = 2 * j + e2;         // the pair st[2m], st[2m + 1]
+      const uint32_t h2 = pack_bf16(p[0], p[1]);
+      const float2 h = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&h2));
+      const uint32_t l2 = pack_bf16(p[0] - h.x, p[1] - h.y);
+      const float2 l = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&l2));
+      hi[m >> 2][m & 3] = h2;
+      lo[m >> 2][m & 3] = l2;
+      st[2 * m] = h.x + l.x;
+      st[2 * m + 1] = h.y + l.y;
+    }
+  }
+}
+
+// DG: the head dim of the tensors; D: the tile's columns (tile_cols); FOLD:
+// the folded loop (D 64, one warpgroup, a power-of-2 scale)
+template <int DG, int NWG, bool FOLD>
+__global__ void __launch_bounds__(NWG * 128,
+                                  NWG > 1 ? 1 : FOLD ? kFoldMinBlocks : 2)
 fa_bwd_dkv_sm90_kernel(__grid_constant__ const CUtensorMap tq,
                        __grid_constant__ const CUtensorMap tk,
                        __grid_constant__ const CUtensorMap tv,
@@ -191,8 +350,11 @@ fa_bwd_dkv_sm90_kernel(__grid_constant__ const CUtensorMap tq,
   constexpr int kTile = D / kBox * kBoxBytes;  // one 64-row tile
   constexpr int kThreads = NWG * 128;
   constexpr int kCols = D / NWG;   // the dK, dV columns a warpgroup owns
+  static_assert(!FOLD || (NWG == 1 && D == 64), "folded at D 64 only");
+  constexpr int STAGES = FOLD ? kFoldStages : kStages;
   // q * scale in a tile of its own (NWG > 1), or in place with each
-  // thread's chunks of q kept in registers and put back (NWG 1)
+  // thread's chunks of q kept in registers and put back (NWG 1), or not at
+  // all (FOLD: the scale goes into exp2's factor)
   constexpr bool kOwnTile = NWG > 1;
   constexpr int kChunksPerThread = kOwnTile ? 1 : kTile / 16 / 128;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -200,23 +362,25 @@ fa_bwd_dkv_sm90_kernel(__grid_constant__ const CUtensorMap tq,
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* sK = smem;
   uint8_t* sV = sK + kTile;
-  uint8_t* sQ = sV + kTile;                   // [kStages][kTile]
-  uint8_t* sdO = sQ + kStages * kTile;        // [kStages][kTile]
-  uint8_t* sQs = sdO + kStages * kTile;       // [kOwnTile][kTile], q * scale
+  uint8_t* sQ = sV + kTile;                   // [STAGES][kTile]
+  uint8_t* sdO = sQ + STAGES * kTile;         // [STAGES][kTile]
+  uint8_t* sQs = sdO + STAGES * kTile;        // [kOwnTile][kTile], q * scale
   // this iteration's -lse log2 e [64] and delta [64]
   float* sStat = reinterpret_cast<float*>(sQs + (kOwnTile ? kTile : 0));
   uint64_t* bars = reinterpret_cast<uint64_t*>(sStat + 2 * kTileRows);
   const uint32_t bar_kv = smem_u32(bars);     // K/V arrived
-  const uint32_t bar_full = bar_kv + 8;       // [kStages]: Q/dO arrived
+  const uint32_t bar_full = bar_kv + 8;       // [STAGES]: Q/dO arrived
 
   const int tid = threadIdx.x;
   const int wg = tid / 128;
   const int warp = (tid % 128) / 32;
   const int lane = tid % 32;
   const int G = H / KVH;
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
-  const int k0 = blockIdx.z * kTileRows;
+  // the key tiles of one (batch, KV head) are adjacent in launch order: they
+  // stream the same Q/dO tiles in the same order, and share them in L2
+  const int k0 = blockIdx.x * kTileRows;      // key tile 0 (most work) first
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
   // the CTA's threads (one warpgroup's named barrier when NWG is 1)
   auto cta_sync = [&]() {
     if constexpr (NWG == 1)
@@ -238,8 +402,8 @@ fa_bwd_dkv_sm90_kernel(__grid_constant__ const CUtensorMap tq,
   auto head = [&](int i) { return kvh * G + i / n_qt; };
   auto row0 = [&](int i) { return (t_begin + i % n_qt) * kTileRows; };
 
-  auto load_q = [&](int i) {  // iteration i's Q and dO into stage i % kStages
-    const int s = i % kStages;
+  auto load_q = [&](int i) {  // iteration i's Q and dO into stage i % STAGES
+    const int s = i % STAGES;
     mbar_expect_tx(bar_full + 8 * s, 2 * kTile);
     tma_load_tile<D>(sQ + s * kTile, &tq, bar_full + 8 * s, head(i), row0(i),
                      b);
@@ -249,7 +413,7 @@ fa_bwd_dkv_sm90_kernel(__grid_constant__ const CUtensorMap tq,
 
   if (tid == 0) {
     mbar_init(bar_kv, 1);
-    for (int s = 0; s < kStages; ++s) mbar_init(bar_full + 8 * s, 1);
+    for (int s = 0; s < STAGES; ++s) mbar_init(bar_full + 8 * s, 1);
     mbar_init_fence();
   }
   __syncthreads();
@@ -257,7 +421,7 @@ fa_bwd_dkv_sm90_kernel(__grid_constant__ const CUtensorMap tq,
     mbar_expect_tx(bar_kv, 2 * kTile);
     tma_load_tile<D>(sK, &tk, bar_kv, kvh, k0, b);
     tma_load_tile<D>(sV, &tv, bar_kv, kvh, k0, b);
-    for (int i = 0; i < min(kStages, n_iter); ++i) load_q(i);
+    for (int i = 0; i < min(STAGES, n_iter); ++i) load_q(i);
   }
   __syncwarp();
 
@@ -282,12 +446,18 @@ fa_bwd_dkv_sm90_kernel(__grid_constant__ const CUtensorMap tq,
   float acc_dk[kCols / 2], acc_dv[kCols / 2];
 #pragma unroll
   for (int i = 0; i < kCols / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+  // the first stats are read while K and V arrive
   float stat_next = n_iter > 0 && stats ? stat(0) : 0.f;
   if (n_iter > 0) mbar_wait(bar_kv, 0);
-
   const float sc = __bfloat162float(__float2bfloat16_rn(scale));
+
+  // FOLD: sc is a power of 2 (the C entry's choice), so q * sc in bf16 is
+  // exact and S^T = sc (K q^T) bitwise: the scale goes into exp2's factor,
+  // q enters S^T as it came, and P^T's hi and lo fragments are formed with
+  // P^T itself (probs_t_frags)
+  const float p_mul = FOLD ? kLog2e * sc : kLog2e;
   for (int i = 0; i < n_iter; ++i) {
-    const int s = i % kStages;
+    const int s = i % STAGES;
     const int q0 = row0(i);
     uint4* q_tile = reinterpret_cast<uint4*>(sQ + s * kTile);
     const uint32_t q_addr = smem_u32(q_tile);
@@ -296,23 +466,23 @@ fa_bwd_dkv_sm90_kernel(__grid_constant__ const CUtensorMap tq,
       sStat[tid] = stat_next;           // the last iteration's reads ended
       if (i + 1 < n_iter) stat_next = stat(i + 1);  // at its closing barrier
     }
-    mbar_wait(bar_full + 8 * s, (i / kStages) & 1);
+    mbar_wait(bar_full + 8 * s, (i / STAGES) & 1);
     // q * scale in bf16 for S^T: into its own tile, or in place with this
     // thread's chunks of q as they came kept, and put back for dK once S^T
-    // is done
+    // is done (not at all with FOLD)
     uint4 raw[kChunksPerThread];
     if constexpr (kOwnTile) {
       uint4* qs = reinterpret_cast<uint4*>(sQs);
       for (int c = tid; c < kTile / 16; c += kThreads)
         qs[c] = scale_chunk(q_tile[c], sc);
-    } else {
+    } else if constexpr (!FOLD) {
 #pragma unroll
       for (int c = 0; c < kChunksPerThread; ++c) {
         raw[c] = q_tile[tid + 128 * c];
         q_tile[tid + 128 * c] = scale_chunk(raw[c], sc);
       }
     }
-    fence_proxy_async();
+    if constexpr (!FOLD) fence_proxy_async();
     cta_sync();                         // scaled Q and sStat in place
     const uint32_t qs_addr = kOwnTile ? smem_u32(sQs) : q_addr;
 
@@ -328,7 +498,7 @@ fa_bwd_dkv_sm90_kernel(__grid_constant__ const CUtensorMap tq,
     wgmma_commit();
     wgmma_wait<1>();
     pin(st);
-    if constexpr (!kOwnTile) {
+    if constexpr (!kOwnTile && !FOLD) {
       // every warp's S^T has read the scaled tile: put q back
       warpgroup_sync(0);
 #pragma unroll
@@ -337,31 +507,14 @@ fa_bwd_dkv_sm90_kernel(__grid_constant__ const CUtensorMap tq,
       fence_proxy_async();
     }
 
-    // P^T = exp(S^T - lse), 0 where masked, as hi + lo: st[4j + e] is key
-    // r0 + 8 (e >> 1), query row 8j + c0 + (e & 1); masks only on tiles
-    // that cross a bound
-    const bool edge =
-        k0 + kTileRows > Skv || q0 + kTileRows > Sq ||
-        (causal && k0 + kTileRows - 1 > q0 + q_offset) ||
-        (window > 0 && k0 <= q0 + kTileRows - 1 + q_offset - window);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 nl = *reinterpret_cast<const float2*>(sStat + 8 * j + c0);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float p = exp2_approx(fmaf(st[4 * j + e], kLog2e, e & 1 ? nl.y : nl.x));
-        if (edge) {
-          const int kpos = k0 + r0 + 8 * (e >> 1);
-          const int row = q0 + 8 * j + c0 + (e & 1);
-          const int qpos = row + q_offset;
-          bool ok = kpos < Skv && row < Sq;
-          if (causal) ok = ok && kpos <= qpos;
-          if (window > 0) ok = ok && kpos > qpos - window;
-          if (!ok) p = 0.f;
-        }
-        st[4 * j + e] = split_round(p);
-      }
-    }
+    // P^T = exp(S^T - lse), masked, as hi + lo
+    uint32_t pa[4][4], pb[4][4], da[4][4], db[4][4];
+    if constexpr (FOLD)
+      probs_t_frags(st, pa, pb, sStat, p_mul, k0, q0, r0, c0, Sq, Skv, causal,
+                    window, q_offset);
+    else
+      probs_t(st, sStat, p_mul, k0, q0, r0, c0, Sq, Skv, causal, window,
+              q_offset);
 
     // dS^T = P^T (dP^T - delta), from P^T as the dV product takes it
     wgmma_wait<0>();                    // dP^T
@@ -379,10 +532,9 @@ fa_bwd_dkv_sm90_kernel(__grid_constant__ const CUtensorMap tq,
     // dV += P^T dO and dK += dS^T q (times scale in the epilogue) on this
     // warpgroup's columns, each A as hi + lo; dK's B is the Q tile as it
     // came (with NWG 1, every thread's chunks put back)
-    uint32_t pa[4][4], pb[4][4], da[4][4], db[4][4];
-    to_split_frags(st, pa, pb);
+    if constexpr (!FOLD) to_split_frags(st, pa, pb);
     to_split_frags(dpt, da, db);
-    if constexpr (!kOwnTile) warpgroup_sync(0);
+    if constexpr (!kOwnTile && !FOLD) warpgroup_sync(0);
     wgmma_fence();
     wgmma_frags_b<kCols>(acc_dv, pa, do_addr + col_off);
     wgmma_frags_b<kCols>(acc_dv, pb, do_addr + col_off);
@@ -400,7 +552,7 @@ fa_bwd_dkv_sm90_kernel(__grid_constant__ const CUtensorMap tq,
     // every warp is done with stage s, the scaled tile and sStat: refill
     // the stage
     cta_sync();
-    if (tid == 0 && i + kStages < n_iter) load_q(i + kStages);
+    if (tid == 0 && i + STAGES < n_iter) load_q(i + STAGES);
   }
 
   // dK * scale and dV in bf16, staged in the K and V tiles (each warpgroup
@@ -444,11 +596,14 @@ fa_bwd_dq_sm90_kernel(__grid_constant__ const CUtensorMap tq,
   const int warp = (tid % 128) / 32;
   const int lane = tid % 32;
   const int G = H / KVH;
-  const int kvh = blockIdx.x / (G / NWG);
-  const int h0 = kvh * G + (blockIdx.x % (G / NWG)) * NWG;
+  // the query tiles of one (batch, head group) are adjacent in launch
+  // order: they stream the same K/V tiles in the same order, and share them
+  // in L2; the ones with the most key tiles first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTileRows;
+  const int kvh = blockIdx.y / (G / NWG);
+  const int h0 = kvh * G + (blockIdx.y % (G / NWG)) * NWG;
   const int h = h0 + wg;
-  const int b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * kTileRows;  // longest first
+  const int b = blockIdx.z;
 
   // the KV tiles that some row of this query tile can see
   const int q_last = min(q0 + kTileRows, Sq) - 1;
@@ -595,6 +750,13 @@ fa_bwd_dq_sm90_kernel(__grid_constant__ const CUtensorMap tq,
                     row_stride, Sq - q0, tid % 128, 128);
 }
 
+// whether scale rounded to bf16 is a power of 2 (D 64's 1/8, D 256's 1/16)
+bool pow2_bf16(float scale) {
+  int e;
+  const float f = __bfloat162float(__float2bfloat16_rn(scale));
+  return f > 0.f && std::isnormal(f) && std::frexp(f, &e) == 0.5f;
+}
+
 struct Maps {
   CUtensorMap q, k, v, dout;
 };
@@ -607,20 +769,22 @@ bool encode_all(Maps* m, const void* q, const void* k, const void* v,
          encode(&m->dout, dout, D, H, Sq, B);
 }
 
-template <int DG, int NWG>
+template <int DG, int NWG, bool FOLD = false>
 cudaError_t launch_dkv(const Maps& m, const void* lse, const void* delta,
                        void* dk, void* dv, int B, int Sq, int Skv, int H,
                        int KVH, float scale, int causal, int window,
                        int q_offset, cudaStream_t stream) {
   constexpr int kTile = tile_cols(DG) / kBox * kBoxBytes;
-  const int smem = 1024 + (2 + 2 * kStages + (NWG > 1)) * kTile +
-                   2 * kTileRows * (int)sizeof(float) + 8 * (1 + kStages);
+  constexpr int kRing = FOLD ? kFoldStages : kStages;
+  const int smem = 1024 + (2 + 2 * kRing + (NWG > 1)) * kTile +
+                   2 * kTileRows * (int)sizeof(float) +
+                   8 * (1 + kRing);
   const cudaError_t err = cudaFuncSetAttribute(
-      fa_bwd_dkv_sm90_kernel<DG, NWG>,
+      fa_bwd_dkv_sm90_kernel<DG, NWG, FOLD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(KVH, B, (Skv + kTileRows - 1) / kTileRows);
-  fa_bwd_dkv_sm90_kernel<DG, NWG><<<grid, NWG * 128, smem, stream>>>(
+  const dim3 grid((Skv + kTileRows - 1) / kTileRows, KVH, B);
+  fa_bwd_dkv_sm90_kernel<DG, NWG, FOLD><<<grid, NWG * 128, smem, stream>>>(
       m.q, m.k, m.v, m.dout, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), Sq, Skv, H, KVH, scale, causal,
@@ -635,16 +799,19 @@ cudaError_t launch_dq(const Maps& m, const void* lse, const void* delta,
                       cudaStream_t stream) {
   constexpr int D = tile_cols(DG);
   constexpr int kTile = D / kBox * kBoxBytes;
-  constexpr int kMinBlocks =
-      D == 256 ? 1 : D == 192 ? kDq192MinBlocks : kDqMinBlocks;
-  constexpr int kRing = D == 256 ? kDq256Stages : kDqStages;
+  constexpr int kMinBlocks = D == 256   ? 1
+                             : D == 192 ? kDq192MinBlocks
+                             : D == 64  ? kDq64MinBlocks
+                                        : kDqMinBlocks;
+  constexpr int kRing =
+      D == 256 ? kDq256Stages : D == 64 ? kDq64Stages : kDqStages;
   auto kernel = fa_bwd_dq_sm90_kernel<DG, NWG, kMinBlocks, kRing>;
   const int smem = 1024 + (2 * NWG + 2 * kRing) * kTile + 8 * (1 + kRing) +
                    4 * kRing;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(H / NWG, B, (Sq + kTileRows - 1) / kTileRows);
+  const dim3 grid((Sq + kTileRows - 1) / kTileRows, H / NWG, B);
   kernel<<<grid, NWG * 128, smem, stream>>>(
       m.q, m.k, m.v, m.dout, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq), Sq,
@@ -708,6 +875,9 @@ cudaError_t fa_bwd_dkv_sm90(const void* q, const void* k, const void* v,
   Maps m;
   if (!encode_all(&m, q, k, v, dout, B, Sq, Skv, H, KVH, D))
     return cudaErrorInvalidValue;
+  if (D == 64 && kFolded && Sq > kTileRows && pow2_bf16(scale))
+    return launch_dkv<64, 1, true>(m, lse, delta, dk, dv, B, Sq, Skv, H, KVH,
+                                   scale, causal, window, q_offset, stream);
   if (D == 64)
     return launch_dkv<64, 1>(m, lse, delta, dk, dv, B, Sq, Skv, H, KVH, scale,
                              causal, window, q_offset, stream);

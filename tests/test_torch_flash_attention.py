@@ -382,6 +382,9 @@ BWD_CASES = [
     ((1, 70, 70, 4, 4, 96), True, 0, 0),       # D 96 (minicpm3), G 1, ragged
     ((1, 33, 129, 4, 4, 96), True, 0, 96),     # D 96, G 1, q_offset
     ((2, 33, 150, 4, 4, 64), False, 0, 0),     # whisper's cross, D 64
+    # whisper's encoder, D 64: non-causal self attention, three ragged
+    # tiles each way
+    ((2, 150, 150, 4, 4, 64), False, 0, 0),
 ]
 
 
@@ -543,12 +546,13 @@ def test_bwd_kernel_on_cpu_raises_and_needs_nvcc(tmp_path, monkeypatch):
 # attention at D 64, non-causal, Sq != Skv), D 128 at
 # G 2 and G 4 (the scale 128 ** -0.5 is not a power of 2, so q * scale in
 # bf16 moves S there; nor is 192 ** -0.5), and D 192 at G 1 with q_offset;
-# the odd-G cases last, so that every earlier case keeps its place
+# the odd-G cases, so that every earlier case keeps its place; then
+# whisper's encoder at D 64 (non-causal, ragged tiles each way)
 ROUNDED_BWD_CASES = [c for c in CARD_EDGE_CASES if c not in ODD_G_CASES] + [
     ((2, 67, 67, 4, 2, 128), True, 0, 0),
     ((1, 130, 130, 8, 2, 128), True, 0, 0),
     ((1, 33, 129, 4, 4, 192), True, 0, 96),
-] + ODD_G_CASES
+] + ODD_G_CASES + [((2, 150, 150, 4, 4, 64), False, 0, 0)]
 
 
 @pytest.mark.parametrize("shape,causal,window,q_offset", ROUNDED_BWD_CASES)
