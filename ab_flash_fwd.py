@@ -1,26 +1,36 @@
 #!/usr/bin/env python3
 """Compare sources of the bf16 flash-attention forward kernel on one card.
 
-    python3 ab_flash_fwd.py [--routes] [VARIANT.cu ...]
+    python3 ab_flash_fwd.py [--routes[=NAME,...]] [VARIANT.cu ...]
 
 Builds the ``flash_fwd`` library once with the repository's bf16 kernel
 (``csrc/flash_fwd_sm90.cu``, named "main") and once with each VARIANT.cu in
 its place (named by its stem), all nvcc runs started together, and prints
-each build's ``-Xptxas -v`` lines. ``--routes`` adds variants made from the
-main source by setting its constants (written under ``build/``): the
-two-tile CTA at odd G also at D 64 (``row_pair_d64``: kRowPairMinCols 64);
-a ring of two stages also when Skv <= 64 (``ring2``: kShortRing 2); and a
-K/V ring of three stages (``stages3``). Then, for each build: the bf16
-cases of
-``chip_smoke.py``'s forward grid against the plain version at its bounds
-(a count of failing cases, and of those the build refuses to launch);
-warm times at the main paths' shapes
-(internlm2's prefill and phase 1, G 2; minicpm3's, zamba2's and
-deepseek's prefill and phase 1, G 1; whisper's encoder and cross
-attention, G 1, non-causal; granite's prefill and phase 1, G 3), taken in
-turns (main, variants, variants reversed, main) beside SDPA's in the same
-call; times with L2 flushed; and the host cost of one call of the C entry
-for bf16 against f32. Needs a card; compare variants only within one run.
+each build's ``-Xptxas -v`` lines and wgmma notes; a build that fails is
+reported and left out. ``--routes`` adds variants made from the main
+source by setting its constants (``--routes=a,b`` only those named) (written under ``build/``): the two-tile
+CTA at odd G also at D 64 (``row_pair_d64``: kRowPairMinCols 64); a ring
+of two stages also when Skv <= 64 (``ring2``: kShortRing 2); a K/V ring
+of three stages (``stages3``); the pipelined loop at every head dim
+(``pipe_all``: kPipeWideCols 64); D 192 and 256 on the serial loop of
+the other head dims (``serial_wide``: kPipeWideCols 512); and D 64 asked for two
+CTAs an SM, not five (``ctas2_d64``: kMinCtas64 2).
+
+To hold a change against an earlier source, pass that source as a variant
+(``git show <commit>:src/repro_torch/kernels/flash_attention/csrc/
+flash_fwd_sm90.cu > results/var/old.cu``). Then, for each build: the bf16
+cases of ``chip_smoke.py``'s forward grid against the plain version at
+its bounds (a count of failing cases, and of those the build refuses to
+launch); warm times at the main paths' shapes (internlm2's prefill and
+phase 1, G 2; minicpm3's, zamba2's and deepseek's prefill and phase 1, G
+1; gemma3's prefill in a global and a local layer and its phase 1, D 256,
+G 4; whisper's encoder at its serving batch of 8 and its train batch of
+128, its cross attention, G 1, non-causal, and its decoder at the train
+batch; granite's prefill and phase 1, G 3), taken in turns (main,
+variants, variants reversed, main) beside SDPA's in the same call, with
+whether each build's out and lse equal main's bitwise; times with L2
+flushed; and the host cost of one call of the C entry for bf16 against
+f32. Needs a card; compare variants only within one run.
 """
 from __future__ import annotations
 
@@ -36,21 +46,34 @@ import chip_smoke as smoke
 # name: {constant: value} set in the main source
 ROUTES = {"row_pair_d64": {"kRowPairMinCols": 64},
           "ring2": {"kShortRing": 2},
-          "stages3": {"kStages": 3}}
-# (label, shape, causal): the shapes the main paths give the forward
+          "stages3": {"kStages": 3},
+          "pipe_all": {"kPipeWideCols": 64},
+          "serial_wide": {"kPipeWideCols": 512},
+          "ctas2_d64": {"kMinCtas64": 2}}
+# (label, shape, causal, window): the shapes the main paths give the
+# forward
 SHAPES = (
-    ("internlm2 prefill", smoke.PREFILL_SHAPE, True),
-    ("internlm2 phase-1", smoke.TRAIN_SHAPE, True),
-    ("minicpm3 prefill", smoke.MINICPM_PREFILL_SHAPE, True),
-    ("minicpm3 phase-1", smoke.MINICPM_TRAIN_SHAPE, True),
-    ("zamba2 prefill", smoke.ZAMBA_PREFILL_SHAPE, True),
-    ("zamba2 phase-1", smoke.ZAMBA_TRAIN_SHAPE, True),
-    ("deepseek prefill", smoke.DEEPSEEK_PREFILL_SHAPE, True),
-    ("deepseek phase-1", smoke.DEEPSEEK_TRAIN_SHAPE, True),
-    ("whisper encoder", smoke.WHISPER_ENCODER_SHAPE, False),
-    ("whisper cross", smoke.WHISPER_CROSS_SHAPE, False),
-    ("granite prefill", smoke.GRANITE_PREFILL_SHAPE, True),
-    ("granite phase-1", smoke.GRANITE_TRAIN_SHAPE, True),
+    ("internlm2 prefill", smoke.PREFILL_SHAPE, True, 0),
+    ("internlm2 phase-1", smoke.TRAIN_SHAPE, True, 0),
+    ("minicpm3 prefill", smoke.MINICPM_PREFILL_SHAPE, True, 0),
+    ("minicpm3 phase-1", smoke.MINICPM_TRAIN_SHAPE, True, 0),
+    ("zamba2 prefill", smoke.ZAMBA_PREFILL_SHAPE, True, 0),
+    ("zamba2 phase-1", smoke.ZAMBA_TRAIN_SHAPE, True, 0),
+    ("deepseek prefill", smoke.DEEPSEEK_PREFILL_SHAPE, True, 0),
+    ("deepseek phase-1", smoke.DEEPSEEK_TRAIN_SHAPE, True, 0),
+    ("gemma3 prefill, global", smoke.GEMMA_PREFILL_SHAPE, True, 0),
+    ("gemma3 prefill, local", smoke.GEMMA_PREFILL_SHAPE, True,
+     smoke.GEMMA_WINDOW),
+    ("gemma3 phase-1", smoke.GEMMA_TRAIN_SHAPE, True, 0),
+    ("whisper encoder", smoke.WHISPER_ENCODER_SHAPE, False, 0),
+    ("whisper encoder, train batch", smoke.WHISPER_ENCODER_TRAIN_SHAPE,
+     False, 0),
+    ("whisper cross", smoke.WHISPER_CROSS_SHAPE, False, 0),
+    ("whisper decoder, train batch",
+     (smoke.WHISPER_TRAIN_BATCH,) + smoke.WHISPER_DECODER_SHAPE[1:], True,
+     0),
+    ("granite prefill", smoke.GRANITE_PREFILL_SHAPE, True, 0),
+    ("granite phase-1", smoke.GRANITE_TRAIN_SHAPE, True, 0),
 )
 
 
@@ -102,16 +125,24 @@ def main(argv) -> None:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel, ops
     sources = {"main": kernel.SM90_SOURCE}
-    if "--routes" in argv:
-        argv = [a for a in argv if a != "--routes"]
-        for name in ROUTES:
+    for a in [a for a in argv if a.startswith("--routes")]:
+        argv.remove(a)
+        names = a.split("=", 1)[1].split(",") if "=" in a else ROUTES
+        for name in names:
             sources[name] = _route_variant(name, kernel.SM90_SOURCE)
     sources.update({Path(p).stem: Path(p).resolve() for p in argv})
     with ThreadPoolExecutor(len(sources)) as pool:
         jobs = {n: pool.submit(_build.build_library, f"flash_fwd_ab_{n}",
                                [kernel.SOURCE, p], kernel.HEADERS)
                 for n, p in sources.items()}
-        built = {n: job.result() for n, job in jobs.items()}
+        built = {}
+        for n, job in jobs.items():
+            try:
+                built[n] = job.result()
+            except RuntimeError as e:
+                if n == "main":
+                    raise
+                print(f"[{n}] build failed, left out: {e}", flush=True)
     libs = {}
     for n, b in built.items():
         fn = ""
@@ -121,7 +152,7 @@ def main(argv) -> None:
                 fn = entry.group(1) if entry else ""
             elif fn and ("registers" in line or "spill" in line):
                 print(f"[{n}] {fn}: {line.strip()}")
-            elif "C7518" in line:
+            elif re.search(r"C75\d\d", line):
                 print(f"[{n}] {line.strip()}")
         libs[n] = _load(b)
 
@@ -149,19 +180,41 @@ def main(argv) -> None:
               flush=True)
 
     order = list(libs) + list(libs)[::-1]
-    for label, shape, causal in SHAPES:
+    for label, shape, causal, window in SHAPES:
         B, Sq, Skv, H, KVH, D = shape
         q, k, v = smoke._qkv(shape, torch.bfloat16, seed=7)
-        runs = {n: _runner(lib, q, k, v, causal) for n, lib in libs.items()}
-        warm = {n: [] for n in libs}
+        runs = {n: _runner(lib, q, k, v, causal, window)
+                for n, lib in libs.items()}
+        want = [t.clone() for t in runs["main"]()]
+        same = {}
+        for n in libs:
+            try:
+                same[n] = all(torch.equal(g, w)
+                              for g, w in zip(runs[n](), want))
+            except RuntimeError:     # the build refuses the shape
+                same[n] = "refused"
+                del runs[n]
+        warm = {n: [] for n in runs}
         for n in order:
-            warm[n].append(smoke._device_ms(runs[n], 100))
+            if n in runs:
+                warm[n].append(smoke._device_ms(runs[n], 100))
         qt = q.transpose(1, 2).contiguous()
         kt = k.repeat_interleave(H // KVH, dim=2).transpose(1, 2).contiguous()
         vt = v.repeat_interleave(H // KVH, dim=2).transpose(1, 2).contiguous()
-        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal)
-        print(f"[time] {label} {shape} {'causal' if causal else 'non-causal'}"
+        if window:   # a boolean mask: not SDPA's flash backend
+            pos = torch.arange(Sq, device="cuda")
+            mask = ((pos[None, :] <= pos[:, None])
+                    & (pos[None, :] > pos[:, None] - window))
+            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask)
+        else:
+            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal)
+        mask_name = (f"window {window}" if window
+                     else "causal" if causal else "non-causal")
+        print(f"[bitwise] {label} {shape} {mask_name}: out and lse equal to "
+              f"main's: " + ", ".join(f"{n} {v}" for n, v in same.items()))
+        print(f"[time] {label} {shape} {mask_name}"
               f" warm ms: " + ", ".join(
                   f"{n} {sum(t) / len(t):.4f} "
                   f"({' '.join(f'{x:.4f}' for x in t)})"
@@ -169,7 +222,7 @@ def main(argv) -> None:
               + f"; SDPA {smoke._device_ms(sdpa, 100):.4f}")
         print(f"[time] {label} L2 flushed ms: " + ", ".join(
             f"{n} {smoke._device_ms(runs[n], 30, flush=True):.4f}"
-            for n in libs)
+            for n in runs)
             + f"; SDPA {smoke._device_ms(sdpa, 30, flush=True):.4f}",
             flush=True)
 

@@ -36,9 +36,10 @@ Phases, each printing its own lines; any failed check exits non-zero:
    zamba2-7b's shared block, head dim 112, G 1: its prefill and its two
    training phases; the same at minicpm3-4b's MLA, head dim 96, G 1; the
    forward at whisper-base's non-causal encoder (S 1500), at its serving
-   and its train batch, and cross attention (64 queries on 1500 frames),
-   head dim 64, and its decoder's causal self attention at the train
-   batch;
+   and its train batch (there out and lse of the first 8 batches also
+   bitwise against a launch on those batches alone), and cross attention
+   (64 queries on 1500 frames), head dim 64, and its decoder's causal self
+   attention at the train batch;
    the bf16 SSD kernels at the serve prefill and phase 1 of mamba2-2.7b
    and of zamba2-7b, beside the f32 FMA kernels they replace);
 4. full-width serve (internlm2-1.8b, random weights from a seed): a main
@@ -137,7 +138,13 @@ Phases, each printing its own lines; any failed check exits non-zero:
    (the internlm2 smoke config in f32, whose three flash kernels must
    launch); each a main path counted as above, every accuracy and cosine
    finite;
-16. checkpoints and resume, the resuming run a new process
+16. the CNN step's bits may not depend on what the process did before:
+   one full-width cifar-cnn forward and grads step in a fresh process and
+   in one that first fills the card, in blocks that leave the allocator
+   fragmented, to a small margin (``phase_cnn_processes``: the sha256 of
+   loss, grads and new BN state bitwise; each convolution's scratch and
+   kernels printed);
+17. checkpoints and resume, the resuming run a new process
    (``python3 chip_smoke.py --resume-child ...``) on a copy of the
    snapshot directory with the snapshots after the cut deleted: Table 1's
    SWAP at the full width of cifar-cnn, and internlm2 smoke through the
@@ -571,6 +578,16 @@ def _grid():
         for shape in (WHISPER_ENCODER_SHAPE, WHISPER_CROSS_SHAPE):
             cases.append((shape, dtype, False, 0, 0))
         cases.append((WHISPER_DECODER_SHAPE, dtype, True, 0, 0))
+    # the bf16 routes of the pipelined loop and of the query tiles fastest
+    # (appended, so every earlier case
+    # keeps its seed): D 64's pipelined loop over many KV tiles,
+    # non-causal, Skv 1500 and 700 (not multiples of 64 or 128), at G 1
+    # and 2; D 256 at G 4, causal, Sq 200, with and without a window of 100
+    for shape in ((1, 65, 1500, 2, 2, 64), (2, 130, 700, 2, 2, 64),
+                  (2, 130, 700, 4, 2, 64)):
+        cases.append((shape, "bfloat16", False, 0, 0))
+    for window in (0, 100):
+        cases.append(((1, 200, 200, 4, 1, 256), "bfloat16", True, window, 0))
     return cases
 
 
@@ -670,6 +687,15 @@ def phase_kernel():
     w_enc_train = _fwd_times(WHISPER_ENCODER_TRAIN_SHAPE,
                              "whisper encoder, train batch", seed=1250,
                              causal=False)
+    # its exponentials against the special-function units: one a visible
+    # (query, key) pair
+    B, Sq, Skv, H = WHISPER_ENCODER_TRAIN_SHAPE[:4]
+    q, k, v = _qkv(WHISPER_ENCODER_TRAIN_SHAPE, torch.bfloat16, seed=1250)
+    w_enc_train.update(_mufu_bound(
+        lambda: kernel.flash_fwd(q, k, v, causal=False), B * H * Sq * Skv,
+        "whisper encoder, train batch, forward"))
+    del q, k, v
+    _fwd_batch_slice(WHISPER_ENCODER_TRAIN_SHAPE, "whisper encoder")
     # and its decoder's causal self attention at the train batch (D 64, G 1)
     w_dec_shape = (WHISPER_TRAIN_BATCH,) + WHISPER_DECODER_SHAPE[1:]
     w_dec = _fwd_times(w_dec_shape, "whisper decoder, train batch",
@@ -977,6 +1003,20 @@ def phase_kernel_bwd():
     gr_phase1 = _bwd_times(GRANITE_TRAIN_SHAPE, "granite phase-1")
     w_phase1 = _bwd_times(WHISPER_ENCODER_TRAIN_SHAPE, "whisper encoder",
                           causal=False, plain=False)
+    # the backward's exponentials: dQ and dK/dV each recompute P
+    B, Sq, Skv, H = WHISPER_ENCODER_TRAIN_SHAPE[:4]
+    q, k, v = _qkv(WHISPER_ENCODER_TRAIN_SHAPE, torch.bfloat16, seed=4331)
+    do = _qkv(WHISPER_ENCODER_TRAIN_SHAPE, torch.bfloat16, seed=4332)[0]
+    out, lse = kernel.flash_fwd(q, k, v, causal=False)
+    mufu = _mufu_bound(
+        lambda: kernel.flash_bwd(q, k, v, out, lse, do, causal=False),
+        2 * B * H * Sq * Skv, "whisper encoder, train batch, backward "
+                              "(dQ and dK/dV)", iters=60)
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        w_phase1[name] = {**w_phase1[name], "sm_clock_mhz":
+                          mufu["sm_clock_mhz"], "exps": mufu["exps"] // 2,
+                          "mufu_bound_ms": mufu["mufu_bound_ms"] / 2}
+    del q, k, v, do, out, lse
     _bwd_batch_slice(WHISPER_ENCODER_TRAIN_SHAPE, "whisper encoder")
 
     def errs(shape, name):
@@ -1047,6 +1087,52 @@ def _bwd_batch_slice(shape, label, batch=8):
     print(f"[kernel-bwd] {label} at {shape}, non-causal: dq, dk, dv of the "
           f"first {batch} batches equal, bitwise, a launch on those batches "
           f"alone", flush=True)
+
+
+MUFU_PER_CLOCK = 16 * 132     # ex2 results a clock: 16 an SM, 132 SMs
+
+
+def _mufu_bound(run, exps: int, label: str, iters: int = 200) -> dict:
+    """The least time the card's special-function units (MUFU) take for
+    ``exps`` exponentials, at the SM clock that ``nvidia-smi`` reads while
+    ``iters`` launches of ``run`` are still queued (the card busy)."""
+    import torch
+    for _ in range(iters):
+        run()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    torch.cuda.synchronize()
+    mhz = float(smi.stdout.split()[0])
+    ms = exps / (MUFU_PER_CLOCK * mhz * 1e6) * 1e3
+    print(f"[kernel] {label}: MUFU bound {ms:.4f} ms ({exps:.4g} exps at "
+          f"{mhz:.0f} MHz, the SM clock under this load)", flush=True)
+    return {"mufu_bound_ms": ms, "sm_clock_mhz": mhz, "exps": exps}
+
+
+def _fwd_batch_slice(shape, label, batch=8):
+    """The bf16 forward at ``shape`` (non-causal) against the same call on
+    its first ``batch`` batches alone, bitwise: the forward twin of
+    ``_bwd_batch_slice``. What a CTA writes depends on neither its place in
+    the grid nor the order the grid runs in; the plain version cannot run
+    at that shape, and the B-8 encoder case of the grid holds the values
+    against it."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel
+    q, k, v = _qkv(shape, torch.bfloat16, seed=4333)
+    full = kernel.flash_fwd(q, k, v, causal=False)
+    part = kernel.flash_fwd(q[:batch], k[:batch], v[:batch], causal=False)
+    torch.cuda.synchronize()
+    for name, f, g in zip(("out", "lse"), full, part):
+        check(bool(torch.isfinite(f).all()),
+              f"{label} at {shape}: non-finite {name}")
+        check(torch.equal(f[:batch], g),
+              f"{label} at {shape}: {name} of the first {batch} batches "
+              f"differs from a launch on those batches alone (max |diff| "
+              f"{(f[:batch].float() - g.float()).abs().max().item():.3e})")
+    print(f"[kernel] {label} at {shape}, non-causal: out and lse of the "
+          f"first {batch} batches equal, bitwise, a launch on those "
+          f"batches alone", flush=True)
 
 
 def _bwd_times(shape, label, causal=True, plain=True):
@@ -2862,7 +2948,8 @@ def _cnn_prng_on_card(shape):
 
 def _cnn_card_vs_cpu(cfg, batch=32):
     """Card against CPU at full width in train mode, with cuDNN's TF32
-    allowed around the card's calls (so that a TF32 leak shows): the
+    allowed around the card's calls, and the matmuls' too around each
+    convolution's own (so that a TF32 leak shows): the
     forward (logits, new BN state) against the CPU in f32; the whole-model
     grads against the CPU in f32 and in f64, both run on the card's branch
     (the card forward's ReLU masks and max choices replayed,
@@ -2897,10 +2984,14 @@ def _cnn_card_vs_cpu(cfg, batch=32):
     try:
         card_out, card = cnn_grads(*model, "cuda", branch=card_branch,
                                    convs=convs)
+        # the convolutions alone also with the matmuls' TF32 allowed (the
+        # model's last layer, a plain matmul, follows that flag)
+        torch.backends.cuda.matmul.allow_tf32 = True
         got = [conv_bwd(*c) for c in convs]
         ctl = [conv_bwd(*c, conv=leaky) for c in convs]
     finally:
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
     cpu_out, cpu = cnn_grads(*model, "cpu")
     f64_branch = Branch("record")
     f64 = cnn_grads(*model, "cpu", torch.float64, branch=f64_branch)[1]
@@ -2917,7 +3008,7 @@ def _cnn_card_vs_cpu(cfg, batch=32):
         conv = max([conv] + [rel_err(a, b) for a, b in zip(mine, want)])
         ctl_err = max([ctl_err] + [rel_err(a, b) for a, b in zip(leak, want)])
     print(f"[cnn] card against CPU at full width (train mode, batch {batch})"
-          f", cuDNN TF32 allowed around the card's calls, max |err|/max "
+          f", TF32 allowed around the card's calls, max |err|/max "
           f"|ref|: forward {fwd:.3e} (limit {CNN_FWD_TOL}); whole-model "
           f"grads on the card's branch against the CPU in f32 "
           f"{grad[torch.float32]:.3e}, in f64 {grad[torch.float64]:.3e} "
@@ -3006,6 +3097,89 @@ def phase_cnn(card: str) -> int:
 # ---------------------------------------------------------------------------
 # phase 15: the rest of the paper's experiments
 # ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# the CNN step's bits in a fresh process and in a process whose card is full
+# ---------------------------------------------------------------------------
+
+
+def cnn_step_child(arm: str, margin: str, out: str) -> None:
+    """A fresh process: one full-width cifar-cnn forward and grads step
+    (``cnn_determinism.train_step_record``) under ``arm``, the card first
+    filled to ``margin`` MB free unless it is "-"; writes ``out``."""
+    _require_card()
+    from cnn_determinism import train_step_record
+    rec = train_step_record(
+        None if margin == "-" else int(float(margin) * 2 ** 20), arm)
+    Path(out).write_text(json.dumps(rec))
+
+
+def start_cnn_step(arm: str = "model", margin="-"):
+    """``cnn_step_child`` in a new process, started and not waited for:
+    (the process, its output file's directory and name)."""
+    import tempfile
+    tmp = tempfile.mkdtemp()
+    out = f"{tmp}/step.json"
+    # its output goes to files, not pipes: the parent reads nothing until
+    # it waits, and a full pipe would stop the child
+    with open(f"{tmp}/stderr.txt", "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--cnn-step-child", arm, str(margin), out],
+            stdout=subprocess.DEVNULL, stderr=err)
+    return proc, tmp, out
+
+
+def _finish_cnn_step(started, what) -> dict:
+    import shutil
+    proc, tmp, out = started
+    try:
+        proc.wait(timeout=600)
+        err = Path(f"{tmp}/stderr.txt").read_text()
+        check(proc.returncode == 0, f"the CNN step ({what}) failed:\n"
+                                    f"{err[-3000:]}")
+        return json.loads(Path(out).read_text())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_cnn_processes(card: str, arm: str = "model", fresh=None) -> None:
+    """One full-width cifar-cnn forward and grads step (batch 512, params,
+    batch and augmentation seed from seed 0) in a fresh process, and in a
+    process that first fills the card, in blocks that leave the allocator
+    fragmented (``cnn_determinism.fill_card``), until only
+    ``cnn_determinism.pressure_margin_mb`` of the fresh step is free: room
+    for the step's tensors and 2 GiB of scratch, not for a larger
+    workspace. The sha256 of the loss, the grads and the new BN state must
+    agree bitwise: the convolutions' bits may not depend on what the
+    process did before (ROADMAP C1: cuDNN took other engines, and gave
+    other bits, in a process whose card was full). Each convolution's
+    scratch and kernels in both processes are printed. ``fresh``: the
+    fresh process (``start_cnn_step``), if it was started beside an
+    earlier phase (its step does not depend on what else runs on the
+    card)."""
+    from cnn_determinism import compare_steps, pressure_margin_mb
+    t0 = time.perf_counter()
+    fresh = _finish_cnn_step(fresh or start_cnn_step(arm), f"{arm}, fresh")
+    margin = pressure_margin_mb(fresh)
+    full = _finish_cnn_step(start_cnn_step(arm, margin),
+                            f"{arm}, card filled to {margin} MB free")
+    for x, y in zip(fresh["convs"], full["convs"]):
+        print(f"[cnn-processes] {x['name']}: scratch {x['scratch_mb']} MB "
+              f"fresh, {y['scratch_mb']} MB in the full card; kernels "
+              f"{x['kernels']}"
+              + ("" if x["kernels"] == y["kernels"]
+                 else f" fresh, {y['kernels']} in the full card"))
+    same = all(fresh[k] == full[k] for k in ("loss", "grads", "state"))
+    print(f"[cnn-processes] cifar-cnn step of {fresh['convs'][0]['name']}"
+          f"... on {card}, convolutions {arm}: fresh step peak "
+          f"{fresh['peak_mb']} MB; the card filled to {margin} MB free "
+          f"({full['free_mb_before']} MB left before the step): "
+          f"{compare_steps(fresh, full)} ({time.perf_counter() - t0:.1f} "
+          f"s)", flush=True)
+    check(same, f"the CNN step's bits in a full card differ from a fresh "
+                f"process's: {compare_steps(fresh, full)}")
+
 
 # the forward, then the backward's kernels: each of dQ, dK/dV and delta
 # launches once a backward, so the launch checks hold delta's count to dQ's
@@ -3372,7 +3546,10 @@ def main() -> None:
     minicpm_serve, minicpm_train = phase_minicpm(card)
     whisper_serve, whisper_train = phase_whisper(card)
     cnn_launches = phase_cnn(card)
+    # the CNN step's fresh process runs beside the experiments
+    fresh = start_cnn_step()
     table3 = phase_experiments(card)
+    phase_cnn_processes(card, fresh=fresh)
     resumed = phase_resume(card)
     # launches: the dense kernels' on the dense training path; the SSD
     # forward's on the mamba serving path (the shape of its row) and on the
@@ -3428,5 +3605,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--resume-child"]:
         resume_child(sys.argv[2], sys.argv[3], sys.argv[4:])
+    elif sys.argv[1:2] == ["--cnn-step-child"]:
+        cnn_step_child(*sys.argv[2:5])
     else:
         main()

@@ -21,8 +21,11 @@ from a seed, train mode, the loss sum(logits * cotangent)):
    (torch.profiler) and each route's time at the batch of 512 that Table
    1's phase 1 runs.
 
-Routes: ``cudnn`` (``models.cnn``'s own), ``cudnn-benchmark`` and
-``cudnn-deterministic`` (the same call under those flags),
+Routes: ``model`` (``models.cnn``'s own: im2col products over slices of
+``cnn._SLICE`` images), ``cudnn`` (cuDNN's convolution backward in f32,
+the port's earlier route took it under ``deterministic``),
+``cudnn-benchmark`` and ``cudnn-deterministic`` (the same call under
+those flags),
 ``cudnn-nchw`` (NCHW-contiguous operands), ``native`` (cuDNN off:
 PyTorch's own CUDA convolution), ``gemm`` (im2col and f32 matmuls).
 Needs a card. ``chip_smoke.py`` holds the port against f64 with
@@ -165,6 +168,19 @@ def bwd_gemm(x, w, gy):
     return dx, dw
 
 
+@contextlib.contextmanager
+def _no_tf32():
+    """cuDNN convolutions in full f32 inside the block, whatever the global
+    ``torch.backends.cudnn.allow_tf32`` says."""
+    conv = torch.backends.cudnn.conv
+    old = conv.fp32_precision
+    conv.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        conv.fp32_precision = old
+
+
 def bwd_cudnn(x, w, gy, nchw=False, **flags):
     """dx and dw as ``cnn._Conv.backward`` takes them, under cuDNN
     ``flags``; ``nchw`` makes the operands NCHW-contiguous."""
@@ -174,14 +190,21 @@ def bwd_cudnn(x, w, gy, nchw=False, **flags):
         xs, gs, wk = xs.contiguous(), gs.contiguous(), wk.contiguous()
     with torch.backends.cudnn.flags(**{
             "enabled": True, "benchmark": False, "deterministic": False,
-            "allow_tf32": False, **flags}), cnn._no_tf32():
+            "allow_tf32": False, **flags}), _no_tf32():
         gx, gw, _ = torch.ops.aten.convolution_backward(
             gs, xs, wk, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
             [True, True, False])
     return cnn._nhwc(gx), gw.permute(2, 3, 1, 0)
 
 
+def bwd_model(x, w, gy):
+    """dx and dw as ``models.cnn``'s own convolution takes them."""
+    xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+    return torch.autograd.grad(cnn._conv(xs, ws), (xs, ws), gy)
+
+
 ROUTES = {
+    "model": bwd_model,
     "cudnn": bwd_cudnn,
     "cudnn-benchmark": lambda x, w, g: bwd_cudnn(x, w, g, benchmark=True),
     "cudnn-deterministic": lambda x, w, g: bwd_cudnn(x, w, g,
@@ -266,7 +289,7 @@ def main() -> None:
     run("cpu f32", "cpu")
     for r in routes:
         run(f"card {r}", "cuda", conv=routed(r),
-            convs=convs if r == "cudnn" else None)
+            convs=convs if r == "model" else None)
 
     print("each convolution's backward on the card model's own inputs, "
           "max |err|/max |ref| against the CPU in f64 (dx, dw)")

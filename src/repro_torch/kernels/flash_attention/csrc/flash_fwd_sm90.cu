@@ -59,8 +59,10 @@
 //      queries): one warpgroup a CTA, as one 64-row tile has no partner.
 //    The host entry chooses (fa_fwd_sm90 below). D 64 (whisper-base at G
 //    1, granite-moe at G 3) keeps the one-warpgroup CTA at every Sq
-//    (kRowPairMinCols): its CTA, 94 registers a thread and 41 KB, fits
-//    five an SM, more warpgroups than two-tile CTAs give.
+//    (kRowPairMinCols): its CTA, at most 96 registers a thread
+//    (kMinCtas64) and 41 KB, fits five an SM, more warpgroups than
+//    two-tile CTAs give (1.9039 against 1.7952 ms at whisper's
+//    encoder, B 128).
 //  * TMA: 4-D tensor maps over (D, heads, S, B) with boxes of 64 columns x
 //    64 rows of one head and 128-byte swizzle (a D-128 row, 256 bytes, is
 //    two boxes). Rows past Sq or Skv come in zero-filled and batch edges
@@ -101,6 +103,33 @@
 //    m + log(l), or 0 where l = 0 (also in a CTA with no visible tile).
 //  * The query tiles with the most KV tiles launch first (the slowest grid
 //    axis, reversed), so causal imbalance does not leave a short last wave.
+//    A non-causal launch without a window, where every query tile has the
+//    same KV tiles, puts the query tiles fastest instead, so that the 24
+//    tiles of a (batch, head) of whisper's encoder run together and read
+//    its K/V from HBM once, not once a tile (9.4 GB a launch at B 128):
+//    3.3374 -> 1.8073 ms there; at B 8 (24.6 MB of K/V, which L2
+//    holds) the two orders measured the same. A causal launch keeps the
+//    longest first: with the tiles fastest it lost that, and internlm2's
+//    prefill went 0.0382 -> 0.0522 ms.
+//  * Two loops over the KV tiles. The serial loop (every launch with one
+//    KV tile, Skv <= 64; D 64 to 128 always): S of tile i + 1 is issued
+//    behind P.V of tile i, one barrier a stage for K and V. The pipelined
+//    loop (D 192 and 256 where Skv > 64 and the CTA has two warpgroups,
+//    kPipeWideCols): S of tile i + 1
+//    is issued before P.V of tile i, and tile i + 1's softmax runs while
+//    that P.V is on the tensor cores; K and V have barriers and releases
+//    of their own, so a K stage refills once its S has run; the last tile
+//    is peeled, so no wgmma sits under a branch. Both loops do the same
+//    operations on O and l in the same order, so they give the same bits.
+//    At D 192 and 256 it took the prefills 6-14% faster (gemma3's global
+//    layer 0.1752 -> 0.1543 ms, deepseek's 0.0817 -> 0.0766). At D 64 it
+//    lost to the serial loop (whisper's B 128 1.7182 against 1.6781 ms),
+//    also with Q held in registers as S's A operand (RS wgmma) or
+//    with 128-key tiles (ptxas C7512: no registers for the wgmma
+//    pipeline; 3.0 ms): with its softmax removed the serial loop took
+//    1.2553 ms and with its wgmma removed 1.2607, each 2.1x its bound of
+//    0.5964, so neither unit binds alone, and the extra registers cost a
+//    CTA an SM.
 //  * D 112 (zamba2-7b) and D 96 (minicpm3-4b) run on D 128's tiles: their
 //    maps' innermost extent is the real D, so TMA zero-fills columns D-127
 //    of Q, K and V. The zero columns of Q and K leave S as it is and those
@@ -119,10 +148,20 @@
 //    beside S's 32, and a CTA takes 145 KB of shared memory with two
 //    warpgroups (121 KB with one): one CTA an SM there too, two
 //    warpgroups an SM at every G with Sq > 64.
-// Not here: a producer warp with setmaxnreg, persistent CTAs, clusters,
-// the ping-pong of two warpgroups, or overlap of one tile's softmax with
-// the next tile's S (that needs a second S accumulator, 32 more registers
-// than the 2-CTA bound leaves).
+// Not here: clusters; the pipelined loop below D 192 (at D 96 to 128 it
+// measured 18-28% slower on the prefills, internlm2's 0.0455 against
+// 0.0386 ms: its registers do not fit the two-CTA bound;
+// `ab_flash_fwd.py --routes=pipe_all`); a persistent, warp-specialized
+// kernel at D 256 and even G (tried: one CTA an SM walking a
+// longest-first list of (query tile, head pair, batch) items, a producer
+// warp issuing every TMA copy on 24 registers (setmaxnreg), two consumer
+// warpgroups on 240 taking turns on named barriers to issue their
+// products, each freeing its Q tile after its last S so the next item's
+// Q loads under its last P.V and its O stores. At gemma3's global prefill
+// it took 0.1516-0.1559 ms against this kernel's pipelined loop's
+// 0.1509-0.1543 over five A/B calls, 0.5% faster in four and 3.3% slower
+// in one; without the turns 2-3% slower still; with a window 8-11% slower.
+// The pipelined loop, the simpler, stays).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -142,6 +181,12 @@ constexpr int kShortRing = 1;
 // at odd G the two-tile CTA takes head dims whose tiles have this many
 // columns or more (see the host entry); below, one warpgroup a CTA
 constexpr int kRowPairMinCols = 128;
+// where Skv > 64, head dims whose tiles have at least this many columns
+// run the pipelined loop (tile i + 1's S in flight while tile i's P.V
+// runs under tile i + 1's softmax: one CTA an SM, so occupancy does not
+// bound their registers); a launch with one KV tile (Skv <= 64, the
+// training steps at S 64) and the other head dims keep the serial loop
+constexpr int kPipeWideCols = 192;
 
 // How a CTA's warpgroups split the work: two query heads of a group (G
 // even), one 64-row tile (G odd, Sq <= 64), two 64-row tiles of one head
@@ -150,6 +195,16 @@ enum Split { kHeadPair, kOneTile, kRowPair };
 // consumer warpgroups (of 128 threads) a CTA of a split
 __host__ __device__ constexpr int split_wgs(int split) {
   return split == kOneTile ? 1 : 2;
+}
+
+// CTAs of one warpgroup an SM that D 64's launch bound asks for: five, so
+// at most 96 registers (the CTA's 41 KB of shared memory let five fit; at
+// 99 registers the SM took four, and the S-64 shapes ran 13% slower)
+constexpr int kMinCtas64 = 5;
+
+// whether a head dim has the pipelined loop (where Skv > 64)
+__host__ __device__ constexpr bool pipe_cols(int dg) {
+  return tile_cols(dg) >= kPipeWideCols;
 }
 
 // the KV tiles [*tb, *te) that some row of the 64-row query tile from
@@ -170,19 +225,99 @@ __device__ __forceinline__ void visible_tiles(int q0, int Sq, int Skv,
   *te = (kv_end + kBlockK - 1) / kBlockK;
 }
 
-// DG: the head dim of q, k, v and o; D: the tile's columns (tile_cols)
-template <int DG, int SPLIT>
+// Masks (only on a tile that crosses a bound) and the online softmax of the
+// 64-key tile from key k0 on the S fragment sc, in place: p in sc, the
+// running row max m and this thread's part of the row sum l updated, and
+// alpha[r] = exp(m_old - m_new), the factor O's row r takes. The query
+// tile's first row sits at position qo (q0 + q_offset); this thread holds
+// the rows at positions qpos0 (+8) and columns 8j + c0 (+1):
+// sc[4j + 2r + e] is row 8r past qpos0's, column 8j + c0 + e.
+__device__ __forceinline__ void online_softmax(
+    float (&sc)[32], float (&m)[2], float (&l)[2], float (&alpha)[2],
+    int k0, int qo, int qpos0, int c0, int Skv, int causal, int window) {
+  const bool edge =
+      k0 + kBlockK > Skv ||
+      (causal && k0 + kBlockK - 1 > qo) ||
+      (window > 0 && k0 <= qo + kRows - 1 - window);
+  if (edge) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = k0 + 8 * j + c0 + (e & 1);
+        const int qpos = qpos0 + 8 * (e >> 1);
+        bool ok = kpos < Skv;
+        if (causal) ok = ok && kpos <= qpos;
+        if (window > 0) ok = ok && kpos > qpos - window;
+        if (!ok) sc[4 * j + e] = kNegInf;
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_prev = m[r];
+    const float m_new = fmaxf(m_prev, mx);
+    m[r] = m_new;
+    // exp(s - m) as 2^(s log2 e - m log2 e): one FFMA and one MUFU. A
+    // row with no visible key yet (m_new <= NEG_INF / 2) takes m = +inf,
+    // so that every p is 2^-inf = 0
+    const float m_log2 =
+        m_new > kNegInf / 2 ? m_new * kLog2e : __int_as_float(0x7f800000);
+    alpha[r] = m_prev > kNegInf / 2
+                   ? exp2_approx(fmaf(m_prev, kLog2e, -m_log2))
+                   : 0.f;
+    float ps = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p =
+            exp2_approx(fmaf(sc[4 * j + 2 * r + e], kLog2e, -m_log2));
+        sc[4 * j + 2 * r + e] = p;
+        ps += p;
+      }
+    }
+    l[r] = l[r] * alpha[r] + ps;
+  }
+}
+
+// O's rows times alpha: the m64nN fragment's row r0 (+8) by alpha[0] ([1])
+template <int N>
+__device__ __forceinline__ void rescale_rows(float (&acc)[N],
+                                             const float (&alpha)[2]) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    acc[4 * j] *= alpha[0];
+    acc[4 * j + 1] *= alpha[0];
+    acc[4 * j + 2] *= alpha[1];
+    acc[4 * j + 3] *= alpha[1];
+  }
+}
+
+// DG: the head dim of q, k, v and o; D: the tile's columns (tile_cols);
+// PIPE: the pipelined loop, else the serial one
+template <int DG, int SPLIT, bool PIPE>
 __global__ void __launch_bounds__(split_wgs(SPLIT) * 128,
-                                  tile_cols(DG) >= 192 ? 1 : 2)
+                                  tile_cols(DG) >= 192 ? 1
+                                  : tile_cols(DG) == 64
+                                      ? kMinCtas64 / split_wgs(SPLIT)
+                                      : 2)
 fa_fwd_sm90_kernel(__grid_constant__ const CUtensorMap tq,
                    __grid_constant__ const CUtensorMap tk,
                    __grid_constant__ const CUtensorMap tv,
                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                    int Sq, int Skv, int H, int KVH, float scale, int causal,
-                   int window, int q_offset) {
+                   int window, int q_offset, int tiles_fastest) {
   constexpr int NWG = split_wgs(SPLIT);
   constexpr bool kRowTiles = SPLIT == kRowPair;
   constexpr int D = tile_cols(DG);
+  constexpr bool kPipe = PIPE;
   constexpr int kBoxes = D / kBox;
   constexpr int kTile = kBoxes * kBoxBytes;  // one 64-row tile of Q, K or V
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -195,27 +330,36 @@ fa_fwd_sm90_kernel(__grid_constant__ const CUtensorMap tq,
   uint8_t* sV = sK + ring * kTile;            // [ring][kTile]
   uint64_t* bars = reinterpret_cast<uint64_t*>(sV + ring * kTile);
   const uint32_t bar_q = smem_u32(bars);      // Q arrived
-  const uint32_t bar_full = bar_q + 8;        // [kStages]: K/V arrived
-  // [kStages]: warps done with the stage; the last one refills it
-  int* released = reinterpret_cast<int*>(bars + 1 + kStages);
+  // [2][kStages]: K, then V of a stage arrived (the serial loop: both on
+  // the first kStages)
+  const uint32_t bar_full = bar_q + 8;
+  // [2][kStages]: warps done with a stage's K (V); the last one refills it
+  int* released = reinterpret_cast<int*>(bars + 1 + 2 * kStages);
 
   const int tid = threadIdx.x;
   const int wg = tid / 128;
   const int warp = (tid % 128) / 32;
   const int lane = tid % 32;
   const int G = H / KVH;
+  // the grid is (heads or head pairs, batches, query blocks), or with
+  // tiles_fastest (query blocks, heads or head pairs, batches): then the
+  // query blocks of one (batch, head) launch together and share its K/V in
+  // L2 (see the host entry)
+  const int head_idx = tiles_fastest ? blockIdx.y : blockIdx.x;
+  const int b = tiles_fastest ? blockIdx.z : blockIdx.y;
+  const int blk = tiles_fastest ? blockIdx.x : blockIdx.z;
+  const int n_blk = tiles_fastest ? gridDim.x : gridDim.z;
   int kvh, h0;                  // the KV head; the query head of warpgroup 0
   if (kRowTiles) {
-    h0 = blockIdx.x;
+    h0 = head_idx;
     kvh = h0 / G;
   } else {
-    kvh = blockIdx.x / (G / NWG);
-    h0 = kvh * G + (blockIdx.x % (G / NWG)) * NWG;
+    kvh = head_idx / (G / NWG);
+    h0 = kvh * G + (head_idx % (G / NWG)) * NWG;
   }
   const int h = kRowTiles ? h0 : h0 + wg;
-  const int b = blockIdx.y;
   // the CTA's first query row (longest first), and this warpgroup's
-  const int qb = (gridDim.z - 1 - blockIdx.z) * (kRowTiles ? 2 : 1) * kRows;
+  const int qb = (n_blk - 1 - blk) * (kRowTiles ? 2 : 1) * kRows;
   const int q0 = qb + (kRowTiles ? wg * kRows : 0);
 
   // the KV tiles of the CTA: those that some row of its query tiles can
@@ -238,17 +382,26 @@ fa_fwd_sm90_kernel(__grid_constant__ const CUtensorMap tq,
   }
   const int n_tiles = t_end - t_begin;
 
-  auto load_kv = [&](int i) {  // the CTA's i-th KV tile into stage i % kStages
+  // the CTA's i-th K (kv 0) or V (kv 1) tile into stage i % kStages; the
+  // serial loop loads and releases both together (kv 0)
+  auto load = [&](int kv, int i) {
     const int s = i % kStages;
+    const uint32_t bar = bar_full + 8 * (kv * kStages + s);
     const int k0 = (t_begin + i) * kBlockK;
-    mbar_expect_tx(bar_full + 8 * s, 2 * kTile);
-    tma_load_tile<D>(sK + s * kTile, &tk, bar_full + 8 * s, kvh, k0, b);
-    tma_load_tile<D>(sV + s * kTile, &tv, bar_full + 8 * s, kvh, k0, b);
+    mbar_expect_tx(bar, (kPipe ? 1 : 2) * kTile);
+    if (kPipe || kv == 0)
+      tma_load_tile<D>((kv ? sV : sK) + s * kTile, kv ? &tv : &tk, bar, kvh,
+                       k0, b);
+    if (!kPipe) tma_load_tile<D>(sV + s * kTile, &tv, bar, kvh, k0, b);
+  };
+  auto wait_full = [&](int kv, int i) {
+    mbar_wait(bar_full + 8 * (kv * kStages + i % kStages),
+              (i / kStages) & 1);
   };
 
   if (tid == 0) {
     mbar_init(bar_q, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < (kPipe ? 2 : 1) * kStages; ++s) {
       mbar_init(bar_full + 8 * s, 1);
       released[s] = 0;
     }
@@ -266,21 +419,25 @@ fa_fwd_sm90_kernel(__grid_constant__ const CUtensorMap tq,
       else
         tma_load_tile<D>(sQ + w * kTile, &tq, bar_q, h0 + w, qb, b);
     }
-    for (int i = 0; i < min(kStages, n_tiles); ++i) load_kv(i);
+    for (int i = 0; i < min(kStages, n_tiles); ++i) {
+      load(0, i);
+      if (kPipe) load(1, i);
+    }
   }
   __syncwarp();
 
-  // release the CTA's i-th tile's stage: the last of the CTA's warps to be
-  // done with it issues the copy of the tile that goes there next, so no
-  // warp waits for another warpgroup
-  auto release = [&](int i) {
-    const int s = i % kStages;
+  // release the CTA's i-th K (kv 0) or V (kv 1) tile's stage: the last of
+  // the CTA's warps to be done with it issues the copy of the tile that
+  // goes there next, so no warp waits for another warpgroup. K and V are
+  // released apart: a K stage is free once its S has run, a P.V later
+  auto release = [&](int kv, int i) {
+    const int s = kv * kStages + i % kStages;
     __syncwarp();
     if (lane == 0) {
       __threadfence_block();   // this warp's reads of the stage are done
       if (atomicAdd(&released[s], 1) == 4 * NWG - 1) {
         released[s] = 0;
-        if (i + kStages < n_tiles) load_kv(i + kStages);
+        if (i + kStages < n_tiles) load(kv, i + kStages);
       }
     }
     __syncwarp();
@@ -289,8 +446,12 @@ fa_fwd_sm90_kernel(__grid_constant__ const CUtensorMap tq,
   // that no stage is released twice before the other warpgroup is done
   // with it), then release it
   auto pass = [&](int i) {
-    mbar_wait(bar_full + 8 * (i % kStages), (i / kStages) & 1);
-    release(i);
+    wait_full(0, i);
+    release(0, i);
+    if (kPipe) {
+      wait_full(1, i);
+      release(1, i);
+    }
   };
 
   // q * scale in bf16 on this warpgroup's Q tile, as the plain version
@@ -302,7 +463,6 @@ fa_fwd_sm90_kernel(__grid_constant__ const CUtensorMap tq,
 
   const int r0 = warp * 16 + lane / 4;  // this thread's rows: r0, r0 + 8
   const int c0 = 2 * (lane % 4);        // and columns 8j + c0 (+1)
-  const int qpos0 = q0 + r0 + q_offset;
   const uint32_t q_addr = smem_u32(my_q);
   float acc[D / 2];                     // O, the m64nD fragment
 #pragma unroll
@@ -313,105 +473,93 @@ fa_fwd_sm90_kernel(__grid_constant__ const CUtensorMap tq,
   // S = (q * scale) . K^T of the i-th tile, issued and committed
   float sc[32];
   auto issue_s = [&](int i) {
-    const int s = i % kStages;
-    mbar_wait(bar_full + 8 * s, (i / kStages) & 1);
-    const uint32_t k_addr = smem_u32(sK + s * kTile);
+    wait_full(0, i);
+    const uint32_t k_addr = smem_u32(sK + (i % kStages) * kTile);
 #pragma unroll
     for (int j = 0; j < 32; ++j) sc[j] = 0.f;
     wgmma_fence();
     wgmma_tiles_abt<D>(sc, q_addr, k_addr);
     wgmma_commit();
   };
+  // O += P . V of the i-th tile (V the MN-major B operand), issued and
+  // committed (the pipelined loop's: V has a barrier of its own)
+  uint32_t pa[4][4];                    // p in bf16, P.V's A fragments
+  auto issue_pv = [&](int i) {
+    wait_full(1, i);
+    wgmma_fence();
+    wgmma_frags_b<D>(acc, pa, smem_u32(sV + (i % kStages) * kTile));
+    wgmma_commit();
+  };
+
+  const int qpos0 = q0 + r0 + q_offset;
+  auto softmax = [&](int i, float (&alpha)[2]) {
+    online_softmax(sc, m, l, alpha, (t_begin + i) * kBlockK, q0 + q_offset,
+                   qpos0, c0, Skv, causal, window);
+  };
+  auto rescale = [&](const float (&alpha)[2]) { rescale_rows(acc, alpha); };
+
   if (kRowTiles)
     for (int i = 0; i < i_lo; ++i) pass(i);
-  if (i_lo < i_hi) issue_s(i_lo);
-
-  for (int i = i_lo; i < i_hi; ++i) {
-    const int s = i % kStages;
-    const int k0 = (t_begin + i) * kBlockK;
-    const uint32_t v_addr = smem_u32(sV + s * kTile);
-    wgmma_wait<0>();   // S of this tile
-    pin(sc);
-
-    // masks, only on tiles that cross a bound
-    const bool edge =
-        k0 + kBlockK > Skv ||
-        (causal && k0 + kBlockK - 1 > q0 + q_offset) ||
-        (window > 0 && k0 <= q0 + kRows - 1 + q_offset - window);
-    if (edge) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kpos = k0 + 8 * j + c0 + (e & 1);
-          const int qpos = qpos0 + 8 * (e >> 1);
-          bool ok = kpos < Skv;
-          if (causal) ok = ok && kpos <= qpos;
-          if (window > 0) ok = ok && kpos > qpos - window;
-          if (!ok) sc[4 * j + e] = kNegInf;
-        }
-      }
-    }
-
-    // online softmax; sc[4j + 2r + e] is row r0 + 8r, column 8j + c0 + e
+  if constexpr (kPipe) {
     float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_prev = m[r];
-      const float m_new = fmaxf(m_prev, mx);
-      m[r] = m_new;
-      // exp(s - m) as 2^(s log2 e - m log2 e): one FFMA and one MUFU. A
-      // row with no visible key yet (m_new <= NEG_INF / 2) takes m = +inf,
-      // so that every p is 2^-inf = 0
-      const float m_log2 =
-          m_new > kNegInf / 2 ? m_new * kLog2e : __int_as_float(0x7f800000);
-      alpha[r] = m_prev > kNegInf / 2
-                     ? exp2_approx(fmaf(m_prev, kLog2e, -m_log2))
-                     : 0.f;
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float p =
-              exp2_approx(fmaf(sc[4 * j + 2 * r + e], kLog2e, -m_log2));
-          sc[4 * j + 2 * r + e] = p;
-          ps += p;
-        }
-      }
-      l[r] = l[r] * alpha[r] + ps;
-    }
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      acc[4 * j] *= alpha[0];
-      acc[4 * j + 1] *= alpha[0];
-      acc[4 * j + 2] *= alpha[1];
-      acc[4 * j + 3] *= alpha[1];
-    }
-    // p in bf16, as the A fragments of P.V's four k-steps
-    uint32_t pa[4][4];
-    to_frags(sc, pa);
-
-    // O += P . V; V is the MN-major B operand
-    wgmma_fence();
-    wgmma_frags_b<D>(acc, pa, v_addr);
-    wgmma_commit();
-    // the next tile's S runs on the tensor cores behind this P.V
-    if (i + 1 < i_hi) {
-      issue_s(i + 1);
-      wgmma_wait<1>();   // this P.V; the next S may still run
-    } else {
+    // Pipelined: S of tile i + 1 is issued before P.V of tile i, and tile
+    // i + 1's softmax runs while that P.V is on the tensor cores. O and l
+    // take the same operations in the same order as the loop below (O
+    // times alpha of tile i + 1 after tile i's P.V, then tile i + 1's
+    // P.V), so the two give the same bits. The last tile is peeled, so
+    // that no wgmma sits under a branch inside the loop.
+    if (i_lo < i_hi) {
+      issue_s(i_lo);
       wgmma_wait<0>();
+      pin(sc);
+      release(0, i_lo);
+      softmax(i_lo, alpha);    // alpha 0: O is still 0
+      to_frags(sc, pa);
+      int i = i_lo;
+      for (; i + 1 < i_hi; ++i) {
+        issue_s(i + 1);
+        issue_pv(i);
+        wgmma_wait<1>();       // S of tile i + 1; this P.V may still run
+        pin(sc);
+        release(0, i + 1);
+        softmax(i + 1, alpha);
+        wgmma_wait<0>();
+        pin(acc);
+        pin(pa);
+        release(1, i);
+        rescale(alpha);
+        to_frags(sc, pa);
+      }
+      issue_pv(i);
+      wgmma_wait<0>();
+      pin(acc);
+      pin(pa);
+      release(1, i);
     }
-    pin(acc);
-    pin(pa);
-    release(i);
+  } else {
+    if (i_lo < i_hi) issue_s(i_lo);
+    for (int i = i_lo; i < i_hi; ++i) {
+      float alpha[2];
+      const uint32_t v_addr = smem_u32(sV + (i % kStages) * kTile);
+      wgmma_wait<0>();   // S of this tile
+      pin(sc);
+      softmax(i, alpha);
+      rescale(alpha);
+      to_frags(sc, pa);
+      wgmma_fence();     // O += P . V; V arrived with K
+      wgmma_frags_b<D>(acc, pa, v_addr);
+      wgmma_commit();
+      // the next tile's S runs on the tensor cores behind this P.V
+      if (i + 1 < i_hi) {
+        issue_s(i + 1);
+        wgmma_wait<1>();   // this P.V; the next S may still run
+      } else {
+        wgmma_wait<0>();
+      }
+      pin(acc);
+      pin(pa);
+      release(0, i);
+    }
   }
 
   // epilogue: O / l in bf16, staged in this warpgroup's Q tile as [64][D]
@@ -445,7 +593,7 @@ fa_fwd_sm90_kernel(__grid_constant__ const CUtensorMap tq,
     for (int i = i_hi; i < n_tiles; ++i) pass(i);
 }
 
-template <int DG, int SPLIT>
+template <int DG, int SPLIT, bool PIPE>
 cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
                    const CUtensorMap& tv, void* o, void* lse, int B, int Sq,
                    int Skv, int H, int KVH, float scale, int causal,
@@ -453,20 +601,42 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
   constexpr int NWG = split_wgs(SPLIT);
   constexpr int kTile = tile_cols(DG) / kBox * kBoxBytes;
   const int ring = Skv > kBlockK ? kStages : kShortRing;
-  const int smem =
-      1024 + (NWG + 2 * ring) * kTile + 8 * (1 + kStages) + 4 * kStages;
+  const int smem = 1024 + (NWG + 2 * ring) * kTile + 8 * (1 + 2 * kStages) +
+                   4 * 2 * kStages;
   const cudaError_t err = cudaFuncSetAttribute(
-      fa_fwd_sm90_kernel<DG, SPLIT>,
+      fa_fwd_sm90_kernel<DG, SPLIT, PIPE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  // (query heads, or their pairs; batch; query blocks of 64 or 128 rows)
+  // (query heads, or their pairs; batch; query blocks of 64 or 128 rows),
+  // the blocks with the most KV tiles first; or, where every block has
+  // the same KV tiles (non-causal, no window), the blocks of one (batch,
+  // head) together
   const int block_rows = (SPLIT == kRowPair ? 2 : 1) * kRows;
-  const dim3 grid(SPLIT == kHeadPair ? H / 2 : H, B,
-                  (Sq + block_rows - 1) / block_rows);
-  fa_fwd_sm90_kernel<DG, SPLIT><<<grid, NWG * 128, smem, stream>>>(
+  const int n_blk = (Sq + block_rows - 1) / block_rows;
+  const int heads = SPLIT == kHeadPair ? H / 2 : H;
+  const int tiles_fastest = !causal && window == 0;
+  const dim3 grid = tiles_fastest ? dim3(n_blk, heads, B)
+                                  : dim3(heads, B, n_blk);
+  fa_fwd_sm90_kernel<DG, SPLIT, PIPE><<<grid, NWG * 128, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
-      Sq, Skv, H, KVH, scale, causal, window, q_offset);
+      Sq, Skv, H, KVH, scale, causal, window, q_offset, tiles_fastest);
   return cudaGetLastError();
+}
+
+template <int DG, int SPLIT>
+cudaError_t launch_loop(const CUtensorMap& tq, const CUtensorMap& tk,
+                        const CUtensorMap& tv, void* o, void* lse, int B,
+                        int Sq, int Skv, int H, int KVH, float scale,
+                        int causal, int window, int q_offset,
+                        cudaStream_t stream) {
+  // (one 64-row tile at odd G, a decode row, keeps the serial loop)
+  if constexpr (pipe_cols(DG) && SPLIT != kOneTile) {
+    if (Skv > kBlockK)
+      return launch<DG, SPLIT, true>(tq, tk, tv, o, lse, B, Sq, Skv, H, KVH,
+                                     scale, causal, window, q_offset, stream);
+  }
+  return launch<DG, SPLIT, false>(tq, tk, tv, o, lse, B, Sq, Skv, H, KVH,
+                                  scale, causal, window, q_offset, stream);
 }
 
 template <int DG>
@@ -476,13 +646,14 @@ cudaError_t launch_split(Split split, const CUtensorMap& tq,
                          int KVH, float scale, int causal, int window,
                          int q_offset, cudaStream_t stream) {
   if (split == kHeadPair)
-    return launch<DG, kHeadPair>(tq, tk, tv, o, lse, B, Sq, Skv, H, KVH,
-                                 scale, causal, window, q_offset, stream);
+    return launch_loop<DG, kHeadPair>(tq, tk, tv, o, lse, B, Sq, Skv, H, KVH,
+                                      scale, causal, window, q_offset,
+                                      stream);
   if (split == kRowPair)
-    return launch<DG, kRowPair>(tq, tk, tv, o, lse, B, Sq, Skv, H, KVH,
-                                scale, causal, window, q_offset, stream);
-  return launch<DG, kOneTile>(tq, tk, tv, o, lse, B, Sq, Skv, H, KVH, scale,
-                              causal, window, q_offset, stream);
+    return launch_loop<DG, kRowPair>(tq, tk, tv, o, lse, B, Sq, Skv, H, KVH,
+                                     scale, causal, window, q_offset, stream);
+  return launch_loop<DG, kOneTile>(tq, tk, tv, o, lse, B, Sq, Skv, H, KVH,
+                                   scale, causal, window, q_offset, stream);
 }
 
 }  // namespace

@@ -10,15 +10,18 @@ the averaged weights (Algorithm 1 line 28 of the paper).
 
 BatchNorm is written as the reference's ops, not ``F.batch_norm``: the
 biased batch variance, y = (x - mean) * rsqrt(var + 1e-5) * scale + bias,
-and running stats ``0.9 * old + 0.1 * batch``. The convolutions run on
-cuDNN (on the CPU, PyTorch's own) in full f32 whatever the caller's
-``torch.backends.cudnn.allow_tf32`` says, and by cuDNN's deterministic
-algorithms whatever ``torch.backends.cudnn.deterministic`` says: forward
-and backward each run under both settings (``_Conv``), since the backward,
-run later by autograd, would otherwise read the flags as they stand then.
-The deterministic algorithms make a run give the same bits in every
-process, which a bit-exact resume in a new process needs
-(``cnn_determinism.py`` measures what the default choice does).
+and running stats ``0.9 * old + 0.1 * batch``. The convolutions are im2col
+products (``_Conv``): each image's 3x3 neighbourhoods as rows, times the
+weight, in f32 matmuls in full f32 whatever the caller's
+``torch.backends.cuda.matmul`` settings say, over slices of a fixed
+``_SLICE`` images. Nothing in them depends on what the process did before:
+no algorithm is searched for and no workspace can be missing (cuDNN,
+which the port ran before, takes the next engine of its list when a
+workspace cannot be had, and so gave other bits in a process whose card
+was full; ``cnn_determinism.py --pressure`` shows it), so a run gives the
+same bits in every process, which a bit-exact resume in a new process
+needs. Against f64 they are closer than cuDNN's f32 convolutions
+(``cnn_conv_accuracy.py``).
 """
 from __future__ import annotations
 
@@ -33,30 +36,24 @@ _EPS = 1e-5
 _MOMENTUM = 0.9
 
 
-@contextlib.contextmanager
-def _no_tf32():
-    """cuDNN convolutions in full f32 inside the block. Set through
-    ``torch.backends.cudnn.conv.fp32_precision``, which a global
-    ``torch.backends.cudnn.allow_tf32`` or ``fp32_precision`` does not
-    override."""
-    conv = torch.backends.cudnn.conv
-    old = conv.fp32_precision
-    conv.fp32_precision = "ieee"
-    try:
-        yield
-    finally:
-        conv.fp32_precision = old
+# images per slice of the im2col products: a fixed slice keeps every
+# product's shape, and so the matmuls' kernels and the order dw sums its
+# slices in, the same at every batch and in every process
+_SLICE = 64
 
 
 @contextlib.contextmanager
-def _deterministic():
-    """cuDNN's deterministic algorithms inside the block."""
-    old = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
+def _full_f32():
+    """f32 matmuls in full f32 inside the block (no TF32). Set through
+    ``torch.backends.cuda.matmul.fp32_precision``, which a global
+    ``allow_tf32`` or ``set_float32_matmul_precision`` does not override."""
+    mm = torch.backends.cuda.matmul
+    old = mm.fp32_precision
+    mm.fp32_precision = "ieee"
     try:
         yield
     finally:
-        torch.backends.cudnn.deterministic = old
+        mm.fp32_precision = old
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -68,28 +65,59 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
+def _im2col(x: torch.Tensor) -> torch.Tensor:
+    """(N, H, W, C) -> (N*H*W, 9*C): each pixel's zero-padded 3x3
+    neighbourhood, in HWIO's (kh, kw, c) order."""
+    N, H, W, C = x.shape
+    Hp, Wp = H + 2, W + 2
+    cols = F.pad(x, (0, 0, 1, 1, 1, 1)).as_strided(
+        (N, H, W, 3, 3, C), (Hp * Wp * C, Wp * C, C, Wp * C, C, 1))
+    return cols.reshape(N * H * W, 9 * C)
+
+
+def _sliced(a: torch.Tensor, w2: torch.Tensor, out: torch.Tensor) -> None:
+    """out = im2col(a) @ w2, ``_SLICE`` images at a time."""
+    for i in range(0, a.shape[0], _SLICE):
+        torch.matmul(_im2col(a[i:i + _SLICE]), w2,
+                     out=out[i:i + _SLICE].view(-1, w2.shape[1]))
+
+
 class _Conv(torch.autograd.Function):
     """3x3 stride-1 "SAME" convolution of NHWC images with an HWIO weight,
-    forward and backward in full f32 by deterministic algorithms (see the
-    module docstring)."""
+    forward and backward as im2col products in full f32 (see the module
+    docstring): y = im2col(x) . w; dx = im2col(dy) . w flipped in space
+    with its channels swapped; dw = the sum over slices of im2col(x)^T .
+    dy, in slice order."""
 
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
-        with _no_tf32(), _deterministic():
-            y = F.conv2d(_nchw(x), w.permute(3, 2, 0, 1), padding=1)
-        return _nhwc(y)
+        N, H, W, C = x.shape
+        O = w.shape[3]
+        y = x.new_empty(N, H, W, O)
+        with _full_f32():
+            _sliced(x, w.reshape(9 * C, O), y)
+        return y
 
     @staticmethod
     def backward(ctx, gy):
         x, w = ctx.saved_tensors
-        mask = [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False]
-        with _no_tf32(), _deterministic():
-            gx, gw, _ = torch.ops.aten.convolution_backward(
-                _nchw(gy), _nchw(x), w.permute(3, 2, 0, 1), None, [1, 1],
-                [1, 1], [1, 1], False, [0, 0], 1, mask)
-        return (_nhwc(gx) if gx is not None else None,
-                gw.permute(2, 3, 1, 0) if gw is not None else None)
+        N, H, W, C = x.shape
+        O = w.shape[3]
+        gy = gy.contiguous()
+        gx = gw = None
+        with _full_f32():
+            if ctx.needs_input_grad[0]:
+                gx = x.new_empty(N, H, W, C)
+                _sliced(gy, w.flip(0, 1).transpose(2, 3).reshape(9 * O, C),
+                        gx)
+            if ctx.needs_input_grad[1]:
+                gw = w.new_zeros(9 * C, O)
+                for i in range(0, N, _SLICE):
+                    gw.addmm_(_im2col(x[i:i + _SLICE]).t(),
+                              gy[i:i + _SLICE].reshape(-1, O))
+                gw = gw.view(3, 3, C, O)
+        return gx, gw
 
 
 def _conv_init(gen: torch.Generator, shape) -> torch.Tensor:

@@ -199,30 +199,78 @@ def test_cnn_grads_match_jax_grad():
 
 
 def test_convs_run_in_f32_whatever_the_tf32_flag(monkeypatch):
-    """The CNN's convolutions run with cuDNN's conv precision set to full
-    f32 whatever the caller set, and give the caller's setting back (the
+    """The CNN's convolutions (im2col products) run with the matmuls' f32
+    precision set to full f32 whatever the caller set, in the forward and
+    in the backward (dx and dw), and give the caller's setting back (the
     card holds the numbers: chip_smoke.py's CNN phase runs the full-width
     forward and grads with TF32 allowed around them)."""
     cfg = treg.get_smoke_config(ARCH)
     params, state = cnn.init_cnn(torch.Generator().manual_seed(0), cfg)
-    seen, conv2d = [], torch.nn.functional.conv2d
+    for leaf in tree_leaves(params):
+        leaf.requires_grad_()
+    seen = {"matmul": [], "addmm_": []}
+    matmul, addmm_ = torch.matmul, torch.Tensor.addmm_
 
-    def probe(*args, **kw):
-        seen.append(torch.backends.cudnn.conv.fp32_precision)
-        return conv2d(*args, **kw)
+    def probe(name, fn):
+        def run(*args, **kw):
+            seen[name].append(torch.backends.cuda.matmul.fp32_precision)
+            return fn(*args, **kw)
+        return run
 
-    monkeypatch.setattr(cnn.F, "conv2d", probe)
-    old = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = True
+    monkeypatch.setattr(torch, "matmul", probe("matmul", matmul))
+    monkeypatch.setattr(torch.Tensor, "addmm_", probe("addmm_", addmm_))
+    monkeypatch.setattr(cnn.F, "conv2d", None)    # no cuDNN convolution
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
     try:
         x = torch.randn(2, 16, 16, 3, requires_grad=True)
         logits, _ = cnn.apply_cnn(params, state, x, cfg, train=True)
         logits.sum().backward()
-        assert torch.backends.cudnn.conv.fp32_precision == "tf32"
-        assert torch.backends.cudnn.allow_tf32
+        assert torch.backends.cuda.matmul.fp32_precision == "tf32"
+        assert torch.backends.cuda.matmul.allow_tf32
     finally:
-        torch.backends.cudnn.allow_tf32 = old
-    assert seen == ["ieee"] * 4 and x.grad is not None
+        torch.backends.cuda.matmul.allow_tf32 = old
+    # 4 convolutions of one slice: y and dx by matmul, dw by addmm_
+    assert seen == {"matmul": ["ieee"] * 8, "addmm_": ["ieee"] * 4}
+    assert x.grad is not None
+
+
+@pytest.mark.parametrize("n", [1, cnn._SLICE, 2 * cnn._SLICE + 3])
+def test_conv_matches_the_convolution_and_its_backward(n):
+    """``_Conv`` (im2col products over slices of ``_SLICE`` images, the
+    last one partial at n = 2 * _SLICE + 3) against PyTorch's own
+    convolution and its backward, in f64 on the same inputs."""
+    g = torch.Generator().manual_seed(n)
+    x = torch.randn(n, 6, 5, 3, generator=g, dtype=torch.float64)
+    w = torch.randn(3, 3, 3, 4, generator=g, dtype=torch.float64)
+    gy = torch.randn(n, 6, 5, 4, generator=g, dtype=torch.float64)
+    xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y = cnn._conv(xs, ws)
+    dx, dw = torch.autograd.grad(y, (xs, ws), gy)
+    want = torch.nn.functional.conv2d(
+        x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=1)
+    wdx, wdw, _ = torch.ops.aten.convolution_backward(
+        gy.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+        None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [True, True, False])
+    torch.testing.assert_close(y, want.permute(0, 2, 3, 1), rtol=1e-12,
+                               atol=1e-12)
+    torch.testing.assert_close(dx, wdx.permute(0, 2, 3, 1), rtol=1e-12,
+                               atol=1e-12)
+    torch.testing.assert_close(dw, wdw.permute(2, 3, 1, 0), rtol=1e-12,
+                               atol=1e-12)
+
+
+def test_conv_grads_are_taken_only_where_asked():
+    """dx is not formed for an input that needs no grad (the first
+    convolution's images), and dw's slices sum in a fixed order: two
+    backward passes give the same bits."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2 * cnn._SLICE + 1, 4, 4, 3, generator=g)
+    w = torch.randn(3, 3, 3, 5, generator=g, requires_grad=True)
+    gy = torch.randn(2 * cnn._SLICE + 1, 4, 4, 5, generator=g)
+    runs = [torch.autograd.grad(cnn._conv(x, w), (w,), gy)[0]
+            for _ in range(2)]
+    assert torch.equal(runs[0], runs[1]) and runs[0].shape == w.shape
 
 
 def test_cnn_refused_by_model_and_build_model():

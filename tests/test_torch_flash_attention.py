@@ -334,9 +334,22 @@ ODD_G_CASES = [
     ((1, 130, 130, 2, 2, 112), True, 0, -8),   # the same at G 1
 ]
 CARD_EDGE_CASES += ODD_G_CASES
+# The routes of the bf16 forward redesigned since: D 64's pipelined loop
+# over many KV tiles, non-causal (whisper's encoder and cross attention),
+# Skv 1500 and 700 not multiples of 64 or 128; D 256 at G 4 (gemma3's
+# global and local layers), causal, Sq 200 with and without a window of
+# 100. chip_smoke._grid holds the kernel to the plain version on them.
+# Appended to the forward's cases only, after every earlier one.
+FWD_ROUTE_CASES = [
+    ((1, 65, 1500, 2, 2, 64), False, 0, 0),
+    ((2, 130, 700, 2, 2, 64), False, 0, 0),
+    ((1, 200, 200, 4, 1, 256), True, 0, 0),
+    ((1, 200, 200, 4, 1, 256), True, 100, 0),
+]
 
 
-@pytest.mark.parametrize("shape,causal,window,q_offset", CARD_EDGE_CASES)
+@pytest.mark.parametrize("shape,causal,window,q_offset",
+                         CARD_EDGE_CASES + FWD_ROUTE_CASES)
 def test_plain_at_kv_tile_64_matches_pallas_kernel(shape, causal, window,
                                                    q_offset):
     """The rounding contract of the bf16 kernel (q * scale in bf16, 64-key
