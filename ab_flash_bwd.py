@@ -31,17 +31,22 @@ To hold a change against an earlier source, pass that source as a variant
 flash_bwd_sm90.cu > results/var/old.cu``). Then, for each build: the bf16
 cases of ``chip_smoke.py``'s backward grid against the plain version's f32
 math and against it at the kernels' rounding points, at chip_smoke's
-bounds (a count of failing cases); and device times of the dQ and dK/dV
-kernels, taken in turns (main, variants, variants reversed, main), beside
-the library's fused backward timed alone in the same call, at the
-phase-1 and phase-2 training shapes of internlm2-1.8b (D 128) and of
-deepseek-v2-lite (MLA, D 192), granite-moe's phase 1 (D 64, G 3), and
-whisper-base's encoder (D 64, G 1, non-causal over 1500 frames) at its
-train batch of 128 and its serving batch of 8; at the four S-64 shapes
-also each build's delta kernel (``fa_bwd_delta``, which
-``kernel.flash_bwd`` runs) beside the plain-PyTorch forms of delta =
-rowsum(dO * O), timed in turns, with their largest difference. Needs a
-card; compare variants only within one run.
+bounds (a count of failing cases), and its dQ and dK/dV kernels' outputs
+against main's, bitwise (a count of equal cases); the dQ/dK/dV kernel
+likewise on the cases ``kernel.takes_dqkv`` sends to it, in the builds
+that have it (a source from before it has not); and device times of the
+dQ and dK/dV kernels and, where it takes the shape, the dQ/dK/dV kernel,
+taken in turns (main, variants, variants reversed, main), beside the
+library's fused backward timed alone in the same call, at the phase-1 and
+phase-2 training shapes of internlm2-1.8b (D 128), of gemma3-1b (D 256,
+G 4: the dQ/dK/dV kernel's) and of deepseek-v2-lite (MLA, D 192),
+granite-moe's phase 1 (D 64, G 3), and whisper-base's encoder (D 64, G 1,
+non-causal over 1500 frames) at its train batch of 128 and its serving
+batch of 8; at the four internlm2 and deepseek S-64 shapes also each
+build's delta kernel (``fa_bwd_delta``, which ``kernel.flash_bwd`` runs)
+beside the plain-PyTorch forms of delta = rowsum(dO * O), timed in turns,
+with their largest difference. Needs a card; compare variants only within
+one run.
 """
 from __future__ import annotations
 
@@ -65,7 +70,7 @@ CONST_VARIANTS = {
     "--fold": {"dkv_inplace": {"kFolded": "false"}},
 }
 # (label, shape, causal, timed launches): the S-64 training shapes, then
-# whisper-base's encoder at its train and serving batch
+# whisper-base's encoder at its train and serving batch; gemma3's last
 SHAPES = (("phase-1", smoke.TRAIN_SHAPE, True, 100),
           ("phase-2", (32,) + smoke.TRAIN_SHAPE[1:], True, 100),
           ("deepseek phase-1", smoke.DEEPSEEK_TRAIN_SHAPE, True, 100),
@@ -73,7 +78,9 @@ SHAPES = (("phase-1", smoke.TRAIN_SHAPE, True, 100),
            100),
           ("granite phase-1", smoke.GRANITE_TRAIN_SHAPE, True, 100),
           ("whisper encoder", smoke.WHISPER_ENCODER_TRAIN_SHAPE, False, 20),
-          ("whisper encoder", smoke.WHISPER_ENCODER_SHAPE, False, 100))
+          ("whisper encoder", smoke.WHISPER_ENCODER_SHAPE, False, 100),
+          ("gemma3 phase-1", smoke.GEMMA_TRAIN_SHAPE, True, 100),
+          ("gemma3 phase-2", smoke.GEMMA_PHASE2_SHAPE, True, 100))
 DELTA_SHAPES = 4          # delta's forms at the first four
 
 
@@ -106,13 +113,17 @@ def _load(built):
     lib.fa_bwd_dq.restype = lib.fa_bwd_dkv.restype = i32
     lib.fa_bwd_delta.argtypes = [ptr] * 3 + [ctypes.c_int64, i32, i32, ptr]
     lib.fa_bwd_delta.restype = i32
+    if hasattr(lib, "fa_bwd_dqkv"):     # not in a source from before it
+        lib.fa_bwd_dqkv.argtypes = [ptr] * 9 + common
+        lib.fa_bwd_dqkv.restype = i32
     return lib
 
 
 def _runners(lib, q, k, v, do, lse, delta, causal=True, window=0,
              q_offset=0):
-    """Closures launching lib's dQ and dK/dV kernels; they return dq and
-    (dk, dv)."""
+    """Closures launching lib's dQ, dK/dV and dQ/dK/dV kernels; they return
+    dq, (dk, dv) and (dq, dk, dv). The third is None where lib has no
+    dQ/dK/dV kernel or it does not take the shape."""
     import torch
     B, Sq, H, D = q.shape
     Skv, KVH = k.shape[1], k.shape[2]
@@ -133,7 +144,23 @@ def _runners(lib, q, k, v, do, lse, delta, causal=True, window=0,
         if err:
             smoke.fail(f"dK/dV launch failed ({err})")
         return dk, dv
-    return run_dq, run_dkv
+
+    def run_dqkv():
+        err = lib.fa_bwd_dqkv(*ins, dq.data_ptr(), dk.data_ptr(),
+                              dv.data_ptr(), *tail)
+        if err:
+            smoke.fail(f"dQ/dK/dV launch failed ({err})")
+        return dq, dk, dv
+    from repro_torch.kernels.flash_attention.kernel import takes_dqkv
+    fused = (hasattr(lib, "fa_bwd_dqkv")
+             and takes_dqkv(q.dtype, Sq, Skv, H, KVH, D))
+    return run_dq, run_dkv, run_dqkv if fused else None
+
+
+def _clones(out):
+    """A kernel's output, or its outputs, as a tuple of copies."""
+    return tuple(t.clone() for t in (out if isinstance(out, tuple)
+                                      else (out,)))
 
 
 def _delta_forms(do, out, libs):
@@ -205,19 +232,36 @@ def main(argv) -> None:
 
     cases = [i for i, c in enumerate(smoke._bwd_grid()) if c[1] == "bfloat16"]
     bad = {n: 0 for n in libs}
+    same = {n: 0 for n in libs}
+    fused_bad = {n: 0 for n in libs}
+    fused_cases = {n: 0 for n in libs}
     for i in cases:
         (q, k, v, out, lse, do), kw, want, want_r = smoke._bwd_case(i)
         delta = kernel.bwd_delta(do, out)
         kw.pop("scale")
+        pair = {}
         for n, lib in libs.items():
-            run_dq, run_dkv = _runners(lib, q, k, v, do, lse, delta, **kw)
+            run_dq, run_dkv, run_dqkv = _runners(lib, q, k, v, do, lse,
+                                                 delta, **kw)
             got = (run_dq().clone(), *(t.clone() for t in run_dkv()))
             torch.cuda.synchronize()
             bad[n] += not smoke._bwd_ok(
                 smoke._bwd_errors(got, want, want_r), "bfloat16")
+            pair[n] = got
+            same[n] += all(torch.equal(g, w)
+                           for g, w in zip(got, pair["main"]))
+            if run_dqkv is not None:
+                got = tuple(t.clone() for t in run_dqkv())
+                torch.cuda.synchronize()
+                fused_cases[n] += 1
+                fused_bad[n] += not smoke._bwd_ok(
+                    smoke._bwd_errors(got, want, want_r), "bfloat16")
     for n in libs:
-        print(f"[{n}] bf16 backward grid cases outside the bounds: {bad[n]} "
-              f"of {len(cases)}", flush=True)
+        print(f"[{n}] bf16 backward grid cases outside the bounds: dQ and "
+              f"dK/dV kernels {bad[n]} of {len(cases)}, their outputs "
+              f"bitwise main's in {same[n]}; dQ/dK/dV kernel "
+              f"{fused_bad[n]} of the {fused_cases[n]} it takes",
+              flush=True)
 
     order = list(libs) + list(libs)[::-1]
     for si, (label, shape, causal, iters) in enumerate(SHAPES):
@@ -227,20 +271,27 @@ def main(argv) -> None:
         delta = kernel.bwd_delta(do, out)
         runs = {n: _runners(lib, q, k, v, do, lse, delta, causal=causal)
                 for n, lib in libs.items()}
-        # each build's dq, dk, dv against main's, bitwise
-        want = (runs["main"][0]().clone(),
-                *(t.clone() for t in runs["main"][1]()))
-        same = {}
-        for n, (run_dq, run_dkv) in runs.items():
-            got = (run_dq(), *run_dkv())
-            same[n] = all(torch.equal(g, w) for g, w in zip(got, want))
+        # each build's dq, dk, dv against main's, bitwise: the dQ and dK/dV
+        # kernels', and the dQ/dK/dV kernel's against main's own
         mask = "causal" if causal else "non-causal"
-        print(f"[bitwise] {label} {shape} {mask}: dq, dk, dv equal to main's "
-              f"in " + ", ".join(f"{n} {'yes' if e else 'NO'}"
-                                 for n, e in same.items()), flush=True)
-        for which, idx in (("dQ", 0), ("dK/dV", 1)):
-            times = {n: [] for n in libs}
-            for n in order:
+        for which, idx in (("dQ and dK/dV", slice(0, 2)),
+                           ("dQ/dK/dV", slice(2, 3))):
+            outs = {n: sum((_clones(f()) for f in r[idx]), ())
+                    for n, r in runs.items() if None not in r[idx]}
+            if "main" not in outs:
+                continue
+            same = {n: all(torch.equal(g, w) for g, w in zip(o, outs["main"]))
+                    for n, o in outs.items()}
+            print(f"[bitwise] {label} {shape} {mask} {which}: dq, dk, dv "
+                  f"equal to main's in " + ", ".join(
+                      f"{n} {'yes' if e else 'NO'}" for n, e in same.items()),
+                  flush=True)
+        for which, idx in (("dQ", 0), ("dK/dV", 1), ("dQ/dK/dV", 2)):
+            have = [n for n in order if runs[n][idx] is not None]
+            if not have:
+                continue
+            times = {n: [] for n in dict.fromkeys(have)}
+            for n in have:
                 times[n].append(smoke._device_ms(runs[n][idx], iters))
             print(f"[time] {label} {shape} {mask} {which} ms: " + ", ".join(
                 f"{n} {sum(t) / len(t):.4f} ({' '.join(f'{x:.4f}' for x in t)})"

@@ -29,8 +29,14 @@ Phases, each printing its own lines; any failed check exits non-zero:
    of its first 8 batches must also equal, bitwise, a launch on those
    batches alone; the same at
    gemma3-1b's shapes, head dim 256: its prefill in a global and in a local
-   layer (window 512), its phase-1 forward and backward; the forward at
-   deepseek-v2-lite's MLA prefill and phase-1 shape, head dim 192, and
+   layer (window 512), its phase-1 forward and backward, and its phase-2
+   backward: there ``kernel.flash_bwd`` runs delta and the dQ/dK/dV kernel
+   (one launch for dq, dk and dv where one key tile and one query tile
+   hold the sequence), held on its own grid cases (G 1, 2, 4, 8, masks,
+   ragged rows, rows that see no key) with the dQ and dK/dV kernels beside
+   it, run twice on gemma3's inputs bitwise, and timed beside them; the
+   forward at deepseek-v2-lite's MLA prefill and phase-1 shape, head dim
+   192, and
    granite-moe's, G 3; the backward at deepseek-v2-lite's phase-1 and
    phase-2 shapes, head dim 192, G 1; the forward and backward at
    zamba2-7b's shared block, head dim 112, G 1: its prefill and its two
@@ -61,7 +67,9 @@ Phases, each printing its own lines; any failed check exits non-zero:
    layers at window 512 and 4 global): serving at full width at batch 8,
    prompt 2048, one forward launch a layer a prefill; SWAP training at full
    width with the phase-1 batch cut to 128 (GEMMA_PHASE1_BATCH: 256 runs
-   out of memory), the flash launches a step as the layer plan has them,
+   out of memory), the flash launches a step as the layer plan has them
+   (a backward: delta and the dQ/dK/dV kernel, no dQ or dK/dV), all on the
+   bf16 route,
    every phase's memory peak under 75 GB; the exactness checks on the gemma3
    smoke config at head dim 256, prompts and sequences past its window;
 8. the MoE family and MLA, served: deepseek-v2-lite (MLA, the flash
@@ -158,6 +166,9 @@ Phases, each printing its own lines; any failed check exits non-zero:
 The line before the last is one JSON object with each kernel's numbers
 (the ``flash_attention_bwd_delta`` row: delta's kernel, which replaces no
 Pallas kernel but the plain jnp delta of the reference's backward; the
+``flash_attention_bwd_dqkv`` row: the dQ/dK/dV kernel at gemma3's phase 1,
+its ``launches`` on gemma3's training path, ``pair_ms`` the dQ and dK/dV
+kernels' times on the same inputs, ``phase2_shape`` at phase 2; the
 backward rows' ``granite_train_shape`` and ``whisper_encoder_train_shape``:
 their times at D 64, G 3 and G 1, non-causal, the latter without the
 plain backward (``plain_ms`` null);
@@ -250,6 +261,7 @@ GEMMA_PREFILL_SHAPE = (8, 2048, 2048, 4, 1, 256)
 GEMMA_PROMPT = 2048
 GEMMA_PHASE1_BATCH = 128
 GEMMA_TRAIN_SHAPE = (GEMMA_PHASE1_BATCH, 64, 64, 4, 1, 256)
+GEMMA_PHASE2_SHAPE = (32,) + GEMMA_TRAIN_SHAPE[1:]   # phase 2's batch of 32
 GEMMA_TRAIN_ARGV = ["--arch", GEMMA, "--phase1-batch",
                     str(GEMMA_PHASE1_BATCH)] + TRAIN_ARGV
 # the MoE family served at full width: deepseek-v2-lite (MLA, 27 layers of
@@ -863,6 +875,20 @@ def _bwd_grid():
                           (WHISPER_CROSS_SHAPE, False),
                           (WHISPER_DECODER_SHAPE, True)):
         cases.append((shape, "bfloat16", causal, 0, 0))
+    # the dQ/dK/dV kernel's route (D 256, Sq and Skv <= 64; kernel.
+    # takes_dqkv): G 1, 2, 4 under each mask at S 64, G 8; ragged Sq with
+    # a window, a chunk after a cached prefix, rows that see no key, Sq <
+    # Skv
+    for G in (1, 2, 4):
+        for causal, window in ((True, 0), (True, 16), (False, 0)):
+            cases.append(((2, 64, 64, 4, 4 // G, 256), "bfloat16", causal,
+                          window, 0))
+    cases += [((1, 64, 64, 8, 1, 256), "bfloat16", True, 0, 0),
+              ((1, 37, 37, 4, 2, 256), "bfloat16", True, 16, 0),
+              ((2, 37, 37, 8, 2, 256), "bfloat16", False, 0, 0),
+              ((1, 33, 64, 4, 1, 256), "bfloat16", True, 0, 31),
+              ((1, 48, 48, 4, 1, 256), "bfloat16", True, 0, -8),
+              ((2, 33, 64, 4, 1, 256), "bfloat16", False, 0, 0)]
     return cases
 
 
@@ -925,6 +951,7 @@ def phase_kernel_bwd():
     import torch
     from repro_torch.kernels.flash_attention import kernel
     worst, worst_r, train_err = {}, {"ratio": 0.0, "l2": 0.0}, {}
+    n_fused = 0    # cases on the dQ/dK/dV kernel's route
     worst_d = {}
     worst_delta = 0.0
     for i, (shape, dtype, causal, window, q_offset) in enumerate(_bwd_grid()):
@@ -961,7 +988,21 @@ def phase_kernel_bwd():
         if q_offset < 0:   # rows that see no key: dq = 0
             check(bool((got[0][:, :-q_offset] == 0).all()),
                   f"bwd case {i}: fully masked rows have dq != 0")
-        if shape in (TRAIN_SHAPE, GEMMA_TRAIN_SHAPE, DEEPSEEK_TRAIN_SHAPE,
+        # where flash_bwd took the dQ/dK/dV kernel, the dQ and dK/dV kernels
+        # on the same inputs, held to the same bounds
+        q, k, v, _, lse, _ = args
+        pair = None
+        if kernel.takes_dqkv(q.dtype, shape[1], shape[2], shape[3],
+                             shape[4], shape[5]):
+            n_fused += 1
+            pair = (kernel.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+                    *kernel.flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+            pair_errs = _bwd_errors(pair, want, want_r)
+            check(_bwd_ok(pair_errs, dtype),
+                  f"bwd case {i} {shape}: the dQ and dK/dV kernels beside "
+                  f"the dQ/dK/dV kernel's route: {pair_errs}")
+        if shape in (TRAIN_SHAPE, GEMMA_TRAIN_SHAPE, GEMMA_PHASE2_SHAPE,
+                     DEEPSEEK_TRAIN_SHAPE,
                      (32,) + DEEPSEEK_TRAIN_SHAPE[1:], ZAMBA_TRAIN_SHAPE,
                      (32,) + ZAMBA_TRAIN_SHAPE[1:], MINICPM_TRAIN_SHAPE,
                      (32,) + MINICPM_TRAIN_SHAPE[1:]):
@@ -970,6 +1011,10 @@ def phase_kernel_bwd():
                 for n, g, w in zip(("dq", "dk", "dv"), got, want)}
             train_err[shape]["delta"] = (
                 delta - kernel.bwd_delta(do, out)).abs().max().item()
+            if pair is not None:
+                train_err[shape]["pair"] = {
+                    n: (g.float() - w.float()).abs().max().item()
+                    for n, g, w in zip(("dq", "dk", "dv"), pair, want)}
     print(f"[kernel-bwd] {len(_bwd_grid())} cases match the plain version's "
           f"f32 math; max |err|/(1+|ref|) f32 {worst['float32']:.3e} (limit "
           f"{BWD_TOL['float32']}), bf16 {worst['bfloat16']:.3e} (limit "
@@ -979,14 +1024,28 @@ def phase_kernel_bwd():
           f"{worst_r['l2']:.3e} (limit {BWD_ROUNDED_L2}); worst by head dim "
           + ", ".join(f"D {d} {e:.3e}" for d, e in sorted(worst_d.items()))
           + f"; delta's kernel within {worst_delta:.3e} of rowsum(|dO * O|) "
-          f"of the plain version (limit {DELTA_TOL})")
+          f"of the plain version (limit {DELTA_TOL}); {n_fused} cases on the "
+          f"dQ/dK/dV kernel, where the dQ and dK/dV kernels are held to the "
+          f"same bounds beside it")
+
+    # the dQ/dK/dV kernel sums in a fixed order with no atomics: two
+    # launches on gemma3's inputs give the same bits, at phase 1 and phase
+    # 2, and a CTA a (batch, KV head) gives a batch the bits of a launch on
+    # it alone
+    for shape in (GEMMA_TRAIN_SHAPE, GEMMA_PHASE2_SHAPE):
+        _dqkv_twice(shape)
+    _bwd_batch_slice(GEMMA_TRAIN_SHAPE, "gemma3 phase-1", causal=True)
+    _bwd_batch_slice(GEMMA_PHASE2_SHAPE, "gemma3 phase-2", causal=True)
 
     # times at the phase-1 training shape (the JSON rows) and phase 2's;
-    # gemma3's phase 1 at the batch its run takes; deepseek-v2-lite's
-    # phase 1 and phase 2 at MLA's head dim 192; zamba2-7b's at 112
+    # gemma3's phase 1 at the batch its run takes, and its phase 2 (there
+    # flash_bwd runs the dQ/dK/dV kernel; the dQ and dK/dV kernels are timed
+    # beside it); deepseek-v2-lite's phase 1 and phase 2 at MLA's head dim
+    # 192; zamba2-7b's at 112
     phase1 = _bwd_times(TRAIN_SHAPE, "phase-1")
     phase2 = _bwd_times((32,) + TRAIN_SHAPE[1:], "phase-2")
     g_phase1 = _bwd_times(GEMMA_TRAIN_SHAPE, "gemma3 phase-1")
+    g_phase2 = _bwd_times(GEMMA_PHASE2_SHAPE, "gemma3 phase-2")
     d_shape2 = (32,) + DEEPSEEK_TRAIN_SHAPE[1:]
     d_phase1 = _bwd_times(DEEPSEEK_TRAIN_SHAPE, "deepseek phase-1, MLA")
     d_phase2 = _bwd_times(d_shape2, "deepseek phase-2, MLA")
@@ -1023,8 +1082,33 @@ def phase_kernel_bwd():
         e = train_err[shape]
         if name.endswith("delta"):
             return e["delta"]
+        if name.endswith("dqkv"):
+            return max(e["dq"], e["dk"], e["dv"])
+        # where flash_bwd takes the dQ/dK/dV kernel, the pair's own errors
+        e = e.get("pair", e)
         return e["dq"] if name.endswith("dq") else max(e["dk"], e["dv"])
 
+    # the dQ/dK/dV kernel's row: its times at gemma3's phase 1 and phase 2,
+    # with the dQ and dK/dV kernels' (the route it replaces there) from the
+    # same run
+    fused = "flash_attention_bwd_dqkv"
+    pair_ms = {key: t["flash_attention_bwd_dq"]["ms"]
+               + t["flash_attention_bwd_dkv"]["ms"]
+               for key, t in (("train", g_phase1), ("phase2", g_phase2))}
+    dqkv_row = {"name": fused, "route": "cuda",
+                "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                          "flash_bwd_sm90.cu",
+                "replaces": "src/repro/kernels/flash_attention/kernel.py:202",
+                "replaces_note": "and kernel.py:232 (_fa_bwd_dkv_kernel), "
+                                 "both where one key tile and one query "
+                                 "tile hold the sequence at head dim 256",
+                "launches": None,
+                "max_abs_err": errs(GEMMA_TRAIN_SHAPE, fused),
+                **g_phase1[fused], "pair_ms": pair_ms["train"],
+                "phase2_shape": {"max_abs_err": errs(GEMMA_PHASE2_SHAPE,
+                                                     fused),
+                                 **g_phase2[fused],
+                                 "pair_ms": pair_ms["phase2"]}}
     return [{"name": name, "route": "cuda",
              "source": "src/repro_torch/kernels/flash_attention/csrc/"
                        + ("flash_bwd.cu" if name.endswith("delta")
@@ -1038,6 +1122,9 @@ def phase_kernel_bwd():
              "gemma3_train_shape": {
                  "max_abs_err": errs(GEMMA_TRAIN_SHAPE, name),
                  **g_phase1[name]},
+             "gemma3_phase2_shape": {
+                 "max_abs_err": errs(GEMMA_PHASE2_SHAPE, name),
+                 **g_phase2[name]},
              "deepseek_train_shape": {
                  "max_abs_err": errs(DEEPSEEK_TRAIN_SHAPE, name),
                  **d_phase1[name]},
@@ -1057,25 +1144,47 @@ def phase_kernel_bwd():
              "whisper_encoder_train_shape": w_phase1[name]}
             for name, line in (("flash_attention_bwd_dq", 202),
                                ("flash_attention_bwd_dkv", 232),
-                               ("flash_attention_bwd_delta", 288))]
+                               ("flash_attention_bwd_delta", 288))] + [
+                dqkv_row]
 
 
-def _bwd_batch_slice(shape, label, batch=8):
-    """The bf16 backward at ``shape`` (non-causal, the whole grid: at
-    whisper's encoder train shape 24576 CTAs a kernel) against the same
-    call on its first ``batch`` batches alone, bitwise. Both kernels sum in
-    a fixed order with no atomics, so what a CTA writes depends on neither
-    its place in the grid nor the order the grid runs in; the plain version
-    cannot run at that shape (its (B, H, S, S) f32 tensors), and the B-8
-    encoder case of the grid holds the values against it."""
+def _dqkv_twice(shape):
+    """The dQ/dK/dV kernel launched twice on the same inputs at ``shape``:
+    dq, dk and dv bitwise equal."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel
+    q, k, v = _qkv(shape, torch.bfloat16, seed=4341)
+    do = _qkv(shape, torch.bfloat16, seed=4342)[0]
+    out, lse = kernel.flash_fwd(q, k, v)
+    delta = kernel.flash_bwd_delta(do, out)
+    first = kernel.flash_bwd_dqkv(q, k, v, do, lse, delta)
+    again = kernel.flash_bwd_dqkv(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, again):
+        check(torch.equal(a, b),
+              f"dQ/dK/dV kernel at {shape}: a second launch on the same "
+              f"inputs gives another {name} (max |diff| "
+              f"{(a.float() - b.float()).abs().max().item():.3e})")
+    print(f"[kernel-bwd] dQ/dK/dV kernel at {shape}, causal: dq, dk, dv of "
+          f"two launches on the same inputs bitwise equal", flush=True)
+
+
+def _bwd_batch_slice(shape, label, batch=8, causal=False):
+    """The bf16 backward at ``shape`` (by default non-causal; the whole
+    grid: at whisper's encoder train shape 24576 CTAs a kernel) against the
+    same call on its first ``batch`` batches alone, bitwise. Its kernels
+    sum in a fixed order with no atomics, so what a CTA writes depends on
+    neither its place in the grid nor the order the grid runs in; the plain
+    version cannot run at whisper's shape (its (B, H, S, S) f32 tensors),
+    and the B-8 encoder case of the grid holds the values against it."""
     import torch
     from repro_torch.kernels.flash_attention import kernel
     q, k, v = _qkv(shape, torch.bfloat16, seed=4331)
     do = _qkv(shape, torch.bfloat16, seed=4332)[0]
-    out, lse = kernel.flash_fwd(q, k, v, causal=False)
-    full = kernel.flash_bwd(q, k, v, out, lse, do, causal=False)
+    out, lse = kernel.flash_fwd(q, k, v, causal=causal)
+    full = kernel.flash_bwd(q, k, v, out, lse, do, causal=causal)
     part = kernel.flash_bwd(*(t[:batch] for t in (q, k, v, out, lse, do)),
-                            causal=False)
+                            causal=causal)
     torch.cuda.synchronize()
     for name, f, g in zip(("dq", "dk", "dv"), full, part):
         check(bool(torch.isfinite(f).all()),
@@ -1084,7 +1193,8 @@ def _bwd_batch_slice(shape, label, batch=8):
               f"{label} at {shape}: {name} of the first {batch} batches "
               f"differs from a launch on those batches alone (max |diff| "
               f"{(f[:batch].float() - g.float()).abs().max().item():.3e})")
-    print(f"[kernel-bwd] {label} at {shape}, non-causal: dq, dk, dv of the "
+    mask = "causal" if causal else "non-causal"
+    print(f"[kernel-bwd] {label} at {shape}, {mask}: dq, dk, dv of the "
           f"first {batch} batches equal, bitwise, a launch on those batches "
           f"alone", flush=True)
 
@@ -1158,6 +1268,9 @@ def _bwd_times(shape, label, causal=True, plain=True):
                                                      causal=causal), 50)
     bwd_ms = _device_ms(lambda: kernel.flash_bwd(q, k, v, out, lse, do,
                                                  causal=causal), 50)
+    fused = kernel.takes_dqkv(q.dtype, Sq, Skv, H, KVH, D)
+    dqkv_ms = _device_ms(lambda: kernel.flash_bwd_dqkv(
+        q, k, v, do, lse, delta, causal=causal), 50) if fused else None
     delta_ms = _device_ms(lambda: kernel.flash_bwd_delta(do, out), 50)
     delta_plain_ms = _device_ms(lambda: kernel.bwd_delta(do, out), 50)
     # yardstick only, never called by the port: delta as one library call
@@ -1191,6 +1304,10 @@ def _bwd_times(shape, label, causal=True, plain=True):
              6 * D * pairs, plain_ms, lib_ms),
             ("flash_attention_bwd_dkv", dkv_ms, read + 2 * k.numel() * elt,
              8 * D * pairs, plain_ms, lib_ms),
+            # dQ/dK/dV: S, dP, dV, dK and dQ, 2 D each a visible pair
+            *((("flash_attention_bwd_dqkv", dqkv_ms,
+                read + (q.numel() + 2 * k.numel()) * elt, 10 * D * pairs,
+                plain_ms, lib_ms),) if fused else ()),
             # delta: read dO and O, write delta
             ("flash_attention_bwd_delta", delta_ms,
              2 * do.numel() * elt + rows * 4, 2 * D * rows, delta_plain_ms,
@@ -2018,6 +2135,7 @@ def _launch_counts():
             "flash_attention_bwd_dq": kernel.flash_bwd_dq,
             "flash_attention_bwd_dkv": kernel.flash_bwd_dkv,
             "flash_attention_bwd_delta": kernel.flash_bwd_delta,
+            "flash_attention_bwd_dqkv": kernel.flash_bwd_dqkv,
             "swa_avg": swa_kernel.running_average,
             "ssd_fwd": ssd_kernel.ssd_fwd,
             "ssd_bwd": ssd_kernel.ssd_bwd}
@@ -2035,6 +2153,10 @@ def _reset_launches():
 DENSE_TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
                        "flash_attention_bwd_dkv", "flash_attention_bwd_delta",
                        "swa_avg")
+# gemma3-1b's training path: its backwards (D 256, S 64) run delta and the
+# dQ/dK/dV kernel, and the dQ and dK/dV kernels not at all
+GEMMA_TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_delta",
+                       "flash_attention_bwd_dqkv", "swa_avg")
 MAMBA_TRAIN_KERNELS = ("ssd_fwd", "ssd_bwd", "swa_avg")
 
 
@@ -2055,15 +2177,17 @@ def _blocks(model) -> Dict[str, Tuple[int, int]]:
 
 
 def phase_train(card: str, argv=TRAIN_ARGV, cfg=None,
-                required=DENSE_TRAIN_KERNELS, tag="train", sm90_only=()):
+                required=DENSE_TRAIN_KERNELS, tag="train", sm90_only=(),
+                fused_bwd=False):
     """The launcher's own run (``train.main(argv, cfg=cfg)``) as a main
     path: every kernel in ``required`` must launch in it, every launch of a
     kernel in ``sm90_only`` must take its bf16 wgmma route, and where the
     flash or SSD kernels are required they must launch as the layer plan
     has them (``_blocks``): a (worker) step runs 1 forward and its backward
-    (the flash dQ and dK/dV, or the SSD backward) a block, and a second
-    forward in each block of a rematerialized pattern unit; an eval batch
-    1 forward a block. Every phase's memory peak must stay under
+    (the flash delta with dQ and dK/dV, or with ``fused_bwd`` delta and the
+    dQ/dK/dV kernel and no dQ or dK/dV; or the SSD backward) a block, and
+    a second forward in each block of a rematerialized pattern unit; an
+    eval batch 1 forward a block. Every phase's memory peak must stay under
     PEAK_LIMIT_GB."""
     import math
     import torch
@@ -2111,15 +2235,23 @@ def phase_train(card: str, argv=TRAIN_ARGV, cfg=None,
         if names[0] not in required:
             continue
         per_step = n + remat
-        fwd, *bwd = (launches[k] for k in names)
+        fwd = launches[names[0]]
+        # the backward's launches a block: the flash route's kernels once
+        # (delta, then dQ and dK/dV or the dQ/dK/dV kernel), the others 0
+        route = (("flash_attention_bwd_dqkv",) if fused_bwd else
+                 ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"))
+        bwd = {k: n if family == "ssd" or k in route
+               or k.endswith("delta") else 0 for k in names[1:]}
         evals, rem = divmod(fwd - per_step * steps, n)
         print(f"[{tag}] {family} launches a (worker) step over {steps} "
               f"steps: forward {per_step}, "
-              + ", ".join(f"{k} {b / steps:g}" for k, b in zip(names[1:], bwd))
+              + ", ".join(f"{k} {launches[k] / steps:g}" for k in bwd)
               + f"; and {evals} eval forwards of {n} blocks")
-        check(all(b == n * steps for b in bwd) and evals >= 0 and rem == 0,
-              f"{family} launches {fwd}/{bwd} on the {tag} path are not "
-              f"{per_step}/{n} a step of {steps}, with whole eval forwards")
+        check(all(launches[k] == b * steps for k, b in bwd.items())
+              and evals >= 0 and rem == 0,
+              f"{family} launches {fwd}/"
+              f"{ {k: launches[k] for k in bwd} } on the {tag} path are not "
+              f"{per_step}/{bwd} a step of {steps}, with whole eval forwards")
     rel = _rel_l2(res["final_bundle"]["params"],
                   average_stacked(res["stacked_params"]))
     print(f"[{tag}] elastic average (swa_avg kernel) against the plain mean "
@@ -2270,7 +2402,9 @@ def phase_gemma(card: str):
     t0 = time.perf_counter()
     serve = phase_serve(card, GEMMA, S=GEMMA_PROMPT, engine=False,
                         tag="gemma3-serve")["flash_attention_fwd"]
-    launches = phase_train(card, GEMMA_TRAIN_ARGV, tag="gemma3-train")
+    launches = phase_train(card, GEMMA_TRAIN_ARGV, tag="gemma3-train",
+                           required=GEMMA_TRAIN_KERNELS,
+                           sm90_only=FLASH_KERNELS, fused_bwd=True)
     narrow = dataclasses.replace(registry.get_smoke_config(GEMMA),
                                  head_dim=256)
     phase_exact(GEMMA, narrow, lengths=(9, 40, 5, 37, 8))
@@ -2474,7 +2608,8 @@ def phase_zamba(card: str):
     print(f"[zamba2-train] {ZAMBA} at {ZAMBA_TRAIN_LAYERS} layers: "
           f"{_describe(cfg)}", flush=True)
     kernels = FLASH_KERNELS + ("ssd_fwd", "ssd_bwd")
-    train = phase_train(card, argv, cfg, kernels + ("swa_avg",),
+    train = phase_train(card, argv, cfg,
+                        FLASH_PAIR_KERNELS + ("ssd_fwd", "ssd_bwd", "swa_avg"),
                         tag="zamba2-train", sm90_only=kernels)
     _train_profile(card, "zamba2-train", argv, cfg)
     narrow = _narrow_zamba()
@@ -2548,7 +2683,8 @@ def _whisper_flash_plan(cfg, steps):
     return {"flash_attention_fwd": steps * fwd,
             "flash_attention_bwd_dq": steps * bwd,
             "flash_attention_bwd_dkv": steps * bwd,
-            "flash_attention_bwd_delta": steps * bwd}
+            "flash_attention_bwd_delta": steps * bwd,
+            "flash_attention_bwd_dqkv": 0}
 
 
 def phase_whisper_train(card: str, batch=WHISPER_TRAIN_BATCH,
@@ -3182,9 +3318,12 @@ def phase_cnn_processes(card: str, arm: str = "model", fresh=None) -> None:
 
 
 # the forward, then the backward's kernels: each of dQ, dK/dV and delta
-# launches once a backward, so the launch checks hold delta's count to dQ's
-FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
-                 "flash_attention_bwd_dkv", "flash_attention_bwd_delta")
+# launches once a backward, so the launch checks hold delta's count to dQ's;
+# at head dim 256 over one key tile (gemma3's training) the dQ/dK/dV kernel
+# takes dQ's and dK/dV's place
+FLASH_PAIR_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                      "flash_attention_bwd_dkv", "flash_attention_bwd_delta")
+FLASH_KERNELS = FLASH_PAIR_KERNELS + ("flash_attention_bwd_dqkv",)
 
 
 def _counted(tag, fn):
@@ -3236,8 +3375,10 @@ def phase_experiments(card: str) -> Dict[str, int]:
         "Table 3 (internlm2 smoke, f32)",
         lambda: table3_imagenet.run(seeds=(0,), verbose=False))
     _table_rows("Table 3", out)
-    for name in FLASH_KERNELS:
+    for name in FLASH_PAIR_KERNELS:
         check(launches[name] > 0, f"{name} was not launched on Table 3")
+    check(launches["flash_attention_bwd_dqkv"] == 0,
+          "the dQ/dK/dV kernel launched on Table 3 (f32, head dim 64)")
     check(launches["flash_attention_bwd_delta"]
           == launches["flash_attention_bwd_dq"],
           f"Table 3: delta launched {launches['flash_attention_bwd_delta']} "
@@ -3497,9 +3638,12 @@ def phase_resume(card: str) -> Dict[str, int]:
                 f"internlm2 launcher {cut}", "lm", f"{tmp}/lm-{first}-out",
                 LM_RESUME_ARGV + ["--checkpoint-dir", src, "--resume"], want,
                 first)
-            for name in FLASH_KERNELS + ("swa_avg",):
+            for name in FLASH_PAIR_KERNELS + ("swa_avg",):
                 check(got[name] > 0, f"{name} was not launched in the "
                                      f"resumed launcher run ({cut})")
+            check(got["flash_attention_bwd_dqkv"] == 0,
+                  f"the dQ/dK/dV kernel launched in the resumed launcher "
+                  f"run ({cut}; f32, head dim 64)")
             check(got["flash_attention_bwd_delta"]
                   == got["flash_attention_bwd_dq"],
                   f"delta and dQ launched {got['flash_attention_bwd_delta']} "
@@ -3559,7 +3703,11 @@ def main() -> None:
     print(f"[mamba-train] ssd_fwd launched {ssd_train['ssd_fwd']} times on "
           f"the training path too")
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        # the dQ/dK/dV kernel's main path is gemma3's training, the other
+        # dense kernels' internlm2's
+        row["launches"] = (gemma_train[row["name"]]
+                           if row["name"] == "flash_attention_bwd_dqkv"
+                           else launches[row["name"]])
         if row["name"] == "ssd_fwd":
             row["train_shape"]["launches"] = ssd_train["ssd_fwd"]
         if row["name"] == "swa_avg":

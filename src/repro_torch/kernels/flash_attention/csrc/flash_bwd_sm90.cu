@@ -215,9 +215,63 @@
 //    The dK/dV kernel's pipelined loop, here with a ring of three (168
 //    registers, three CTAs an SM), took 3.2283 against 3.2727 and 0.0806
 //    against 0.0789: not kept. Nor two CTAs an SM (196 registers): 3.6142.
-// Not here: a producer warp with setmaxnreg, persistent CTAs, dQ in the
-// dK/dV kernel (its sum over key tiles needs atomics or a second pass), or
-// a fused delta.
+//
+// dQ/dK/dV kernel (fa_bwd_dqkv_sm90_kernel), D 256 with Sq and Skv <= 64
+// (gemma3-1b's training steps: S 64, H 4, KVH 1) and a power-of-2 scale:
+//  * One key tile and one query tile hold the sequence, so dQ needs no sum
+//    over key tiles: dQ = scale dS K is complete once dS is formed, and the
+//    dK/dV loop writes it. Over longer sequences the pair above stays (dQ's
+//    sum over key tiles there would need atomics or a second pass).
+//  * What bounds it: at gemma3's phase 1 (B 128) it must read q, dO, k, v,
+//    lse and delta and write dq, dk and dv, 67.4 MB (20.1 us at 3.35 TB/s),
+//    against 2.73 GFLOP of products (2.8 us at 989 TFLOP/s; twice that
+//    with P and dS as hi + lo): bytes. The pair moved 110 MB for the same
+//    work, q, dO, k and v read by both kernels.
+//  * A CTA is one (batch, KV head) and two warpgroups, with K and V loaded
+//    once; it loops over the KV head's G query heads with their Q and
+//    dO tiles in a ring of kDqkvStages. Each iteration forms S^T and dP^T
+//    (both warpgroups, over the whole D, as the D-256 dK/dV kernel), P^T
+//    and dS^T as hi + lo, dV += P^T dO (issued once P^T is formed, in
+//    flight while dS^T is) and dK += dS^T q on the warpgroup's 128
+//    columns (as there), and dQ = dS K on the same columns:
+//    an SS product, A the dS tile that the two warpgroups write to shared
+//    memory (hi from one, lo from the other) with query rows and key
+//    columns, laid out as a TMA box; B K, MN-major. dQ * scale goes to the
+//    stage's Q tile and out by a TMA store, and the stage is refilled once
+//    the store has read it. q * scale in bf16 is exact at a power-of-2
+//    scale, so S^T = scale (K q^T) bitwise: the scale goes into exp2's
+//    factor, as in the folded D-64 loop, and q needs no tile of its own.
+//    K, V, a ring of two and the dS tile: 209.5 KB, one CTA an SM.
+//  * A CTA a (batch, KV head), so its dK and dV sum the G query heads in
+//    head order whatever the batch or the card: a batch's bits are those
+//    of the same call on that batch alone (no atomics; the result repeats
+//    bitwise).
+//  * Rounding points as above; only the f32 order of the head sum differs
+//    from the pair's (the pair adds each head into its accumulators), so
+//    its bits are not the pair's.
+//  * A first design, a cluster of G CTAs a KV head and one a query head,
+//    each forming its head's partials, ran one CTA an SM (180 KB) through
+//    load, products and a head sum of 128 KB a CTA in distributed shared
+//    memory in turn, with nothing to overlap them: slower than the pair at
+//    gemma3's phase 1. dQ written from the fragments, 4 bytes a thread,
+//    lost to the staged tile; a TMA store of it lets the stage refill
+//    without a barrier. Writing the dS tile under dK's product (from dS^T
+//    again, its fragments being in flight) spilled more and lost; dQ in
+//    two 64-column products kept the spills and lost. This kernel with a
+//    cluster of C CTAs a KV head where the grid would leave SMs idle (G /
+//    C heads each, the C partial sums of dK and dV added through
+//    distributed shared memory; C 2 at gemma3's phase 2): on an NVIDIA
+//    H100 80GB HBM3 at 700.00 W (ab_flash_bwd.py, one call, that source
+//    as a variant), 0.0404 ms at gemma3's phase 1 (B 128, C 1) and 0.0213
+//    at phase 2 (B 32), against this kernel's 0.0405 and 0.0285 and the
+//    pair's 0.0707 and 0.0354 (dQ + dK/dV). It saved ~0.007 ms a phase-2
+//    launch, but its head sum's order, and so dK's and dV's bits, followed
+//    the batch size and the card's SM count: not kept. ptxas: 255
+//    registers; where G > 1 the loop spills 92 bytes (none at G 1).
+// Not here: a producer warp with setmaxnreg, persistent CTAs, or a fused
+// delta; and at D 256 S^T and dP^T formed once a CTA (one warpgroup each,
+// exchanged through shared memory): the exchange needs 32 KB more than the
+// 227 KB a CTA may hold beside the ring.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -750,6 +804,316 @@ fa_bwd_dq_sm90_kernel(__grid_constant__ const CUtensorMap tq,
                     row_stride, Sq - q0, tid % 128, 128);
 }
 
+// ---- the dQ/dK/dV kernel (D 256, one key tile and one query tile) ----
+
+constexpr int kDsTile = kTileRows * kSwizzleRow;  // a 64 x 64 bf16 tile
+constexpr int kDqkvStages = 2;   // the Q/dO ring of fa_bwd_dqkv
+
+// D += A . B for one k-step of 16, both from shared memory: A 64 x 16
+// K-major, B 16 x 128 MN-major
+__device__ __forceinline__ void wgmma_ss_m64n128_bt(float (&d)[64],
+                                                    uint64_t da,
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16\n"
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
+      " %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      " %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40,"
+      " %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53,"
+      " %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},\n"
+      " %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// The bf16 fragments of dS^T (f[j][i]: key r0 + 8 (i & 1), query rows
+// 16 j + 8 (i >> 1) + c0 and + 1, low half first) into a 64 x 64 tile of
+// dS, query rows and key columns, laid out as TMA lays out a box with
+// 128-byte swizzle: the K-major A operand of dQ = dS K.
+__device__ __forceinline__ void store_frags_t(uint8_t* tile,
+                                              const uint32_t (&f)[4][4],
+                                              int r0, int c0) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int key = r0 + 8 * (i & 1);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int m = 16 * j + 8 * (i >> 1) + c0 + e;
+        *reinterpret_cast<uint16_t*>(
+            tile + m * kSwizzleRow + (((key >> 3) ^ (m & 7)) << 4) +
+            (key & 7) * 2) = static_cast<uint16_t>(f[j][i] >> (16 * e));
+      }
+    }
+  }
+}
+
+// a 64 x N f32 accumulator times mul, rounded to bf16, into columns
+// c0..c0+N-1 of a 64-row tile laid out as TMA lays out its boxes (64
+// columns each, 128-byte swizzle), for a TMA store
+template <int N>
+__device__ __forceinline__ void stage_acc_boxes(uint8_t* tile,
+                                                const float (&acc)[N / 2],
+                                                float mul, int warp,
+                                                int lane, int c0) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = warp * 16 + lane / 4 + 8 * r;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const int col = c0 + 8 * j;      // a multiple of 8: chunk (col % 64) / 8
+      *reinterpret_cast<uint32_t*>(
+          tile + (col / kBox) * kBoxBytes + row * kSwizzleRow +
+          ((((col % kBox) / 8) ^ (row & 7)) << 4) + (lane % 4) * 4) =
+          pack_bf16(acc[4 * j + 2 * r] * mul, acc[4 * j + 2 * r + 1] * mul);
+    }
+  }
+}
+
+// the D/64 boxes of a staged 64-row tile to head `head` from row `row` of
+// batch b of a tensor map's tensor (rows past its end are not written), as
+// one bulk group
+template <int D>
+__device__ __forceinline__ void tma_store_tile(const uint8_t* src,
+                                               const CUtensorMap* map,
+                                               int head, int row, int b) {
+#pragma unroll
+  for (int x = 0; x < D / kBox; ++x)
+    asm volatile(
+        "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+        " [%0, {%2, %3, %4, %5}], [%1];\n"
+        :: "l"(reinterpret_cast<uint64_t>(map)),
+           "r"(smem_u32(src + x * kBoxBytes)), "r"(x * kBox), "r"(head),
+           "r"(row), "r"(b)
+        : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// waits until the bulk groups this thread committed have read their
+// shared memory
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// a CTA a (batch, KV head), taking its G query heads in turn
+template <int G>
+__global__ void __launch_bounds__(256, 1)
+fa_bwd_dqkv_sm90_kernel(__grid_constant__ const CUtensorMap tq,
+                        __grid_constant__ const CUtensorMap tk,
+                        __grid_constant__ const CUtensorMap tv,
+                        __grid_constant__ const CUtensorMap tdo,
+                        __grid_constant__ const CUtensorMap tdq,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dq,
+                        __nv_bfloat16* __restrict__ dk,
+                        __nv_bfloat16* __restrict__ dv, int Sq, int Skv,
+                        int H, int KVH, float scale, int causal, int window,
+                        int q_offset) {
+  constexpr int D = 256;
+  constexpr int kTile = D / kBox * kBoxBytes;  // one 64-row tile, 32 KB
+  constexpr int kThreads = 256;
+  constexpr int kCols = D / 2;     // the columns a warpgroup owns
+  constexpr int STAGES = kDqkvStages;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sK = smem;
+  uint8_t* sV = sK + kTile;
+  uint8_t* sQ = sV + kTile;                   // [STAGES][kTile]
+  uint8_t* sdO = sQ + STAGES * kTile;         // [STAGES][kTile]
+  uint8_t* sdS = sdO + STAGES * kTile;        // [2][kDsTile]: dS's hi, lo
+  float* sStat = reinterpret_cast<float*>(sdS + 2 * kDsTile);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sStat + 2 * kTileRows);
+  const uint32_t bar_kv = smem_u32(bars);     // K and V arrived
+  const uint32_t bar_full = bar_kv + 8;       // [STAGES]: Q and dO arrived
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int kvh = blockIdx.x;
+  const int h0 = kvh * G;                   // this CTA's first query head
+  const int b = blockIdx.y;
+
+  auto load_q = [&](int i) {  // head h0 + i's Q and dO into stage i % STAGES
+    const int s = i % STAGES;
+    mbar_expect_tx(bar_full + 8 * s, 2 * kTile);
+    tma_load_tile<D>(sQ + s * kTile, &tq, bar_full + 8 * s, h0 + i, 0, b);
+    tma_load_tile<D>(sdO + s * kTile, &tdo, bar_full + 8 * s, h0 + i, 0, b);
+  };
+  if (tid == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < STAGES; ++s) mbar_init(bar_full + 8 * s, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar_kv, 2 * kTile);
+    tma_load_tile<D>(sK, &tk, bar_kv, kvh, 0, b);
+    tma_load_tile<D>(sV, &tv, bar_kv, kvh, 0, b);
+    for (int i = 0; i < (G < STAGES ? G : STAGES); ++i) load_q(i);
+  }
+
+  // thread t's entry of sStat for head h0 + i (t < 128): -lse log2 e of
+  // query row t (t < 64) or delta of row t - 64, 0 past Sq
+  const bool stats = tid < 2 * kTileRows;
+  auto stat = [&](int i) {
+    const int row = tid % kTileRows;
+    const int64_t at = ((int64_t)b * Sq + row) * H + h0 + i;
+    return row >= Sq          ? 0.f
+           : tid < kTileRows ? -lse[at] * kLog2e
+                             : delta[at];
+  };
+  float stat_next = stats ? stat(0) : 0.f;
+
+  const int r0 = warp * 16 + lane / 4;  // this thread's keys: r0, r0 + 8
+  const int c0 = 2 * (lane % 4);        // and query rows 8j + c0 (+1)
+  const uint32_t k_addr = smem_u32(sK);
+  const uint32_t v_addr = smem_u32(sV);
+  const uint32_t ds_addr = smem_u32(sdS);
+  // this warpgroup's columns of an MN-major B operand
+  const uint32_t col_off = wg * (kCols / kBox) * kBoxBytes;
+  // the scale is a power of 2 (the C entry's condition), so q * scale in
+  // bf16 is exact and S^T = scale (K q^T) bitwise: the scale goes into
+  // exp2's factor, as in the folded dK/dV loop
+  const float p_mul = kLog2e * __bfloat162float(__float2bfloat16_rn(scale));
+  float acc_dk[kCols / 2], acc_dv[kCols / 2];
+#pragma unroll
+  for (int i = 0; i < kCols / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+  mbar_wait(bar_kv, 0);
+
+  for (int i = 0; i < G; ++i) {
+    const int s = i % STAGES;
+    uint8_t* q_tile = sQ + s * kTile;
+    const uint32_t q_addr = smem_u32(q_tile);
+    const uint32_t do_addr = smem_u32(sdO + s * kTile);
+    if (stats) {
+      sStat[tid] = stat_next;          // the last iteration's reads ended
+      if (i + 1 < G) stat_next = stat(i + 1);   // at its last barrier
+    }
+    mbar_wait(bar_full + 8 * s, (i / STAGES) & 1);
+    __syncthreads();                   // sStat in place
+
+    // S^T = K q^T (times the scale in exp2's factor) and dP^T = V dO^T
+    // over the whole D, in both warpgroups
+    float st[32], dpt[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) st[j] = dpt[j] = 0.f;
+    wgmma_fence();
+    wgmma_tiles_abt<D>(st, k_addr, q_addr);
+    wgmma_commit();
+    wgmma_tiles_abt<D>(dpt, v_addr, do_addr);
+    wgmma_commit();
+    wgmma_wait<1>();
+    pin(st);
+    // P^T = exp(S^T - lse), masked, with its hi and lo fragments
+    uint32_t pa[4][4], pb[4][4], da[4][4], db[4][4];
+    probs_t_frags(st, pa, pb, sStat, p_mul, 0, 0, r0, c0, Sq, Skv, causal,
+                  window, q_offset);
+    // dV += P^T dO on this warpgroup's columns, A as hi + lo, in flight
+    // while dS^T is formed
+    wgmma_fence();
+    wgmma_frags_b<kCols>(acc_dv, pa, do_addr + col_off);
+    wgmma_frags_b<kCols>(acc_dv, pb, do_addr + col_off);
+    wgmma_commit();
+    // dS^T = P^T (dP^T - delta)
+    wgmma_wait<1>();
+    pin(dpt);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 dl =
+          *reinterpret_cast<const float2*>(sStat + kTileRows + 8 * j + c0);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dpt[4 * j + e] =
+            st[4 * j + e] * (dpt[4 * j + e] - (e & 1 ? dl.y : dl.x));
+    }
+    to_split_frags(dpt, da, db);
+    // dS for dQ's product: its hi from warpgroup 0, its lo from warpgroup
+    // 1 (both formed the same dS^T)
+    if (wg == 0)
+      store_frags_t(sdS, da, r0, c0);
+    else
+      store_frags_t(sdS + kDsTile, db, r0, c0);
+    fence_proxy_async();
+
+    // dK += dS^T q (times scale in the epilogue) on this warpgroup's
+    // columns, A as hi + lo
+    wgmma_fence();
+    wgmma_frags_b<kCols>(acc_dk, da, q_addr + col_off);
+    wgmma_frags_b<kCols>(acc_dk, db, q_addr + col_off);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(acc_dv);
+    pin(acc_dk);
+    pin(pa);
+    pin(pb);
+    pin(da);
+    pin(db);
+    __syncthreads();                   // both halves of the dS tile written
+
+    // dQ = dS K on this warpgroup's columns, complete (one key tile): A the
+    // dS tile (hi, then lo), B K's columns, MN-major
+    float acc_dq[kCols / 2];
+#pragma unroll
+    for (int j = 0; j < kCols / 2; ++j) acc_dq[j] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_m64n128_bt(
+            acc_dq,
+            sw128_desc(ds_addr + t * kDsTile + kk * 32, 16, kSwizzleAtom),
+            sw128_desc(k_addr + col_off + kk * 2 * kSwizzleAtom, kBoxBytes,
+                       kSwizzleAtom));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(acc_dq);
+    // dQ * scale in bf16, each warpgroup's columns staged in the stage's Q
+    // tile (every warp is done with it since the last barrier) and stored
+    // by TMA (rows < Sq); the stage is refilled once the store has read it
+    stage_acc_boxes<kCols>(q_tile, acc_dq, scale, warp, lane, wg * kCols);
+    fence_proxy_async();
+    __syncthreads();
+    if (tid == 0) {
+      tma_store_tile<D>(q_tile, &tdq, h0 + i, 0, b);
+      if (i + STAGES < G) {
+        tma_store_wait_read();
+        load_q(i + STAGES);
+      }
+    }
+  }
+
+  // the last dQ store has read its tile, and the CTA's shared memory
+  // outlives it; dK * scale and dV in bf16, staged in the K and V tiles,
+  // stored for keys < Skv
+  if (tid == 0) tma_store_wait_read();
+  __syncthreads();
+  const int64_t row_stride = (int64_t)KVH * D;  // between key positions
+  const int64_t at = ((int64_t)b * Skv * KVH + kvh) * D;
+  stage_acc<D, kCols>(sK, acc_dk, scale, warp, lane, wg * kCols);
+  stage_acc<D, kCols>(sV, acc_dv, 1.f, warp, lane, wg * kCols);
+  __syncthreads();
+  store_tile<D>(sK, dk + at, row_stride, Skv, tid, kThreads);
+  store_tile<D>(sV, dv + at, row_stride, Skv, tid, kThreads);
+}
+
 // whether scale rounded to bf16 is a power of 2 (D 64's 1/8, D 256's 1/16)
 bool pow2_bf16(float scale) {
   int e;
@@ -815,6 +1179,29 @@ cudaError_t launch_dq(const Maps& m, const void* lse, const void* delta,
   kernel<<<grid, NWG * 128, smem, stream>>>(
       m.q, m.k, m.v, m.dout, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq), Sq,
+      Skv, H, KVH, scale, causal, window, q_offset);
+  return cudaGetLastError();
+}
+
+template <int G>
+cudaError_t launch_dqkv(const Maps& m, const CUtensorMap& tdq,
+                        const void* lse, const void* delta,
+                        void* dq, void* dk, void* dv, int B, int Sq, int Skv,
+                        int H, int KVH, float scale, int causal, int window,
+                        int q_offset, cudaStream_t stream) {
+  constexpr int kTile = 256 / kBox * kBoxBytes;
+  // K, V, the ring and the dS tile, the stats and the barriers
+  const int smem = 1024 + (2 + 2 * kDqkvStages) * kTile + 2 * kDsTile +
+                   2 * kTileRows * (int)sizeof(float) + 8 * (1 + kDqkvStages);
+  auto kernel = fa_bwd_dqkv_sm90_kernel<G>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  // a CTA a (KV head, batch)
+  kernel<<<dim3(KVH, B), 256, smem, stream>>>(
+      m.q, m.k, m.v, m.dout, tdq, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq),
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), Sq,
       Skv, H, KVH, scale, causal, window, q_offset);
   return cudaGetLastError();
 }
@@ -897,4 +1284,38 @@ cudaError_t fa_bwd_dkv_sm90(const void* q, const void* k, const void* v,
     return launch_dkv<256, 2>(m, lse, delta, dk, dv, B, Sq, Skv, H, KVH,
                               scale, causal, window, q_offset, stream);
   return cudaErrorInvalidValue;
+}
+
+// dQ, dK and dV of bf16 inputs in one launch of fa_bwd_dqkv_sm90_kernel, for
+// D 256, 1 <= Sq, Skv <= 64 and G = H / KVH in {1, 2, 4, 8}; the arguments
+// as fa_bwd_dq's and fa_bwd_dkv's (dtype 1 = bfloat16, the only one taken).
+// Returns a cudaError_t (0 = launched; cudaErrorInvalidValue for what it
+// does not take).
+extern "C" int fa_bwd_dqkv(const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse,
+                           const void* delta, void* dq, void* dk, void* dv,
+                           int B, int Sq, int Skv, int H, int KVH, int D,
+                           int dtype, float scale, int causal, int window,
+                           int q_offset, void* stream) {
+  if (dtype != 1 || D != 256 || Sq < 1 || Sq > kTileRows || Skv < 1 ||
+      Skv > kTileRows || KVH < 1 || H % KVH != 0 || !pow2_bf16(scale))
+    return (int)cudaErrorInvalidValue;
+  Maps m;
+  CUtensorMap tdq;                     // dQ's, stored by TMA
+  if (!encode_all(&m, q, k, v, dout, B, Sq, Skv, H, KVH, D) ||
+      !encode(&tdq, dq, D, H, Sq, B))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define DQKV(G_)                                                           \
+  case G_:                                                                 \
+    return launch_dqkv<G_>(m, tdq, lse, delta, dq, dk, dv, B, Sq, Skv, H,  \
+                           KVH, scale, causal, window, q_offset, st);
+  switch (H / KVH) {
+    DQKV(1)
+    DQKV(2)
+    DQKV(4)
+    DQKV(8)
+  }
+#undef DQKV
+  return (int)cudaErrorInvalidValue;
 }

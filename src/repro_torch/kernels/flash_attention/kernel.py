@@ -14,7 +14,16 @@
     rowsum(dO * O) in f32 from dO and O in their own dtype; it replaces no
     Pallas kernel (the JAX package forms delta in plain jnp) but the plain
     PyTorch chain ``bwd_delta``, which wrote an f32 product tensor and read
-    it back. ``flash_bwd`` runs the three: delta, dQ, then dK/dV.
+    it back;
+  * ``flash_bwd_dqkv`` launches that library's ``fa_bwd_dqkv`` (in
+    ``csrc/flash_bwd_sm90.cu``): dQ, dK and dV of bf16 inputs in one
+    kernel, one CTA a (batch, KV head) taking its G query heads in turn,
+    where one key tile and one query tile hold the sequence
+    (``takes_dqkv``: D 256, Sq and Skv <= 64, G in ``DQKV_GROUPS``,
+    gemma3-1b's training shapes). It replaces both Pallas kernels there.
+
+``flash_bwd`` runs delta, then dQ and dK/dV: on ``takes_dqkv``'s shapes
+``flash_bwd_dqkv``, elsewhere ``flash_bwd_dq`` and ``flash_bwd_dkv``.
 
 The two bf16 sources include ``csrc/sm90.cuh``, the Hopper helpers they
 share, which each library lists as a header of its build. Both
@@ -39,6 +48,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from pathlib import Path
 
 import torch
@@ -53,6 +63,8 @@ HEADERS = (SOURCE.with_name("sm90.cuh"),)
 FWD_HEAD_DIMS = (64, 96, 112, 128, 192, 256)
 BWD_HEAD_DIMS = (64, 96, 112, 128, 192, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the group sizes H / KVH of ``flash_bwd_dqkv``: the query heads a CTA takes
+DQKV_GROUPS = (1, 2, 4, 8)
 
 
 @functools.cache
@@ -84,7 +96,9 @@ def _bwd_library():
               ptr]                                # stream
     lib.fa_bwd_dq.argtypes = [ptr] * 7 + common   # q k v dO lse delta dq
     lib.fa_bwd_dkv.argtypes = [ptr] * 8 + common  # ... dk dv
+    lib.fa_bwd_dqkv.argtypes = [ptr] * 9 + common  # ... dq dk dv
     lib.fa_bwd_dq.restype = lib.fa_bwd_dkv.restype = i32
+    lib.fa_bwd_dqkv.restype = i32
     lib.fa_bwd_delta.argtypes = [ptr, ptr, ptr,             # dO O delta
                                  ctypes.c_int64, i32, i32,  # rows D dtype
                                  ptr]                       # stream
@@ -251,6 +265,58 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
     return dk, dv
 
 
+def _pow2_bf16(scale: float) -> bool:
+    """Whether ``scale`` rounded to bf16 is a power of 2 (as the C entries'
+    ``pow2_bf16``): then q * scale in bf16 is exact."""
+    f = torch.tensor(scale, dtype=torch.bfloat16).item()
+    return f > 0 and math.isfinite(f) and math.frexp(f)[0] == 0.5
+
+
+def takes_dqkv(dtype, Sq: int, Skv: int, H: int, KVH: int, D: int,
+               scale: float | None = None) -> bool:
+    """Whether ``flash_bwd`` sends a backward of these shapes to
+    ``flash_bwd_dqkv``: bf16 at D 256 with one tile of queries and one of
+    keys (1 <= Sq, Skv <= 64), G = H / KVH in ``DQKV_GROUPS``, and a scale
+    (by default D ** -0.5, 1/16) that is a power of 2 in bf16."""
+    scale = scale if scale is not None else D ** -0.5
+    return (dtype == torch.bfloat16 and D == 256 and 0 < Sq <= 64
+            and 0 < Skv <= 64 and KVH > 0 and H % KVH == 0
+            and H // KVH in DQKV_GROUPS and _pow2_bf16(scale))
+
+
+def flash_bwd_dqkv(q, k, v, do, lse, delta, *, causal: bool = True,
+                   window: int = 0, scale: float | None = None,
+                   q_offset: int = 0):
+    """(dQ, dK, dV) of bf16 inputs in one launch, on the shapes that
+    ``takes_dqkv`` accepts; the arguments as ``flash_bwd_dq``'s. dK and dV
+    sum the G query heads of each KV head in head order, so the result
+    repeats bitwise and a batch's bits do not depend on the others."""
+    if q.dim() != 4 or k.dim() != 4 or not takes_dqkv(
+            q.dtype, q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+            q.shape[3], scale):
+        raise ValueError(
+            f"flash_bwd_dqkv takes bfloat16 q (B,Sq,H,256) and k "
+            f"(B,Skv,KVH,256) with 1 <= Sq, Skv <= 64, H / KVH in "
+            f"{DQKV_GROUPS} and a power-of-2 scale; got q {tuple(q.shape)} "
+            f"{q.dtype}, k {tuple(k.shape)}, scale {scale}")
+    _check_bwd(q, k, v, do, lse, delta)
+    dq = torch.empty_like(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if q.shape[0] == 0:
+        return dq, dk, dv
+    _, lib = _bwd_library()
+    with torch.cuda.device(q.device):
+        err = lib.fa_bwd_dqkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              do.data_ptr(), lse.data_ptr(),
+                              delta.data_ptr(), dq.data_ptr(),
+                              dk.data_ptr(), dv.data_ptr(),
+                              *_bwd_args(q, k, scale, causal, window,
+                                         q_offset))
+    _raise_if(err, lib, "dQ/dK/dV")
+    _count(flash_bwd_dqkv, q)
+    return dq, dk, dv
+
+
 def bwd_delta(do, out):
     """delta = rowsum(dO * O) in f32, (B,Sq,H): the plain version of
     ``flash_bwd_delta``, as the JAX package forms it (its kernel.py:288). A
@@ -303,12 +369,18 @@ def flash_bwd(q, k, v, out, lse, do, *, causal: bool = True, window: int = 0,
               scale: float | None = None, q_offset: int = 0):
     """Flash backward on the card: (dq, dk, dv) in the input dtypes, from
     the forward's q, k, v, out and lse and the output grad dO (all
-    contiguous CUDA tensors, as ``flash_fwd`` takes them)."""
+    contiguous CUDA tensors, as ``flash_fwd`` takes them). After delta's
+    kernel, one launch of ``flash_bwd_dqkv`` where ``takes_dqkv`` holds,
+    else ``flash_bwd_dq`` and ``flash_bwd_dkv``."""
     if out.shape != q.shape or out.dtype != q.dtype:
         raise ValueError(f"out must match q {tuple(q.shape)} {q.dtype}; got "
                          f"{tuple(out.shape)} {out.dtype}")
     delta = flash_bwd_delta(do, out)
     kw = dict(causal=causal, window=window, scale=scale, q_offset=q_offset)
+    if k.dim() == 4 and takes_dqkv(q.dtype, q.shape[1], k.shape[1],
+                                   q.shape[2], k.shape[2], q.shape[3],
+                                   scale):
+        return flash_bwd_dqkv(q, k, v, do, lse, delta, **kw)
     dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
     return dq, dk, dv
@@ -317,3 +389,4 @@ def flash_bwd(q, k, v, out, lse, do, *, causal: bool = True, window: int = 0,
 flash_bwd_dq.launches = flash_bwd_dq.launches_sm90 = 0
 flash_bwd_dkv.launches = flash_bwd_dkv.launches_sm90 = 0
 flash_bwd_delta.launches = flash_bwd_delta.launches_sm90 = 0
+flash_bwd_dqkv.launches = flash_bwd_dqkv.launches_sm90 = 0

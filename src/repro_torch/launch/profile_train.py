@@ -65,6 +65,7 @@ CATEGORIES = (("flash_attention_fwd", ("fa_fwd_kernel",
               ("flash_attention_bwd_dkv", ("fa_bwd_dkv_kernel",
                                            "fa_bwd_dkv_sm90_kernel")),
               ("flash_attention_bwd_delta", ("fa_bwd_delta_kernel",)),
+              ("flash_attention_bwd_dqkv", ("fa_bwd_dqkv_sm90_kernel",)),
               ("swa_avg", ("avg_kernel",)),
               ("ssd_fwd", ("ssd_fwd_kernel", "ssd_fwd_sm90_kernel")),
               ("ssd_bwd", ("ssd_bwd_kernel", "ssd_bwd_sm90_kernel")),

@@ -398,6 +398,14 @@ BWD_CASES = [
     # whisper's encoder, D 64: non-causal self attention, three ragged
     # tiles each way
     ((2, 150, 150, 4, 4, 64), False, 0, 0),
+] + [
+    # the dQ/dK/dV kernel's route (D 256, one key and one query tile):
+    # gemma3's S 64 at G 4, ragged at G 2 with a window, rows that see no
+    # key, Sq < Skv non-causal
+    ((2, 64, 64, 4, 1, 256), True, 0, 0),
+    ((1, 37, 37, 4, 2, 256), True, 16, 0),
+    ((1, 48, 48, 4, 1, 256), True, 0, -8),
+    ((2, 33, 64, 4, 1, 256), False, 0, 0),
 ]
 
 
@@ -565,7 +573,7 @@ ROUNDED_BWD_CASES = [c for c in CARD_EDGE_CASES if c not in ODD_G_CASES] + [
     ((2, 67, 67, 4, 2, 128), True, 0, 0),
     ((1, 130, 130, 8, 2, 128), True, 0, 0),
     ((1, 33, 129, 4, 4, 192), True, 0, 96),
-] + ODD_G_CASES + [((2, 150, 150, 4, 4, 64), False, 0, 0)]
+] + ODD_G_CASES + [((2, 150, 150, 4, 4, 64), False, 0, 0)] + BWD_CASES[-4:]
 
 
 @pytest.mark.parametrize("shape,causal,window,q_offset", ROUNDED_BWD_CASES)
@@ -761,6 +769,9 @@ def test_backward_library_binds_the_delta_entry(monkeypatch):
                                          i32, ptr]
     assert lib.fa_bwd_delta.restype is i32
     assert lib.fa_bwd_dq.argtypes[:7] == [ptr] * 7
+    # the dQ/dK/dV entry: q k v dO lse delta dq dk dv, then fa_bwd_dq's tail
+    assert lib.fa_bwd_dqkv.argtypes == [ptr] * 9 + lib.fa_bwd_dq.argtypes[7:]
+    assert lib.fa_bwd_dqkv.restype is i32
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -795,6 +806,9 @@ def test_profile_files_delta_kernel_under_its_own_name():
     assert cat("fa_bwd_dq_sm90_kernel<128, 1, 3, 1>") \
         == "flash_attention_bwd_dq"
     assert cat("fa_bwd_dkv_kernel<float, 64>") == "flash_attention_bwd_dkv"
+    assert cat("void (anonymous namespace)::fa_bwd_dqkv_sm90_kernel<4, 1>"
+               "(CUtensorMap_st, CUtensorMap_st)") \
+        == "flash_attention_bwd_dqkv"
 
 
 def test_flash_bwd_forms_delta_with_the_kernel(monkeypatch):
@@ -832,6 +846,135 @@ def test_flash_bwd_forms_delta_with_the_kernel(monkeypatch):
     assert seen["dq"] is seen["dkv"]
     want = (do * tq).sum(-1)
     torch.testing.assert_close(seen["dq"], want, rtol=1e-6, atol=1e-6)
+
+
+# (dtype, Sq, Skv, H, KVH, D, scale): the dQ/dK/dV route's boundary, each
+# case against its neighbour across it
+DQKV_ROUTE = {
+    "gemma3_s64_g4": ((torch.bfloat16, 64, 64, 4, 1, 256, None), True),
+    "skv_65": ((torch.bfloat16, 64, 65, 4, 1, 256, None), False),
+    "sq_65": ((torch.bfloat16, 65, 64, 4, 1, 256, None), False),
+    "g3": ((torch.bfloat16, 64, 64, 3, 1, 256, None), False),
+    "g8_ragged": ((torch.bfloat16, 1, 37, 8, 1, 256, None), True),
+    "g1": ((torch.bfloat16, 64, 64, 4, 4, 256, None), True),
+    "g16": ((torch.bfloat16, 64, 64, 16, 1, 256, None), False),
+    "d128": ((torch.bfloat16, 64, 64, 4, 1, 128, None), False),
+    "float32": ((torch.float32, 64, 64, 4, 1, 256, None), False),
+    "scale_pow2": ((torch.bfloat16, 64, 64, 4, 1, 256, 0.125), True),
+    "scale_not_pow2": ((torch.bfloat16, 64, 64, 4, 1, 256, 0.1), False),
+    "empty_sq": ((torch.bfloat16, 0, 64, 4, 1, 256, None), False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DQKV_ROUTE))
+def test_dqkv_route_boundary(case):
+    """kernel.takes_dqkv: bf16 at D 256 with Sq and Skv in 1..64, G in
+    (1, 2, 4, 8) and a power-of-2 scale in bf16 (1/16 by default) take the
+    dQ/dK/dV kernel; one step past any bound keeps the pair."""
+    (dtype, Sq, Skv, H, KVH, D, scale), want = DQKV_ROUTE[case]
+    assert tkernel.takes_dqkv(dtype, Sq, Skv, H, KVH, D, scale) is want
+
+
+@pytest.mark.parametrize("shape,dtype,route", [
+    ((1, 64, 64, 4, 1, 256), "bfloat16", ["delta", "dqkv"]),
+    ((2, 37, 37, 8, 2, 256), "bfloat16", ["delta", "dqkv"]),
+    ((1, 64, 65, 4, 1, 256), "bfloat16", ["delta", "dq", "dkv"]),
+    ((1, 64, 64, 3, 1, 256), "bfloat16", ["delta", "dq", "dkv"]),
+    ((1, 64, 64, 4, 1, 256), "float32", ["delta", "dq", "dkv"]),
+    ((1, 64, 64, 4, 1, 128), "bfloat16", ["delta", "dq", "dkv"]),
+])
+def test_flash_bwd_takes_dqkv_on_its_route(monkeypatch, shape, dtype, route):
+    """kernel.flash_bwd runs delta's kernel, then on takes_dqkv's shapes the
+    dQ/dK/dV kernel alone, elsewhere the dQ and dK/dV kernels, each handed
+    delta's output; it returns what they return."""
+    calls, seen = [], {}
+    B, Sq, Skv, H, KVH, D = shape
+    outs = {"dq": torch.full((B, Sq, H, D), 1.0),
+            "dk": torch.full((B, Skv, KVH, D), 2.0),
+            "dv": torch.full((B, Skv, KVH, D), 3.0)}
+
+    def delta_fn(do, out):
+        calls.append("delta")
+        return tkernel.bwd_delta(do, out)
+
+    def launch(name, *result):
+        def fn(q, k, v, do, lse, delta, **kw):
+            calls.append(name)
+            seen[name] = (delta, kw)
+            return result[0] if len(result) == 1 else result
+        return fn
+
+    monkeypatch.setattr(tkernel, "flash_bwd_delta", delta_fn)
+    monkeypatch.setattr(tkernel, "flash_bwd_dq", launch("dq", outs["dq"]))
+    monkeypatch.setattr(tkernel, "flash_bwd_dkv",
+                        launch("dkv", outs["dk"], outs["dv"]))
+    monkeypatch.setattr(tkernel, "flash_bwd_dqkv",
+                        launch("dqkv", *outs.values()))
+    (_, _, _), (tq, tk, tv) = _inputs(shape, dtype, seed=53)
+    do = _grad_out(shape, dtype, seed=54)[1]
+    lse = torch.zeros(tq.shape[:3])
+    got = tkernel.flash_bwd(tq, tk, tv, tq, lse, do, causal=False, window=7,
+                            q_offset=3)
+    assert calls == route
+    assert all(g is outs[n] for g, n in zip(got, ("dq", "dk", "dv")))
+    for name in route[1:]:
+        delta, kw = seen[name]
+        torch.testing.assert_close(delta, tkernel.bwd_delta(do, tq))
+        assert kw == dict(causal=False, window=7, scale=None, q_offset=3)
+
+
+DQKV_REFUSED = {
+    "float32": (lambda q, k, v, do, l, d: (q.float(), k.float(), v.float(),
+                                           do.float(), l, d),
+                ValueError, "flash_bwd_dqkv takes bfloat16"),
+    "head_dim_128": (lambda q, k, v, do, l, d: (
+        *(t[..., :128].contiguous() for t in (q, k, v, do)), l, d),
+        ValueError, "flash_bwd_dqkv takes"),
+    "skv_65": (lambda q, k, v, do, l, d: (
+        q, *(torch.cat([t, t[:, :1]], 1) for t in (k, v)), do, l, d),
+        ValueError, "flash_bwd_dqkv takes"),
+    "g3": (lambda q, k, v, do, l, d: (
+        q[:, :, :3].contiguous(), k, v, do[:, :, :3].contiguous(),
+        l[..., :3].contiguous(), d[..., :3].contiguous()),
+        ValueError, "flash_bwd_dqkv takes"),
+    "dO_shape": (lambda q, k, v, do, l, d: (q, k, v, do[:, :4], l, d),
+                 ValueError, "dO must match"),
+    "lse_dtype": (lambda q, k, v, do, l, d: (q, k, v, do, l.double(), d),
+                  ValueError, "lse must be"),
+    "dO_non_contiguous": (lambda q, k, v, do, l, d: (
+        q, k, v, do.transpose(1, 2).contiguous().transpose(1, 2), l, d),
+        ValueError, "dO must be contiguous"),
+    "misaligned_dO": (lambda q, k, v, do, l, d: (q, k, v, _misaligned(do),
+                                                 l, d),
+                      ValueError, "dO must start on a 16-byte boundary"),
+}
+
+
+@pytest.mark.parametrize("shape", [(1, 64, 64, 4, 1, 256),
+                                   (2, 37, 37, 4, 2, 256),
+                                   (1, 1, 64, 8, 1, 256),
+                                   (1, 64, 33, 4, 4, 256)])
+def test_dqkv_wrapper_takes_its_route_up_to_the_device_check(shape):
+    """bf16 on the dQ/dK/dV route (G 4, 2, 8, 1; ragged Sq and Skv) passes
+    every check of ``flash_bwd_dqkv`` that needs no card, and stops only at
+    the device."""
+    with pytest.raises(RuntimeError, match="needs CUDA tensors"):
+        tkernel.flash_bwd_dqkv(*_bwd_args(shape, "bfloat16", seed=55))
+
+
+@pytest.mark.parametrize("case", sorted(DQKV_REFUSED) + ["scale_not_pow2"])
+def test_dqkv_wrapper_refuses_what_its_kernel_cannot_take(case):
+    """Off the route (f32, D 128, Skv 65, G 3, a scale that is not a power
+    of 2 in bf16) and on malformed dO, lse: a ValueError before the device
+    check."""
+    args = _bwd_args((1, 64, 64, 4, 1, 256), "bfloat16", seed=56)
+    if case == "scale_not_pow2":
+        with pytest.raises(ValueError, match="power-of-2 scale"):
+            tkernel.flash_bwd_dqkv(*args, scale=0.1)
+        return
+    make, exc, msg = DQKV_REFUSED[case]
+    with pytest.raises(exc, match=msg):
+        tkernel.flash_bwd_dqkv(*make(*args))
 
 
 def test_build_hashes_headers_and_puts_them_on_the_include_path(
