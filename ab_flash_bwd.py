@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Compare sources of the bf16 flash-attention backward kernels on one card.
 
-    python3 ab_flash_bwd.py [--occupancy] [--ring] [--fold] [VARIANT.cu ...]
+    python3 ab_flash_bwd.py [--occupancy] [--ring] [--fold] [--phases]
+                            [VARIANT.cu ...]
 
 Builds the ``flash_bwd`` library once with the repository's bf16 kernels
 (``csrc/flash_bwd_sm90.cu``, named "main") and once with each VARIANT.cu
@@ -24,7 +25,13 @@ under ``build/ab_flash_bwd/``):
   (``kFoldStages``, two) of three and four (``dkv64_ring3`` ...);
 * ``--fold``: the dK/dV kernel at D 64 without its folded loop
   (``dkv_inplace``: the loop of the other head dims, q * scale in place
-  each iteration).
+  each iteration);
+* ``--phases``: after the comparison, the main source built once more
+  with ``DQKV_PROF`` defined (``build/ab_flash_bwd/phases.cu``), and the
+  SM clocks an item that each warpgroup of the D-192 dQ/dK/dV kernel spends
+  in each phase between its stamps, at deepseek-v2-lite's phase-1 and
+  phase-2 shapes (a mean over every CTA's items; the stamps are in the
+  kernel's comment).
 
 To hold a change against an earlier source, pass that source as a variant
 (``git show <commit>:src/repro_torch/kernels/flash_attention/csrc/
@@ -34,12 +41,13 @@ math and against it at the kernels' rounding points, at chip_smoke's
 bounds (a count of failing cases), and its dQ and dK/dV kernels' outputs
 against main's, bitwise (a count of equal cases); the dQ/dK/dV kernel
 likewise on the cases ``kernel.takes_dqkv`` sends to it, in the builds
-that have it (a source from before it has not); and device times of the
+whose entry takes them (a source from before it has none; one from before
+its D-192 route refuses D 192); and device times of the
 dQ and dK/dV kernels and, where it takes the shape, the dQ/dK/dV kernel,
 taken in turns (main, variants, variants reversed, main), beside the
 library's fused backward timed alone in the same call, at the phase-1 and
 phase-2 training shapes of internlm2-1.8b (D 128), of gemma3-1b (D 256,
-G 4: the dQ/dK/dV kernel's) and of deepseek-v2-lite (MLA, D 192),
+G 4) and of deepseek-v2-lite (MLA, D 192, G 1: both the dQ/dK/dV kernel's),
 granite-moe's phase 1 (D 64, G 3), and whisper-base's encoder (D 64, G 1,
 non-causal over 1500 frames) at its train batch of 128 and its serving
 batch of 8; at the four internlm2 and deepseek S-64 shapes also each
@@ -82,6 +90,13 @@ SHAPES = (("phase-1", smoke.TRAIN_SHAPE, True, 100),
           ("gemma3 phase-1", smoke.GEMMA_TRAIN_SHAPE, True, 100),
           ("gemma3 phase-2", smoke.GEMMA_PHASE2_SHAPE, True, 100))
 DELTA_SHAPES = 4          # delta's forms at the first four
+# what each warpgroup of the D-192 dQ/dK/dV kernel does between its stamps
+# (--phases); phase 0 is the wait at the item's first barrier
+PHASES = (("(0)", "tiles in", "q scaled", "S^T, P^T written", "(P)",
+           "dV", "dV staged"),
+          ("(0)", "tiles in", "dP^T", "(P)", "dS^T, dS written", "dK",
+           "dK staged"),
+          ("(0)", "store, refill, tiles in", "(D)", "dQ", "dQ staged"))
 
 
 def _const_variant(name, values, main_src: Path):
@@ -123,7 +138,9 @@ def _runners(lib, q, k, v, do, lse, delta, causal=True, window=0,
              q_offset=0):
     """Closures launching lib's dQ, dK/dV and dQ/dK/dV kernels; they return
     dq, (dk, dv) and (dq, dk, dv). The third is None where lib has no
-    dQ/dK/dV kernel or it does not take the shape."""
+    dQ/dK/dV kernel or it does not take the shape: ``kernel.takes_dqkv``
+    refuses it, or lib's entry does (a source from before D 192 took it
+    returns an error there and launches nothing)."""
     import torch
     B, Sq, H, D = q.shape
     Skv, KVH = k.shape[1], k.shape[2]
@@ -153,8 +170,46 @@ def _runners(lib, q, k, v, do, lse, delta, causal=True, window=0,
         return dq, dk, dv
     from repro_torch.kernels.flash_attention.kernel import takes_dqkv
     fused = (hasattr(lib, "fa_bwd_dqkv")
-             and takes_dqkv(q.dtype, Sq, Skv, H, KVH, D))
+             and takes_dqkv(q.dtype, Sq, Skv, H, KVH, D)
+             and lib.fa_bwd_dqkv(*ins, dq.data_ptr(), dk.data_ptr(),
+                                 dv.data_ptr(), *tail) == 0)
     return run_dq, run_dkv, run_dqkv if fused else None
+
+
+def _phases(main_src: Path) -> None:
+    """``--phases``: the main source with DQKV_PROF, its per-phase clocks."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel
+    src = smoke.ROOT / "build" / "ab_flash_bwd" / "phases.cu"
+    src.parent.mkdir(parents=True, exist_ok=True)
+    src.write_text("#define DQKV_PROF\n" + main_src.read_text())
+    lib = _load(_build.build_library("flash_bwd_ab_phases",
+                                     [kernel.BWD_SOURCE, src],
+                                     kernel.HEADERS))
+    lib.dqkv_prof.argtypes = [ctypes.c_void_p]
+    lib.dqkv_prof.restype = ctypes.c_int
+    sums = (ctypes.c_ulonglong * 24)()
+    for label, shape in (("deepseek phase-1", smoke.DEEPSEEK_TRAIN_SHAPE),
+                         ("deepseek phase-2", smoke.DEEPSEEK_PHASE2_SHAPE)):
+        q, k, v = smoke._qkv(shape, torch.bfloat16, seed=7)
+        do = smoke._qkv(shape, torch.bfloat16, seed=8)[0]
+        out, lse = kernel.flash_fwd(q, k, v)
+        run = _runners(lib, q, k, v, do, lse, kernel.bwd_delta(do, out))[2]
+        launches = 20
+        for n in (3, launches):           # warm-up, then the counted runs
+            lib.dqkv_prof(ctypes.cast(sums, ctypes.c_void_p))
+            for _ in range(n):
+                run()
+            torch.cuda.synchronize()
+        if lib.dqkv_prof(ctypes.cast(sums, ctypes.c_void_p)):
+            smoke.fail("reading the phase clocks failed")
+        items = shape[0] * shape[3] * launches
+        for w, names in enumerate(PHASES):
+            clocks = [sums[8 * w + p] / items for p in range(len(names))]
+            print(f"[phases] {label} {shape} warpgroup {w}: "
+                  + ", ".join(f"{n} {c:.0f}" for n, c in zip(names, clocks))
+                  + f"; {sum(clocks):.0f} SM clocks an item", flush=True)
 
 
 def _clones(out):
@@ -196,6 +251,8 @@ def main(argv) -> None:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel
     sources = {"main": kernel.BWD_SM90_SOURCE}
+    phases = "--phases" in argv
+    argv = [a for a in argv if a != "--phases"]
     for flag, variants in CONST_VARIANTS.items():
         if flag in argv:
             argv = [a for a in argv if a != flag]
@@ -321,6 +378,8 @@ def main(argv) -> None:
             f"{n} {sum(t) / len(t):.4f} (max |diff| "
             f"{smoke._rel_err(forms[n](), ref):.2e})"
             for n, t in times.items()), flush=True)
+    if phases:
+        _phases(kernel.BWD_SM90_SOURCE)
 
 
 if __name__ == "__main__":

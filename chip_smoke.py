@@ -38,7 +38,11 @@ Phases, each printing its own lines; any failed check exits non-zero:
    forward at deepseek-v2-lite's MLA prefill and phase-1 shape, head dim
    192, and
    granite-moe's, G 3; the backward at deepseek-v2-lite's phase-1 and
-   phase-2 shapes, head dim 192, G 1; the forward and backward at
+   phase-2 shapes, head dim 192, G 1: there too ``kernel.flash_bwd`` runs
+   the dQ/dK/dV kernel (at D 192, G 1, persistent CTAs), held on its own
+   grid cases with the pair beside it, run twice bitwise and on a batch
+   slice bitwise at both shapes, and timed beside the pair; the forward
+   and backward at
    zamba2-7b's shared block, head dim 112, G 1: its prefill and its two
    training phases; the same at minicpm3-4b's MLA, head dim 96, G 1; the
    forward at whisper-base's non-causal encoder (S 1500), at its serving
@@ -82,7 +86,8 @@ Phases, each printing its own lines; any failed check exits non-zero:
 9. the MoE family and MLA, SWAP-trained at full width through the launcher
    as in phase 5: deepseek-v2-lite with its depth cut to 3 of 27 layers
    (DEEPSEEK_TRAIN_LAYERS; 4 run out of memory), the flash backward at head
-   dim 192, and granite-moe-3b-a800m cut to 23 of 32 layers
+   dim 192 (delta and the dQ/dK/dV kernel, no dQ or dK/dV), and
+   granite-moe-3b-a800m cut to 23 of 32 layers
    (GRANITE_TRAIN_LAYERS; 24 peak over 75 GB), every flash launch on the
    bf16 wgmma route and as the layer plan has them; a profiler window of a
    phase-1 and a phase-2 step of each; one phase-1 step taken twice, its
@@ -168,7 +173,8 @@ The line before the last is one JSON object with each kernel's numbers
 Pallas kernel but the plain jnp delta of the reference's backward; the
 ``flash_attention_bwd_dqkv`` row: the dQ/dK/dV kernel at gemma3's phase 1,
 its ``launches`` on gemma3's training path, ``pair_ms`` the dQ and dK/dV
-kernels' times on the same inputs, ``phase2_shape`` at phase 2; the
+kernels' times on the same inputs, ``phase2_shape`` at phase 2,
+``deepseek_train_shape`` / ``deepseek_phase2_shape`` at head dim 192; the
 backward rows' ``granite_train_shape`` and ``whisper_encoder_train_shape``:
 their times at D 64, G 3 and G 1, non-causal, the latter without the
 plain backward (``plain_ms`` null);
@@ -181,7 +187,8 @@ on their serving paths, and ``deepseek_prefill`` / ``granite_prefill``: its
 times at their prefill shapes, head dim 192 and 64; the backward rows'
 ``deepseek_train_shape`` / ``deepseek_phase2_shape``: their times at head
 dim 192; ``deepseek_train_launches`` / ``granite_train_launches`` on the
-flash and swa_avg rows: on those training paths; ``zamba2_launches`` on
+flash and swa_avg rows: on those training paths (deepseek's backward on
+delta and the dQ/dK/dV kernel); ``zamba2_launches`` on
 every row: on zamba2-7b's training path and, for the two forwards, its
 serving path; the flash rows' ``zamba2_*`` shapes: the times at head dim
 112, the SSD rows' at zamba2's widths; ``minicpm3_launches`` on the flash
@@ -274,6 +281,7 @@ GRANITE = "granite-moe-3b-a800m"
 GRANITE_PREFILL_SHAPE = (8, 512, 512, 24, 8, 64)
 # their SWAP phase 1 at the launcher's batch and length (phase 2: batch 32)
 DEEPSEEK_TRAIN_SHAPE = (256, 64, 64, 16, 16, 192)
+DEEPSEEK_PHASE2_SHAPE = (32,) + DEEPSEEK_TRAIN_SHAPE[1:]
 GRANITE_TRAIN_SHAPE = (256, 64, 64, 24, 8, 64)
 # The depths they are SWAP-trained at (launcher, W 2, elastic phase 3),
 # each the largest whose every phase peaks under PEAK_LIMIT_GB (NVIDIA H100
@@ -889,6 +897,20 @@ def _bwd_grid():
               ((1, 33, 64, 4, 1, 256), "bfloat16", True, 0, 31),
               ((1, 48, 48, 4, 1, 256), "bfloat16", True, 0, -8),
               ((2, 33, 64, 4, 1, 256), "bfloat16", False, 0, 0)]
+    # its route at D 192 (G 1, any scale; deepseek-v2-lite's MLA): each
+    # mask at S 64; ragged Sq with a window, a chunk after a cached prefix,
+    # rows that see no key, Sq < Skv, Sq > Skv; and 640 (batch, head) items,
+    # several a persistent CTA, ragged and non-causal. G 2 at S 64 keeps the
+    # pair
+    for causal, window in ((True, 0), (True, 16), (False, 0)):
+        cases.append(((2, 64, 64, 4, 4, 192), "bfloat16", causal, window, 0))
+    cases.append(((2, 64, 64, 4, 2, 192), "bfloat16", True, 0, 0))
+    cases += [((1, 37, 37, 4, 4, 192), "bfloat16", True, 16, 0),
+              ((1, 33, 64, 4, 4, 192), "bfloat16", True, 0, 31),
+              ((1, 48, 48, 4, 4, 192), "bfloat16", True, 0, -8),
+              ((2, 33, 64, 4, 4, 192), "bfloat16", False, 0, 0),
+              ((1, 64, 33, 4, 4, 192), "bfloat16", False, 0, 0),
+              ((40, 37, 37, 16, 16, 192), "bfloat16", False, 0, 0)]
     return cases
 
 
@@ -1002,8 +1024,8 @@ def phase_kernel_bwd():
                   f"bwd case {i} {shape}: the dQ and dK/dV kernels beside "
                   f"the dQ/dK/dV kernel's route: {pair_errs}")
         if shape in (TRAIN_SHAPE, GEMMA_TRAIN_SHAPE, GEMMA_PHASE2_SHAPE,
-                     DEEPSEEK_TRAIN_SHAPE,
-                     (32,) + DEEPSEEK_TRAIN_SHAPE[1:], ZAMBA_TRAIN_SHAPE,
+                     DEEPSEEK_TRAIN_SHAPE, DEEPSEEK_PHASE2_SHAPE,
+                     ZAMBA_TRAIN_SHAPE,
                      (32,) + ZAMBA_TRAIN_SHAPE[1:], MINICPM_TRAIN_SHAPE,
                      (32,) + MINICPM_TRAIN_SHAPE[1:]):
             train_err[shape] = {
@@ -1029,13 +1051,16 @@ def phase_kernel_bwd():
           f"same bounds beside it")
 
     # the dQ/dK/dV kernel sums in a fixed order with no atomics: two
-    # launches on gemma3's inputs give the same bits, at phase 1 and phase
-    # 2, and a CTA a (batch, KV head) gives a batch the bits of a launch on
-    # it alone
-    for shape in (GEMMA_TRAIN_SHAPE, GEMMA_PHASE2_SHAPE):
+    # launches on gemma3's and deepseek's inputs give the same bits, at
+    # phase 1 and phase 2, and a batch gets the bits of a launch on it
+    # alone (at D 256 a CTA a (batch, KV head); at D 192 each (batch, head)
+    # whole in whichever persistent CTA takes it)
+    for shape, label in ((GEMMA_TRAIN_SHAPE, "gemma3 phase-1"),
+                         (GEMMA_PHASE2_SHAPE, "gemma3 phase-2"),
+                         (DEEPSEEK_TRAIN_SHAPE, "deepseek phase-1, MLA"),
+                         (DEEPSEEK_PHASE2_SHAPE, "deepseek phase-2, MLA")):
         _dqkv_twice(shape)
-    _bwd_batch_slice(GEMMA_TRAIN_SHAPE, "gemma3 phase-1", causal=True)
-    _bwd_batch_slice(GEMMA_PHASE2_SHAPE, "gemma3 phase-2", causal=True)
+        _bwd_batch_slice(shape, label, causal=True)
 
     # times at the phase-1 training shape (the JSON rows) and phase 2's;
     # gemma3's phase 1 at the batch its run takes, and its phase 2 (there
@@ -1046,7 +1071,7 @@ def phase_kernel_bwd():
     phase2 = _bwd_times((32,) + TRAIN_SHAPE[1:], "phase-2")
     g_phase1 = _bwd_times(GEMMA_TRAIN_SHAPE, "gemma3 phase-1")
     g_phase2 = _bwd_times(GEMMA_PHASE2_SHAPE, "gemma3 phase-2")
-    d_shape2 = (32,) + DEEPSEEK_TRAIN_SHAPE[1:]
+    d_shape2 = DEEPSEEK_PHASE2_SHAPE
     d_phase1 = _bwd_times(DEEPSEEK_TRAIN_SHAPE, "deepseek phase-1, MLA")
     d_phase2 = _bwd_times(d_shape2, "deepseek phase-2, MLA")
     # zamba2-7b's shared block at head dim 112, G 1
@@ -1088,27 +1113,35 @@ def phase_kernel_bwd():
         e = e.get("pair", e)
         return e["dq"] if name.endswith("dq") else max(e["dk"], e["dv"])
 
-    # the dQ/dK/dV kernel's row: its times at gemma3's phase 1 and phase 2,
-    # with the dQ and dK/dV kernels' (the route it replaces there) from the
-    # same run
+    # the dQ/dK/dV kernel's row: its times at gemma3's phase 1 and phase 2
+    # (D 256) and deepseek's (D 192), with the dQ and dK/dV kernels' (the
+    # route it replaces there) from the same run
     fused = "flash_attention_bwd_dqkv"
     pair_ms = {key: t["flash_attention_bwd_dq"]["ms"]
                + t["flash_attention_bwd_dkv"]["ms"]
-               for key, t in (("train", g_phase1), ("phase2", g_phase2))}
+               for key, t in (("train", g_phase1), ("phase2", g_phase2),
+                              ("d_train", d_phase1), ("d_phase2", d_phase2))}
     dqkv_row = {"name": fused, "route": "cuda",
                 "source": "src/repro_torch/kernels/flash_attention/csrc/"
                           "flash_bwd_sm90.cu",
                 "replaces": "src/repro/kernels/flash_attention/kernel.py:202",
                 "replaces_note": "and kernel.py:232 (_fa_bwd_dkv_kernel), "
                                  "both where one key tile and one query "
-                                 "tile hold the sequence at head dim 256",
+                                 "tile hold the sequence at head dim 256 "
+                                 "and, at G 1, at head dim 192",
                 "launches": None,
                 "max_abs_err": errs(GEMMA_TRAIN_SHAPE, fused),
                 **g_phase1[fused], "pair_ms": pair_ms["train"],
                 "phase2_shape": {"max_abs_err": errs(GEMMA_PHASE2_SHAPE,
                                                      fused),
                                  **g_phase2[fused],
-                                 "pair_ms": pair_ms["phase2"]}}
+                                 "pair_ms": pair_ms["phase2"]},
+                "deepseek_train_shape": {
+                    "max_abs_err": errs(DEEPSEEK_TRAIN_SHAPE, fused),
+                    **d_phase1[fused], "pair_ms": pair_ms["d_train"]},
+                "deepseek_phase2_shape": {
+                    "max_abs_err": errs(d_shape2, fused), **d_phase2[fused],
+                    "pair_ms": pair_ms["d_phase2"]}}
     return [{"name": name, "route": "cuda",
              "source": "src/repro_torch/kernels/flash_attention/csrc/"
                        + ("flash_bwd.cu" if name.endswith("delta")
@@ -2153,9 +2186,10 @@ def _reset_launches():
 DENSE_TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
                        "flash_attention_bwd_dkv", "flash_attention_bwd_delta",
                        "swa_avg")
-# gemma3-1b's training path: its backwards (D 256, S 64) run delta and the
-# dQ/dK/dV kernel, and the dQ and dK/dV kernels not at all
-GEMMA_TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_delta",
+# gemma3-1b's and deepseek-v2-lite's training paths: their backwards (D 256
+# and D 192 at G 1, S 64) run delta and the dQ/dK/dV kernel, and the dQ and
+# dK/dV kernels not at all
+FUSED_TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_delta",
                        "flash_attention_bwd_dqkv", "swa_avg")
 MAMBA_TRAIN_KERNELS = ("ssd_fwd", "ssd_bwd", "swa_avg")
 
@@ -2403,7 +2437,7 @@ def phase_gemma(card: str):
     serve = phase_serve(card, GEMMA, S=GEMMA_PROMPT, engine=False,
                         tag="gemma3-serve")["flash_attention_fwd"]
     launches = phase_train(card, GEMMA_TRAIN_ARGV, tag="gemma3-train",
-                           required=GEMMA_TRAIN_KERNELS,
+                           required=FUSED_TRAIN_KERNELS,
                            sm90_only=FLASH_KERNELS, fused_bwd=True)
     narrow = dataclasses.replace(registry.get_smoke_config(GEMMA),
                                  head_dim=256)
@@ -2539,9 +2573,10 @@ def _step_twice(tag, cfg, size=256, seq=64):
 
 def phase_moe_train(card: str):
     """SWAP training of deepseek-v2-lite (MLA: the flash kernels at head
-    dim 192, G 1) cut to DEEPSEEK_TRAIN_LAYERS and granite-moe-3b-a800m (at
-    head dim 64, G 3) at GRANITE_TRAIN_LAYERS, at full width through the
-    launcher (``phase_train``: every flash launch on the bf16 wgmma route
+    dim 192, G 1; its backwards on the dQ/dK/dV kernel) cut to
+    DEEPSEEK_TRAIN_LAYERS and granite-moe-3b-a800m (at head dim 64, G 3;
+    the dQ and dK/dV kernels) at GRANITE_TRAIN_LAYERS, at full width through
+    the launcher (``phase_train``: every flash launch on the bf16 wgmma route
     and as the layer plan has them, losses finite, the elastic average
     against the plain mean, every phase under PEAK_LIMIT_GB); a profiler
     window of a phase-1 and a phase-2 step of each; one MoE step taken
@@ -2551,16 +2586,18 @@ def phase_moe_train(card: str):
     path."""
     t0 = time.perf_counter()
     launches = {}
-    for arch, layers, tag in ((DEEPSEEK, DEEPSEEK_TRAIN_LAYERS,
-                               "deepseek-train"),
-                              (GRANITE, GRANITE_TRAIN_LAYERS,
-                               "granite-train")):
+    for arch, layers, tag, fused in ((DEEPSEEK, DEEPSEEK_TRAIN_LAYERS,
+                                      "deepseek-train", True),
+                                     (GRANITE, GRANITE_TRAIN_LAYERS,
+                                      "granite-train", False)):
         cfg = _moe_train_cfg(arch, layers)
         argv = ["--arch", arch] + TRAIN_ARGV
         print(f"[{tag}] {arch} at {layers} layers: {_describe(cfg)}",
               flush=True)
-        launches[arch] = phase_train(card, argv, cfg, tag=tag,
-                                     sm90_only=FLASH_KERNELS)
+        launches[arch] = phase_train(
+            card, argv, cfg, tag=tag, sm90_only=FLASH_KERNELS,
+            required=FUSED_TRAIN_KERNELS if fused else DENSE_TRAIN_KERNELS,
+            fused_bwd=fused)
         _train_profile(card, tag, argv, cfg)
         _step_twice(tag, cfg)
     for arch in (DEEPSEEK, GRANITE):
@@ -3722,7 +3759,7 @@ def main() -> None:
                 row["gemma3_launches"]["serve"] = gemma_serve
                 row["deepseek_launches"] = moe_serve[DEEPSEEK]
                 row["granite_launches"] = moe_serve[GRANITE]
-        if row["name"] in DENSE_TRAIN_KERNELS:
+        if row["name"] in DENSE_TRAIN_KERNELS + FUSED_TRAIN_KERNELS:
             row["deepseek_train_launches"] = moe_train[DEEPSEEK][row["name"]]
             row["granite_train_launches"] = moe_train[GRANITE][row["name"]]
         # zamba2-7b: the flash and SSD kernels on its serving (forwards)

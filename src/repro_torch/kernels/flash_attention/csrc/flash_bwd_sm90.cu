@@ -268,10 +268,53 @@
 //    launch, but its head sum's order, and so dK's and dV's bits, followed
 //    the batch size and the card's SM count: not kept. ptxas: 255
 //    registers; where G > 1 the loop spills 92 bytes (none at G 1).
-// Not here: a producer warp with setmaxnreg, persistent CTAs, or a fused
-// delta; and at D 256 S^T and dP^T formed once a CTA (one warpgroup each,
-// exchanged through shared memory): the exchange needs 32 KB more than the
-// 227 KB a CTA may hold beside the ring.
+//
+// dQ/dK/dV kernel at D 192 (fa_bwd_dqkv_sm90_kernel_persistent), G 1 with
+// Sq and Skv <= 64 and any scale (deepseek-v2-lite's MLA training steps: S
+// 64, H = KVH 16, scale 192^-0.5, v padded to 192):
+//  * What bounds it: at deepseek's phase 1 (B 256) it must read q, dO, k,
+//    v, lse and delta and write dq, dk and dv, 706.7 MB (0.2110 ms at 3.35
+//    TB/s), 88.3 MB at phase 2 (B 32); the products are ~16 GFLOP at phase
+//    1, twice that as hi + lo (~33 us at 989 TFLOP/s): bytes. The pair
+//    read q, dO, k and v twice (139 MB at phase 2).
+//  * At G 1 the D-256 kernel's loop over a KV head's query heads has one
+//    iteration, and a CTA of a (batch, head) would run its load, products
+//    and stores in turn. So one CTA an SM (two stages of Q, K, V and dO,
+//    192 KB, and the scaled Q: 218 KB in all) takes the (batch, head) items
+//    blockIdx.x + n gridDim.x in turn; the item after next loads while
+//    this one runs.
+//  * Roles, each product once over the whole D (m64n192): warpgroup 0
+//    forms S^T = K (q scale)^T and P^T, writes P^T's hi and lo to two
+//    tiles (key rows) in the scaled tile, and takes dV = P^T dO with A in
+//    registers; warpgroup 1 forms dP^T = V dO^T, reads P^T back (the value
+//    dV takes), forms dS^T, writes dS transposed as hi and lo tiles in V,
+//    and takes dK = dS^T q with A in registers; warpgroup 2 takes dQ = dS K
+//    from those tiles. Each stages its product in bf16 in the tile only it
+//    still reads (dV in dO's, dK * scale in Q's, dQ * scale in K's). At the
+//    next item's first barrier warp 8 (warpgroup 2's first) stores the
+//    three by TMA (rows past Sq, Skv not written), waits until the stores
+//    have read them and refills the stage; it takes no part in the q
+//    scaling, which starts each item's critical path. lse and delta arrive
+//    by cp.async one item ahead (a load into registers, one item ahead too,
+//    held warpgroup 0 at each item's start).
+//  * A CTA takes each item whole and nothing is summed across items (no
+//    atomics): dq, dk and dv of a (batch, head) do not depend on which CTA
+//    took it, on B or on the card; a batch's bits are those of a launch on
+//    it alone. Rounding points as above (q * scale in bf16 in its own tile:
+//    192^-0.5 is not a power of 2 in bf16).
+//  * Not kept (ab_flash_bwd.py, NVIDIA H100 80GB HBM3, 700.00 W; figures
+//    in PERF.md, PR 29): each warpgroup owning a 64-column box of all
+//    three products, from shared hi + lo tiles (SS m64n64: three products
+//    a k-step read twice the shared memory of one m64n192 with A in
+//    registers), with S^T, P^T, dP^T and dS^T formed by every warpgroup,
+//    or once, or by each warpgroup for its own query rows (fastest: 0.2826
+//    ms at phase 1 against this kernel's 0.2687); the stores from shared
+//    memory by the warpgroups; each warpgroup storing its own output and
+//    refilling its tile. ptxas: 168 registers, 8 bytes spilled.
+// Not here: a producer warp with setmaxnreg, or a fused delta; and at D 256
+// S^T and dP^T formed once a CTA (one warpgroup each, exchanged through
+// shared memory): the exchange needs 32 KB more than the 227 KB a CTA may
+// hold beside the ring.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -1114,6 +1157,429 @@ fa_bwd_dqkv_sm90_kernel(__grid_constant__ const CUtensorMap tq,
   store_tile<D>(sV, dv + at, row_stride, Skv, tid, kThreads);
 }
 
+// ---- the persistent dQ/dK/dV kernel (D 192, G 1, one key tile and one
+// query tile) ----
+
+// D (+)= A . B for one k-step of 16, both from shared memory: A 64 x 16
+// K-major, B 16 x 192 MN-major
+__device__ __forceinline__ void wgmma_ss_m64n192_bt(float (&d)[96],
+                                                    uint64_t da, uint64_t db,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16\n"
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
+      " %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      " %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40,"
+      " %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53,"
+      " %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66,"
+      " %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92,"
+      " %93, %94, %95},\n"
+      " %96, %97, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// named barriers of the persistent kernel (0 is __syncthreads): the seven
+// warps that scale q (warpgroup 0 and warps 9-11); P^T's tiles written and
+// dP^T done (warpgroups 0 and 1); dS's tiles written (arrived at by
+// warpgroup 1, waited on by warpgroup 2)
+__device__ __forceinline__ void bar_scaled() {
+  asm volatile("bar.sync 4, 224;\n" ::: "memory");
+}
+__device__ __forceinline__ void bar_probs() {
+  asm volatile("bar.sync 5, 256;\n" ::: "memory");
+}
+__device__ __forceinline__ void bar_ds_arrive() {
+  asm volatile("bar.arrive 6, 256;\n" ::: "memory");
+}
+__device__ __forceinline__ void bar_ds_sync() {
+  asm volatile("bar.sync 6, 256;\n" ::: "memory");
+}
+
+// The bf16 fragments of a 64 x 64 transposed-score tile (f[j][i]: key r0 +
+// 8 (i & 1), query rows 16 j + 8 (i >> 1) + c0 and + 1, low half first)
+// into a tile with key rows and query columns, 128-byte swizzled: P^T's
+// hi or lo for another warpgroup, which reads it back in the same layout
+__device__ __forceinline__ void store_frags(uint8_t* tile,
+                                            const uint32_t (&f)[4][4], int r0,
+                                            int c0) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int key = r0 + 8 * (i & 1);
+      const int m = 16 * j + 8 * (i >> 1) + c0;
+      *reinterpret_cast<uint32_t*>(tile + key * kSwizzleRow +
+                                   (((m >> 3) ^ (key & 7)) << 4) +
+                                   (m & 7) * 2) = f[j][i];
+    }
+  }
+}
+
+// P^T = hi + lo read back from the two tiles that store_frags wrote, in
+// the accumulator fragment's order (st[4j + e]: key r0 + 8 (e >> 1), query
+// row 8j + c0 + (e & 1)): the value probs_t_frags formed
+__device__ __forceinline__ void load_probs_t(float (&st)[32],
+                                             const uint8_t* hi,
+                                             const uint8_t* lo, int r0,
+                                             int c0) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e2 = 0; e2 < 2; ++e2) {
+      const int key = r0 + 8 * e2;
+      const int at = key * kSwizzleRow + ((j ^ (key & 7)) << 4) + c0 * 2;
+      const float2 h = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(hi + at));
+      const float2 l = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(lo + at));
+      st[4 * j + 2 * e2] = h.x + l.x;
+      st[4 * j + 2 * e2 + 1] = h.y + l.y;
+    }
+  }
+}
+
+// acc = A . B over 64 rows, A as hi + lo: two 64 x 64 K-major tiles in
+// shared memory (hi, lo), B a 64 x 192 tile, MN-major; issued but not
+// committed
+__device__ __forceinline__ void wgmma_split_tiles_b(float (&acc)[96],
+                                                    uint32_t a_hi,
+                                                    uint32_t a_lo,
+                                                    uint32_t b) {
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_m64n192_bt(
+          acc, sw128_desc((t ? a_lo : a_hi) + kk * 32, 16, kSwizzleAtom),
+          sw128_desc(b + kk * 2 * kSwizzleAtom, kBoxBytes, kSwizzleAtom),
+          t | kk);
+  }
+}
+
+// one 4-byte element from global to shared memory without the registers
+// (cp.async; 0 if !valid), in this thread's current group
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// Built with DQKV_PROF defined (ab_flash_bwd.py --phases), the persistent
+// kernel adds up, in each warpgroup's first thread, the SM clocks from one
+// stamp to the next (DQKV_STAMP(k): the clocks since stamp k - 1 go to
+// phase k; phase 0 runs from the item before), over all CTAs, in
+// g_dqkv_prof[warpgroup][phase], read and reset by dqkv_prof().
+#ifdef DQKV_PROF
+__device__ unsigned long long g_dqkv_prof[3][8];
+#define DQKV_STAMP(k)                                        \
+  if (tid % 128 == 0) {                                      \
+    const unsigned long long now = clock64();                \
+    sprof[wg][k] += now - prof_last;                         \
+    prof_last = now;                                         \
+  }
+#else
+#define DQKV_STAMP(k)
+#endif
+
+// A persistent CTA of three warpgroups, one CTA an SM; it takes the
+// (batch, head) items blockIdx.x, + gridDim.x, ... in turn, with each
+// item's Q, K, V and dO tiles in a ring of kDqkvStages (the item after
+// next loads while this one runs). Warpgroup 0 forms S^T and P^T, and dV;
+// warpgroup 1 dP^T and dS^T, and dK; warpgroup 2 dQ; each product over the
+// whole D. Warp 8 (the first of warpgroup 2) stores an item's outputs and
+// refills its stage at the next item's start. Stamps (DQKV_PROF): 0 (0)
+// passed, 1 the item's tiles in; warpgroup 0: 2 q scaled, 3 P^T written,
+// 4 (P), 5 dV done, 6 dV staged; warpgroup 1: 2 dP^T done, 3 (P), 4 dS
+// written, 5 dK done, 6 dK staged; warpgroup 2 (warp 8's first thread): 2
+// (D), 3 dQ done, 4 dQ staged.
+template <int DG>
+__global__ void __launch_bounds__(DG / kBox * 128, 1)
+fa_bwd_dqkv_sm90_kernel_persistent(
+    __grid_constant__ const CUtensorMap tq,
+    __grid_constant__ const CUtensorMap tk,
+    __grid_constant__ const CUtensorMap tv,
+    __grid_constant__ const CUtensorMap tdo,
+    __grid_constant__ const CUtensorMap tdq,
+    __grid_constant__ const CUtensorMap tdk,
+    __grid_constant__ const CUtensorMap tdv, const float* __restrict__ lse,
+    const float* __restrict__ delta, int B, int Sq, int Skv, int H,
+    float scale, int causal, int window, int q_offset) {
+  constexpr int D = DG;
+  static_assert(D == 3 * kBox, "three warpgroups");
+  constexpr int kTile = D / kBox * kBoxBytes;  // one 64-row tile, 24 KB
+  constexpr int STAGES = kDqkvStages;
+  static_assert(2 * kDsTile <= kTile, "dS's hi and lo fit the V tile");
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  // stage s: the Q, K, V and dO tiles (t = 0..3) at (4 s + t) kTile; then
+  // q * scale in bf16, two items' -lse log2 e [64] and delta [64] (by
+  // item parity), the stages' barriers
+  auto tile = [&](int s, int t) { return smem + (4 * s + t) * kTile; };
+  uint8_t* sQs = smem + 4 * STAGES * kTile;
+  float* sStat = reinterpret_cast<float*>(sQs + kTile);   // [2][128]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sStat + 4 * kTileRows);
+  const uint32_t bar_full = smem_u32(bars);   // [STAGES]: the item arrived
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const bool io_warp = tid / 32 == 8;   // the storing warp
+  const bool io = tid == 256;           // and its first thread
+  // item i of this CTA: (batch, head) blockIdx.x + i gridDim.x, head fastest
+  const int n_items = B * H;
+  const int n_local = n_items > (int)blockIdx.x
+                          ? (n_items - 1 - (int)blockIdx.x) / gridDim.x + 1
+                          : 0;
+  auto item = [&](int i) { return (int)blockIdx.x + i * (int)gridDim.x; };
+
+  auto load = [&](int i) {  // item i's Q, K, V, dO into stage i % STAGES
+    const int s = i % STAGES, b = item(i) / H, h = item(i) % H;
+    const uint32_t bar = bar_full + 8 * s;
+    mbar_expect_tx(bar, 4 * kTile);
+    tma_load_tile<D>(tile(s, 0), &tq, bar, h, 0, b);
+    tma_load_tile<D>(tile(s, 1), &tk, bar, h, 0, b);
+    tma_load_tile<D>(tile(s, 2), &tv, bar, h, 0, b);
+    tma_load_tile<D>(tile(s, 3), &tdo, bar, h, 0, b);
+  };
+  // item i's dq, dk and dv, staged in its stage's K, Q and dO tiles, out
+  // (rows past Sq, Skv are not written), as one bulk group
+  auto store = [&](int i) {
+    const int s = i % STAGES, b = item(i) / H, h = item(i) % H;
+    tma_store_tile<D>(tile(s, 1), &tdq, h, 0, b);
+    tma_store_tile<D>(tile(s, 0), &tdk, h, 0, b);
+    tma_store_tile<D>(tile(s, 3), &tdv, h, 0, b);
+  };
+  // warpgroup 0's thread t: its entry of item i's stats, copied into
+  // sStat[i & 1] (lse of query row t < 64, delta of row t - 64; 0 past Sq)
+  auto fetch_stat = [&](int i) {
+    const int row = tid % kTileRows;
+    const int64_t at =
+        ((int64_t)(item(i) / H) * Sq + (row < Sq ? row : 0)) * H +
+        item(i) % H;
+    cp_async_4(sStat + (i & 1) * 2 * kTileRows + tid,
+               (tid < kTileRows ? lse : delta) + at, row < Sq);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) mbar_init(bar_full + 8 * s, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (io)
+    for (int i = 0; i < (n_local < STAGES ? n_local : STAGES); ++i) load(i);
+  if (wg == 0 && n_local > 0) fetch_stat(0);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+  const int r0 = warp * 16 + lane / 4;  // this thread's keys: r0, r0 + 8
+  const int c0 = 2 * (lane % 4);        // and query rows 8j + c0 (+1)
+  const float sc = __bfloat162float(__float2bfloat16_rn(scale));
+#ifdef DQKV_PROF
+  __shared__ unsigned long long sprof[3][8];
+  if (tid < 24) sprof[tid / 8][tid % 8] = 0;
+  __syncthreads();
+  unsigned long long prof_last = clock64();
+#endif
+
+  for (int i = 0; i < n_local; ++i) {
+    const int s = i % STAGES;
+    uint8_t* sQ = tile(s, 0);
+    uint8_t* sK = tile(s, 1);
+    uint8_t* sV = tile(s, 2);
+    uint8_t* sdO = tile(s, 3);
+    const uint32_t q_addr = smem_u32(sQ), k_addr = smem_u32(sK);
+    const uint32_t v_addr = smem_u32(sV), do_addr = smem_u32(sdO);
+    float* stat = sStat + (i & 1) * 2 * kTileRows;
+    // the hi + lo tiles: P^T (key rows) in the scaled tile's boxes 0, 1
+    // once S^T is done, for warpgroup 1; dS (query rows) in V's boxes 0, 1
+    // once dP^T is done, for warpgroup 2
+    uint8_t* sPt = sQs;
+    uint8_t* sDs = sV;
+    // (0) every thread is done with the item before, its outputs staged
+    __syncthreads();
+    DQKV_STAMP(0)
+    if (io_warp) {
+      // the item before leaves; once its stores have read their tiles,
+      // the item after this goes into that stage
+      if (io && i >= 1) {
+        store(i - 1);
+        tma_store_wait_read();
+        if (i + 1 < n_local) load(i + 1);
+      }
+      __syncwarp();
+    }
+    if (wg == 0 && i + 1 < n_local) fetch_stat(i + 1);
+    if (wg == 0) asm volatile("cp.async.commit_group;\n" ::: "memory");
+    mbar_wait(bar_full + 8 * s, (i / STAGES) & 1);
+    DQKV_STAMP(1)
+
+    if (wg == 0) {
+      // q * scale in bf16 for S^T (the scale is not a power of 2 in bf16),
+      // by warpgroup 0 and warps 9-11; the tile is free: the item before
+      // is done
+      const uint4* qv = reinterpret_cast<const uint4*>(sQ);
+      uint4* qs = reinterpret_cast<uint4*>(sQs);
+      for (int c = tid; c < kTile / 16; c += 224)
+        qs[c] = scale_chunk(qv[c], sc);
+      // this item's stats have arrived (the next item's may not have): lse
+      // to -lse log2 e, in place
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      if (tid < kTileRows) stat[tid] *= -kLog2e;
+      fence_proxy_async();
+      bar_scaled();
+      DQKV_STAMP(2)
+      // S^T = K (q scale)^T over the whole D; P^T = exp(S^T - lse),
+      // masked, as hi + lo: the A fragments of dV, and into their tiles
+      // for warpgroup 1 (only S^T has read those boxes)
+      float st[32];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) st[j] = 0.f;
+      wgmma_fence();
+      wgmma_tiles_abt<D>(st, k_addr, smem_u32(sQs));
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(st);
+      uint32_t pa[4][4], pb[4][4];
+      probs_t_frags(st, pa, pb, stat, kLog2e, 0, 0, r0, c0, Sq, Skv, causal,
+                    window, q_offset);
+      store_frags(sPt, pa, r0, c0);
+      store_frags(sPt + kDsTile, pb, r0, c0);
+      DQKV_STAMP(3)
+      bar_probs();                      // (P)
+      DQKV_STAMP(4)
+      // dV = P^T dO over the whole D, A as hi + lo; into the dO tile in
+      // bf16 (dP^T has read it: (P))
+      float acc[96];
+#pragma unroll
+      for (int j = 0; j < 96; ++j) acc[j] = 0.f;
+      wgmma_fence();
+      wgmma_frags_b<D>(acc, pa, do_addr);
+      wgmma_frags_b<D>(acc, pb, do_addr);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(acc);
+      pin(pa);
+      pin(pb);
+      DQKV_STAMP(5)
+      stage_acc_boxes<D>(sdO, acc, 1.f, warp, lane, 0);
+      DQKV_STAMP(6)
+    } else if (wg == 1) {
+      // dP^T = V dO^T over the whole D
+      float dpt[32];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) dpt[j] = 0.f;
+      wgmma_fence();
+      wgmma_tiles_abt<D>(dpt, v_addr, do_addr);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(dpt);
+      DQKV_STAMP(2)
+      bar_probs();                      // (P) P^T's tiles written
+      DQKV_STAMP(3)
+      // dS^T = P^T (dP^T - delta), P^T as dV takes it, as hi + lo: the A
+      // fragments of dK, and transposed into dS's tiles for warpgroup 2
+      // (only dP^T has read V)
+      float st[32];
+      load_probs_t(st, sPt, sPt + kDsTile, r0, c0);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 dl =
+            *reinterpret_cast<const float2*>(stat + kTileRows + 8 * j + c0);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dpt[4 * j + e] =
+              st[4 * j + e] * (dpt[4 * j + e] - (e & 1 ? dl.y : dl.x));
+      }
+      uint32_t da[4][4], db[4][4];
+      to_split_frags(dpt, da, db);
+      store_frags_t(sDs, da, r0, c0);
+      store_frags_t(sDs + kDsTile, db, r0, c0);
+      fence_proxy_async();
+      bar_ds_arrive();                  // (D) dS's tiles written
+      DQKV_STAMP(4)
+      // dK = dS^T q over the whole D (times scale in the epilogue), A as
+      // hi + lo, B the Q tile as it came; into the Q tile in bf16 (the
+      // scaling has read it: (P) after the scaling's barrier)
+      float acc[96];
+#pragma unroll
+      for (int j = 0; j < 96; ++j) acc[j] = 0.f;
+      wgmma_fence();
+      wgmma_frags_b<D>(acc, da, q_addr);
+      wgmma_frags_b<D>(acc, db, q_addr);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(acc);
+      pin(da);
+      pin(db);
+      DQKV_STAMP(5)
+      stage_acc_boxes<D>(sQ, acc, scale, warp, lane, 0);
+      DQKV_STAMP(6)
+    } else {
+      if (!io_warp) {                   // warps 9-11: their share of q * scale
+        const uint4* qv = reinterpret_cast<const uint4*>(sQ);
+        uint4* qs = reinterpret_cast<uint4*>(sQs);
+        for (int c = tid - 160; c < kTile / 16; c += 224)
+          qs[c] = scale_chunk(qv[c], sc);
+        fence_proxy_async();
+        bar_scaled();
+      }
+      bar_ds_sync();                    // (D)
+      DQKV_STAMP(2)
+      // dQ = dS K over the whole D, complete (one key tile): A dS's tiles
+      // (hi, then lo), B the K tile, MN-major; into the K tile in bf16
+      // (S^T has read it: (P) before (D))
+      float acc[96];
+#pragma unroll
+      for (int j = 0; j < 96; ++j) acc[j] = 0.f;
+      wgmma_fence();
+      wgmma_split_tiles_b(acc, smem_u32(sDs), smem_u32(sDs + kDsTile),
+                          k_addr);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(acc);
+      DQKV_STAMP(3)
+      stage_acc_boxes<D>(sK, acc, scale, warp, lane, 0);
+      DQKV_STAMP(4)
+    }
+    fence_proxy_async();                // for warp 8's stores
+  }
+  // the last item leaves; the CTA's shared memory outlives the stores'
+  // reads
+  __syncthreads();
+  if (io && n_local > 0) {
+    store(n_local - 1);
+    tma_store_wait_read();
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#ifdef DQKV_PROF
+  __syncthreads();
+  if (tid < 24)
+    atomicAdd(&g_dqkv_prof[tid / 8][tid % 8], sprof[tid / 8][tid % 8]);
+#endif
+}
+
 // whether scale rounded to bf16 is a power of 2 (D 64's 1/8, D 256's 1/16)
 bool pow2_bf16(float scale) {
   int e;
@@ -1206,6 +1672,37 @@ cudaError_t launch_dqkv(const Maps& m, const CUtensorMap& tdq,
   return cudaGetLastError();
 }
 
+template <int DG>
+cudaError_t launch_dqkv_persistent(const Maps& m, const CUtensorMap& tdq,
+                                   const CUtensorMap& tdk,
+                                   const CUtensorMap& tdv, const void* lse,
+                                   const void* delta, int B, int Sq, int Skv,
+                                   int H, float scale, int causal, int window,
+                                   int q_offset, cudaStream_t stream) {
+  constexpr int kTile = DG / kBox * kBoxBytes;
+  // the stages' Q, K, V and dO, the scaled Q, two items' stats and the
+  // barriers
+  const int smem = 1024 + (4 * kDqkvStages + 1) * kTile +
+                   4 * kTileRows * (int)sizeof(float) + 8 * kDqkvStages;
+  auto kernel = fa_bwd_dqkv_sm90_kernel_persistent<DG>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  // one CTA an SM (its shared memory), each taking (batch, head) items in
+  // turn
+  const int items = B * H;
+  kernel<<<items < sms ? items : sms, DG / kBox * 128, smem, stream>>>(
+      m.q, m.k, m.v, m.dout, tdq, tdk, tdv, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), B, Sq, Skv, H, scale, causal, window,
+      q_offset);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The bf16 routes of fa_bwd_dq and fa_bwd_dkv (flash_bwd.cu). Each returns
@@ -1286,19 +1783,33 @@ cudaError_t fa_bwd_dkv_sm90(const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
-// dQ, dK and dV of bf16 inputs in one launch of fa_bwd_dqkv_sm90_kernel, for
-// D 256, 1 <= Sq, Skv <= 64 and G = H / KVH in {1, 2, 4, 8}; the arguments
-// as fa_bwd_dq's and fa_bwd_dkv's (dtype 1 = bfloat16, the only one taken).
-// Returns a cudaError_t (0 = launched; cudaErrorInvalidValue for what it
-// does not take).
+// dQ, dK and dV of bf16 inputs in one launch, for 1 <= Sq, Skv <= 64 and
+// either D 256, G = H / KVH in {1, 2, 4, 8} and a power-of-2 scale in bf16
+// (fa_bwd_dqkv_sm90_kernel), or D 192, G 1 and any finite scale
+// (fa_bwd_dqkv_sm90_kernel_persistent); the arguments as fa_bwd_dq's and
+// fa_bwd_dkv's (dtype 1 = bfloat16, the only one taken). Returns a
+// cudaError_t (0 = launched; cudaErrorInvalidValue for what it does not
+// take).
+#ifdef DQKV_PROF
+// g_dqkv_prof (3 x 8 sums) into out, then zeroed; returns a cudaError_t
+extern "C" int dqkv_prof(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_dqkv_prof, sizeof(g_dqkv_prof));
+  const unsigned long long z[24] = {0};
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_dqkv_prof, z, sizeof(z));
+  return (int)e;
+}
+#endif
+
 extern "C" int fa_bwd_dqkv(const void* q, const void* k, const void* v,
                            const void* dout, const void* lse,
                            const void* delta, void* dq, void* dk, void* dv,
                            int B, int Sq, int Skv, int H, int KVH, int D,
                            int dtype, float scale, int causal, int window,
                            int q_offset, void* stream) {
-  if (dtype != 1 || D != 256 || Sq < 1 || Sq > kTileRows || Skv < 1 ||
-      Skv > kTileRows || KVH < 1 || H % KVH != 0 || !pow2_bf16(scale))
+  const bool d256 = D == 256 && pow2_bf16(scale);
+  const bool d192 = D == 192 && H == KVH && std::isfinite(scale);
+  if (dtype != 1 || Sq < 1 || Sq > kTileRows || Skv < 1 ||
+      Skv > kTileRows || KVH < 1 || H % KVH != 0 || !(d256 || d192))
     return (int)cudaErrorInvalidValue;
   Maps m;
   CUtensorMap tdq;                     // dQ's, stored by TMA
@@ -1306,6 +1817,14 @@ extern "C" int fa_bwd_dqkv(const void* q, const void* k, const void* v,
       !encode(&tdq, dq, D, H, Sq, B))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d192) {
+    CUtensorMap tdk, tdv;              // dK's and dV's, stored by TMA too
+    if (!encode(&tdk, dk, D, KVH, Skv, B) || !encode(&tdv, dv, D, KVH, Skv, B))
+      return (int)cudaErrorInvalidValue;
+    return launch_dqkv_persistent<192>(m, tdq, tdk, tdv, lse, delta, B, Sq,
+                                       Skv, H, scale, causal, window,
+                                       q_offset, st);
+  }
 #define DQKV(G_)                                                           \
   case G_:                                                                 \
     return launch_dqkv<G_>(m, tdq, lse, delta, dq, dk, dv, B, Sq, Skv, H,  \

@@ -17,10 +17,14 @@
     it back;
   * ``flash_bwd_dqkv`` launches that library's ``fa_bwd_dqkv`` (in
     ``csrc/flash_bwd_sm90.cu``): dQ, dK and dV of bf16 inputs in one
-    kernel, one CTA a (batch, KV head) taking its G query heads in turn,
-    where one key tile and one query tile hold the sequence
-    (``takes_dqkv``: D 256, Sq and Skv <= 64, G in ``DQKV_GROUPS``,
-    gemma3-1b's training shapes). It replaces both Pallas kernels there.
+    kernel where one key tile and one query tile hold the sequence
+    (``takes_dqkv``: Sq and Skv <= 64). At D 256 and G in ``DQKV_GROUPS``
+    (gemma3-1b's training shapes) one CTA a (batch, KV head) takes its G
+    query heads in turn; at D 192 and G 1 (deepseek-v2-lite's MLA training
+    shapes) persistent CTAs, one an SM, take (batch, head) items in turn,
+    the item after next loading under this one's work, a warpgroup a
+    product (dV, dK, dQ) over the whole D. It replaces both Pallas kernels
+    there.
 
 ``flash_bwd`` runs delta, then dQ and dK/dV: on ``takes_dqkv``'s shapes
 ``flash_bwd_dqkv``, elsewhere ``flash_bwd_dq`` and ``flash_bwd_dkv``.
@@ -34,7 +38,8 @@ configs), 96 (minicpm3-4b's MLA: qk 64 + 32, v padded to 96), 112
 + 64, v padded to 192) and 256 (gemma3). D 96 and 112 run on D 128's
 tiles, the columns past D zero-filled by TMA and never stored. D 192 and
 256 have tilings of their own (one CTA an SM; dK/dV on warpgroups that
-split the columns, three at 192 and two at 256).
+split the columns, three at 192 and two at 256; so does the dQ/dK/dV
+kernel at 256).
 
 Each launches on PyTorch's current stream, checks device, dtype,
 contiguity and shapes, allocates its outputs with ``torch.empty``, raises if
@@ -63,7 +68,8 @@ HEADERS = (SOURCE.with_name("sm90.cuh"),)
 FWD_HEAD_DIMS = (64, 96, 112, 128, 192, 256)
 BWD_HEAD_DIMS = (64, 96, 112, 128, 192, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the group sizes H / KVH of ``flash_bwd_dqkv``: the query heads a CTA takes
+# the group sizes H / KVH of ``flash_bwd_dqkv`` at D 256: the query heads a
+# CTA takes (at D 192 it takes G 1 only)
 DQKV_GROUPS = (1, 2, 4, 8)
 
 
@@ -275,13 +281,17 @@ def _pow2_bf16(scale: float) -> bool:
 def takes_dqkv(dtype, Sq: int, Skv: int, H: int, KVH: int, D: int,
                scale: float | None = None) -> bool:
     """Whether ``flash_bwd`` sends a backward of these shapes to
-    ``flash_bwd_dqkv``: bf16 at D 256 with one tile of queries and one of
-    keys (1 <= Sq, Skv <= 64), G = H / KVH in ``DQKV_GROUPS``, and a scale
-    (by default D ** -0.5, 1/16) that is a power of 2 in bf16."""
+    ``flash_bwd_dqkv``: bf16 with one tile of queries and one of keys (1 <=
+    Sq, Skv <= 64), and either D 256 with G = H / KVH in ``DQKV_GROUPS``
+    and a scale (by default D ** -0.5, 1/16) that is a power of 2 in bf16,
+    or D 192 at G 1 with any finite scale (by default 192 ** -0.5)."""
     scale = scale if scale is not None else D ** -0.5
-    return (dtype == torch.bfloat16 and D == 256 and 0 < Sq <= 64
-            and 0 < Skv <= 64 and KVH > 0 and H % KVH == 0
-            and H // KVH in DQKV_GROUPS and _pow2_bf16(scale))
+    if not (dtype == torch.bfloat16 and 0 < Sq <= 64 and 0 < Skv <= 64
+            and KVH > 0 and H % KVH == 0):
+        return False
+    if D == 256:
+        return H // KVH in DQKV_GROUPS and _pow2_bf16(scale)
+    return D == 192 and H == KVH and math.isfinite(scale)
 
 
 def flash_bwd_dqkv(q, k, v, do, lse, delta, *, causal: bool = True,
@@ -289,16 +299,18 @@ def flash_bwd_dqkv(q, k, v, do, lse, delta, *, causal: bool = True,
                    q_offset: int = 0):
     """(dQ, dK, dV) of bf16 inputs in one launch, on the shapes that
     ``takes_dqkv`` accepts; the arguments as ``flash_bwd_dq``'s. dK and dV
-    sum the G query heads of each KV head in head order, so the result
-    repeats bitwise and a batch's bits do not depend on the others."""
+    sum the G query heads of each KV head in head order (at D 192, G 1,
+    nothing is summed across heads), so the result repeats bitwise and a
+    batch's bits do not depend on the others."""
     if q.dim() != 4 or k.dim() != 4 or not takes_dqkv(
             q.dtype, q.shape[1], k.shape[1], q.shape[2], k.shape[2],
             q.shape[3], scale):
         raise ValueError(
-            f"flash_bwd_dqkv takes bfloat16 q (B,Sq,H,256) and k "
-            f"(B,Skv,KVH,256) with 1 <= Sq, Skv <= 64, H / KVH in "
-            f"{DQKV_GROUPS} and a power-of-2 scale; got q {tuple(q.shape)} "
-            f"{q.dtype}, k {tuple(k.shape)}, scale {scale}")
+            f"flash_bwd_dqkv takes bfloat16 q (B,Sq,H,D) and k (B,Skv,KVH,D)"
+            f" with 1 <= Sq, Skv <= 64, and at D 256 H / KVH in "
+            f"{DQKV_GROUPS} and a power-of-2 scale, at D 192 H = KVH and a "
+            f"finite scale; got q {tuple(q.shape)} {q.dtype}, k "
+            f"{tuple(k.shape)}, scale {scale}")
     _check_bwd(q, k, v, do, lse, delta)
     dq = torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)

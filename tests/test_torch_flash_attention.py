@@ -407,6 +407,14 @@ BWD_CASES = [
     ((1, 48, 48, 4, 1, 256), True, 0, -8),
     ((2, 33, 64, 4, 1, 256), False, 0, 0),
 ]
+# the dQ/dK/dV kernel's route at D 192 (G 1, one key and one query tile):
+# deepseek-v2-lite's S 64, causal, at its scale 192 ** -0.5 (not a power of
+# 2 in bf16); ragged Sq < Skv with a window and a chunk after a cached
+# prefix. Appended after every earlier case of the lists that take them.
+DQKV192_CASES = [
+    ((2, 64, 64, 4, 4, 192), True, 0, 0),
+    ((1, 33, 64, 2, 2, 192), True, 16, 31),
+]
 
 
 def _grad_out(shape, dtype="float32", seed=20):
@@ -417,7 +425,8 @@ def _grad_out(shape, dtype="float32", seed=20):
             torch.from_numpy(a).to(getattr(torch, dtype)))
 
 
-@pytest.mark.parametrize("shape,causal,window,q_offset", BWD_CASES)
+@pytest.mark.parametrize("shape,causal,window,q_offset",
+                         BWD_CASES + DQKV192_CASES)
 def test_bwd_ref_matches_pallas_bwd_kernels(shape, causal, window, q_offset):
     """The plain backward (the CUDA kernels' yardstick on the card) against
     the Pallas dQ and dK/dV kernels in interpret mode, on the same q, k, v,
@@ -568,12 +577,14 @@ def test_bwd_kernel_on_cpu_raises_and_needs_nvcc(tmp_path, monkeypatch):
 # G 2 and G 4 (the scale 128 ** -0.5 is not a power of 2, so q * scale in
 # bf16 moves S there; nor is 192 ** -0.5), and D 192 at G 1 with q_offset;
 # the odd-G cases, so that every earlier case keeps its place; then
-# whisper's encoder at D 64 (non-causal, ragged tiles each way)
+# whisper's encoder at D 64 (non-causal, ragged tiles each way), the D-256
+# dQ/dK/dV route's cases and the D-192 route's
 ROUNDED_BWD_CASES = [c for c in CARD_EDGE_CASES if c not in ODD_G_CASES] + [
     ((2, 67, 67, 4, 2, 128), True, 0, 0),
     ((1, 130, 130, 8, 2, 128), True, 0, 0),
     ((1, 33, 129, 4, 4, 192), True, 0, 96),
 ] + ODD_G_CASES + [((2, 150, 150, 4, 4, 64), False, 0, 0)] + BWD_CASES[-4:]
+ROUNDED_BWD_CASES += DQKV192_CASES
 
 
 @pytest.mark.parametrize("shape,causal,window,q_offset", ROUNDED_BWD_CASES)
@@ -809,6 +820,13 @@ def test_profile_files_delta_kernel_under_its_own_name():
     assert cat("void (anonymous namespace)::fa_bwd_dqkv_sm90_kernel<4, 1>"
                "(CUtensorMap_st, CUtensorMap_st)") \
         == "flash_attention_bwd_dqkv"
+    # the D-192 instantiation, the persistent kernel
+    assert cat("void (anonymous namespace)::"
+               "fa_bwd_dqkv_sm90_kernel_persistent<192>(CUtensorMap_st, "
+               "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+               "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, float const*, "
+               "float const*, int, int, int, int, float, int, int, int)") \
+        == "flash_attention_bwd_dqkv"
 
 
 def test_flash_bwd_forms_delta_with_the_kernel(monkeypatch):
@@ -863,14 +881,29 @@ DQKV_ROUTE = {
     "scale_pow2": ((torch.bfloat16, 64, 64, 4, 1, 256, 0.125), True),
     "scale_not_pow2": ((torch.bfloat16, 64, 64, 4, 1, 256, 0.1), False),
     "empty_sq": ((torch.bfloat16, 0, 64, 4, 1, 256, None), False),
+    # D 192 (deepseek-v2-lite's MLA): G 1 at any finite scale; G 2, Skv 65
+    # and f32 keep the pair; D 256 still needs a power-of-2 scale at G 1
+    "d192_deepseek_s64_g1": ((torch.bfloat16, 64, 64, 16, 16, 192,
+                              192 ** -0.5), True),
+    "d192_ragged_default_scale": ((torch.bfloat16, 33, 64, 2, 2, 192, None),
+                                  True),
+    "d192_g2": ((torch.bfloat16, 64, 64, 16, 8, 192, None), False),
+    "d192_skv_65": ((torch.bfloat16, 64, 65, 16, 16, 192, None), False),
+    "d192_sq_65": ((torch.bfloat16, 65, 64, 16, 16, 192, None), False),
+    "d192_float32": ((torch.float32, 64, 64, 16, 16, 192, None), False),
+    "d192_scale_nan": ((torch.bfloat16, 64, 64, 16, 16, 192, float("nan")),
+                       False),
+    "d256_g1_scale_not_pow2": ((torch.bfloat16, 64, 64, 4, 4, 256,
+                                192 ** -0.5), False),
 }
 
 
 @pytest.mark.parametrize("case", sorted(DQKV_ROUTE))
 def test_dqkv_route_boundary(case):
-    """kernel.takes_dqkv: bf16 at D 256 with Sq and Skv in 1..64, G in
-    (1, 2, 4, 8) and a power-of-2 scale in bf16 (1/16 by default) take the
-    dQ/dK/dV kernel; one step past any bound keeps the pair."""
+    """kernel.takes_dqkv: bf16 with Sq and Skv in 1..64, at D 256 with G
+    in (1, 2, 4, 8) and a power-of-2 scale in bf16 (1/16 by default), at D
+    192 with G 1 and any finite scale, take the dQ/dK/dV kernel; one step
+    past any bound keeps the pair."""
     (dtype, Sq, Skv, H, KVH, D, scale), want = DQKV_ROUTE[case]
     assert tkernel.takes_dqkv(dtype, Sq, Skv, H, KVH, D, scale) is want
 
@@ -882,6 +915,9 @@ def test_dqkv_route_boundary(case):
     ((1, 64, 64, 3, 1, 256), "bfloat16", ["delta", "dq", "dkv"]),
     ((1, 64, 64, 4, 1, 256), "float32", ["delta", "dq", "dkv"]),
     ((1, 64, 64, 4, 1, 128), "bfloat16", ["delta", "dq", "dkv"]),
+    # D 192 (MLA): G 1 takes the dQ/dK/dV kernel, G 2 the pair
+    ((2, 64, 64, 4, 4, 192), "bfloat16", ["delta", "dqkv"]),
+    ((1, 64, 64, 4, 2, 192), "bfloat16", ["delta", "dq", "dkv"]),
 ])
 def test_flash_bwd_takes_dqkv_on_its_route(monkeypatch, shape, dtype, route):
     """kernel.flash_bwd runs delta's kernel, then on takes_dqkv's shapes the
@@ -937,6 +973,10 @@ DQKV_REFUSED = {
         q[:, :, :3].contiguous(), k, v, do[:, :, :3].contiguous(),
         l[..., :3].contiguous(), d[..., :3].contiguous()),
         ValueError, "flash_bwd_dqkv takes"),
+    # D 192 is taken at G 1 only (here G 4)
+    "head_dim_192_g4": (lambda q, k, v, do, l, d: (
+        *(t[..., :192].contiguous() for t in (q, k, v, do)), l, d),
+        ValueError, "flash_bwd_dqkv takes"),
     "dO_shape": (lambda q, k, v, do, l, d: (q, k, v, do[:, :4], l, d),
                  ValueError, "dO must match"),
     "lse_dtype": (lambda q, k, v, do, l, d: (q, k, v, do, l.double(), d),
@@ -953,20 +993,22 @@ DQKV_REFUSED = {
 @pytest.mark.parametrize("shape", [(1, 64, 64, 4, 1, 256),
                                    (2, 37, 37, 4, 2, 256),
                                    (1, 1, 64, 8, 1, 256),
-                                   (1, 64, 33, 4, 4, 256)])
+                                   (1, 64, 33, 4, 4, 256),
+                                   (2, 64, 64, 4, 4, 192),
+                                   (1, 37, 33, 2, 2, 192)])
 def test_dqkv_wrapper_takes_its_route_up_to_the_device_check(shape):
-    """bf16 on the dQ/dK/dV route (G 4, 2, 8, 1; ragged Sq and Skv) passes
-    every check of ``flash_bwd_dqkv`` that needs no card, and stops only at
-    the device."""
+    """bf16 on the dQ/dK/dV route (D 256 at G 4, 2, 8, 1; D 192 at G 1;
+    ragged Sq and Skv) passes every check of ``flash_bwd_dqkv`` that needs
+    no card, and stops only at the device."""
     with pytest.raises(RuntimeError, match="needs CUDA tensors"):
         tkernel.flash_bwd_dqkv(*_bwd_args(shape, "bfloat16", seed=55))
 
 
 @pytest.mark.parametrize("case", sorted(DQKV_REFUSED) + ["scale_not_pow2"])
 def test_dqkv_wrapper_refuses_what_its_kernel_cannot_take(case):
-    """Off the route (f32, D 128, Skv 65, G 3, a scale that is not a power
-    of 2 in bf16) and on malformed dO, lse: a ValueError before the device
-    check."""
+    """Off the route (f32, D 128, Skv 65, G 3, D 192 at G 4, a scale that
+    is not a power of 2 in bf16 at D 256) and on malformed dO, lse: a
+    ValueError before the device check."""
     args = _bwd_args((1, 64, 64, 4, 1, 256), "bfloat16", seed=56)
     if case == "scale_not_pow2":
         with pytest.raises(ValueError, match="power-of-2 scale"):
