@@ -49,7 +49,8 @@ Phases, each printing its own lines; any failed check exits non-zero:
    and its train batch (there out and lse of the first 8 batches also
    bitwise against a launch on those batches alone), and cross attention
    (64 queries on 1500 frames), head dim 64, and its decoder's causal self
-   attention at the train batch;
+   attention at the train batch; the forward at qwen2-vl-72b's prefill
+   (H 64, KVH 8, D 128: G 8);
    the bf16 SSD kernels at the serve prefill and phase 1 of mamba2-2.7b
    and of zamba2-7b, beside the f32 FMA kernels they replace);
 4. full-width serve (internlm2-1.8b, random weights from a seed): a main
@@ -97,8 +98,9 @@ Phases, each printing its own lines; any failed check exits non-zero:
    expert choices replayed in the kernel run (``_fixed_routes``);
 10. phases 4-6 again for mamba2-2.7b (the ssm family, on the SSD kernels):
    serving at full width (64 layers), SWAP training at full width with the
-   depth cut to 56 layers (MAMBA_TRAIN_LAYERS: 64 layers do not fit the
-   card: 62 ran out of memory in phase 2), every SSD launch of both on the
+   depth cut to 32 layers (MAMBA_TRAIN_LAYERS: 64 layers do not fit the
+   card, 62 ran out of memory in phase 2, 56 ran; 32 for the run's time
+   limit), every SSD launch of both on the
    bf16 wgmma route, and the smoke exactness checks;
 11. the hybrid family, zamba2-7b (81 mamba layers on the SSD kernels, the
    one shared attention block before each pattern unit of 6 on the flash
@@ -129,6 +131,22 @@ Phases, each printing its own lines; any failed check exits non-zero:
    flash forward, dQ and dK/dV launches as the layer plan has them, the
    peak under 75 GB (``[whisper-train]``); f32 on ``_narrow_whisper``,
    generation token-exact and the grads against the plain attention;
+13b. qwen2-vl-72b (the vlm family: M-RoPE over (temporal, height, width)
+   sections 16/24/24, stub patch embeddings in place of the first 256
+   prompt tokens; 64 heads of 128 on 8 KV heads, G 8): served at full
+   width with its depth cut to QWEN_VL_SERVE_LAYERS of 80 (72.7 B f32
+   parameters fit no card) on phase 4's path with patch embeddings from the
+   seed for ``generate`` and every logits route, the routes also at image
+   grid positions whose three components differ, the engine's requests
+   text, one forward a layer a prefill on the bf16 route
+   (``[vlm-serve]``); M-RoPE on the card against an f64 host formula at
+   such positions; QWEN_VL_TRAIN_STEPS SGD steps of the LM train step at
+   full width with its depth cut to QWEN_VL_TRAIN_LAYERS, batches of 8 x
+   512 tokens with patch embeddings from the seed, the flash forward, dQ
+   and dK/dV launches at G 8 as the layer plan has them, the peak under
+   75 GB (``[vlm-train]``; SWAP's state for 72.7 B parameters fits no
+   card); and phase 6's f32 exactness on ``_narrow_vlm128`` (head dim 128,
+   G 8), its grads on a batch with patch embeddings;
 14. the paper-faithful CNN+BatchNorm path at the full width of cifar-cnn
    ``config()``: Table 1 (``repro_torch.experiments.table1_cifar10``,
    seed 0: small batch, large batch, SWAP before and after averaging) and
@@ -197,7 +215,11 @@ its serving path, and the flash rows' ``minicpm3_*`` shapes: the times at
 head dim 96; ``whisper_launches`` on the flash rows: on whisper-base's
 train steps and, for the forward, its serving path, and the forward's
 ``whisper_encoder`` / ``whisper_cross`` / ``whisper_decoder_train_shape``
-/ ``whisper_encoder_train_shape``: its times there); the line before
+/ ``whisper_encoder_train_shape``: its times there; ``qwen2vl_launches``
+on the flash rows: on qwen2-vl-72b's full-width train steps and, for the
+forward, its full-width serving path, the forward's ``qwen2vl_prefill``
+and the dQ, dK/dV and delta rows' ``qwen2vl_train_shape``: their times
+there); the line before
 them gives the run's seconds; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -330,8 +352,9 @@ SSD_TRAIN_SHAPE = (256, 64, 80, 64, 1, 128, 64)
 # PERF.md. 62 layers (~74.3 GB by that slope) ran out of device memory all
 # the same: a 6.25 GiB allocation of phase 2's update failed with 61.56 GiB
 # allocated and 15.08 GiB reserved but free in pieces. 56 is the deepest
-# that ran.
-MAMBA_TRAIN_LAYERS = 56
+# that ran. The run's time limit cut it to 32 (the launcher's 12 steps took
+# 27.9 s at 56 layers; ~39 GB by that slope)
+MAMBA_TRAIN_LAYERS = 32
 # zamba2-7b, the hybrid family: 81 mamba layers (13 pattern units of 6 and
 # a tail of 3), ONE shared attention block (32 heads of 112, G 1, with its
 # MLP) before each unit; served at full depth, batch 8, prompt 512
@@ -386,6 +409,27 @@ WHISPER_TRAIN_BATCH = 128
 WHISPER_TRAIN_STEPS = 3
 # its encoder's attention at that batch (non-causal over 1500 frames)
 WHISPER_ENCODER_TRAIN_SHAPE = (WHISPER_TRAIN_BATCH,) + WHISPER_ENCODER_SHAPE[1:]
+# qwen2-vl-72b, the vlm family: 64 heads of 128 on 8 KV heads (G 8),
+# M-RoPE, 256 stub vision tokens; served at batch 8, prompt 512 (the
+# first 256 places the patch embeddings')
+QWEN_VL = "qwen2-vl-72b"
+QWEN_VL_PREFILL_SHAPE = (8, 512, 512, 64, 8, 128)
+# its serving depth at full width: f32 params are 9.96 GB of embeddings and
+# head and 3.51 GB a layer (72.70 B in all, 291 GB), so the depth is cut.
+# On an NVIDIA H100 80GB HBM3 at 700.00 W, 16 layers peaked at 69.88 and
+# 70.35 GB in two runs (init, the bf16 casts and the engine included); 17
+# would come to ~73.9 GB, within 1.1 GB of PEAK_LIMIT_GB
+QWEN_VL_SERVE_LAYERS = 16
+# its train step at full width: SGD with momentum keeps f32 params, grads
+# and momentum, 12 bytes a parameter, so the depth is cut to
+# QWEN_VL_TRAIN_LAYERS (4.25 B parameters, ~51 GB before the activations
+# and the bf16 casts; a third layer would add ~12 GB); batches of
+# QWEN_VL_TRAIN_BATCH sequences of 512 tokens, the first 256 places stub
+# patch embeddings from the seed
+QWEN_VL_TRAIN_LAYERS = 2
+QWEN_VL_TRAIN_BATCH = 8
+QWEN_VL_TRAIN_STEPS = 3
+QWEN_VL_TRAIN_SHAPE = (QWEN_VL_TRAIN_BATCH, 512, 512, 64, 8, 128)
 # the CNN's f32 forward (against the CPU's), its whole-model grads on one
 # branch and its convolutions' backward (against f32 and f64), max |err| /
 # max |ref| per output: f32 sums in other orders (~1e-6 to ~3e-5); TF32
@@ -608,6 +652,13 @@ def _grid():
         cases.append((shape, "bfloat16", False, 0, 0))
     for window in (0, 100):
         cases.append(((1, 200, 200, 4, 1, 256), "bfloat16", True, window, 0))
+    # qwen2-vl-72b (D 128, G 8; appended too): its prefill, batched (bf16
+    # and, for the f32 logits check, f32) and through the engine
+    for dtype in ("bfloat16", "float32"):
+        cases.append((QWEN_VL_PREFILL_SHAPE, dtype, True, 0, 0))
+    for S in ENGINE_PROMPTS:
+        cases.append(((1, S, S) + QWEN_VL_PREFILL_SHAPE[3:], "bfloat16",
+                      True, 0, 0))
     return cases
 
 
@@ -630,7 +681,8 @@ def phase_kernel():
                               (MINICPM_PREFILL_SHAPE, 0),
                               (MINICPM_TRAIN_SHAPE, 0),
                               (WHISPER_ENCODER_SHAPE, 0),
-                              (WHISPER_CROSS_SHAPE, 0)))
+                              (WHISPER_CROSS_SHAPE, 0),
+                              (QWEN_VL_PREFILL_SHAPE, 0)))
     for i, (shape, dtype, causal, window, q_offset) in enumerate(_grid()):
         D = shape[-1]
         q, k, v = _qkv(shape, getattr(torch, dtype), seed=i)
@@ -720,6 +772,9 @@ def phase_kernel():
     w_dec_shape = (WHISPER_TRAIN_BATCH,) + WHISPER_DECODER_SHAPE[1:]
     w_dec = _fwd_times(w_dec_shape, "whisper decoder, train batch",
                        seed=1249)
+    # qwen2-vl-72b's prefill: D 128 at G 8, the head-pair split
+    q_prefill = _fwd_times(QWEN_VL_PREFILL_SHAPE, "qwen2-vl prefill",
+                           seed=1251, cold=True)
     sys.stdout.flush()
     return {
         "name": "flash_attention_fwd", "route": "cuda",
@@ -760,6 +815,8 @@ def phase_kernel():
             "max_abs_err": path_err[WHISPER_CROSS_SHAPE, 0], **w_cross},
         "whisper_decoder_train_shape": w_dec,
         "whisper_encoder_train_shape": w_enc_train,
+        "qwen2vl_prefill": {
+            "max_abs_err": path_err[QWEN_VL_PREFILL_SHAPE, 0], **q_prefill},
     }
 
 
@@ -883,6 +940,9 @@ def _bwd_grid():
                           (WHISPER_CROSS_SHAPE, False),
                           (WHISPER_DECODER_SHAPE, True)):
         cases.append((shape, "bfloat16", causal, 0, 0))
+    # qwen2-vl-72b's train step (D 128, G 8), and its heads at S 64
+    cases += [(QWEN_VL_TRAIN_SHAPE, "bfloat16", True, 0, 0),
+              ((2, 64, 64, 64, 8, 128), "bfloat16", True, 0, 0)]
     # the dQ/dK/dV kernel's route (D 256, Sq and Skv <= 64; kernel.
     # takes_dqkv): G 1, 2, 4 under each mask at S 64, G 8; ragged Sq with
     # a window, a chunk after a cached prefix, rows that see no key, Sq <
@@ -1027,7 +1087,7 @@ def phase_kernel_bwd():
                      DEEPSEEK_TRAIN_SHAPE, DEEPSEEK_PHASE2_SHAPE,
                      ZAMBA_TRAIN_SHAPE,
                      (32,) + ZAMBA_TRAIN_SHAPE[1:], MINICPM_TRAIN_SHAPE,
-                     (32,) + MINICPM_TRAIN_SHAPE[1:]):
+                     (32,) + MINICPM_TRAIN_SHAPE[1:], QWEN_VL_TRAIN_SHAPE):
             train_err[shape] = {
                 n: (g.float() - w.float()).abs().max().item()
                 for n, g, w in zip(("dq", "dk", "dv"), got, want)}
@@ -1087,6 +1147,8 @@ def phase_kernel_bwd():
     gr_phase1 = _bwd_times(GRANITE_TRAIN_SHAPE, "granite phase-1")
     w_phase1 = _bwd_times(WHISPER_ENCODER_TRAIN_SHAPE, "whisper encoder",
                           causal=False, plain=False)
+    # qwen2-vl-72b's train step (D 128, G 8)
+    q_step = _bwd_times(QWEN_VL_TRAIN_SHAPE, "qwen2-vl train step")
     # the backward's exponentials: dQ and dK/dV each recompute P
     B, Sq, Skv, H = WHISPER_ENCODER_TRAIN_SHAPE[:4]
     q, k, v = _qkv(WHISPER_ENCODER_TRAIN_SHAPE, torch.bfloat16, seed=4331)
@@ -1174,7 +1236,10 @@ def phase_kernel_bwd():
              "minicpm3_phase2_shape": {
                  "max_abs_err": errs(m_shape2, name), **m_phase2[name]},
              "granite_train_shape": gr_phase1[name],
-             "whisper_encoder_train_shape": w_phase1[name]}
+             "whisper_encoder_train_shape": w_phase1[name],
+             "qwen2vl_train_shape": {
+                 "max_abs_err": errs(QWEN_VL_TRAIN_SHAPE, name),
+                 **q_step[name]}}
             for name, line in (("flash_attention_bwd_dq", 202),
                                ("flash_attention_bwd_dkv", 232),
                                ("flash_attention_bwd_delta", 288))] + [
@@ -1722,6 +1787,9 @@ def _describe(cfg) -> str:
         attn += (f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k} d_ff "
                  f"{cfg.moe.d_ff}, capacity factor "
                  f"{cfg.moe.capacity_factor}")
+    if cfg.mrope_sections:
+        attn += (f", M-RoPE sections {'/'.join(map(str, cfg.mrope_sections))}"
+                 f", {cfg.n_vision_tokens} stub vision tokens")
     if cfg.is_encoder_decoder:
         attn += (f"; encoder of {cfg.n_encoder_layers} layers over "
                  f"{cfg.encoder_seq} frames (non-causal), cross attention "
@@ -1799,8 +1867,9 @@ def _fixed_routes(routes, replay: bool):
 
 
 def phase_serve(card: str, arch="internlm2-1.8b", S=512, engine=True,
-                tag="serve"):
-    """``arch`` at full width on the serving main path: generate's two
+                tag="serve", cfg=None):
+    """``arch`` at full width (``cfg``: its full config, or one of it cut
+    in depth) on the serving main path: generate's two
     engines at batch 8, prompt S, and with ``engine`` the ServingEngine's
     requests through 2 slots; then the prefill logits' checks, a profiler
     window of one prefill and one decode step, and the device memory peak
@@ -1811,8 +1880,12 @@ def phase_serve(card: str, arch="internlm2-1.8b", S=512, engine=True,
     bf16 route too), and the logits' checks switch both kernels; in the
     audio family (whisper) once an encoder layer and twice a decoder layer
     (self and cross attention), every prefill and model taking the same
-    stub frames (batch, encoder_seq, d_model) made from the seed. Returns
-    every kernel's launches on the main path."""
+    stub frames (batch, encoder_seq, d_model) made from the seed; in the
+    vlm family (qwen2-vl) generate and every logits route take the same
+    stub patch embeddings (batch, n_vision_tokens, d_model) from the seed,
+    and the logits routes also image grid positions (``_grid_positions``)
+    whose three M-RoPE components differ; the engine's requests are text.
+    Returns every kernel's launches on the main path."""
     import dataclasses
     import torch
     from repro_torch.configs import registry
@@ -1823,7 +1896,7 @@ def phase_serve(card: str, arch="internlm2-1.8b", S=512, engine=True,
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = registry.get_config(arch)
+    cfg = cfg or registry.get_config(arch)
     model = Model(cfg)
     g = torch.Generator(device="cuda").manual_seed(0)
     params = model.init(g)
@@ -1833,6 +1906,14 @@ def phase_serve(card: str, arch="internlm2-1.8b", S=512, engine=True,
     extras = ({"frames": torch.randn((B, cfg.encoder_seq, cfg.d_model),
                                      generator=g, device="cuda")}
               if cfg.is_encoder_decoder else {})
+    if cfg.family == "vlm":
+        extras["vision_embeds"] = torch.randn(
+            (B, cfg.n_vision_tokens, cfg.d_model), generator=g,
+            device="cuda")
+    routes_extras = dict(extras)
+    if cfg.mrope_sections:
+        routes_extras["positions"] = _grid_positions(B, S,
+                                                     cfg.n_vision_tokens)
     lengths, n_new, max_seq = ENGINE_PROMPTS, 16, 1024
     reqs = [Request(rid=i, prompt=torch.randint(
         0, cfg.vocab_size, (L,), generator=g, device="cuda"),
@@ -1945,7 +2026,7 @@ def phase_serve(card: str, arch="internlm2-1.8b", S=512, engine=True,
                                       **ssd))
         with torch.inference_mode(), _fixed_routes(routes, replay=i > 0):
             logits[dtype, impl] = m.prefill(params, prompts,
-                                            **extras)[0].float()
+                                            **routes_extras)[0].float()
     if cfg.moe:
         print(f"[{tag}] logits checks with the routes of the f32 kernel "
               f"prefill fixed: {len(routes)} MoE layers")
@@ -2327,7 +2408,8 @@ def phase_exact_train(arch="internlm2-1.8b", field="attention_impl",
     and records its expert choices, and the kernel run replays them
     (``_fixed_routes``): in f32 a near-tie of router probs, moved by the
     attention's summation order, can flip a top-k choice between the two
-    runs, and then the two compute other functions."""
+    runs, and then the two compute other functions. In the vlm family the
+    grads' batch carries stub patch embeddings on its first tokens."""
     import dataclasses
     import torch
     from repro_torch.configs import registry
@@ -2348,7 +2430,12 @@ def phase_exact_train(arch="internlm2-1.8b", field="attention_impl",
                           n_test=256, seq_len=64)
     batch = {"tokens": torch.from_numpy(data["train_tokens"][:16]).cuda(),
              "labels": torch.from_numpy(data["train_labels"][:16]).cuda()}
-    params = Model(smoke).init(torch.Generator(device="cuda").manual_seed(3))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    params = Model(smoke).init(gen)
+    if smoke.family == "vlm":
+        batch["vision_embeds"] = torch.randn(
+            (16, smoke.n_vision_tokens, smoke.d_model), generator=gen,
+            device="cuda")
     # the plain run first: an MoE config's kernel run replays its routes
     order = ("reference", "kernel")
     fixed = (lambda routes, impl: _fixed_routes(routes, impl == "kernel")
@@ -2371,7 +2458,10 @@ def phase_exact_train(arch="internlm2-1.8b", field="attention_impl",
         l2 = max(l2, (torch.linalg.vector_norm(d)
                       / torch.linalg.vector_norm(b)).item())
     moe_note = (f", the plain run's {len(routes)} routing choices replayed"
-                if smoke.moe else "")
+                if smoke.moe else
+                f", stub patch embeddings on the first "
+                f"{smoke.n_vision_tokens} tokens"
+                if "vision_embeds" in batch else "")
     print(f"[exact] f32 {smoke.name} ({_describe(smoke)}{moe_note}): "
           f"whole-model grads with the kernels "
           f"against plain autograd, worst leaf: max |err|/max |ref| "
@@ -2709,14 +2799,16 @@ def phase_minicpm(card: str):
 # ---------------------------------------------------------------------------
 
 
-def _whisper_flash_plan(cfg, steps):
+def _step_flash_plan(cfg, steps):
     """The flash launches of ``steps`` train steps: a forward and a
-    backward an encoder layer, and each of a decoder layer's self and cross
-    attention, whose forward runs twice under remat (the encoder is not
-    rematerialized, as in the reference)."""
-    dec = 2 * cfg.n_layers
-    fwd = cfg.n_encoder_layers + dec * (2 if cfg.remat else 1)
-    bwd = cfg.n_encoder_layers + dec
+    backward an encoder layer and each attention of a decoder layer (its
+    self attention, and in the audio family its cross attention), whose
+    forward runs twice under remat (the encoder is not rematerialized, as
+    in the reference)."""
+    enc = cfg.n_encoder_layers if cfg.is_encoder_decoder else 0
+    dec = cfg.n_layers * (2 if cfg.is_encoder_decoder else 1)
+    fwd = enc + dec * (2 if cfg.remat else 1)
+    bwd = enc + dec
     return {"flash_attention_fwd": steps * fwd,
             "flash_attention_bwd_dq": steps * bwd,
             "flash_attention_bwd_dkv": steps * bwd,
@@ -2724,18 +2816,19 @@ def _whisper_flash_plan(cfg, steps):
             "flash_attention_bwd_dqkv": 0}
 
 
-def phase_whisper_train(card: str, batch=WHISPER_TRAIN_BATCH,
-                        steps=WHISPER_TRAIN_STEPS):
-    """``steps`` SGD steps of whisper-base at full width (bf16 compute, f32
-    params) through ``train.steps.make_lm_train_step``, on batches of
-    ``batch`` decoder sequences of WHISPER_PROMPT tokens with stub frames
-    (batch, 1500, 512): a main path with the launch counts read around it.
-    Every loss finite, the params moved and finite, the flash launches as
-    ``_whisper_flash_plan`` has them, all on the bf16 route, and the peak
+def phase_step_train(card: str, cfg, batch: int, S: int, steps: int,
+                     tag: str):
+    """``steps`` SGD steps of ``cfg`` (bf16 compute, f32 params) through
+    ``train.steps.make_lm_train_step``, on batches of ``batch`` sequences
+    of ``S`` tokens with the family's stub inputs from the seed: frames
+    (batch, encoder_seq, d_model) for the audio family, patch embeddings
+    (batch, n_vision_tokens, d_model) in f32 for the vlm family (the model
+    casts them): a main path with the launch counts read around it. Every
+    loss finite, the params moved and finite, the flash launches as
+    ``_step_flash_plan`` has them, all on the bf16 route, and the peak
     under PEAK_LIMIT_GB. Returns the launches."""
     import math
     import torch
-    from repro_torch.configs import registry
     from repro_torch.configs.base import OptimizerConfig, ScheduleConfig
     from repro_torch.core.schedules import schedule_fn
     from repro_torch.models.model import Model
@@ -2744,28 +2837,37 @@ def phase_whisper_train(card: str, batch=WHISPER_TRAIN_BATCH,
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = registry.get_config(WHISPER)
     model = Model(cfg)
     g = torch.Generator(device="cuda").manual_seed(0)
     params = model.init(g)
-    start = [t.clone() for t in tree_leaves(params)]
+    # the first 2^20 values of each leaf (a whole copy of qwen2-vl's would
+    # take 17 GB)
+    start = [t.flatten()[:1 << 20].clone() for t in tree_leaves(params)]
     opt_init, train_step = make_lm_train_step(
         model, OptimizerConfig(kind="sgd"),
         schedule_fn(ScheduleConfig(kind="const", peak_lr=0.01)))
     opt_state = opt_init(params)
-    S = WHISPER_PROMPT
     batches = []
     for _ in range(steps):
         tokens = torch.randint(0, cfg.vocab_size, (batch, S + 1),
                                generator=g, device="cuda")
-        batches.append({"tokens": tokens[:, :-1], "labels": tokens[:, 1:],
-                        "frames": torch.randn(
-                            (batch, cfg.encoder_seq, cfg.d_model),
-                            generator=g, device="cuda").to(model.dtype)})
-    print(f"[whisper-train] {cfg.name}: {steps} SGD steps at batch {batch}, "
-          f"decoder S {S}, frames ({batch}, {cfg.encoder_seq}, "
-          f"{cfg.d_model}), {cfg.dtype}, remat {cfg.remat_policy} "
-          f"(decoder layers)", flush=True)
+        b = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+        if cfg.family == "audio":
+            b["frames"] = torch.randn((batch, cfg.encoder_seq, cfg.d_model),
+                                      generator=g, device="cuda").to(
+                                          model.dtype)
+        if cfg.family == "vlm":
+            b["vision_embeds"] = torch.randn(
+                (batch, cfg.n_vision_tokens, cfg.d_model), generator=g,
+                device="cuda")
+        batches.append(b)
+    stub = ", ".join(f"{k} {tuple(v.shape)} {v.dtype}"
+                     for k, v in batches[0].items()
+                     if k not in ("tokens", "labels"))
+    print(f"[{tag}] {cfg.name} ({cfg.n_layers} layers): {steps} SGD steps "
+          f"at batch {batch}, S {S}; {stub or 'no stub inputs'}; "
+          f"{cfg.dtype}, remat {cfg.remat_policy if cfg.remat else 'off'}",
+          flush=True)
     # --- the main path, with every launch count read around it ---
     _reset_launches()
     losses, step_ms = [], []
@@ -2779,29 +2881,28 @@ def phase_whisper_train(card: str, batch=WHISPER_TRAIN_BATCH,
     launches = {name: fn.launches for name, fn in counted.items()}
     on_sm90 = {name: counted[name].launches_sm90 for name in FLASH_KERNELS}
     # -------------------------------------------------------------
-    want = _whisper_flash_plan(cfg, steps)
-    print(f"[whisper-train] losses {[f'{x:.4f}' for x in losses]}; step ms "
-          f"{[f'{x:.1f}' for x in step_ms]} on {card} ({batch * S} decoder "
-          f"tokens and {batch * cfg.encoder_seq} frames a step); flash "
-          f"launches {launches} (plan {want}; on the bf16 route {on_sm90})",
-          flush=True)
+    want = _step_flash_plan(cfg, steps)
+    print(f"[{tag}] losses {[f'{x:.4f}' for x in losses]}; step ms "
+          f"{[f'{x:.1f}' for x in step_ms]} on {card} ({batch * S} tokens "
+          f"a step); flash launches {launches} (plan {want}; on the bf16 "
+          f"route {on_sm90})", flush=True)
     check(all(math.isfinite(x) for x in losses),
-          f"whisper: non-finite loss {losses}")
-    moved = max((a - b).abs().max().item()
+          f"{cfg.name}: non-finite loss {losses}")
+    moved = max((a.flatten()[:1 << 20] - b).abs().max().item()
                 for a, b in zip(tree_leaves(params), start))
-    check(moved > 0, "whisper: the train steps left the params unchanged")
+    check(moved > 0, f"{cfg.name}: the train steps left the params "
+                     f"unchanged")
     check(all(bool(torch.isfinite(t).all()) for t in tree_leaves(params)),
-          "whisper: non-finite params after the train steps")
+          f"{cfg.name}: non-finite params after the train steps")
     for name, n in want.items():
         check(launches[name] == n and on_sm90[name] == n,
-              f"whisper: {name} launched {launches[name]} times "
+              f"{cfg.name}: {name} launched {launches[name]} times "
               f"({on_sm90[name]} on the bf16 route), not {n}")
     peak = torch.cuda.max_memory_allocated() / 1e9
-    print(f"[whisper-train] params moved by up to {moved:.3e}; device "
-          f"memory peak {peak:.2f} GB (limit {PEAK_LIMIT_GB} GB)",
-          flush=True)
-    check(peak <= PEAK_LIMIT_GB, f"whisper: train peak {peak:.2f} GB over "
-                                 f"{PEAK_LIMIT_GB} GB")
+    print(f"[{tag}] params moved by up to {moved:.3e}; device memory peak "
+          f"{peak:.2f} GB (limit {PEAK_LIMIT_GB} GB)", flush=True)
+    check(peak <= PEAK_LIMIT_GB, f"{cfg.name}: train peak {peak:.2f} GB "
+                                 f"over {PEAK_LIMIT_GB} GB")
     del params, opt_state, batches, start
     torch.cuda.empty_cache()
     return launches
@@ -2889,16 +2990,115 @@ def phase_whisper(card: str):
     flash forwards a prefill: 6 encoder layers, 6 decoder self and 6 cross
     attentions; the continuous engine takes no frames, as the reference's
     takes none), and WHISPER_TRAIN_STEPS train steps
-    (``phase_whisper_train``); then the f32 exactness on
+    (``phase_step_train``); then the f32 exactness on
     ``_narrow_whisper``. Returns (the launches on the serving path, on the
     training path)."""
     t0 = time.perf_counter()
     serve = phase_serve(card, WHISPER, S=WHISPER_PROMPT, engine=False,
                         tag="whisper-serve")
-    train = phase_whisper_train(card)
+    from repro_torch.configs import registry
+    train = phase_step_train(card, registry.get_config(WHISPER),
+                             WHISPER_TRAIN_BATCH, WHISPER_PROMPT,
+                             WHISPER_TRAIN_STEPS, "whisper-train")
     _whisper_exact()
     print(f"[whisper] phase time {time.perf_counter() - t0:.1f} s",
           flush=True)
+    return serve, train
+
+
+# ---------------------------------------------------------------------------
+# phase 13b: qwen2-vl-72b, the vlm family (M-RoPE, stub vision embeddings)
+# ---------------------------------------------------------------------------
+
+
+def _grid_positions(B, S, nv, width=16, device="cuda"):
+    """(B, 3, S) M-RoPE positions whose three components differ: the first
+    ``nv`` tokens an image grid, (t, h, w) = (0, i // width, i % width),
+    the text after it at one index past the grid's largest in all three
+    (with equal components M-RoPE is plain RoPE, and a wrong section split
+    would pass)."""
+    import torch
+    i = torch.arange(nv, device=device)
+    grid = torch.stack([torch.zeros_like(i), i // width, i % width])
+    start = int(grid.max()) + 1
+    text = torch.arange(start, start + S - nv, device=device).expand(
+        3, S - nv)
+    return torch.cat([grid, text], dim=1).expand(B, 3, S)
+
+
+def _mrope_check(cfg, S=600):
+    """``rope_cos_sin`` with ``cfg``'s sections on the card at grid
+    positions against an f64 formula on the host (frequency j rotates by
+    component c(j) of the positions, c the section of j). f32 angles of up
+    to S radians: held to 4 ulps of S; and the table must differ from the
+    plain rope of any one component by more than 100 times that."""
+    import numpy as np
+    import torch
+    from repro_torch.models.layers import rope_cos_sin
+    pos = _grid_positions(2, S, cfg.n_vision_tokens)
+    cos, sin = rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta,
+                            cfg.mrope_sections)
+    half = cfg.head_dim // 2
+    inv = cfg.rope_theta ** (-np.arange(half, dtype=np.float64) / half)
+    comp = np.repeat(np.arange(3), cfg.mrope_sections)
+    ang = pos.cpu().numpy()[:, comp, :].transpose(0, 2, 1) * inv
+    err = max(float(np.abs(cos.cpu().numpy() - np.cos(ang)).max()),
+              float(np.abs(sin.cpu().numpy() - np.sin(ang)).max()))
+    tol = 4 * S * 2.0 ** -23
+    apart = min(max(float((a - b).abs().max()) for a, b in zip(
+        rope_cos_sin(pos[:, c], cfg.head_dim, cfg.rope_theta), (cos, sin)))
+        for c in range(3))
+    print(f"[vlm] M-RoPE (sections {cfg.mrope_sections}, head dim "
+          f"{cfg.head_dim}) on the card at grid positions (2, 3, {S}) "
+          f"against f64 on the host: max |err| {err:.3e} (limit {tol:.3e}); "
+          f"plain rope of one component {apart:.3e} away", flush=True)
+    check(err <= tol, f"M-RoPE table off by {err:.3e}")
+    check(apart > 100 * tol,
+          "M-RoPE table equals the plain rope of a component")
+
+
+def _narrow_vlm128():
+    """The f32 exactness config of qwen2-vl: its smoke config (2 layers,
+    d_model 256) at the full config's head dim 128, sections 16/24/24 and
+    group G 8 (8 heads on 1 KV head). The smoke config's 4 heads on 2
+    run G 2 at head dim 64."""
+    import dataclasses
+    from repro_torch.configs import registry
+    return dataclasses.replace(registry.get_smoke_config(QWEN_VL),
+                               n_heads=8, n_kv_heads=1, head_dim=128,
+                               mrope_sections=(16, 24, 24))
+
+
+def phase_vlm(card: str):
+    """qwen2-vl-72b at full width with its depth cut to
+    QWEN_VL_SERVE_LAYERS (f32 params of 80 layers, 291 GB, fit no card):
+    served on phase 4's path with stub patch embeddings and grid positions
+    (``phase_serve``; one flash forward a layer a prefill, all on the bf16
+    wgmma route, at D 128 and G 8); M-RoPE on the card against f64;
+    QWEN_VL_TRAIN_STEPS SGD steps at full width with the depth cut to
+    QWEN_VL_TRAIN_LAYERS, on batches with stub patch embeddings
+    (``phase_step_train``; SWAP's state of ~26 bytes a parameter does not
+    fit one full-width layer beside the embeddings); then the f32
+    exactness on ``_narrow_vlm128``. Returns (every kernel's launches on
+    the serving path, on the training path)."""
+    import dataclasses
+    from repro_torch.configs import registry
+    t0 = time.perf_counter()
+    full = registry.get_config(QWEN_VL)
+    cut = dataclasses.replace(full, n_layers=QWEN_VL_SERVE_LAYERS)
+    print(f"[vlm-serve] {QWEN_VL} at {QWEN_VL_SERVE_LAYERS} of "
+          f"{full.n_layers} layers, full width: {_describe(cut)}",
+          flush=True)
+    serve = phase_serve(card, QWEN_VL, cfg=cut, tag="vlm-serve")
+    _mrope_check(cut)
+    train = phase_step_train(
+        card, dataclasses.replace(full, n_layers=QWEN_VL_TRAIN_LAYERS),
+        QWEN_VL_TRAIN_BATCH, QWEN_VL_TRAIN_SHAPE[1], QWEN_VL_TRAIN_STEPS,
+        "vlm-train")
+    narrow = _narrow_vlm128()
+    phase_exact(QWEN_VL, narrow)
+    phase_exact_train(QWEN_VL, cfg=narrow)
+    print(f"[vlm] phase time {time.perf_counter() - t0:.1f} s", flush=True)
     return serve, train
 
 
@@ -3726,6 +3926,7 @@ def main() -> None:
     zamba_serve, zamba_train = phase_zamba(card)
     minicpm_serve, minicpm_train = phase_minicpm(card)
     whisper_serve, whisper_train = phase_whisper(card)
+    vlm_serve, vlm_train = phase_vlm(card)
     cnn_launches = phase_cnn(card)
     # the CNN step's fresh process runs beside the experiments
     fresh = start_cnn_step()
@@ -3774,9 +3975,14 @@ def main() -> None:
             row["minicpm3_launches"] = {"train": minicpm_train[row["name"]]}
         if row["name"] in FLASH_KERNELS:
             row["whisper_launches"] = {"train": whisper_train[row["name"]]}
+        # qwen2-vl-72b: the flash kernels on its full-width train steps,
+        # the forward on its full-width serving path
+        if row["name"] in FLASH_KERNELS:
+            row["qwen2vl_launches"] = {"train": vlm_train[row["name"]]}
         if row["name"] == "flash_attention_fwd":
             for key, serve in (("minicpm3_launches", minicpm_serve),
-                               ("whisper_launches", whisper_serve)):
+                               ("whisper_launches", whisper_serve),
+                               ("qwen2vl_launches", vlm_serve)):
                 row[key]["serve"] = serve[row["name"]]
     import torch
     print(f"[chip_smoke] all phases in {time.perf_counter() - t_start:.1f} s",

@@ -24,7 +24,13 @@ B parameters, 27.0 GB in f32). minicpm3-4b: ``--arch minicpm3-4b --full``
 (MLA, the flash forward at head dim 96). The audio family: ``--arch
 whisper-base --full`` (encoder-decoder; stub frame embeddings (batch, 1500,
 512) made from the seed, as the reference makes them; decoder prompts up
-to its context of 448 tokens).
+to its context of 448 tokens). The vlm family: ``--arch qwen2-vl-72b``
+(M-RoPE; stub patch embeddings (batch, n_vision_tokens, d_model) from the
+seed in place of the first prompt tokens, as the reference makes them, so
+a prompt holds at least n_vision_tokens: 256 at full width, 16 in the
+smoke config). Its full width holds 72.7 B parameters, 291 GB in f32:
+one 80 GB card serves it with the depth cut (``chip_smoke.py`` serves
+QWEN_VL_SERVE_LAYERS of its 80 layers).
 
 Prefill and decode rates are reported separately (prompt tok/s vs generated
 tok/s), plus an overall rate that includes prefill. Runs on CUDA unless
@@ -74,8 +80,9 @@ def _decode_compiled(model, params, cache, tok, S, new_tokens):
 def generate(model: Model, params, prompts, new_tokens: int,
              extras=None, engine: str = "loop"):
     """Batched greedy generation. prompts: (B, S) integer tensor on the
-    params' device; ``extras``: keywords of the prefill (the audio
-    family's ``frames``). Returns (tokens (B, new_tokens) long on the CPU,
+    params' device; ``extras``: keywords of the prefill (the vlm family's
+    ``vision_embeds``, the audio family's ``frames``); decode takes none.
+    Returns (tokens (B, new_tokens) long on the CPU,
     stats)."""
     if engine not in ("loop", "compiled"):
         raise ValueError(f"unknown engine {engine!r}")
@@ -153,6 +160,10 @@ def main(argv=None):
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=g, device=dev)
     extras = {}
+    if cfg.family == "vlm":         # stub patch embeddings from the seed
+        extras["vision_embeds"] = torch.randn(
+            (args.batch, cfg.n_vision_tokens, cfg.d_model), generator=g,
+            device=dev).to(model.dtype)
     if cfg.family == "audio":       # stub frame embeddings from the seed
         extras["frames"] = torch.randn(
             (args.batch, cfg.encoder_seq, cfg.d_model), generator=g,

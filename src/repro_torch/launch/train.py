@@ -1,14 +1,17 @@
 """SWAP training launcher: twin of ``repro/launch/train.py``, one process.
 
 Runs the three-phase SWAP schedule on an LM architecture of the dense,
-moe, ssm or hybrid family with GQA or MLA attention (the smoke config by
-default; ``--full`` for the full one) on the synthetic Markov-LM task (the
-CNN is refused, as by the reference: its runs are
+moe, ssm, hybrid or vlm family with GQA or MLA attention (the smoke config
+by default; ``--full`` for the full one) on the synthetic Markov-LM task
+(the CNN is refused, as by the reference: its runs are
 ``repro_torch.experiments``; the audio family too, since this token data
 has no encoder frames, nor has the reference launcher's: its train step is
-``train.steps.make_lm_train_step`` on batches with ``frames``; the vlm
-family, not ported yet, is refused where ``models/model.py`` builds the
-model):
+``train.steps.make_lm_train_step`` on batches with ``frames``). The vlm
+family (qwen2-vl-72b) trains on the tokens alone, with no vision
+embeddings and M-RoPE at its default positions, as the reference launcher
+trains it; at full width it fits no card (~26 bytes a parameter of SWAP
+state for 72.7 B parameters), so ``--arch qwen2-vl-72b`` runs its smoke
+config:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \
       [--full] [--workers 4] [--phase1-steps 150] [--phase2-steps 60] \
@@ -142,7 +145,7 @@ def build(args, cfg=None) -> SWAP:
                           else 0.01)
     if args.optimizer == "adamw":
         args.peak_lr, lr_small = 3e-3, 1e-3
-    # the model first: a family not ported yet is refused before the data
+    # the model first: a config the port refuses is refused before the data
     adapter = LMAdapter(cfg, opt)
 
     data = make_markov_lm(args.seed, vocab=min(cfg.vocab_size, 512),

@@ -1,5 +1,5 @@
-"""GQA attention (+bias, sliding window, cross) and MLA: train, prefill and
-decode.
+"""GQA attention (+bias, sliding window, cross, M-RoPE) and MLA: train,
+prefill and decode.
 
 Twin of the GQA and MLA parts of ``repro/models/attention.py``. Prefill
 attention goes through the flash-attention op (the hand-written kernel on
@@ -60,9 +60,12 @@ def _qkv(params, x, kv_x, cfg: ModelConfig, dtype):
 
 
 def _rope(cfg: ModelConfig, q, k, positions):
+    """Rope on q and k at ``positions``: (B, S), or (B, 3, S) under M-RoPE
+    (``cfg.mrope_sections``)."""
     if positions is None:
         return q, k
-    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
+                            cfg.mrope_sections)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin)
 
 
@@ -168,12 +171,14 @@ def _slot_positions(pos, cache_len: int, window: int):
 
 
 def gqa_decode(params, x, cache, pos, cfg: ModelConfig, *, window: int = 0,
-               cross: bool = False, use_rope: bool = True):
+               positions=None, cross: bool = False, use_rope: bool = True):
     """One-token decode. x: (B,1,d); cache{k,v}: (B,L,KVH,Dh); pos: a Python
     int (one position for the batch) or a (B,) long tensor (per-request
-    positions, continuous batching). ``cross``: the cache is the encoder's
-    static K/V, and only q is computed. Returns (out, new_cache); the input
-    cache is left as it was."""
+    positions, continuous batching). ``positions``: the token's rope
+    positions, (B, 1) or (B, 3, 1) under M-RoPE; (B, 1) ``pos`` by
+    default. ``cross``: the cache is the encoder's static K/V, and
+    only q is computed. Returns (out, new_cache); the input cache is left
+    as it was."""
     dtype = x.dtype
     B = x.shape[0]
     H, Dh = cfg.n_heads, cfg.head_dim
@@ -188,8 +193,9 @@ def gqa_decode(params, x, cache, pos, cfg: ModelConfig, *, window: int = 0,
     q, k_new, v_new = _qkv(params, x, x, cfg, dtype)
     vec = isinstance(pos, torch.Tensor)
     if use_rope:
-        positions = (pos[:, None] if vec
-                     else torch.full((B, 1), pos, device=x.device))
+        if positions is None:
+            positions = (pos[:, None] if vec
+                         else torch.full((B, 1), pos, device=x.device))
         q, k_new = _rope(cfg, q, k_new, positions)
 
     L = cache["k"].shape[1]
@@ -321,19 +327,21 @@ def mla_forward(params, x, cfg: ModelConfig, *, positions,
     return out, {"c_kv": c_kv, "k_rope": k_rope}
 
 
-def mla_decode(params, x, cache, pos, cfg: ModelConfig):
+def mla_decode(params, x, cache, pos, cfg: ModelConfig, positions=None):
     """Absorbed-latent decode: attention runs in the kv_lora_rank space over
     the (B, L, r) + (B, L, rope) cache, in plain PyTorch as the reference
     runs it in plain jnp. pos: a Python int or a (B,) long tensor (per-slot
-    positions). Returns (out, new_cache); the input cache is left as it
+    positions); ``positions``: the token's (B, 1) rope positions, ``pos``
+    by default. Returns (out, new_cache); the input cache is left as it
     was."""
     m = cfg.mla
     dtype = x.dtype
     B = x.shape[0]
     H = cfg.n_heads
     vec = isinstance(pos, torch.Tensor)
-    positions = (pos[:, None] if vec
-                 else torch.full((B, 1), pos, device=x.device))
+    if positions is None:
+        positions = (pos[:, None] if vec
+                     else torch.full((B, 1), pos, device=x.device))
     q_nope, q_rope = _mla_q(params, x, cfg, positions, dtype)    # (B,1,H,.)
     c_new, kr_new = _mla_latent(params, x, cfg, positions, dtype)
 

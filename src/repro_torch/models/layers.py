@@ -1,7 +1,7 @@
 """Shared layer primitives: inits, norms, RoPE, MLP, embeds.
 
-Twin of ``repro/models/layers.py`` for the dense, moe, ssm, hybrid and
-audio families (whisper's fixed sinusoidal positions). Params
+Twin of ``repro/models/layers.py`` for the dense, moe, ssm, hybrid, audio
+(whisper's fixed sinusoidal positions) and vlm (M-RoPE) families. Params
 stay f32 and are cast to the compute dtype at each matmul (``mdot``).
 """
 from __future__ import annotations
@@ -85,7 +85,7 @@ def gated_rmsnorm(x, z, scale, eps: float = 1e-6):
 
 
 # ---------------------------------------------------------------------------
-# RoPE (standard; M-RoPE waits for the vlm slice)
+# RoPE (standard + M-RoPE)
 # ---------------------------------------------------------------------------
 
 
@@ -102,13 +102,28 @@ def rope_freqs(head_dim: int, theta: float, device=None):
                      exps)
 
 
-def rope_cos_sin(positions, head_dim: int, theta: float):
-    """positions: (..., S) int. Returns (cos, sin) of shape
-    (..., S, head_dim//2)."""
+def rope_cos_sin(positions, head_dim: int, theta: float,
+                 mrope_sections: Tuple[int, ...] = ()):
+    """positions: (..., S) int for standard rope, or (..., 3, S) for M-RoPE
+    (``mrope_sections``: the widths of the temporal, height and width
+    sections of the half-dim; section i takes component i of the
+    positions). Returns (cos, sin) of shape (..., S, head_dim//2)."""
     # one table per (head_dim, theta, device), made once: building it
     # copies theta to the device, which would stall the host every layer
     inv = _rope_freqs_on(head_dim, theta, positions.device)
-    ang = positions[..., :, None].float() * inv
+    if mrope_sections:
+        if positions.shape[-2] != len(mrope_sections):
+            raise ValueError(
+                f"M-RoPE positions must be (..., {len(mrope_sections)}, S); "
+                f"got {tuple(positions.shape)}")
+        parts, off = [], 0
+        for i, sec in enumerate(mrope_sections):
+            parts.append(positions[..., i, :, None].float()
+                         * inv[off:off + sec])
+            off += sec
+        ang = torch.cat(parts, dim=-1)
+    else:
+        ang = positions[..., :, None].float() * inv
     return torch.cos(ang), torch.sin(ang)
 
 

@@ -1,6 +1,6 @@
 """Model assembly for the dense (internlm2, qwen2.5, gemma3, minicpm3), moe
-(granite-moe, qwen3-moe, deepseek-v2-lite), ssm (mamba2), hybrid (zamba2)
-and audio (whisper) families, with GQA or MLA attention.
+(granite-moe, qwen3-moe, deepseek-v2-lite), ssm (mamba2), hybrid (zamba2),
+audio (whisper) and vlm (qwen2-vl) families, with GQA or MLA attention.
 
 Twin of ``repro/models/model.py``. Layers are grouped into *pattern units*
 exactly as in the reference (gemma3: unit = 5 local + 1 global layers), and
@@ -31,6 +31,16 @@ prefill caches each layer's encoder K/V under ``"x"``, which decode reads
 and never changes. As in the reference, the encoder is not
 rematerialized.
 
+The vlm family (qwen2-vl): M-RoPE, whose rope positions are (B, 3, S)
+(temporal, height, width; by default the token index in all three), each
+component rotating its own section of the half-dim
+(``cfg.mrope_sections``). The vision encoder is a stub, as in the
+reference: ``vision_embeds`` (B, n_vision_tokens, d_model), patch
+embeddings cast to the compute dtype, take the place of the first
+n_vision_tokens token embeddings in ``apply`` and ``prefill``. Decode
+takes text tokens only; its rope positions are ``pos`` in all three
+components unless ``positions`` (B, 3, 1) are given.
+
 Training (``apply`` under autograd) rematerializes each pattern unit when
 ``cfg.remat`` is set, as the reference's ``jax.checkpoint`` does:
 ``torch.utils.checkpoint`` (non-reentrant); with ``remat_policy="dots"`` the
@@ -38,8 +48,7 @@ outputs of the weight matmuls (``aten.mm``/``aten.addmm``, which have no
 batch dims) are saved and everything else is recomputed, the twin of
 ``dots_with_no_batch_dims_saveable``. Remat changes memory, not numbers.
 
-Families, attention kinds and M-RoPE outside this slice (the vlm family,
-qwen2-vl) are refused at construction.
+An attention kind other than GQA and MLA is refused at construction.
 """
 from __future__ import annotations
 
@@ -107,26 +116,20 @@ def _save_dots_context():
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Refuse configs outside the ported slice, naming the ROADMAP item
-    that will add them."""
+    """Refuse configs the Model does not take: the cnn family (a
+    functional model of its own) and attention kinds other than GQA and
+    MLA."""
     if cfg.family == "cnn":
         raise NotImplementedError(
             f"{cfg.name}: the cnn family is not a Model: it is the functional "
             f"repro_torch.models.cnn (init_cnn, apply_cnn), as in the "
             f"reference")
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "audio"):
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
-            f"A11 other families)")
     if cfg.family == "ssm":
         return
     if cfg.attention not in ("gqa", "mla"):
         raise NotImplementedError(
-            f"{cfg.name}: attention {cfg.attention!r} is not ported yet "
-            f"(ROADMAP A11 other families)")
-    if cfg.mrope_sections:
-        raise NotImplementedError(
-            f"{cfg.name}: M-RoPE is not ported yet (ROADMAP A11, qwen2-vl)")
+            f"{cfg.name}: attention {cfg.attention!r} is not ported: the "
+            f"port takes 'gqa' and 'mla'")
 
 
 class Model:
@@ -265,17 +268,18 @@ class Model:
         y, aux = self._ffn(p, x, kind)
         return h + y, cache, aux
 
-    def _block_decode(self, p, h, kind: LayerKind, cache, pos):
+    def _block_decode(self, p, h, kind: LayerKind, cache, pos, positions):
         cfg = self.cfg
         x = apply_norm(p["ln1"], h, cfg.norm, cfg.norm_eps)
         if kind.block == "mamba":
             y, mc = mamba2.mamba_decode(p["mamba"], x, cache["m"], cfg)
             return h + y, {"m": mc}
         if cfg.attention == "mla":
-            y, ac = attn.mla_decode(p["attn"], x, cache["a"], pos, cfg)
+            y, ac = attn.mla_decode(p["attn"], x, cache["a"], pos, cfg,
+                                    positions=positions)
         else:
             y, ac = attn.gqa_decode(p["attn"], x, cache["a"], pos, cfg,
-                                    window=kind.window,
+                                    window=kind.window, positions=positions,
                                     use_rope=self.use_rope)
         h = h + y
         new_cache = {"a": ac}
@@ -317,19 +321,36 @@ class Model:
     # embedding / head
     # ------------------------------------------------------------------
 
-    def _embed(self, params, tokens, positions):
-        """Token embeddings; the audio decoder adds sinusoidal positions
-        (``positions``: (B, S))."""
+    def _embed(self, params, tokens, positions, vision_embeds=None):
+        """Token embeddings; in the vlm family ``vision_embeds`` (B, nv,
+        d_model), cast to the compute dtype, replace the first nv of them;
+        the audio decoder adds sinusoidal positions (``positions``: (B,
+        S))."""
         # a gather then a cast gives the values of the reference's cast
         # then gather, without casting the whole table
         h = params["embed"]["table"][tokens].to(self.dtype)
+        if self.cfg.family == "vlm" and vision_embeds is not None:
+            nv, S = vision_embeds.shape[1], tokens.shape[1]
+            if nv > S:
+                # the reference's concatenation would return nv > S
+                # embeddings, which its positions do not cover
+                raise ValueError(
+                    f"{self.cfg.name}: {nv} vision embeddings do not fit a "
+                    f"sequence of {S} tokens: the prompt must hold at least "
+                    f"n_vision_tokens = {nv} tokens")
+            h = torch.cat([vision_embeds.to(self.dtype), h[:, nv:]], dim=1)
         if self.cfg.family == "audio":
             h = h + sinusoidal_embedding(positions,
                                          self.cfg.d_model).to(self.dtype)
         return h
 
     def _default_positions(self, B, S, device):
-        return torch.arange(S, device=device)[None, :].expand(B, S)
+        """(B, S) token indices; (B, 3, S), the index in each component,
+        under M-RoPE."""
+        pos = torch.arange(S, device=device)[None, :].expand(B, S)
+        if self.cfg.mrope_sections:
+            pos = pos[:, None, :].expand(B, 3, S)
+        return pos
 
     def _encode(self, params, frames):
         """The audio encoder on stub frame embeddings (B, encoder_seq,
@@ -367,16 +388,21 @@ class Model:
             kw["context_fn"] = _save_dots_context
         return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
 
-    def apply(self, params, tokens, frames=None):
+    def apply(self, params, tokens, *, positions=None, vision_embeds=None,
+              frames=None):
         """Full-sequence forward. Returns (logits, aux_loss): the sum of the
-        MoE layers' router aux losses (0 without MoE layers). ``frames``:
-        the audio family's encoder input (B, encoder_seq, d_model)."""
+        MoE layers' router aux losses (0 without MoE layers).
+        ``positions``: (B, S), or (B, 3, S) under M-RoPE; the token indices
+        by default. ``vision_embeds``: the vlm family's stub patch
+        embeddings (B, n_vision_tokens, d_model). ``frames``: the audio
+        family's encoder input (B, encoder_seq, d_model)."""
         cfg = self.cfg
         B, S = tokens.shape
-        positions = self._default_positions(B, S, tokens.device)
+        if positions is None:
+            positions = self._default_positions(B, S, tokens.device)
         enc_out = (self._encode(params, frames) if cfg.is_encoder_decoder
                    else None)
-        h = self._embed(params, tokens, positions)
+        h = self._embed(params, tokens, positions, vision_embeds)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
 
         def layer(h, aux, p, kind, enc_out):
@@ -403,17 +429,19 @@ class Model:
         return self._head(params, h), aux
 
     def prefill(self, params, tokens, *, cache_len: Optional[int] = None,
-                frames=None):
+                positions=None, vision_embeds=None, frames=None):
         """Returns (last-token logits (B, vocab), cache) with caches padded
         to ``cache_len`` (window layers: to min(cache_len, window); a cross
-        layer's encoder K/V as they are). ``frames``: as for ``apply``."""
+        layer's encoder K/V as they are). ``positions``, ``vision_embeds``
+        and ``frames``: as for ``apply``."""
         cfg = self.cfg
         B, S = tokens.shape
         cache_len = cache_len or S
-        positions = self._default_positions(B, S, tokens.device)
+        if positions is None:
+            positions = self._default_positions(B, S, tokens.device)
         enc_out = (self._encode(params, frames) if cfg.is_encoder_decoder
                    else None)
-        h = self._embed(params, tokens, positions)
+        h = self._embed(params, tokens, positions, vision_embeds)
 
         def pad_cache(c, kind: LayerKind):
             if kind.block == "mamba":
@@ -442,27 +470,31 @@ class Model:
         logits = self._head(params, h[:, -1:])[:, 0]
         return logits, cache
 
-    def decode(self, params, cache, token, pos):
+    def decode(self, params, cache, token, pos, *, positions=None):
         """One decode step. token: (B,1) long; pos: a Python int (absolute
         position for the batch) or a (B,) long tensor of per-request
-        positions (continuous batching). Returns (logits (B, vocab),
-        new_cache); the input cache is left as it was."""
+        positions (continuous batching). ``positions``: the token's rope
+        positions, (B, 1) or (B, 3, 1) under M-RoPE; ``pos`` in every
+        component by default. Returns (logits (B, vocab), new_cache); the
+        input cache is left as it was."""
         cfg = self.cfg
-        positions = None
-        if cfg.family == "audio":       # sinusoidal positions of the token
+        B = token.shape[0]
+        if positions is None:
             positions = (pos[:, None] if isinstance(pos, torch.Tensor)
-                         else torch.full((token.shape[0], 1), pos,
-                                         device=token.device))
+                         else torch.full((B, 1), pos, device=token.device))
+            if cfg.mrope_sections:
+                positions = positions[:, None, :].expand(B, 3, 1)
         h = self._embed(params, token, positions)
         per_unit: List[Dict[str, Any]] = [{} for _ in range(self.n_units)]
         new_cache: Dict[str, Any] = {}
         for u, key, kind, p in self._layers(params):
             if u is None:
-                h, new_cache[key] = self._block_decode(p, h, kind, cache[key],
-                                                       pos)
+                h, new_cache[key] = self._block_decode(
+                    p, h, kind, cache[key], pos, positions)
             else:
                 h, per_unit[u][key] = self._block_decode(
-                    p, h, kind, _tree_index(cache["units"], u)[key], pos)
+                    p, h, kind, _tree_index(cache["units"], u)[key], pos,
+                    positions)
         if "units" in cache:
             new_cache["units"] = _tree_stack(per_unit)
         h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)

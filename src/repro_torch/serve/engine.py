@@ -9,7 +9,9 @@ with their positions frozen; their outputs are ignored and their rows are
 re-prefilled on admission, so they cannot touch live requests.
 
 This is the per-step oracle: one decode per step and a host read of every
-slot's token.
+slot's token. Requests are text: the vlm family (qwen2-vl) is served
+without vision embeddings, as by the reference's engine, its M-RoPE
+decode positions each slot's position in all three components.
 """
 from __future__ import annotations
 

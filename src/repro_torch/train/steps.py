@@ -30,9 +30,11 @@ def lm_loss_and_metrics(model: Model, params, batch: Dict):
     copy of a 256 x 64 x 92544 batch is 6 GB). Without a graph (eval) the
     shift and the exp run in place on one f32 copy: the same values, with
     two f32 copies fewer alive at once (gemma3-1b's eval batch of 256 x 64
-    x 262144 logits is 17.2 GB a copy). The audio family's encoder input
-    is ``batch["frames"]``."""
+    x 262144 logits is 17.2 GB a copy). The vlm family's stub patch
+    embeddings are ``batch["vision_embeds"]``, the audio family's encoder
+    input ``batch["frames"]``."""
     logits, aux = model.apply(params, batch["tokens"],
+                              vision_embeds=batch.get("vision_embeds"),
                               frames=batch.get("frames"))
     labels = batch["labels"].long()
     acc = (torch.argmax(logits, dim=-1) == labels).float().mean()

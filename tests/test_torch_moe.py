@@ -185,17 +185,30 @@ def test_init_moe_shapes_and_fan_in():
         assert abs(float(t.std()) / (trunc_std * scale) - 1) < 0.05, name
 
 
-@pytest.mark.parametrize("arch", ["whisper-base", "qwen2-vl-72b"])
+@pytest.mark.parametrize("arch", ["whisper-base"])
 def test_training_launcher_refuses_the_unported_families(arch):
-    """The training launcher takes the MoE family, MLA and the hybrid
-    family; the vlm family stays refused where the model is built
-    (``models/model.py``), and the audio family, which the model takes, by
-    the launcher itself (its token data has no frames, as the reference
-    launcher's has none); both before any data is made."""
-    msg = {"whisper-base": "needs frames", "qwen2-vl-72b": "ROADMAP A11"}
-    with pytest.raises(NotImplementedError, match=msg[arch]):
+    """The training launcher takes the MoE family, MLA, the hybrid and the
+    vlm family; the audio family, which the model takes, is refused by the
+    launcher itself (its token data has no frames, as the reference
+    launcher's has none), before any data is made."""
+    with pytest.raises(NotImplementedError, match="needs frames"):
         tlaunch.build(tlaunch.build_parser().parse_args(
             ["--arch", arch, "--device", "cpu", "--workers", "2"]))
+
+
+def test_training_launcher_builds_the_vlm_smoke_run():
+    """qwen2-vl-72b: its smoke and full models build (M-RoPE, no MoE
+    layer), and the training launcher builds the smoke run on the CPU on
+    token data, as the reference launcher does (no vision embeddings)."""
+    for get in (treg.get_smoke_config, treg.get_config):
+        model = TModel(get("qwen2-vl-72b"))
+        assert model.cfg.family == "vlm" and model.cfg.mrope_sections
+        assert not any(k.use_moe for k in model.unit_kinds + model.tail_kinds)
+    swap = tlaunch.build(tlaunch.build_parser().parse_args(
+        ["--arch", "qwen2-vl-72b", "--device", "cpu", "--workers", "2"]))
+    assert swap.adapter.cfg.family == "vlm"
+    assert swap.adapter.cfg.mrope_sections == (8, 12, 12)
+    assert swap.adapter.model.n_units == 2
 
 
 def test_training_launcher_takes_the_hybrid_family():

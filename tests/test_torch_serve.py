@@ -55,7 +55,8 @@ MOE_MLA = ["deepseek-v2-lite", "granite-moe-3b-a800m", "qwen3-moe-235b-a22b",
 
 
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "gemma3-1b",
-                                  "mamba2-2.7b", "zamba2-7b"] + MOE_MLA)
+                                  "mamba2-2.7b", "zamba2-7b"] + MOE_MLA
+                         + ["qwen2-vl-72b"])
 @pytest.mark.parametrize("engine", ["loop", "compiled"])
 def test_generate_matches_jax(arch, engine):
     jm, jp, tm, tp = _setup(arch)
@@ -80,12 +81,13 @@ def test_engine_five_requests_two_slots_match_jax():
     assert eng.active == 0 and not eng.waiting
 
 
-@pytest.mark.parametrize("arch", MOE_MLA + ["zamba2-7b"])
+@pytest.mark.parametrize("arch", MOE_MLA + ["zamba2-7b", "qwen2-vl-72b"])
 def test_engine_moe_and_mla_match_jax(arch):
     """5 prompts through 2 slots: MoE routing per slot, MLA's latent cache
-    ({c_kv, k_rope}) and the hybrid's per-unit shared-block K/V beside its
-    mamba states, each scattered into a slot from a batch-1 prefill and
-    decoded at per-slot positions."""
+    ({c_kv, k_rope}), the hybrid's per-unit shared-block K/V beside its
+    mamba states and the vlm's M-RoPE at (B, 3, 1) per-slot positions,
+    each scattered into a slot from a batch-1 prefill and decoded at
+    per-slot positions."""
     cfg = treg.get_smoke_config(arch)
     prompts = _prompts(cfg, [9, 17, 5, 12, 8], seed=7)
     want, got, eng = _serve_both(arch, prompts, max_batch=2, max_seq=48,
@@ -193,11 +195,11 @@ def test_main_serves_moe_smoke_on_cpu(arch, capsys):
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite",
-                                  "granite-moe-3b-a800m"])
+                                  "granite-moe-3b-a800m", "qwen2-vl-72b"])
 def test_full_moe_entry_point_refuses_a_missing_card(arch):
-    """--full (deepseek-v2-lite: 62.7 GB of f32 params) raises before it
-    allocates anything when no card is visible and the CPU was not asked
-    for."""
+    """--full (deepseek-v2-lite: 62.7 GB of f32 params; qwen2-vl-72b: 291
+    GB) raises before it allocates anything when no card is visible and
+    the CPU was not asked for."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is visible here")
     with pytest.raises(RuntimeError, match="no CUDA device"):
