@@ -57,15 +57,27 @@ Phases, each printing its own lines; any failed check exits non-zero:
    path, with every kernel's launch count set to 0 just before it and read
    just after; then prefill logits with the kernel against the plain
    attention on the card (in f32) and against the f32 model (in bf16); a
-   profiler window of a prefill and a decode step; the memory peak under
-   75 GB;
+   profiler window of a prefill and a decode step; then the compiled
+   engine (``serve/compiled.py``) on the same model: 16 requests through
+   8 slots, max_seq 1024, K 8, 64 tokens each, its K-step block replayed
+   as one CUDA graph on the dense and the paged layout and run eagerly,
+   bucket-length prompts token-exact against the ServingEngine, the
+   graph's tokens against the eager ones, one flash forward a layer an
+   admission on the bf16 route, the int8 pool's bytes a token against
+   the dense bf16 cache's, a profiler window of one replay beside one
+   ServingEngine step; the memory peak under 75 GB;
 5. full-width SWAP training (``repro_torch.launch.train`` with --full
    --workers 2 and the elastic phase 3): the training main path, counted
    the same way; every kernel of the path must launch in it, losses and
    accuracies must be finite, and the elastic average must agree with the
    plain mean of the same phase-2 models;
 6. smoke-width exactness in f32: continuous batching against
-   single-request generation, token for token; whole-model gradients with
+   single-request generation, token for token; the compiled engine's CPU
+   test scenarios through its CUDA graph (``phase_compiled_exact``: equal
+   to the ServingEngine and generate, paged = dense, the int8 trio, a
+   3-page pool, an EOS inside a block with a slot reused, categorical
+   sampling, MLA, MoE and M-RoPE decodes, each graph run equal to its
+   eager run); whole-model gradients with
    the kernels against plain autograd; a whole SWAP run with the kernels
    against the same run on the plain versions;
 7. phases 4-6 for gemma3-1b (the flash kernels at head dim 256; 22 local
@@ -97,7 +109,10 @@ Phases, each printing its own lines; any failed check exits non-zero:
    exactness of phase 6 on the ``_narrow_moe`` configs, the plain run's
    expert choices replayed in the kernel run (``_fixed_routes``);
 10. phases 4-6 again for mamba2-2.7b (the ssm family, on the SSD kernels):
-   serving at full width (64 layers), SWAP training at full width with the
+   serving at full width (64 layers; also through the compiled engine,
+   bucket-length prompts token-exact against the ServingEngine, one SSD
+   forward a layer an admission on the bf16 route), SWAP training at full
+   width with the
    depth cut to 32 layers (MAMBA_TRAIN_LAYERS: 64 layers do not fit the
    card, 62 ran out of memory in phase 2, 56 ran; 32 for the run's time
    limit), every SSD launch of both on the
@@ -219,7 +234,10 @@ train steps and, for the forward, its serving path, and the forward's
 on the flash rows: on qwen2-vl-72b's full-width train steps and, for the
 forward, its full-width serving path, the forward's ``qwen2vl_prefill``
 and the dQ, dK/dV and delta rows' ``qwen2vl_train_shape``: their times
-there); the line before
+there; the flash forward's ``bucket_prefill`` and the SSD forward's
+``bucket_shape``: their times at the compiled engine's batch-1 bucket
+of 512, and ``compiled_launches``: their launches on the compiled
+engine's full-width paths, internlm2's and mamba2's); the line before
 them gives the run's seconds; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -272,6 +290,17 @@ BWD_ROUNDED_ABS, BWD_ROUNDED_L2 = 2.0 ** -12, 1e-3
 GRAD_TOL, GRAD_L2_TOL = 5e-4, 1e-5
 PREFILL_SHAPE = (8, 512, 512, 16, 8, 128)        # B, Sq, Skv, H, KVH, D
 ENGINE_PROMPTS = (37, 200, 513, 128)             # ServingEngine requests
+# the compiled engine (serve/compiled.py) at full width: internlm2-1.8b,
+# 16 requests through 8 slots, max_seq 1024, K 8, 64 new tokens each;
+# prompts at bucket lengths (token-exact against the ServingEngine) and
+# between them (padded to the next bucket; their agreement is reported)
+COMPILED_SLOTS, COMPILED_MAX_SEQ, COMPILED_BLOCK = 8, 1024, 8
+COMPILED_NEW = 64
+COMPILED_PROMPTS = (64, 128, 256, 512) * 3 + (37, 200, 300, 700)
+# its prefills at batch 1 and bucket lengths: the doubling buckets of
+# max_seq 1024 and 96, a bucket not a multiple of 64; the S-512 one timed
+BUCKET_PROMPTS = (16, 64, 96, 512, 1024)
+BUCKET_PREFILL_SHAPE = (1, 512, 512, 16, 8, 128)
 # SWAP phase 1 of internlm2-1.8b at the launcher's batch and length
 TRAIN_SHAPE = (256, 64, 64, 16, 8, 128)          # B, Sq, Skv, H, KVH, D
 TRAIN_ARGV = ["--full", "--workers", "2", "--phase1-steps", "4",
@@ -346,6 +375,8 @@ SSD_ROUNDED_TOL = {"y": 2e-5, "states": 2e-5, "cum": 2e-5, "dx": 4e-5,
 # 512) and its SWAP phase 1 (batch 256, the launcher's sequence of 64)
 SSD_SERVE_SHAPE = (8, 512, 80, 64, 1, 128, 256)
 SSD_TRAIN_SHAPE = (256, 64, 80, 64, 1, 128, 64)
+# mamba2-2.7b's prefill in the compiled engine: batch 1, bucket 512
+SSD_BUCKET_SHAPE = (1, 512, 80, 64, 1, 128, 256)
 # 64 layers of mamba2-2.7b are 2.83 B parameters. On an H100 the training
 # run's phase-3 peak was 53.10 GB at 40 layers and 68.54 GB at 56, 0.965 GB
 # a layer, so 64 layers would need ~76.3 GB, over the 75 GB line of
@@ -659,6 +690,10 @@ def _grid():
     for S in ENGINE_PROMPTS:
         cases.append(((1, S, S) + QWEN_VL_PREFILL_SHAPE[3:], "bfloat16",
                       True, 0, 0))
+    # the compiled engine's batch-1 prefills at bucket lengths (appended
+    # too): the real rows first, the padding after them
+    for S in BUCKET_PROMPTS:
+        cases.append(((1, S, S) + PREFILL_SHAPE[3:], "bfloat16", True, 0, 0))
     return cases
 
 
@@ -682,7 +717,8 @@ def phase_kernel():
                               (MINICPM_TRAIN_SHAPE, 0),
                               (WHISPER_ENCODER_SHAPE, 0),
                               (WHISPER_CROSS_SHAPE, 0),
-                              (QWEN_VL_PREFILL_SHAPE, 0)))
+                              (QWEN_VL_PREFILL_SHAPE, 0),
+                              (BUCKET_PREFILL_SHAPE, 0)))
     for i, (shape, dtype, causal, window, q_offset) in enumerate(_grid()):
         D = shape[-1]
         q, k, v = _qkv(shape, getattr(torch, dtype), seed=i)
@@ -775,6 +811,10 @@ def phase_kernel():
     # qwen2-vl-72b's prefill: D 128 at G 8, the head-pair split
     q_prefill = _fwd_times(QWEN_VL_PREFILL_SHAPE, "qwen2-vl prefill",
                            seed=1251, cold=True)
+    # the compiled engine's prefill: one prompt at batch 1, bucket 512
+    b_prefill = _fwd_times(BUCKET_PREFILL_SHAPE,
+                           "internlm2 bucket prefill, batch 1", seed=1252,
+                           cold=True)
     sys.stdout.flush()
     return {
         "name": "flash_attention_fwd", "route": "cuda",
@@ -817,6 +857,8 @@ def phase_kernel():
         "whisper_encoder_train_shape": w_enc_train,
         "qwen2vl_prefill": {
             "max_abs_err": path_err[QWEN_VL_PREFILL_SHAPE, 0], **q_prefill},
+        "bucket_prefill": {
+            "max_abs_err": path_err[BUCKET_PREFILL_SHAPE, 0], **b_prefill},
     }
 
 
@@ -1693,6 +1735,8 @@ def phase_ssd():
             ("ssd_fwd", SSD_SERVE_SHAPE, False, "serve prefill"),
             ("ssd_fwd", SSD_TRAIN_SHAPE, False, "training phase 1"),
             ("ssd_bwd", SSD_TRAIN_SHAPE, True, "training phase 1"),
+            ("ssd_fwd", SSD_BUCKET_SHAPE, False,
+             "bucket prefill, batch 1"),
             ("ssd_fwd", ZAMBA_SSD_SERVE_SHAPE, False, "zamba2 serve prefill"),
             ("ssd_fwd", ZAMBA_SSD_TRAIN_SHAPE, False,
              "zamba2 training phase 1"),
@@ -1756,6 +1800,7 @@ def phase_ssd():
          "shape": serve["shape"],
          "train_shape": dict(times["ssd_fwd", "training phase 1"],
                              launches=None),
+         "bucket_shape": times["ssd_fwd", "bucket prefill, batch 1"],
          "zamba2_serve_shape": times["ssd_fwd", "zamba2 serve prefill"],
          "zamba2_train_shape": times["ssd_fwd", "zamba2 training phase 1"]},
         {"name": "ssd_bwd", "route": "cuda",
@@ -1838,6 +1883,7 @@ def _serve_profile(card, tag, label, step, tokens):
           f"window {window_ms:.2f} ms, device busy {busy:.2f} ms, idle "
           f"share {1 - busy / window_ms:.3f}; device ms by category: "
           f"{cats}; top kernels: {top}", flush=True)
+    return window_ms, busy
 
 
 @contextlib.contextmanager
@@ -1867,7 +1913,7 @@ def _fixed_routes(routes, replay: bool):
 
 
 def phase_serve(card: str, arch="internlm2-1.8b", S=512, engine=True,
-                tag="serve", cfg=None):
+                tag="serve", cfg=None, compiled=False):
     """``arch`` at full width (``cfg``: its full config, or one of it cut
     in depth) on the serving main path: generate's two
     engines at batch 8, prompt S, and with ``engine`` the ServingEngine's
@@ -1885,7 +1931,10 @@ def phase_serve(card: str, arch="internlm2-1.8b", S=512, engine=True,
     stub patch embeddings (batch, n_vision_tokens, d_model) from the seed,
     and the logits routes also image grid positions (``_grid_positions``)
     whose three M-RoPE components differ; the engine's requests are text.
-    Returns every kernel's launches on the main path."""
+    With ``compiled``, the compiled engine's full-width run follows on the
+    same model and params (``_compiled_serve``), inside the phase's memory
+    peak. Returns every kernel's launches on the main path (and under
+    "compiled" the flash forward's on the compiled engine's)."""
     import dataclasses
     import torch
     from repro_torch.configs import registry
@@ -2062,6 +2111,8 @@ def phase_serve(card: str, arch="internlm2-1.8b", S=512, engine=True,
         _serve_profile(card, tag, f"decode step at batch {B}",
                        lambda: model.decode(params, cache, tok, S), B)
         del cache
+    if compiled:
+        launches["compiled"] = _compiled_serve(card, model, params, tag)
     peak = torch.cuda.max_memory_allocated() / 1e9
     print(f"[{tag}] device memory peak of the phase: {peak:.2f} GB "
           f"(torch.cuda.max_memory_allocated, params included; limit "
@@ -2071,6 +2122,163 @@ def phase_serve(card: str, arch="internlm2-1.8b", S=512, engine=True,
     del params
     torch.cuda.empty_cache()
     return launches
+
+
+def _serve_requests(engine, reqs):
+    """``engine.run(reqs)`` under inference mode, timed on the host clock
+    to a synchronize: (tokens by rid, seconds)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        out = engine.run(reqs)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _first_difference(a, b):
+    """'equal', or the index of the first token where a and b differ."""
+    if a == b:
+        return "equal"
+    return next((f"differ from token {i}" for i, (x, y) in enumerate(zip(
+        a, b)) if x != y), f"lengths {len(a)} and {len(b)}")
+
+
+def _compiled_serve(card, model, params, tag):
+    """The compiled serving engine (``serve/compiled.py``) at full width,
+    bf16, on ``model`` and ``params`` (internlm2-1.8b): COMPILED_PROMPTS
+    through COMPILED_SLOTS slots, max_seq COMPILED_MAX_SEQ, K
+    COMPILED_BLOCK, COMPILED_NEW tokens each, on the dense and the paged
+    layout (K-step blocks replayed as one CUDA graph) and the dense one's
+    K-step function run eagerly on the card; the per-step ServingEngine on
+    the same requests; an engine with the paged int8 pool, built and not
+    run (the f32 checks run the int8 layouts). Checks: bucket-length
+    prompts token-exact against the ServingEngine on both bf16 layouts;
+    the graph's tokens equal to the eager K-step function's for every
+    request; one block read a decode call; one flash forward a layer an
+    admission, all on the bf16 route; the int8 pool fewer bytes a token
+    than the dense bf16 cache. Prints how far the padded prompts agree,
+    each run's rate and a profiler window of one replay beside one
+    ServingEngine step at the same batch. Returns the flash forward's
+    launches on the dense graph's run."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.serve import (CompiledServingEngine, Request,
+                                   ServingEngine, default_buckets)
+    cfg = model.cfg
+    t_phase = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    prompts = [torch.randint(0, cfg.vocab_size, (L,), generator=g,
+                             device="cuda") for L in COMPILED_PROMPTS]
+    buckets = set(default_buckets(COMPILED_MAX_SEQ))
+    B, K = COMPILED_SLOTS, COMPILED_BLOCK
+
+    def reqs():
+        return [Request(rid=i, prompt=p, max_new_tokens=COMPILED_NEW)
+                for i, p in enumerate(prompts)]
+
+    n_gen = len(prompts) * COMPILED_NEW
+    oracle, t_oracle = _serve_requests(
+        ServingEngine(model, params, max_batch=B, max_seq=COMPILED_MAX_SEQ),
+        reqs())
+    print(f"[{tag}] compiled engine, {len(prompts)} requests (prompts "
+          f"{sorted(set(COMPILED_PROMPTS))}) through {B} slots, max_seq "
+          f"{COMPILED_MAX_SEQ}, K {K}, {COMPILED_NEW} new tokens each; "
+          f"ServingEngine: {t_oracle:.2f} s, {n_gen / t_oracle:.1f} tok/s",
+          flush=True)
+    runs, fwd_dense = {}, None
+    for name, kw in (("dense", dict(kv_layout="dense")),
+                     ("paged", dict(kv_layout="paged")),
+                     ("dense eager", dict(kv_layout="dense",
+                                          cuda_graph=False))):
+        eng = CompiledServingEngine(model, params, max_batch=B,
+                                    max_seq=COMPILED_MAX_SEQ,
+                                    decode_block=K, **kw)
+        t0 = time.perf_counter()
+        eng.warmup()                 # a prefill a bucket; the capture
+        t_warm = time.perf_counter() - t0
+        _reset_launches()
+        out, secs = _serve_requests(eng, reqs())
+        fwd, fwd90 = kernel.flash_fwd.launches, kernel.flash_fwd.launches_sm90
+        st = eng.stats
+        check(eng.graphed == ("eager" not in name),
+              f"compiled {name}: graphed is {eng.graphed}")
+        check(st["decode_transfers"] == st["decode_calls"] > 0,
+              f"compiled {name}: {st['decode_transfers']} block reads for "
+              f"{st['decode_calls']} decode calls")
+        check(fwd == cfg.n_layers * st["admissions"] and fwd90 == fwd,
+              f"compiled {name}: {fwd} flash forwards ({fwd90} bf16 route) "
+              f"for {st['admissions']} admissions of {cfg.n_layers} layers")
+        check(all(len(out[i]) == COMPILED_NEW for i in out),
+              f"compiled {name}: a request ended short")
+        per_token = eng.cache_bytes() / (
+            eng.n_pages * eng.page_size if eng.kv_layout == "paged"
+            else B * COMPILED_MAX_SEQ)
+        print(f"[{tag}] compiled {name}: {secs:.2f} s, {n_gen / secs:.1f} "
+              f"tok/s (warmup and capture {t_warm:.2f} s); "
+              f"{st['decode_calls']} decode calls, {st['decode_transfers']} "
+              f"block reads, {st['admissions']} admissions, "
+              f"{st['prefill_compiles']} buckets; flash forwards {fwd} "
+              f"({fwd90} bf16 route); cache {eng.cache_bytes() / 1e9:.3f} "
+              f"GB, {per_token / 1e3:.1f} KB a token", flush=True)
+        runs[name] = (out, per_token)
+        if name == "dense":
+            fwd_dense = fwd
+            graph_eng = eng
+        else:
+            del eng
+        torch.cuda.empty_cache()
+    for i, L in enumerate(COMPILED_PROMPTS):
+        if L in buckets:
+            for name in ("dense", "paged"):
+                check(runs[name][0][i] == oracle[i],
+                      f"compiled {name}: request {i} (bucket-length prompt "
+                      f"{L}) differs from the ServingEngine: "
+                      f"{_first_difference(runs[name][0][i], oracle[i])}")
+        graph, eager = runs["dense"][0][i], runs["dense eager"][0][i]
+        check(graph == eager,
+              f"request {i} (prompt {L}): the graph's tokens differ from "
+              f"the eager K-step function's: "
+              f"{_first_difference(graph, eager)}")
+    padded = {f"{i} (prompt {L})": _first_difference(runs["dense"][0][i],
+                                                     oracle[i])
+              for i, L in enumerate(COMPILED_PROMPTS) if L not in buckets}
+    int8 = CompiledServingEngine(model, params, max_batch=B,
+                                 max_seq=COMPILED_MAX_SEQ, decode_block=K,
+                                 kv_layout="paged", kv_cache_dtype="int8")
+    int8_token = int8.cache_bytes() / (int8.n_pages * int8.page_size)
+    check(int8_token < runs["dense"][1]
+          and int8.cache_bytes() < graph_eng.cache_bytes(),
+          f"the int8 pool ({int8_token:.0f} B a token) is not below the "
+          f"dense bf16 cache ({runs['dense'][1]:.0f} B a token)")
+    del int8
+    print(f"[{tag}] compiled: bucket-length prompts token-exact against the "
+          f"ServingEngine (dense and paged bf16); the graph's tokens equal "
+          f"the eager K-step function's for all {len(prompts)} requests; "
+          f"padded prompts against the ServingEngine: {padded}; the paged "
+          f"int8 pool {int8_token / 1e3:.1f} KB a token against the dense "
+          f"bf16 cache's {runs['dense'][1] / 1e3:.1f}", flush=True)
+    # one replay (K steps at batch B) beside one ServingEngine step at the
+    # same batch, both with every slot decoding
+    with torch.inference_mode():
+        g_ms, g_busy = _serve_profile(
+            card, tag, f"compiled decode block (graph replay, {K} steps) at "
+            f"batch {B}", graph_eng._graph.replay, B * K)
+        serving = ServingEngine(model, params, max_batch=B,
+                                max_seq=COMPILED_MAX_SEQ)
+        for i in range(B):
+            serving.submit(Request(rid=i, prompt=prompts[i],
+                                   max_new_tokens=COMPILED_MAX_SEQ))
+        s_ms, s_busy = _serve_profile(
+            card, tag, f"ServingEngine step at batch {B}", serving.step, B)
+    print(f"[{tag}] decode ms a generated token at batch {B}: compiled "
+          f"graph {g_ms / (B * K):.4f} (idle {1 - g_busy / g_ms:.3f}), "
+          f"ServingEngine {s_ms / B:.4f} (idle {1 - s_busy / s_ms:.3f}); "
+          f"compiled phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    del graph_eng, serving
+    torch.cuda.empty_cache()
+    return fwd_dense
 
 
 def phase_mamba_serve(card: str):
@@ -2180,9 +2388,71 @@ def phase_mamba_serve(card: str):
     check(e_k <= 1.1 * e_r,
           f"mamba2 bf16 kernel prefill is further from the f32 model "
           f"({e_k:.3e}) than the plain version ({e_r:.3e})")
-    del params, logits
+    del logits
+    compiled = _compiled_mamba(card, model, params)
+    del params
     torch.cuda.empty_cache()
-    return launches
+    return launches, compiled
+
+
+def _compiled_mamba(card, model, params):
+    """mamba2-2.7b at full width through the compiled engine (dense SSM
+    caches, the K-step block as a CUDA graph): prompts at bucket lengths,
+    token-exact against the ServingEngine, and two padded to a bucket
+    (their agreement reported); one SSD forward a layer an admission, all
+    on the bf16 route. Returns the SSD forward's launches."""
+    import torch
+    from repro_torch.kernels.ssd import kernel
+    from repro_torch.serve import (CompiledServingEngine, Request,
+                                   ServingEngine, default_buckets)
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    lengths, n_new, slots = (64, 128, 256, 512, 100, 300), 16, 4
+    g = torch.Generator(device="cuda").manual_seed(8)
+    prompts = [torch.randint(0, cfg.vocab_size, (L,), generator=g,
+                             device="cuda") for L in lengths]
+
+    def reqs():
+        return [Request(rid=i, prompt=p, max_new_tokens=n_new)
+                for i, p in enumerate(prompts)]
+
+    eng = CompiledServingEngine(model, params, max_batch=slots,
+                                max_seq=COMPILED_MAX_SEQ, decode_block=8)
+    eng.warmup()
+    _reset_launches()
+    got, secs = _serve_requests(eng, reqs())
+    ssd, ssd90 = kernel.ssd_fwd.launches, kernel.ssd_fwd.launches_sm90
+    st = eng.stats
+    check(eng.graphed and eng.kv_layout == "dense",
+          f"mamba2 compiled: graphed {eng.graphed}, layout {eng.kv_layout}")
+    check(st["decode_transfers"] == st["decode_calls"] > 0,
+          "mamba2 compiled: more block reads than decode calls")
+    check(ssd == cfg.n_layers * st["admissions"] and ssd90 == ssd,
+          f"mamba2 compiled: {ssd} SSD forwards ({ssd90} bf16 route) for "
+          f"{st['admissions']} admissions of {cfg.n_layers} layers")
+    del eng
+    want, t_oracle = _serve_requests(
+        ServingEngine(model, params, max_batch=slots,
+                      max_seq=COMPILED_MAX_SEQ), reqs())
+    buckets = set(default_buckets(COMPILED_MAX_SEQ))
+    for i, L in enumerate(lengths):
+        if L in buckets:
+            check(got[i] == want[i],
+                  f"mamba2 compiled: request {i} (bucket-length prompt {L}) "
+                  f"differs from the ServingEngine: "
+                  f"{_first_difference(got[i], want[i])}")
+    padded = {f"{i} (prompt {L})": _first_difference(got[i], want[i])
+              for i, L in enumerate(lengths) if L not in buckets}
+    print(f"[mamba-serve] compiled engine, {len(lengths)} requests (prompts "
+          f"{list(lengths)}) through {slots} slots, K 8, {n_new} new tokens "
+          f"each on {card}: {secs:.2f} s against the ServingEngine's "
+          f"{t_oracle:.2f} s; {st['decode_calls']} decode calls, "
+          f"{st['decode_transfers']} block reads; ssd_fwd {ssd} launches "
+          f"({ssd90} bf16 route) for {st['admissions']} admissions; "
+          f"bucket-length prompts token-exact against the ServingEngine; "
+          f"padded: {padded}; {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    return ssd
 
 
 def _leaves(tree):
@@ -2225,6 +2495,158 @@ def phase_exact(arch="internlm2-1.8b", cfg=None, lengths=(9, 17, 5, 12, 8)):
           f"ServingEngine tokens equal single-request generate for "
           f"{len(prompts)} requests (prompts {list(lengths)}) through 2 "
           f"slots")
+
+
+def phase_compiled_exact():
+    """The compiled engine's CPU-test scenarios on the card in f32 at smoke
+    width, the K-step block replayed as a CUDA graph: compiled engine =
+    ServingEngine = single-request generate for internlm2 and mamba2 (5
+    requests, prompts 9/17/5/12/8, 2 slots, K 4); paged = dense for
+    internlm2, gemma3 (head dim 256) and zamba2 (``_narrow_zamba``); paged
+    int8 = dense int8 = the int8 ServingEngine; a 3-page pool that makes
+    admissions wait for pages; an EOS inside a block with one slot reused
+    by three requests; categorical sampling; and the families whose decode
+    has its own ops, each against the ServingEngine: MLA
+    (``_narrow_mla96``), MoE with MLA and with GQA (``_narrow_moe``, at
+    bucket-length prompts: a padded prompt changes an MoE layer's
+    capacity, in the reference too) and M-RoPE (``_narrow_vlm128``). Every
+    graph run also equals the same engine's K-step function run eagerly
+    on the card."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.model import Model
+    from repro_torch.serve import CompiledServingEngine, Request, ServingEngine
+
+    t0 = time.perf_counter()
+    lengths, n_new = (9, 17, 5, 12, 8), 6
+    cfgs = {"internlm2-1.8b": registry.get_smoke_config("internlm2-1.8b"),
+            MAMBA: registry.get_smoke_config(MAMBA),
+            GEMMA: dataclasses.replace(registry.get_smoke_config(GEMMA),
+                                       head_dim=256),
+            ZAMBA: _narrow_zamba(), MINICPM: _narrow_mla96(),
+            DEEPSEEK: _narrow_moe(DEEPSEEK), GRANITE: _narrow_moe(GRANITE),
+            QWEN_VL: _narrow_vlm128()}
+    params_of = {}
+
+    def setup(arch, **over):
+        """(f32 model with ``over``, the arch's params, made once)."""
+        if arch not in params_of:
+            g = torch.Generator(device="cuda").manual_seed(1)
+            params_of[arch] = Model(cfgs[arch]).init(g)
+        return (Model(dataclasses.replace(cfgs[arch], **over)),
+                params_of[arch])
+
+    def prompts(arch, lens=lengths, seed=2):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return [torch.randint(0, cfgs[arch].vocab_size, (L,), generator=g,
+                              device="cuda") for L in lens]
+
+    def reqs(ps, n=n_new, eos=None):
+        return [Request(rid=i, prompt=p, max_new_tokens=n,
+                        eos_id=None if eos is None else eos[i])
+                for i, p in enumerate(ps)]
+
+    def compiled(arch, ps, *, over=None, n=n_new, eos=None, **kw):
+        """Tokens of the graph run, after checking them against the eager
+        run of the same engine; and the graph engine."""
+        model, params = setup(arch, **(over or {}))
+        outs = []
+        for graph in (True, False):
+            kw2 = dict(max_batch=2, max_seq=64, decode_block=4)
+            kw2.update(kw)
+            eng = CompiledServingEngine(model, params, cuda_graph=graph,
+                                        **kw2)
+            with torch.inference_mode():
+                outs.append((eng.run(reqs(ps, n, eos)), eng))
+            st = eng.stats
+            check(eng.graphed == graph and st["decode_transfers"]
+                  == st["decode_calls"],
+                  f"compiled {arch} {kw}: graphed {eng.graphed}, "
+                  f"{st['decode_transfers']} block reads for "
+                  f"{st['decode_calls']} decode calls")
+        check(outs[0][0] == outs[1][0],
+              f"compiled {arch} {kw}: graph {outs[0][0]} != eager "
+              f"{outs[1][0]}")
+        return outs[0]
+
+    def oracle(arch, ps, *, over=None, n=n_new, eos=None, **kw):
+        model, params = setup(arch, **(over or {}))
+        with torch.inference_mode():
+            return ServingEngine(model, params, **kw).run(reqs(ps, n, eos))
+
+    for arch in ("internlm2-1.8b", MAMBA):
+        ps = prompts(arch)
+        got, _ = compiled(arch, ps)
+        check(got == oracle(arch, ps, max_batch=2, max_seq=64),
+              f"compiled {arch}: differs from the ServingEngine")
+        model, params = setup(arch)
+        for i, p in enumerate(ps):
+            want, _ = generate(model, params, p[None], n_new)
+            check(got[i] == want[0].tolist(),
+                  f"compiled {arch}: request {i} differs from generate")
+    for arch in ("internlm2-1.8b", GEMMA, ZAMBA):
+        ps = prompts(arch)
+        paged, eng = compiled(arch, ps, kv_layout="paged", page_size=16)
+        dense, _ = compiled(arch, ps, kv_layout="dense")
+        check(eng.kv_layout == "paged" and paged == dense,
+              f"compiled {arch}: paged {paged} != dense {dense}")
+    ps = prompts("internlm2-1.8b", (9, 14, 6), seed=3)
+    p8, _ = compiled("internlm2-1.8b", ps, kv_layout="paged",
+                     kv_cache_dtype="int8")
+    d8, _ = compiled("internlm2-1.8b", ps, kv_layout="dense",
+                     kv_cache_dtype="int8")
+    o8 = oracle("internlm2-1.8b", ps, over={"kv_cache_dtype": "int8"},
+                max_batch=2, max_seq=64)
+    check(p8 == d8 == o8, "compiled int8: paged, dense and the ServingEngine "
+                          "differ")
+    ps = prompts("internlm2-1.8b")
+    tiny, eng = compiled("internlm2-1.8b", ps, kv_layout="paged",
+                         page_size=16, n_pages=3)
+    waits = eng.stats["admit_page_waits"]
+    check(waits > 0 and tiny == oracle("internlm2-1.8b", ps, max_batch=2,
+                                       max_seq=64)
+          and len(eng._free_pages) == 2,
+          f"compiled 3-page pool: {waits} page waits, tokens or pages off")
+    # an EOS inside the first block of request 0, three requests through
+    # one slot
+    ps = prompts("internlm2-1.8b", (8, 10, 7), seed=5)
+    model, params = setup("internlm2-1.8b")
+    ref, _ = generate(model, params, ps[0][None], 6)
+    ref = ref[0].tolist()
+    stop = next(j for j in range(1, len(ref)) if ref[j] not in ref[:j])
+    eos = [ref[stop], None, None]
+    got, _ = compiled("internlm2-1.8b", ps, n=10, eos=eos, max_batch=1,
+                      max_seq=32)
+    want = oracle("internlm2-1.8b", ps, n=10, eos=eos, max_batch=1,
+                  max_seq=32)
+    check(got == want and got[0] == ref[:stop + 1],
+          f"compiled EOS mid-block with slot reuse: {got} != {want}")
+    # the decodes with their own ops: MLA's absorbed latent attention, the
+    # MoE dispatch, M-RoPE positions
+    for arch, lens in ((MINICPM, lengths), (DEEPSEEK, (16, 32, 16, 32, 16)),
+                       (GRANITE, (16, 32, 16, 32, 16)), (QWEN_VL, lengths)):
+        ps = prompts(arch, lens)
+        got, eng = compiled(arch, ps)
+        check(got == oracle(arch, ps, max_batch=2, max_seq=64),
+              f"compiled {arch} ({eng.kv_layout}): differs from the "
+              f"ServingEngine")
+    # categorical sampling in the graph: the key split and the Gumbel noise
+    # on the card, graph against eager from the same key
+    samples, _ = compiled("internlm2-1.8b", prompts("internlm2-1.8b"),
+                          sample="categorical", temperature=0.8)
+    print(f"[exact] compiled engine (K-step block as one CUDA graph), f32 "
+          f"smoke: equal to the ServingEngine and generate (internlm2, "
+          f"mamba2), paged = dense (internlm2, gemma3 at head dim 256, "
+          f"zamba2 at 112), equal to the ServingEngine (minicpm3's MLA, "
+          f"deepseek's and granite's MoE, qwen2-vl's M-RoPE), paged int8 = "
+          f"dense int8 = the int8 "
+          f"ServingEngine, a 3-page pool ({waits} page waits), an EOS "
+          f"inside a block with one slot reused, categorical sampling "
+          f"({sum(len(v) for v in samples.values())} tokens); every graph "
+          f"run equal to its eager K-step run; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3906,16 +4328,17 @@ def main() -> None:
     phase_build()
     rows = [phase_kernel(), *phase_kernel_bwd(), phase_swa_avg(),
             *phase_ssd()]
-    phase_serve(card)
+    compiled_fwd = phase_serve(card, compiled=True)["compiled"]
     launches = phase_train(card)
     phase_exact()
+    phase_compiled_exact()
     phase_exact_train()
     gemma_serve, gemma_train = phase_gemma(card)
     moe_serve = phase_moe(card)
     moe_train = phase_moe_train(card)
     # the ssm family: serving at full width, training at a cut depth
     from repro_torch.configs import registry
-    ssd_serve = phase_mamba_serve(card)
+    ssd_serve, ssd_compiled = phase_mamba_serve(card)
     cut = dataclasses.replace(registry.get_config(MAMBA),
                               n_layers=MAMBA_TRAIN_LAYERS)
     ssd_train = phase_train(card, ["--arch", MAMBA] + TRAIN_ARGV, cut,
@@ -3948,6 +4371,13 @@ def main() -> None:
                            else launches[row["name"]])
         if row["name"] == "ssd_fwd":
             row["train_shape"]["launches"] = ssd_train["ssd_fwd"]
+        # the compiled engine's path at full width: internlm2-1.8b's
+        # bucketed prefills on the flash forward, mamba2-2.7b's on the SSD
+        # forward (its decode blocks run no hand-written kernel)
+        if row["name"] == "flash_attention_fwd":
+            row["compiled_launches"] = compiled_fwd
+        if row["name"] == "ssd_fwd":
+            row["compiled_launches"] = ssd_compiled
         if row["name"] == "swa_avg":
             row["cnn_launches"] = cnn_launches
         if row["name"] in table3:

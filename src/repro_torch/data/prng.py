@@ -21,7 +21,9 @@ CPU's cache. ``uniform`` and ``normal`` also take ``device=``: the hash
 then runs in torch int64 ops (each word masked to 32 bits) on that device,
 as ``jax.random`` runs on its accelerator, and gives the same bits as the
 host path; the floats that follow are the same torch ops either way, so on
-the CPU the two paths are bitwise equal. Keys and
+the CPU the two paths are bitwise equal. A key that lives on an
+accelerator is hashed there with its words read on the device (``split``,
+and the float draws with ``device=``), never on the host. Keys and
 integer results are handed out as int64 tensors holding the uint32 values.
 Integer outputs are bitwise equal to JAX's; ``uniform`` is too; ``normal``
 and ``categorical``'s noise pass through ``log``/``log1p``/``sqrt`` of
@@ -48,7 +50,12 @@ def _shape(shape: Shape) -> Tuple[int, ...]:
     return (int(shape),) if isinstance(shape, int) else tuple(shape)
 
 
-def _words(key) -> Tuple[int, int]:
+def _words(key):
+    """The key's two words: Python ints, or, for a key on an accelerator,
+    0-d tensors there, so that a hash under it needs no host read (and can
+    be captured in a CUDA graph)."""
+    if isinstance(key, torch.Tensor) and key.device.type != "cpu":
+        return key[0], key[1]
     return int(key[0]) & M32, int(key[1]) & M32
 
 
@@ -71,10 +78,10 @@ def threefry2x32(k1: int, k2: int, x1: np.ndarray, x2: np.ndarray):
     return x1, x2
 
 
-def _threefry2x32_torch(k1: int, k2: int, x1: torch.Tensor,
-                        x2: torch.Tensor):
+def _threefry2x32_torch(k1, k2, x1: torch.Tensor, x2: torch.Tensor):
     """``threefry2x32`` on int64 tensors holding uint32 values, on their
-    device. Overwrites and returns x1 and x2."""
+    device, under key words that are ints or 0-d int64 tensors there.
+    Overwrites and returns x1 and x2."""
     ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
     tmp = torch.empty_like(x2)
     x1.add_(ks[0]).bitwise_and_(M32)
@@ -120,7 +127,12 @@ def fold_in(key, data: int) -> torch.Tensor:
 
 
 def split(key, num: int = 2) -> torch.Tensor:
-    """``num`` new keys, shape (num, 2)."""
+    """``num`` new keys, shape (num, 2). A key on an accelerator is split
+    there, in torch int64 ops, and the keys stay there."""
+    if isinstance(key, torch.Tensor) and key.device.type != "cpu":
+        b1 = torch.zeros(num, dtype=torch.int64, device=key.device)
+        b2 = torch.arange(num, dtype=torch.int64, device=key.device)
+        return torch.stack(_threefry2x32_torch(*_words(key), b1, b2), dim=-1)
     return _key(*_hash_iota(key, num))
 
 
@@ -200,9 +212,9 @@ def normal(key, shape: Shape = (), device=None) -> torch.Tensor:
     return torch.tensor(math.sqrt(2), dtype=torch.float32) * erfinv(u)
 
 
-def gumbel(key, shape: Shape) -> torch.Tensor:
+def gumbel(key, shape: Shape, device=None) -> torch.Tensor:
     tiny = torch.finfo(torch.float32).tiny
-    return -torch.log(-torch.log(uniform(key, shape, tiny, 1.0)))
+    return -torch.log(-torch.log(uniform(key, shape, tiny, 1.0, device)))
 
 
 def categorical(key, logits: torch.Tensor, axis: int = -1) -> torch.Tensor:

@@ -11,6 +11,15 @@ output, with no rope and no mask, and caches them once at prefill; its
 decode computes q alone and attends over that static cache. Caches are
 plain dicts of tensors; MLA's is the latent ``{c_kv, k_rope}``, not
 per-head K/V.
+
+The paged KV pool (``gqa_empty_page_pool``, ``gqa_decode_paged``) holds
+full-attention GQA caches as one ``(n_pages, page_size, KVH, Dh)`` pool
+shared by every slot of the compiled serving engine, read through per-slot
+block tables. Decode writes take fixed shapes only (no boolean indexing,
+no ``.item()``), so a decode step can be captured in a CUDA graph; with
+``inplace=True`` a decode writes its new row into the cache it was given,
+where by default it returns a written copy and leaves the input as it
+was.
 """
 from __future__ import annotations
 
@@ -71,10 +80,12 @@ def _rope(cfg: ModelConfig, q, k, positions):
 
 def gqa_forward(params, x, cfg: ModelConfig, *, positions=None,
                 window: int = 0, causal: bool = True, cross_x=None,
-                return_cache: bool = False):
+                return_cache: bool = False, length=None):
     """Train/prefill path. x: (B,S,d). cross_x: the encoder output for
     cross attention (k and v from it; no rope, no mask). Returns out or
-    (out, cache)."""
+    (out, cache). ``length``: the count of real tokens (an int) when x is
+    right-padded to a prefill bucket: window caches then take their slots
+    from real positions only."""
     dtype = x.dtype
     kv_src = cross_x if cross_x is not None else x
     q, k, v = _qkv(params, x, kv_src, cfg, dtype)
@@ -88,8 +99,8 @@ def gqa_forward(params, x, cfg: ModelConfig, *, positions=None,
     if not return_cache:
         return out
     if window > 0:
-        k = _window_slots(k, window)
-        v = _window_slots(v, window)
+        k = _window_slots(k, window, length)
+        v = _window_slots(v, window, length)
     return out, _maybe_quant_cache(cfg, k, v)
 
 
@@ -127,11 +138,20 @@ def _cache_kv(cache, dtype):
     return cache["k"], cache["v"]
 
 
-def _window_slots(kv, window: int):
+def _window_slots(kv, window: int, length=None):
     """Arrange the last `window` entries into circular slot order.
     kv: (B,S,KVH,Dh) -> (B,window,KVH,Dh) where slot i holds the latest
-    position p <= S-1 with p = i (mod window), or zeros if none."""
+    position p <= S-1 with p = i (mod window), or zeros if none.
+    ``length``: the count of real tokens; rows past it are bucket padding
+    and land in no slot."""
     B, S, KVH, Dh = kv.shape
+    if length is not None:
+        # the same rule with the real length: p = latest real pos = i mod W
+        i = torch.arange(window, device=kv.device)
+        p = (length - 1) - torch.remainder(length - 1 - i, window)
+        rows = kv.index_select(1, p.clamp(0, S - 1))
+        return torch.where((p >= 0)[None, :, None, None], rows,
+                           torch.zeros_like(rows))
     if S <= window:
         return torch.cat([kv, kv.new_zeros(B, window - S, KVH, Dh)], dim=1)
     slots = torch.arange(S - window, S, device=kv.device) % window
@@ -140,16 +160,21 @@ def _window_slots(kv, window: int):
     return out
 
 
-def _write_slot(buf, new, slot):
-    """A copy of the cache ``buf`` (B, L, ...) with ``new[b, 0]`` written at
-    ``slot`` of each row b; ``slot`` is a Python int, or a (B,) tensor of
-    per-row slots, where one past L drops its write, as a JAX scatter
-    does."""
-    out = buf.clone()
+def _write_slot(buf, new, slot, inplace: bool = False):
+    """The cache ``buf`` (B, L, ...) with ``new[b, 0]`` written at ``slot``
+    of each row b: a copy, or ``buf`` itself with ``inplace``. ``slot`` is a
+    Python int, or a (B,) tensor of per-row slots, where one past L drops
+    its write, as a JAX scatter does: the index is clamped and the row's
+    old value written back, so the op's shapes never depend on the
+    data."""
+    out = buf if inplace else buf.clone()
     if isinstance(slot, torch.Tensor):
-        ok = slot < buf.shape[1]
-        out[torch.arange(buf.shape[0], device=buf.device)[ok], slot[ok]] = \
-            new[ok, 0].to(buf.dtype)
+        L = buf.shape[1]
+        rows = torch.arange(buf.shape[0], device=buf.device)
+        idx = slot.clamp(max=L - 1)
+        keep = (slot < L).reshape((-1,) + (1,) * (new.dim() - 2))
+        out[rows, idx] = torch.where(keep, new[:, 0].to(buf.dtype),
+                                     out[rows, idx])
     else:
         out[:, slot] = new[:, 0].to(buf.dtype)
     return out
@@ -171,14 +196,16 @@ def _slot_positions(pos, cache_len: int, window: int):
 
 
 def gqa_decode(params, x, cache, pos, cfg: ModelConfig, *, window: int = 0,
-               positions=None, cross: bool = False, use_rope: bool = True):
+               positions=None, cross: bool = False, use_rope: bool = True,
+               inplace: bool = False):
     """One-token decode. x: (B,1,d); cache{k,v}: (B,L,KVH,Dh); pos: a Python
     int (one position for the batch) or a (B,) long tensor (per-request
     positions, continuous batching). ``positions``: the token's rope
     positions, (B, 1) or (B, 3, 1) under M-RoPE; (B, 1) ``pos`` by
     default. ``cross``: the cache is the encoder's static K/V, and
     only q is computed. Returns (out, new_cache); the input cache is left
-    as it was."""
+    as it was, unless ``inplace``: then the new row is written into it and
+    it is returned."""
     dtype = x.dtype
     B = x.shape[0]
     H, Dh = cfg.n_heads, cfg.head_dim
@@ -207,7 +234,7 @@ def gqa_decode(params, x, cache, pos, cfg: ModelConfig, *, window: int = 0,
         new = {"k": knq, "k_scale": kns, "v": vnq, "v_scale": vns}
     else:
         new = {"k": k_new, "v": v_new}
-    new_cache = {key: _write_slot(cache[key], t, slot)
+    new_cache = {key: _write_slot(cache[key], t, slot, inplace)
                  for key, t in new.items()}
     k, v = _cache_kv(new_cache, dtype)
 
@@ -245,6 +272,86 @@ def gqa_empty_cache(cfg: ModelConfig, batch: int, cache_len: int,
         return {"k": zq, "k_scale": zs, "v": zq.clone(), "v_scale": zs.clone()}
     z = torch.zeros(shape, dtype=dtype, device=device)
     return {"k": z, "v": z.clone()}
+
+
+# ---------------------------------------------------------------------------
+# paged KV pool (block tables over one pool shared by every slot)
+# ---------------------------------------------------------------------------
+
+
+def gqa_empty_page_pool(cfg: ModelConfig, n_pages: int, page_size: int,
+                        dtype, device):
+    """The KV page pool shared by every slot: ``(n_pages, page_size, KVH,
+    Dh)`` a leaf. Page 0 is the reserved null page: block-table entries of
+    unallocated regions (and of freed slots) point at it, so writes past a
+    slot's pages land in rows that the position mask never admits. The
+    int8 pool's scales start at ``1e-8 / 127``, as the dense cache's."""
+    shape = (n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.kv_cache_dtype == "int8":
+        zq = torch.zeros(shape, dtype=torch.int8, device=device)
+        zs = torch.full(shape[:3] + (1,), 1e-8 / 127.0, dtype=torch.float32,
+                        device=device)
+        return {"k": zq, "k_scale": zs, "v": zq.clone(), "v_scale": zs.clone()}
+    z = torch.zeros(shape, dtype=dtype, device=device)
+    return {"k": z, "v": z.clone()}
+
+
+def _write_page(buf, new, page, off, inplace: bool):
+    """``buf`` (n_pages, P, ...) with ``new[b, 0]`` written at row ``off[b]``
+    of page ``page[b]`` for every b (a copy, or ``buf`` with
+    ``inplace``)."""
+    out = buf if inplace else buf.clone()
+    out[page, off] = new[:, 0].to(buf.dtype)
+    return out
+
+
+def gqa_decode_paged(params, x, cache, pos, block_tables, cfg: ModelConfig,
+                     *, positions=None, use_rope: bool = True,
+                     inplace: bool = False):
+    """One-token decode against a paged KV pool.
+
+    cache leaves: ``(n_pages, page_size, KVH, Dh)``, the pool;
+    ``block_tables``: (B, M) long page ids a slot (0 = the null page); pos:
+    (B,) long per-slot positions; ``positions``: the token's rope positions,
+    (B, 1) or (B, 3, 1) under M-RoPE, (B, 1) ``pos`` by default.
+
+    The new token is written to ``pool[bt[b, pos // P], pos % P]``, then
+    each slot's pages are gathered into a (B, M*P) view. Rows <= pos of
+    that view hold what a dense per-slot cache would, and rows > pos are
+    masked out of the softmax, so greedy tokens equal the dense layout's.
+    Returns (out, new_cache); with ``inplace`` the pool is written in place
+    and returned, else a written copy is."""
+    dtype = x.dtype
+    B = x.shape[0]
+    q, k_new, v_new = _qkv(params, x, x, cfg, dtype)
+    if use_rope:
+        if positions is None:
+            positions = pos[:, None]
+        q, k_new = _rope(cfg, q, k_new, positions)
+
+    P = cache["k"].shape[1]                      # page size
+    M = block_tables.shape[1]
+    rows = torch.arange(B, device=x.device)
+    # a JAX gather clamps an index past the table, as this does
+    page = block_tables[rows, torch.div(pos, P, rounding_mode="floor")
+                        .clamp(max=M - 1)]
+    off = torch.remainder(pos, P)
+    if "k_scale" in cache:      # int8 pool: quantize the new token
+        knq, kns = quantize_kv(k_new)
+        vnq, vns = quantize_kv(v_new)
+        new = {"k": knq, "k_scale": kns, "v": vnq, "v_scale": vns}
+    else:
+        new = {"k": k_new, "v": v_new}
+    new_cache = {key: _write_page(cache[key], t, page, off, inplace)
+                 for key, t in new.items()}
+
+    def gather(buf):                   # (B, M, P, ...) -> (B, M*P, ...)
+        return buf[block_tables].reshape((B, M * P) + buf.shape[2:])
+
+    k, v = _cache_kv({key: gather(t) for key, t in new_cache.items()}, dtype)
+    out = _cache_attend(q, k, v, kpos=_slot_positions(pos, M * P, 0))
+    out = mdot(out.reshape(B, 1, -1), params["wo"], dtype)
+    return out, new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -327,13 +434,14 @@ def mla_forward(params, x, cfg: ModelConfig, *, positions,
     return out, {"c_kv": c_kv, "k_rope": k_rope}
 
 
-def mla_decode(params, x, cache, pos, cfg: ModelConfig, positions=None):
+def mla_decode(params, x, cache, pos, cfg: ModelConfig, positions=None,
+               inplace: bool = False):
     """Absorbed-latent decode: attention runs in the kv_lora_rank space over
     the (B, L, r) + (B, L, rope) cache, in plain PyTorch as the reference
     runs it in plain jnp. pos: a Python int or a (B,) long tensor (per-slot
     positions); ``positions``: the token's (B, 1) rope positions, ``pos``
     by default. Returns (out, new_cache); the input cache is left as it
-    was."""
+    was, unless ``inplace``: then it is written and returned."""
     m = cfg.mla
     dtype = x.dtype
     B = x.shape[0]
@@ -345,8 +453,8 @@ def mla_decode(params, x, cache, pos, cfg: ModelConfig, positions=None):
     q_nope, q_rope = _mla_q(params, x, cfg, positions, dtype)    # (B,1,H,.)
     c_new, kr_new = _mla_latent(params, x, cfg, positions, dtype)
 
-    c_kv = _write_slot(cache["c_kv"], c_new, pos)
-    k_rope = _write_slot(cache["k_rope"], kr_new, pos)
+    c_kv = _write_slot(cache["c_kv"], c_new, pos, inplace)
+    k_rope = _write_slot(cache["k_rope"], kr_new, pos, inplace)
 
     L = c_kv.shape[1]
     r = m.kv_lora_rank

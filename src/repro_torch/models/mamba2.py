@@ -7,9 +7,9 @@ CPU); decode keeps a (conv window, SSD state) cache, O(1) per token. The
 views of the conv output that the scan takes (x, B, C) are strided slices,
 which the kernels read in place.
 
-``mamba_forward``'s ``length=`` and ``init_cache=`` (right-padded prefill
-buckets and chunked-prefill continuation) serve the compiled engine, which
-is not ported yet (ROADMAP A12): they are refused.
+``mamba_forward``'s ``length=`` and ``init_cache=`` serve the compiled
+serving engine's right-padded prefill buckets and a chunked prefill's
+continuation, as in the reference.
 """
 from __future__ import annotations
 
@@ -86,12 +86,15 @@ def _causal_conv(xbc, w, b, dtype):
 
 def mamba_forward(params, u, cfg: ModelConfig, *, return_cache: bool = False,
                   init_cache=None, length=None):
-    """u: (B,S,d). Returns out or (out, cache{conv, state})."""
-    if init_cache is not None or length is not None:
-        raise NotImplementedError(
-            "mamba_forward(init_cache=..., length=...) serves the compiled "
-            "engine's bucketed and chunked prefill, not ported yet (ROADMAP "
-            "A12)")
+    """u: (B,S,d). Returns out or (out, cache{conv, state}).
+
+    ``init_cache``: a cache to continue from (a chunked prefill): its conv
+    window is prepended to the conv's input and its state starts the scan.
+    ``length``: the count of real tokens (an int) when u is right-padded
+    to a prefill bucket. dt is zeroed past it (decay exp(0 A) = 1,
+    contribution 0), so the final state is the state after exactly
+    ``length`` tokens, and the conv cache holds the last d_conv-1 real
+    inputs, not the padded tail."""
     s = cfg.ssm
     dtype = u.dtype
     B, S, _ = u.shape
@@ -100,31 +103,47 @@ def mamba_forward(params, u, cfg: ModelConfig, *, return_cache: bool = False,
 
     proj = mdot(u, params["in_proj"], dtype)
     z, xbc, dt_raw = _split_proj(cfg, proj)
-    conv = _causal_conv(xbc, params["conv_w"], params["conv_b"], dtype)
+    if init_cache is not None:
+        hist = init_cache["conv"].to(dtype)
+        conv = _causal_conv(torch.cat([hist, xbc], dim=1), params["conv_w"],
+                            params["conv_b"], dtype)[:, hist.shape[1]:]
+    else:
+        conv = _causal_conv(xbc, params["conv_w"], params["conv_b"], dtype)
     x = conv[..., :d_in].reshape(B, S, nh, s.head_dim)
     Bm = conv[..., d_in:d_in + gn].reshape(B, S, s.n_groups, s.d_state)
     Cm = conv[..., d_in + gn:].reshape(B, S, s.n_groups, s.d_state)
     dt = F.softplus(dt_raw.float() + params["dt_bias"])
+    if length is not None:
+        dt = torch.where(torch.arange(S, device=u.device)[None, :, None]
+                         < length, dt, 0.0)
     A = -torch.exp(params["A_log"])
 
-    y, final_state = ssd_scan(x, dt, A, Bm, Cm, params["D"],
-                              chunk=s.chunk_size, impl=cfg.ssd_impl,
-                              design=cfg.ssd_design or None)
+    y, final_state = ssd_scan(
+        x, dt, A, Bm, Cm, params["D"],
+        init_state=None if init_cache is None else init_cache["state"],
+        chunk=s.chunk_size, impl=cfg.ssd_impl, design=cfg.ssd_design or None)
     y = y.to(dtype).reshape(B, S, d_in)
     y = gated_rmsnorm(y, z, params["norm_scale"], cfg.norm_eps)
     out = mdot(y, params["out_proj"], dtype)
     if not return_cache:
         return out
     K1 = s.d_conv - 1
-    conv_cache = (xbc[:, S - K1:] if S >= K1
-                  else F.pad(xbc, (0, 0, K1 - S, 0)))
+    if length is not None:
+        idx = length - K1 + torch.arange(K1, device=u.device)
+        rows = xbc.index_select(1, idx.clamp(0, S - 1))
+        conv_cache = torch.where((idx >= 0)[None, :, None], rows,
+                                 torch.zeros_like(rows))
+    else:
+        conv_cache = (xbc[:, S - K1:] if S >= K1
+                      else F.pad(xbc, (0, 0, K1 - S, 0)))
     return out, {"conv": conv_cache, "state": final_state}
 
 
-def mamba_decode(params, u, cache, cfg: ModelConfig):
+def mamba_decode(params, u, cache, cfg: ModelConfig, inplace: bool = False):
     """One-token decode. u: (B,1,d); cache{conv (B,K-1,conv_dim),
     state (B,nh,P,N)}. Returns (out, new_cache); the cache is left as it
-    was."""
+    was, unless ``inplace``: then the new conv window and state are copied
+    into it and it is returned."""
     s = cfg.ssm
     dtype = u.dtype
     B = u.shape[0]
@@ -151,6 +170,10 @@ def mamba_decode(params, u, cache, cfg: ModelConfig):
     y = y.to(dtype).reshape(B, 1, d_in)
     y = gated_rmsnorm(y, z, params["norm_scale"], cfg.norm_eps)
     out = mdot(y, params["out_proj"], dtype)
+    if inplace:
+        cache["conv"].copy_(new_conv)
+        cache["state"].copy_(new_state)
+        return out, cache
     return out, {"conv": new_conv.to(cache["conv"].dtype),
                  "state": new_state}
 

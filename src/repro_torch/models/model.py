@@ -48,6 +48,16 @@ outputs of the weight matmuls (``aten.mm``/``aten.addmm``, which have no
 batch dims) are saved and everything else is recomputed, the twin of
 ``dots_with_no_batch_dims_saveable``. Remat changes memory, not numbers.
 
+Serving with the compiled engine (``serve/compiled.py``): ``prefill(...,
+length=)`` makes a right-padded prompt bucket exact (the logits of token
+``length-1``, window slots and SSM states from the real tokens only);
+``empty_cache(..., page_pool=)`` puts every pageable layer's K/V
+(full-attention GQA, ``pageable``) in a ``"p"`` page pool beside the dense
+``"a"``/``"m"`` leaves of the others, under the reference's key paths;
+``decode(..., block_tables=)`` reads and writes those pools, and
+``decode(..., inplace=True)`` writes the new rows into the cache it is
+given (the engine's own buffers) instead of returning a new tree.
+
 An attention kind other than GQA and MLA is refused at construction.
 """
 from __future__ import annotations
@@ -166,6 +176,28 @@ class Model:
         return unit, n_units, unit[:rem]
 
     # ------------------------------------------------------------------
+    # paged-cache capability
+    # ------------------------------------------------------------------
+
+    def pageable(self, kind: LayerKind) -> bool:
+        """Whether a layer's KV cache can live in a paged pool:
+        full-attention GQA self attention only. Window caches are already
+        O(window), SSM states O(1), and MLA and cross caches keep their
+        dense layout."""
+        return (kind.block == "attn" and kind.window == 0
+                and not kind.cross and self.cfg.attention == "gqa")
+
+    @property
+    def has_pageable(self) -> bool:
+        """True if any layer can use a paged pool (the compiled engine's
+        ``kv_layout="auto"`` is paged exactly then); the hybrid's shared
+        block counts."""
+        kinds = list(self.unit_kinds) + list(self.tail_kinds)
+        if self.cfg.family == "hybrid":
+            kinds.append(SHARED)
+        return any(self.pageable(k) for k in kinds)
+
+    # ------------------------------------------------------------------
     # init
     # ------------------------------------------------------------------
 
@@ -229,18 +261,19 @@ class Model:
         return apply_mlp(p["mlp"], x, self.cfg.act, self.dtype), None
 
     def _block_full(self, p, h, kind: LayerKind, positions, mode: str,
-                    enc_out=None):
+                    enc_out=None, length=None):
         """Returns (h, cache, aux); cache is {} unless mode == "prefill",
         aux is None unless the layer is MoE. mode "encode" is the audio
         encoder's non-causal self attention; ``enc_out``: the encoder
-        output that a cross layer attends to."""
+        output that a cross layer attends to; ``length``: the real tokens
+        of a right-padded prefill bucket (see ``prefill``)."""
         cfg = self.cfg
         cache = {}
         x = apply_norm(p["ln1"], h, cfg.norm, cfg.norm_eps)
         if kind.block == "mamba":
             if mode == "prefill":
-                y, cache["m"] = mamba2.mamba_forward(p["mamba"], x, cfg,
-                                                     return_cache=True)
+                y, cache["m"] = mamba2.mamba_forward(
+                    p["mamba"], x, cfg, return_cache=True, length=length)
             else:
                 y = mamba2.mamba_forward(p["mamba"], x, cfg)
             return h + y, cache, None
@@ -253,7 +286,7 @@ class Model:
                 p["attn"], x, cfg,
                 positions=positions if self.use_rope else None,
                 window=kind.window, causal=mode != "encode",
-                return_cache=prefill)
+                return_cache=prefill, length=length)
         if prefill:
             y, cache["a"] = y
         h = h + y
@@ -268,21 +301,30 @@ class Model:
         y, aux = self._ffn(p, x, kind)
         return h + y, cache, aux
 
-    def _block_decode(self, p, h, kind: LayerKind, cache, pos, positions):
+    def _block_decode(self, p, h, kind: LayerKind, cache, pos, positions,
+                      block_tables=None, inplace: bool = False):
         cfg = self.cfg
         x = apply_norm(p["ln1"], h, cfg.norm, cfg.norm_eps)
         if kind.block == "mamba":
-            y, mc = mamba2.mamba_decode(p["mamba"], x, cache["m"], cfg)
+            y, mc = mamba2.mamba_decode(p["mamba"], x, cache["m"], cfg,
+                                        inplace=inplace)
             return h + y, {"m": mc}
-        if cfg.attention == "mla":
+        if "p" in cache:          # the paged pool, read through the tables
+            key = "p"
+            y, ac = attn.gqa_decode_paged(
+                p["attn"], x, cache["p"], pos, block_tables, cfg,
+                positions=positions, use_rope=self.use_rope, inplace=inplace)
+        elif cfg.attention == "mla":
+            key = "a"
             y, ac = attn.mla_decode(p["attn"], x, cache["a"], pos, cfg,
-                                    positions=positions)
+                                    positions=positions, inplace=inplace)
         else:
+            key = "a"
             y, ac = attn.gqa_decode(p["attn"], x, cache["a"], pos, cfg,
                                     window=kind.window, positions=positions,
-                                    use_rope=self.use_rope)
+                                    use_rope=self.use_rope, inplace=inplace)
         h = h + y
-        new_cache = {"a": ac}
+        new_cache = {key: ac}
         if kind.cross and "x" in cache:
             x = apply_norm(p["lnx"], h, cfg.norm, cfg.norm_eps)
             y, new_cache["x"] = attn.gqa_decode(p["xattn"], x, cache["x"],
@@ -429,11 +471,21 @@ class Model:
         return self._head(params, h), aux
 
     def prefill(self, params, tokens, *, cache_len: Optional[int] = None,
-                positions=None, vision_embeds=None, frames=None):
+                positions=None, vision_embeds=None, frames=None,
+                length=None):
         """Returns (last-token logits (B, vocab), cache) with caches padded
         to ``cache_len`` (window layers: to min(cache_len, window); a cross
         layer's encoder K/V as they are). ``positions``, ``vision_embeds``
-        and ``frames``: as for ``apply``."""
+        and ``frames``: as for ``apply``.
+
+        ``length``: the count of real tokens (an int) when ``tokens`` is
+        right-padded to a prefill bucket. The logits are then
+        those of token ``length-1``, window caches take their slots from
+        real positions, and SSM states are the states after ``length``
+        tokens (dt is zeroed on the padding). Full-length K/V rows past
+        ``length`` hold the padding's values, which decode never attends:
+        a step writes position p before it attends, and the mask admits
+        rows <= p only."""
         cfg = self.cfg
         B, S = tokens.shape
         cache_len = cache_len or S
@@ -462,21 +514,27 @@ class Model:
         cache: Dict[str, Any] = {}
         for u, key, kind, p in self._layers(params):
             h, c, _ = self._block_full(p, h, kind, positions, "prefill",
-                                       enc_out)
+                                       enc_out, length)
             (cache if u is None else per_unit[u])[key] = pad_cache(c, kind)
         if "blocks" in params and self.n_units:
             cache["units"] = _tree_stack(per_unit)
         h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
-        logits = self._head(params, h[:, -1:])[:, 0]
+        h_last = h[:, -1:] if length is None else h[:, length - 1:length]
+        logits = self._head(params, h_last)[:, 0]
         return logits, cache
 
-    def decode(self, params, cache, token, pos, *, positions=None):
+    def decode(self, params, cache, token, pos, *, positions=None,
+               block_tables=None, inplace: bool = False):
         """One decode step. token: (B,1) long; pos: a Python int (absolute
         position for the batch) or a (B,) long tensor of per-request
         positions (continuous batching). ``positions``: the token's rope
         positions, (B, 1) or (B, 3, 1) under M-RoPE; ``pos`` in every
-        component by default. Returns (logits (B, vocab), new_cache); the
-        input cache is left as it was."""
+        component by default. ``block_tables``: (B, M) long page ids a
+        slot, needed where the cache holds paged (``"p"``) pools. Returns
+        (logits (B, vocab), new_cache); the input cache is left as it was,
+        unless ``inplace``: then every layer writes its new row (or SSM
+        state) into ``cache``, which is returned, so a step copies no
+        cache and allocates nothing that outlives it."""
         cfg = self.cfg
         B = token.shape[0]
         if positions is None:
@@ -488,26 +546,35 @@ class Model:
         per_unit: List[Dict[str, Any]] = [{} for _ in range(self.n_units)]
         new_cache: Dict[str, Any] = {}
         for u, key, kind, p in self._layers(params):
-            if u is None:
-                h, new_cache[key] = self._block_decode(
-                    p, h, kind, cache[key], pos, positions)
-            else:
-                h, per_unit[u][key] = self._block_decode(
-                    p, h, kind, _tree_index(cache["units"], u)[key], pos,
-                    positions)
-        if "units" in cache:
+            # a unit's cache is a view into the stacked leaves
+            c = cache[key] if u is None else _tree_index(cache["units"],
+                                                          u)[key]
+            h, c = self._block_decode(p, h, kind, c, pos, positions,
+                                      block_tables, inplace)
+            (new_cache if u is None else per_unit[u])[key] = c
+        if inplace:
+            new_cache = cache
+        elif "units" in cache:
             new_cache["units"] = _tree_stack(per_unit)
         h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
         return self._head(params, h)[:, 0], new_cache
 
-    def empty_cache(self, batch: int, cache_len: int, device):
-        """Zero-initialized cache."""
+    def empty_cache(self, batch: int, cache_len: int, device, *,
+                    page_pool=None):
+        """Zero-initialized cache. ``page_pool``: ``(n_pages, page_size)``;
+        pageable layers (see ``pageable``) then hold a ``"p"`` page pool
+        shared by all slots in place of a per-slot ``"a"`` cache, and the
+        others keep their dense layout in the same tree."""
         cfg = self.cfg
 
         def block_cache(kind: LayerKind, lead=()):
             if kind.block == "mamba":
                 key = "m"
                 c = mamba2.mamba_empty_cache(cfg, batch, self.dtype, device)
+            elif page_pool is not None and self.pageable(kind):
+                key = "p"
+                c = attn.gqa_empty_page_pool(cfg, *page_pool, self.dtype,
+                                             device)
             elif cfg.attention == "mla":
                 key = "a"
                 c = attn.mla_empty_cache(cfg, batch, cache_len, self.dtype,

@@ -102,7 +102,9 @@ def moe_forward(params, x, cfg: ModelConfig):
     dispatch = torch.zeros((B, E, C + 1), dtype=torch.long, device=x.device)
     filled = torch.zeros((B, E, C + 1), dtype=torch.bool, device=x.device)
     dispatch[bidx, flat_e, safe_pos] = tok_idx
-    filled[bidx, flat_e, safe_pos] = True
+    # a device value: a Python True would be copied from the host, which
+    # a CUDA graph capture (the compiled engine's decode) refuses
+    filled[bidx, flat_e, safe_pos] = keep.new_ones(())
     dispatch, filled = dispatch[..., :C], filled[..., :C]          # (B,E,C)
 
     # gather tokens into dense expert blocks

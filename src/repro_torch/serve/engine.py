@@ -9,7 +9,9 @@ with their positions frozen; their outputs are ignored and their rows are
 re-prefilled on admission, so they cannot touch live requests.
 
 This is the per-step oracle: one decode per step and a host read of every
-slot's token. Requests are text: the vlm family (qwen2-vl) is served
+slot's token. ``serve/compiled.py`` is the engine with a compiled hot loop
+(K decode steps a host call, as one CUDA graph on the card) that it
+holds token for token. Requests are text: the vlm family (qwen2-vl) is served
 without vision embeddings, as by the reference's engine, its M-RoPE
 decode positions each slot's position in all three components.
 """
@@ -32,6 +34,17 @@ class Request:
     # filled by the engine
     generated: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
+    # the weight generation the request was admitted under (the compiled
+    # engine pins it; None on this engine, which serves one param set)
+    generation: Optional[int] = None
+    # admission deadline (compiled engine): seconds from submit within
+    # which the request must be admitted, else it is shed with
+    # rejected=True, done=True; None defers to the engine's
+    # admit_timeout_s (None there: wait indefinitely). submit_t is stamped
+    # by the engine's clock at submit(). This engine ignores all three.
+    deadline_s: Optional[float] = None
+    submit_t: Optional[float] = None
+    rejected: bool = False
 
 
 def _insert(dst, src, slot: int, batch_dim: int) -> None:

@@ -66,7 +66,9 @@ PORT_MODULES = (
     "repro_torch.experiments.figure23_landscape",
     "repro_torch.experiments.landscape_viz",
     "repro_torch.experiments.figure4_cosine",
-    "repro_torch.experiments.ablation_workers")
+    "repro_torch.experiments.ablation_workers", "repro_torch.serve",
+    "repro_torch.serve.compiled", "repro_torch.experiments.serve_continuous",
+    "repro_torch.experiments.serve_batched")
 
 
 def test_importing_the_port_loads_no_jax():

@@ -195,13 +195,27 @@ def test_engine_is_token_exact():
 
 
 def test_mamba_forward_refuses_compiled_engine_arguments():
-    _, _, tm, tp = _pair()
-    u = torch.zeros(1, 4, tm.cfg.d_model)
+    """The compiled engine's arguments, refused until ROADMAP A12a ported
+    the engine, are taken now, as the reference takes them: ``length=``
+    (a right-padded bucket) and ``init_cache=`` (a continuation) give
+    JAX's out and cache (``tests/test_torch_paged.py`` holds more
+    lengths)."""
+    jm, jp, tm, tp = _pair()
+    u = np.random.default_rng(0).standard_normal(
+        (1, 4, tm.cfg.d_model)).astype(np.float32)
+    jl = jax.tree_util.tree_map(lambda a: a[0, 0], jp["blocks"]["mamba"])
     p = {k: v[0, 0] for k, v in tp["blocks"]["mamba"].items()}
-    with pytest.raises(NotImplementedError, match="A12"):
-        tmamba.mamba_forward(p, u, tm.cfg, length=3)
-    with pytest.raises(NotImplementedError, match="A12"):
-        tmamba.mamba_forward(p, u, tm.cfg, init_cache={})
+    jout, jc = jmamba.mamba_forward(jl, jnp.asarray(u), jm.cfg,
+                                    return_cache=True, length=3)
+    tout, tc = tmamba.mamba_forward(p, torch.from_numpy(u), tm.cfg,
+                                    return_cache=True, length=3)
+    _close(tout, jout)
+    for key in ("conv", "state"):
+        _close(tc[key], jc[key])
+    jout = jmamba.mamba_forward(jl, jnp.asarray(u), jm.cfg, init_cache=jc)
+    tout = tmamba.mamba_forward(p, torch.from_numpy(u), tm.cfg,
+                                init_cache=tc)
+    _close(tout, jout)
 
 
 def test_hybrid_builds_on_the_mamba_blocks():
