@@ -66,6 +66,19 @@ Phases, each printing its own lines; any failed check exits non-zero:
    admission on the bf16 route, the int8 pool's bytes a token against
    the dense bf16 cache's, a profiler window of one replay beside one
    ServingEngine step; the memory peak under 75 GB;
+4b. live weight publishing on that engine (``phase_publish``), at full
+   width, bf16 on f32 weights, 8 slots, max_seq 1024, K 8, the paged
+   pool, ``warmup(dual=True)``: a main path counted as above, where a
+   ``WeightPublisher`` folds two generations (the seed weights perturbed)
+   into its ``StreamingAverage`` (the second fold on the swa_avg kernel)
+   and publishes them mid-flight, the first at once, the second deferred
+   until the generation-0 requests drain; every request equal to a
+   single-generation graph engine's on its pinned weights, dual blocks
+   run, one block read a decode call, no capture after the warm-up, the
+   caller's weights unchanged, the peak under 75 GB; profiler windows of a
+   dual and a single replay, the publish's own ms; then
+   ``experiments/train_and_serve.py`` at smoke width, its audit a hard
+   check;
 5. full-width SWAP training (``repro_torch.launch.train`` with --full
    --workers 2 and the elastic phase 3): the training main path, counted
    the same way; every kernel of the path must launch in it, losses and
@@ -77,7 +90,9 @@ Phases, each printing its own lines; any failed check exits non-zero:
    to the ServingEngine and generate, paged = dense, the int8 trio, a
    3-page pool, an EOS inside a block with a slot reused, categorical
    sampling, MLA, MoE and M-RoPE decodes, each graph run equal to its
-   eager run); whole-model gradients with
+   eager run; a publish mid-decode through the dual graph for internlm2,
+   mamba2, gemma3 and zamba2, each request equal to generate on its
+   generation); whole-model gradients with
    the kernels against plain autograd; a whole SWAP run with the kernels
    against the same run on the plain versions;
 7. phases 4-6 for gemma3-1b (the flash kernels at head dim 256; 22 local
@@ -100,8 +115,9 @@ Phases, each printing its own lines; any failed check exits non-zero:
    as in phase 5: deepseek-v2-lite with its depth cut to 3 of 27 layers
    (DEEPSEEK_TRAIN_LAYERS; 4 run out of memory), the flash backward at head
    dim 192 (delta and the dQ/dK/dV kernel, no dQ or dK/dV), and
-   granite-moe-3b-a800m cut to 23 of 32 layers
-   (GRANITE_TRAIN_LAYERS; 24 peak over 75 GB), every flash launch on the
+   granite-moe-3b-a800m cut to 12 of 32 layers
+   (GRANITE_TRAIN_LAYERS; 23 fit, 24 peak over 75 GB), every flash launch
+   on the
    bf16 wgmma route and as the layer plan has them; a profiler window of a
    phase-1 and a phase-2 step of each; one phase-1 step taken twice, its
    loss bitwise and its grads within MOE_REPEAT_TOL (not bitwise: the
@@ -113,8 +129,8 @@ Phases, each printing its own lines; any failed check exits non-zero:
    bucket-length prompts token-exact against the ServingEngine, one SSD
    forward a layer an admission on the bf16 route), SWAP training at full
    width with the
-   depth cut to 32 layers (MAMBA_TRAIN_LAYERS: 64 layers do not fit the
-   card, 62 ran out of memory in phase 2, 56 ran; 32 for the run's time
+   depth cut to 16 layers (MAMBA_TRAIN_LAYERS: 64 layers do not fit the
+   card, 62 ran out of memory in phase 2, 56 ran; 16 for the run's time
    limit), every SSD launch of both on the
    bf16 wgmma route, and the smoke exactness checks;
 11. the hybrid family, zamba2-7b (81 mamba layers on the SSD kernels, the
@@ -212,6 +228,8 @@ backward rows' ``granite_train_shape`` and ``whisper_encoder_train_shape``:
 their times at D 64, G 3 and G 1, non-causal, the latter without the
 plain backward (``plain_ms`` null);
 the swa_avg row's ``cnn_launches``: its launches on the CNN path; the
+flash forward's and swa_avg's ``publish_launches``: on the live-publishing
+path (``phase_publish``); the
 flash rows' ``table3_launches``: on Table 3; ``resume_launches``: in the
 two resumed launcher runs; ``gemma3_launches``: on gemma3's training path,
 and the forward's on its serving path; ``gemma3_*`` shapes: the times at
@@ -301,6 +319,13 @@ COMPILED_PROMPTS = (64, 128, 256, 512) * 3 + (37, 200, 300, 700)
 # max_seq 1024 and 96, a bucket not a multiple of 64; the S-512 one timed
 BUCKET_PROMPTS = (16, 64, 96, 512, 1024)
 BUCKET_PREFILL_SHAPE = (1, 512, 512, 16, 8, 128)
+# live weight publishing on that engine (``phase_publish``): 8 generation-0
+# requests, half of them long, then a queue of 16 that the later
+# generations take; every prompt at a bucket length
+PUBLISH_FIRST = tuple(zip((64, 128, 256, 512) * 2, (16,) * 4 + (64,) * 4))
+PUBLISH_QUEUE = tuple(zip((64, 128, 256, 512) * 4, (32,) * 16))
+# the generations: the seed weights times 1 + PUBLISH_EPS * N(0, 1)
+PUBLISH_EPS = 0.2
 # SWAP phase 1 of internlm2-1.8b at the launcher's batch and length
 TRAIN_SHAPE = (256, 64, 64, 16, 8, 128)          # B, Sq, Skv, H, KVH, D
 TRAIN_ARGV = ["--full", "--workers", "2", "--phase1-steps", "4",
@@ -343,9 +368,10 @@ GRANITE_TRAIN_SHAPE = (256, 64, 64, 24, 8, 64)
 # allocated and 10.16 GiB reserved but free in pieces). granite-moe:
 # 0.15 B + 0.1007 B a layer; phase 3 peaked at 65.54 GB at 20 layers,
 # 74.00 GB at 23 and 76.82 GB at 24 (2.82 GB a layer), so 32 layers would
-# need ~99 GB.
+# need ~99 GB. granite-moe is trained at 12 of the 23 that fit, for the
+# run's time limit.
 DEEPSEEK_TRAIN_LAYERS = 3
-GRANITE_TRAIN_LAYERS = 23
+GRANITE_TRAIN_LAYERS = 12
 # One MoE phase-1 step at full width taken twice from the same params and
 # tokens: its forward has no atomics, so the loss repeats bitwise; the
 # dispatch gather's backward adds each token's K expert grads in bf16 with
@@ -384,8 +410,8 @@ SSD_BUCKET_SHAPE = (1, 512, 80, 64, 1, 128, 256)
 # the same: a 6.25 GiB allocation of phase 2's update failed with 61.56 GiB
 # allocated and 15.08 GiB reserved but free in pieces. 56 is the deepest
 # that ran. The run's time limit cut it to 32 (the launcher's 12 steps took
-# 27.9 s at 56 layers; ~39 GB by that slope)
-MAMBA_TRAIN_LAYERS = 32
+# 27.9 s at 56 layers; ~39 GB by that slope), then to 16 (15.7 s at 32)
+MAMBA_TRAIN_LAYERS = 16
 # zamba2-7b, the hybrid family: 81 mamba layers (13 pattern units of 6 and
 # a tail of 3), ONE shared attention block (32 heads of 112, G 1, with its
 # MLP) before each unit; served at full depth, batch 8, prompt 512
@@ -404,8 +430,9 @@ ZAMBA_SSD_TRAIN_SHAPE = (256, 64, 112, 64, 1, 64, 64)
 # allocated and 14.18 GiB reserved but free); at 27 the phases peaked at
 # 73.16 / 66.06 / 55.26 GB (phase 3 at 75.58 while it still held phase 2's
 # optimizer state); at 24 at 70.34 / 60.45 / 69.03. 27 is 4 pattern units
-# and the tail of 3, which the full config has too.
-ZAMBA_TRAIN_LAYERS = 27
+# and the tail of 3, which the full config has too. For the run's time
+# limit it is trained at 15: 2 pattern units and the tail of 3.
+ZAMBA_TRAIN_LAYERS = 15
 # minicpm3-4b: MLA at qk 64 + 32 (the flash head dim 96, v 64 padded to
 # 96), 40 heads (G 1), 62 layers; served at full depth, batch 8, prompt 512
 MINICPM = "minicpm3-4b"
@@ -419,8 +446,9 @@ MINICPM_TRAIN_SHAPE = (256, 64, 64, 40, 40, 96)
 # an NVIDIA H100 80GB HBM3 at 700.00 W the phases peaked at 60.34 / 54.89 /
 # 41.39 GB at 28 layers, 66.34 / 61.43 / 45.40 at 32, 72.35 / 67.97 / 49.41
 # at 36, 73.85 / 69.61 / 50.42 at 37 and 75.36 / 71.25 / 51.43 at 38 (over
-# the line), one process a depth.
-MINICPM_TRAIN_LAYERS = 37
+# the line), one process a depth. 37 fits; 19 (about half) keeps the whole
+# script inside its time limit beside the live-publishing phase.
+MINICPM_TRAIN_LAYERS = 19
 # whisper-base, the audio family: 6 encoder layers over 1500 stub frames
 # (non-causal), 6 decoder layers (causal self attention, then non-causal
 # cross attention over the encoder output), 8 heads of 64 (G 1); served at
@@ -2263,7 +2291,7 @@ def _compiled_serve(card, model, params, tag):
     with torch.inference_mode():
         g_ms, g_busy = _serve_profile(
             card, tag, f"compiled decode block (graph replay, {K} steps) at "
-            f"batch {B}", graph_eng._graph.replay, B * K)
+            f"batch {B}", graph_eng._graphs[0].replay, B * K)
         serving = ServingEngine(model, params, max_batch=B,
                                 max_seq=COMPILED_MAX_SEQ)
         for i in range(B):
@@ -2279,6 +2307,249 @@ def _compiled_serve(card, model, params, tag):
     del graph_eng, serving
     torch.cuda.empty_cache()
     return fwd_dense
+
+
+def _perturbed(params, seed):
+    """The generation ``seed`` publishes: each leaf of ``params`` times
+    1 + PUBLISH_EPS * N(0, 1), from a generator seeded with ``seed``."""
+    import torch
+    from repro_torch.optim.api import tree_map
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return tree_map(lambda x: x * (1 + PUBLISH_EPS * torch.randn(
+        x.shape, generator=g, device=x.device)), params)
+
+
+def _bits(params) -> int:
+    """A sum of every leaf's bit patterns (f32 leaves read as int32): any
+    write into ``params`` moves it."""
+    import torch
+    return sum(int(x.view(torch.int32).sum(dtype=torch.int64))
+               for x in _leaves(params))
+
+
+def phase_publish(card: str):
+    """Live weight publishing (``serve/compiled.py``'s ``publish``,
+    ``serve/publish.py``'s ``WeightPublisher``) at internlm2-1.8b's full
+    width, bf16 compute on f32 master weights, through the CUDA graphs: 8
+    slots, max_seq COMPILED_MAX_SEQ, K COMPILED_BLOCK, the default layout
+    (the paged pool), ``warmup(dual=True)``. The main path: PUBLISH_FIRST's
+    8 requests on generation 0 and PUBLISH_QUEUE's 16 waiting; after the
+    first step a ``WeightPublisher`` hook folds generation 1 (``_perturbed``
+    seed 1) into its ``StreamingAverage`` and publishes it (applied at
+    once); after the second step it folds seed 2 (the swa_avg kernel) and
+    publishes the average as generation 2 while the long generation-0
+    requests are in flight (deferred, applied as they drain). Checks:
+    every request's tokens equal a single-generation graph engine's (same
+    slots and K) on the weights it is pinned to, and the long
+    generation-0 requests differ on generation 1's (the pinning matters);
+    dual blocks ran; one block read a decode call; no capture after the
+    warm-up (three: a graph a buffer and the dual one); the caller's
+    generation-0 tensors unchanged (``_bits``) and sharing no storage with
+    the engine's buffers; 24 bf16 flash forwards an admission and one
+    swa_avg launch a leaf on the path; the peak under 75 GB. Prints the
+    dual and the single replay's profiles (ms a generated token, idle
+    share) and the publish's own ms. Returns the launches on the path."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.kernels.swa_avg import kernel as swa_kernel
+    from repro_torch.models.model import Model
+    from repro_torch.serve import (CompiledServingEngine, Request,
+                                   WeightPublisher)
+    from repro_torch.train.loop import init_train_state
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = registry.get_config("internlm2-1.8b")
+    model = Model(cfg)
+    p0 = model.init(torch.Generator(device="cuda").manual_seed(0))
+    bits0 = _bits(p0)
+    n_leaves = len(list(_leaves(p0)))
+    B, K, max_seq = COMPILED_SLOTS, COMPILED_BLOCK, COMPILED_MAX_SEQ
+    g = torch.Generator(device="cuda").manual_seed(11)
+    plan = PUBLISH_FIRST + PUBLISH_QUEUE
+    prompts = [torch.randint(0, cfg.vocab_size, (L,), generator=g,
+                             device="cuda") for L, _ in plan]
+
+    def reqs(ids, offset=0):
+        return [Request(rid=offset + i, prompt=prompts[i],
+                        max_new_tokens=plan[i][1]) for i in ids]
+
+    eng = CompiledServingEngine(model, p0, max_batch=B, max_seq=max_seq,
+                                decode_block=K)
+    t0 = time.perf_counter()
+    eng.warmup(dual=True)
+    t_warm = time.perf_counter() - t0
+    caps = eng._captures
+    check(caps == 3 and eng.kv_layout == "paged",
+          f"publish: warmup(dual=True) captured {caps} graphs on the "
+          f"{eng.kv_layout} layout, not 3 on the paged one")
+    pub = WeightPublisher([eng], ensemble=False)
+
+    def epoch(seed, step):
+        q = _perturbed(p0, seed)
+        t0 = time.perf_counter()
+        gen = pub.on_epoch(init_train_state({"params": q, "state": {}},
+                                            opt_state={}, step=step), step)
+        torch.cuda.synchronize()
+        return gen, (time.perf_counter() - t0) * 1e3
+
+    served = reqs(range(len(plan)))
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for r in served:
+            eng.submit(r)
+        eng.step()
+        gen1, ms1 = epoch(1, 100)                  # buffer 1 is free
+        applied1 = eng.generation
+        eng.step()
+        gen2, ms2 = epoch(2, 200)                  # buffer 0 is pinned
+        deferred2 = eng.generation
+        while eng.active or eng.waiting:
+            eng.step()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    fwd, fwd90 = kernel.flash_fwd.launches, kernel.flash_fwd.launches_sm90
+    swa = swa_kernel.running_average.launches
+    st = dict(eng.stats)
+    gens = [r.generation for r in served]
+    n_gen = sum(len(r.generated) for r in served)
+    print(f"[publish] internlm2-1.8b full width, bf16 on f32 weights, "
+          f"{len(plan)} requests through {B} slots, max_seq {max_seq}, K "
+          f"{K}, {eng.kv_layout} layout: {secs:.2f} s, {n_gen / secs:.1f} "
+          f"tok/s (warmup(dual=True) {t_warm:.2f} s, {caps} captures); "
+          f"generations {gens}; published {gen1} (applied: generation "
+          f"{applied1}; on_epoch {ms1:.2f} ms) and {gen2} (generation "
+          f"{deferred2} still served; on_epoch {ms2:.2f} ms); {st}; flash "
+          f"forwards {fwd} ({fwd90} bf16 route), swa_avg {swa}", flush=True)
+    check(gen1 == 1 and applied1 == 1,
+          f"publish: generation 1 not applied at once ({gen1}, "
+          f"{applied1})")
+    check(gen2 == 2 and deferred2 == 1 and eng.generation == 2,
+          f"publish: generation 2 not deferred then applied ({gen2}, "
+          f"{deferred2}, {eng.generation})")
+    check(set(gens) == {0, 1, 2} and all(r.done for r in served),
+          f"publish: requests on generations {sorted(set(gens))}")
+    check(st["dual_decode_calls"] > 0
+          and st["decode_transfers"] == st["decode_calls"] > 0
+          and st["publish_swaps"] == 2,
+          f"publish: dual blocks, block reads or swaps off: {st}")
+    check(fwd == cfg.n_layers * st["admissions"] and fwd90 == fwd,
+          f"publish: {fwd} flash forwards ({fwd90} bf16 route) for "
+          f"{st['admissions']} admissions of {cfg.n_layers} layers")
+    check(swa == n_leaves, f"publish: {swa} swa_avg launches for the one "
+                           f"fold of {n_leaves} leaves")
+    launches = {"flash_attention_fwd": fwd, "swa_avg": swa}
+    # the dual and the single block's replays, every slot decoding; then
+    # the publish alone on the idle engine (a copy into the other buffer)
+    with torch.inference_mode():
+        d_ms, d_busy = _serve_profile(
+            card, "publish", f"dual-generation decode block (graph replay, "
+            f"{K} steps, two evaluations a step) at batch {B}",
+            eng._graphs["dual"].replay, B * K)
+        s_ms, s_busy = _serve_profile(
+            card, "publish", f"single-generation decode block (graph "
+            f"replay, {K} steps) at batch {B}",
+            eng._graphs[eng._latest].replay, B * K)
+        avg = pub.average.value()
+        pub_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            check(eng.publish(avg) is True, "publish: an idle publish "
+                                            "deferred")
+            torch.cuda.synchronize()
+            pub_ms.append((time.perf_counter() - t0) * 1e3)
+    peak_pub = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[publish] decode ms a generated token at batch {B} on {card}: "
+          f"dual block {d_ms / (B * K):.4f} (idle {1 - d_busy / d_ms:.3f}), "
+          f"single block {s_ms / (B * K):.4f} (idle "
+          f"{1 - s_busy / s_ms:.3f}); dual / single {d_ms / s_ms:.3f}; "
+          f"publish (copy of {n_leaves} f32 leaves into the free buffer) "
+          f"{', '.join(f'{t:.2f}' for t in pub_ms)} ms; peak so far "
+          f"{peak_pub:.2f} GB", flush=True)
+    check(eng._captures == caps,
+          f"publish: {eng._captures - caps} captures after the warm-up")
+    owned = {x.data_ptr() for buf in eng._buffers for x in _leaves(buf)}
+    check(not owned & {x.data_ptr() for x in _leaves(p0)},
+          "publish: an engine buffer shares storage with the caller's "
+          "generation-0 tensors")
+    # each generation's requests on a single-generation graph engine built
+    # on its weights (generation 2's: the average as published); generation
+    # 1's also runs the long generation-0 requests, which must come out
+    # otherwise there
+    weights = {0: p0, 1: _perturbed(p0, 1), 2: avg}
+    del eng, pub, avg
+    torch.cuda.empty_cache()
+    longest = max(n for _, n in PUBLISH_FIRST)
+    long0 = [i for i, (_, n) in enumerate(PUBLISH_FIRST) if n == longest]
+    moved = 0
+    for gen in (0, 1, 2):
+        ids = [i for i, r in enumerate(served) if r.generation == gen]
+        ref = CompiledServingEngine(model, weights[gen], max_batch=B,
+                                    max_seq=max_seq, decode_block=K)
+        ref.warmup()
+        extra = reqs(long0, offset=1000) if gen == 1 else []
+        with torch.inference_mode():
+            out = ref.run(reqs(ids) + extra)
+        for i in ids:
+            check(out[i] == served[i].generated,
+                  f"publish: request {i} (generation {gen}, prompt "
+                  f"{plan[i][0]}) differs from the single-generation "
+                  f"engine: {_first_difference(served[i].generated, out[i])}")
+        moved += sum(out[r.rid] != served[r.rid - 1000].generated
+                     for r in extra)
+        del ref
+        torch.cuda.empty_cache()
+    check(moved > 0, "publish: generation 1 gives the long generation-0 "
+                     "requests their own tokens: the check is blind")
+    check(_bits(p0) == bits0, "publish: the caller's generation-0 tensors "
+                              "changed")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[publish] every request equal to a single-generation graph "
+          f"engine's on its pinned weights ({len(plan)} requests over "
+          f"generations 0, 1, 2; {moved} of {len(long0)} long generation-0 "
+          f"requests otherwise on generation 1); the caller's weights "
+          f"unchanged; device memory peak {peak:.2f} GB (limit "
+          f"{PEAK_LIMIT_GB}); phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    check(peak <= PEAK_LIMIT_GB, f"publish: memory peak {peak:.2f} GB over "
+                                 f"{PEAK_LIMIT_GB} GB")
+    del weights, p0
+    torch.cuda.empty_cache()
+    launches["train_and_serve"] = _train_and_serve()
+    return launches
+
+
+def _train_and_serve():
+    """``experiments/train_and_serve.py`` at smoke width on the card (its
+    defaults: SWAP phase 2 publishing at each epoch boundary into a graph
+    engine serving between chunks); its end-of-run audit (every request
+    against ``generate`` on its generation reloaded from the publish
+    directory) is a hard check. Returns the launches of its run."""
+    import tempfile
+    from repro_torch.experiments import train_and_serve
+    t0 = time.perf_counter()
+    _reset_launches()
+    with tempfile.TemporaryDirectory() as d:
+        out = train_and_serve.main(["--device", "cuda", "--publish-dir", d])
+    launches = {k: fn.launches for k, fn in _launch_counts().items()}
+    st = out["engine"].stats
+    done = [r for r in out["served"] if r.done]
+    check(out["checked"] == len(done) == len(out["served"]) > 0
+          and st["dual_decode_calls"] > 0 and out["engine"].graphed
+          and out["engine"]._captures == 3,
+          f"train_and_serve: {out['checked']} of {len(out['served'])} "
+          f"requests audited, {st}, {out['engine']._captures} captures")
+    print(f"[publish] experiments/train_and_serve.py (smoke width): "
+          f"{out['checked']} requests audited over {out['publisher'].generation} "
+          f"generations, {st['dual_decode_calls']} dual blocks, 3 captures; "
+          f"launches {launches}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return launches
 
 
 def phase_mamba_serve(card: str):
@@ -2636,6 +2907,36 @@ def phase_compiled_exact():
     # on the card, graph against eager from the same key
     samples, _ = compiled("internlm2-1.8b", prompts("internlm2-1.8b"),
                           sample="categorical", temperature=0.8)
+    # a publish mid-decode through the graphs: A on generation 0 is
+    # mid-decode when generation 1 lands, B is admitted after it
+    for arch in ("internlm2-1.8b", MAMBA, GEMMA, ZAMBA):
+        model, p0 = setup(arch)
+        p1 = model.init(torch.Generator(device="cuda").manual_seed(3))
+        pa, pb = prompts(arch, (9, 7))
+        eng = CompiledServingEngine(model, p0, max_batch=2, max_seq=64,
+                                    decode_block=4)
+        eng.warmup(dual=True)
+        a, b = (Request(rid=i, prompt=p, max_new_tokens=12)
+                for i, p in enumerate((pa, pb)))
+        with torch.inference_mode():
+            eng.submit(a)
+            eng.step()
+            swapped = eng.publish(p1)
+            eng.submit(b)
+            while eng.active or eng.waiting:
+                eng.step()
+        want = {(p, k): generate(model, w, p[None], 12)[0][0].tolist()
+                for p in (pa, pb) for k, w in enumerate((p0, p1))}
+        st = eng.stats
+        check(swapped is True and (a.generation, b.generation) == (0, 1)
+              and a.generated == want[pa, 0] != want[pa, 1]
+              and b.generated == want[pb, 1],
+              f"compiled {arch}: a mid-decode publish through the graph "
+              f"gave A {a.generated} (generation 0 {want[pa, 0]}), B "
+              f"{b.generated} (generation 1 {want[pb, 1]})")
+        check(st["dual_decode_calls"] > 0 and eng._captures == 3
+              and st["decode_transfers"] == st["decode_calls"],
+              f"compiled {arch} publish: {st}, {eng._captures} captures")
     print(f"[exact] compiled engine (K-step block as one CUDA graph), f32 "
           f"smoke: equal to the ServingEngine and generate (internlm2, "
           f"mamba2), paged = dense (internlm2, gemma3 at head dim 256, "
@@ -2645,7 +2946,9 @@ def phase_compiled_exact():
           f"ServingEngine, a 3-page pool ({waits} page waits), an EOS "
           f"inside a block with one slot reused, categorical sampling "
           f"({sum(len(v) for v in samples.values())} tokens); every graph "
-          f"run equal to its eager K-step run; "
+          f"run equal to its eager K-step run; a publish mid-decode through "
+          f"the dual graph (internlm2, mamba2, gemma3, zamba2), each request "
+          f"equal to generate on its generation; "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
@@ -4329,6 +4632,7 @@ def main() -> None:
     rows = [phase_kernel(), *phase_kernel_bwd(), phase_swa_avg(),
             *phase_ssd()]
     compiled_fwd = phase_serve(card, compiled=True)["compiled"]
+    published = phase_publish(card)
     launches = phase_train(card)
     phase_exact()
     phase_compiled_exact()
@@ -4380,6 +4684,10 @@ def main() -> None:
             row["compiled_launches"] = ssd_compiled
         if row["name"] == "swa_avg":
             row["cnn_launches"] = cnn_launches
+        # live publishing at internlm2's full width: the admissions'
+        # forwards and the fold of generation 2
+        if row["name"] in ("flash_attention_fwd", "swa_avg"):
+            row["publish_launches"] = published[row["name"]]
         if row["name"] in table3:
             row["table3_launches"] = table3[row["name"]]
         if row["name"] in resumed:

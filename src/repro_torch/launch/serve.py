@@ -3,7 +3,7 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
       [--full] [--engine {loop,compiled}] [--batch 8] [--prompt-len 64] \
       [--new-tokens 32] [--ckpt model.ckpt] [--seed 0] [--kv-int8] \
-      [--device {cuda,cpu}]
+      [--device {cuda,cpu}] [--follow DIR ...]
 
 Twin of ``repro/launch/serve.py`` (single device). Two decode engines that
 give identical greedy tokens:
@@ -35,6 +35,20 @@ QWEN_VL_SERVE_LAYERS of its 80 layers).
 Prefill and decode rates are reported separately (prompt tok/s vs generated
 tok/s), plus an overall rate that includes prefill. Runs on CUDA unless
 ``--device cpu`` is given; with no card visible it raises.
+
+Live following, the consumer half of the train -> serve loop
+(``serve/publish.py``):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
+      --follow ckpts/ [--follow-timeout 10] [--kv-layout {auto,dense,paged}] \
+      [--page-size 16] [--decode-block 4] [--admit-timeout 0]
+
+tails ``ckpts/`` for the atomic publish snapshots of a ``WeightPublisher``,
+swaps each new weight generation into a running ``CompiledServingEngine``
+without dropping in-flight requests, and serves a continuous synthetic
+request stream (the reference's prompts, ``data.prng`` under ``fold_in``
+of key seed + 1) until no new generation appears for ``--follow-timeout``
+seconds.
 """
 from __future__ import annotations
 
@@ -46,6 +60,7 @@ import torch
 
 from repro_torch.checkpoint.io import load_pytree
 from repro_torch.configs import registry
+from repro_torch.data import prng
 from repro_torch.kernels.dispatch import require_device
 from repro_torch.models.model import Model
 
@@ -131,6 +146,81 @@ def build_model(arch: str, *, full: bool, kv_int8: bool = False,
     return model, params
 
 
+def follow(model: Model, cfg, params, args) -> dict:
+    """Serve a continuous synthetic request stream while tailing
+    ``args.follow`` for publish snapshots, swapping each new weight
+    generation into the live engine without dropping in-flight requests.
+    Ends after ``--follow-timeout`` seconds with no new generation (each
+    pickup restarts the clock), then finishes what was admitted. Returns
+    {pickups, per_generation: {gen: {requests, tokens}}, stats}."""
+    from repro_torch.serve.compiled import CompiledServingEngine
+    from repro_torch.serve.engine import Request
+    from repro_torch.serve.publish import PublishFollower
+
+    dev = params["embed"]["table"].device
+    max_seq = args.prompt_len + args.new_tokens + 8
+    engine = CompiledServingEngine(
+        model, params, max_batch=args.batch, max_seq=max_seq,
+        decode_block=args.decode_block, prefill_buckets=[args.prompt_len],
+        kv_layout=args.kv_layout, page_size=args.page_size,
+        admit_timeout_s=args.admit_timeout or None)
+    follower = PublishFollower(args.follow, template=params)
+    upd = follower.poll()
+    if upd is not None:                       # seed from the newest publish
+        gen, new = upd
+        engine.publish(new, generation=gen)
+        print(f"seeded from publish generation {gen}")
+    engine.warmup(dual=True)                  # both buffers' graphs, dual's
+
+    key = prng.PRNGKey(args.seed + 1)
+    rid = 0
+    requests: list = []
+
+    def _feed():
+        """Keep every slot busy, so that swaps land on a loaded engine."""
+        nonlocal rid
+        while len(engine.waiting) + engine.active < args.batch:
+            prompt = prng.randint(prng.fold_in(key, rid), (args.prompt_len,),
+                                  0, cfg.vocab_size)
+            req = Request(rid=rid, prompt=prompt.long().to(dev),
+                          max_new_tokens=args.new_tokens)
+            requests.append(req)
+            engine.submit(req)
+            rid += 1
+
+    pickups = 0
+    deadline = time.time() + args.follow_timeout
+    while time.time() < deadline:
+        upd = follower.poll()
+        if upd is not None:
+            gen, new = upd
+            engine.publish(new, generation=gen)
+            applied = "applied" if engine.generation == gen else "deferred"
+            print(f"picked up generation {gen} ({applied}); "
+                  f"{engine.active} requests in flight")
+            pickups += 1
+            deadline = time.time() + args.follow_timeout
+        _feed()
+        engine.step()
+    while engine.active or engine.waiting:    # finish what was admitted
+        engine.step()
+
+    per_gen: dict = {}
+    for req in requests:
+        if req.done:
+            e = per_gen.setdefault(req.generation, {"requests": 0,
+                                                    "tokens": 0})
+            e["requests"] += 1
+            e["tokens"] += len(req.generated)
+    st = engine.stats
+    if st["decode_transfers"] != st["decode_calls"]:
+        raise RuntimeError(
+            "publish broke the single-transfer-per-decode-call invariant: "
+            f"{st['decode_transfers']} block reads for {st['decode_calls']} "
+            f"decode calls")
+    return {"pickups": pickups, "per_generation": per_gen, "stats": st}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="internlm2-1.8b",
@@ -145,6 +235,25 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kv-int8", action="store_true",
                     help="int8-quantized KV cache")
+    ap.add_argument("--kv-layout", default="auto",
+                    choices=["auto", "dense", "paged"],
+                    help="the compiled engine's KV layout in --follow mode "
+                         "(auto = paged where the arch has a pageable "
+                         "layer)")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="tokens a KV page for --kv-layout paged")
+    ap.add_argument("--follow", default="",
+                    help="live-follow a publish directory: swap new weight "
+                         "generations into a running engine while serving "
+                         "(see repro_torch.serve.publish)")
+    ap.add_argument("--follow-timeout", type=float, default=10.0,
+                    help="leave --follow mode after this many seconds "
+                         "without a new generation")
+    ap.add_argument("--decode-block", type=int, default=4,
+                    help="decode steps a host call in --follow")
+    ap.add_argument("--admit-timeout", type=float, default=0.0,
+                    help="seconds a request may wait for admission before "
+                         "it is rejected (0 = no bound)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
 
@@ -155,6 +264,19 @@ def main(argv=None):
     if args.ckpt:
         params = load_pytree(args.ckpt, params)
         print(f"restored {args.ckpt}")
+    if args.follow:
+        report = follow(model, cfg, params, args)
+        print(f"follow mode done: {report['pickups']} generation pickups")
+        for gen in sorted(report["per_generation"]):
+            e = report["per_generation"][gen]
+            print(f"  generation {gen}: {e['requests']} requests, "
+                  f"{e['tokens']} tokens")
+        st = report["stats"]
+        print(f"decode_calls={st['decode_calls']} "
+              f"decode_transfers={st['decode_transfers']} "
+              f"publish_swaps={st['publish_swaps']} "
+              f"dual_decode_calls={st['dual_decode_calls']}")
+        return report
     dev = params["embed"]["table"].device
     g = torch.Generator(device=dev).manual_seed(args.seed)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),

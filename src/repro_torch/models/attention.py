@@ -19,7 +19,10 @@ block tables. Decode writes take fixed shapes only (no boolean indexing,
 no ``.item()``), so a decode step can be captured in a CUDA graph; with
 ``inplace=True`` a decode writes its new row into the cache it was given,
 where by default it returns a written copy and leaves the input as it
-was.
+was. ``write_mask`` (a (B,) bool tensor) limits those writes to the rows
+of the slots it marks: the others keep their cache rows, so two
+evaluations of one step, each on its own weights, can share one cache
+(the compiled engine's two weight generations).
 """
 from __future__ import annotations
 
@@ -160,23 +163,35 @@ def _window_slots(kv, window: int, length=None):
     return out
 
 
-def _write_slot(buf, new, slot, inplace: bool = False):
+def _row_mask(mask, like):
+    """A (B,) bool mask shaped to broadcast over ``like``'s dims past the
+    first."""
+    return mask.reshape((-1,) + (1,) * (like.dim() - 1))
+
+
+def _write_slot(buf, new, slot, inplace: bool = False, mask=None):
     """The cache ``buf`` (B, L, ...) with ``new[b, 0]`` written at ``slot``
     of each row b: a copy, or ``buf`` itself with ``inplace``. ``slot`` is a
     Python int, or a (B,) tensor of per-row slots, where one past L drops
     its write, as a JAX scatter does: the index is clamped and the row's
     old value written back, so the op's shapes never depend on the
-    data."""
+    data. ``mask`` ((B,) bool): rows b where it is False keep their old
+    value the same way."""
     out = buf if inplace else buf.clone()
+    val = new[:, 0].to(buf.dtype)
     if isinstance(slot, torch.Tensor):
         L = buf.shape[1]
         rows = torch.arange(buf.shape[0], device=buf.device)
         idx = slot.clamp(max=L - 1)
-        keep = (slot < L).reshape((-1,) + (1,) * (new.dim() - 2))
-        out[rows, idx] = torch.where(keep, new[:, 0].to(buf.dtype),
+        keep = slot < L
+        if mask is not None:
+            keep = keep & mask
+        out[rows, idx] = torch.where(_row_mask(keep, val), val,
                                      out[rows, idx])
+    elif mask is not None:
+        out[:, slot] = torch.where(_row_mask(mask, val), val, out[:, slot])
     else:
-        out[:, slot] = new[:, 0].to(buf.dtype)
+        out[:, slot] = val
     return out
 
 
@@ -197,7 +212,7 @@ def _slot_positions(pos, cache_len: int, window: int):
 
 def gqa_decode(params, x, cache, pos, cfg: ModelConfig, *, window: int = 0,
                positions=None, cross: bool = False, use_rope: bool = True,
-               inplace: bool = False):
+               inplace: bool = False, write_mask=None):
     """One-token decode. x: (B,1,d); cache{k,v}: (B,L,KVH,Dh); pos: a Python
     int (one position for the batch) or a (B,) long tensor (per-request
     positions, continuous batching). ``positions``: the token's rope
@@ -205,7 +220,8 @@ def gqa_decode(params, x, cache, pos, cfg: ModelConfig, *, window: int = 0,
     default. ``cross``: the cache is the encoder's static K/V, and
     only q is computed. Returns (out, new_cache); the input cache is left
     as it was, unless ``inplace``: then the new row is written into it and
-    it is returned."""
+    it is returned. ``write_mask``: the slots whose rows are written (all
+    by default)."""
     dtype = x.dtype
     B = x.shape[0]
     H, Dh = cfg.n_heads, cfg.head_dim
@@ -234,7 +250,7 @@ def gqa_decode(params, x, cache, pos, cfg: ModelConfig, *, window: int = 0,
         new = {"k": knq, "k_scale": kns, "v": vnq, "v_scale": vns}
     else:
         new = {"k": k_new, "v": v_new}
-    new_cache = {key: _write_slot(cache[key], t, slot, inplace)
+    new_cache = {key: _write_slot(cache[key], t, slot, inplace, write_mask)
                  for key, t in new.items()}
     k, v = _cache_kv(new_cache, dtype)
 
@@ -296,18 +312,23 @@ def gqa_empty_page_pool(cfg: ModelConfig, n_pages: int, page_size: int,
     return {"k": z, "v": z.clone()}
 
 
-def _write_page(buf, new, page, off, inplace: bool):
+def _write_page(buf, new, page, off, inplace: bool, mask=None):
     """``buf`` (n_pages, P, ...) with ``new[b, 0]`` written at row ``off[b]``
     of page ``page[b]`` for every b (a copy, or ``buf`` with
-    ``inplace``)."""
+    ``inplace``); with ``mask`` ((B,) bool) only for the b it marks, the
+    others writing the row's old value back (a slot's rows lie in its own
+    pages, or in the null page)."""
     out = buf if inplace else buf.clone()
-    out[page, off] = new[:, 0].to(buf.dtype)
+    val = new[:, 0].to(buf.dtype)
+    if mask is not None:
+        val = torch.where(_row_mask(mask, val), val, out[page, off])
+    out[page, off] = val
     return out
 
 
 def gqa_decode_paged(params, x, cache, pos, block_tables, cfg: ModelConfig,
                      *, positions=None, use_rope: bool = True,
-                     inplace: bool = False):
+                     inplace: bool = False, write_mask=None):
     """One-token decode against a paged KV pool.
 
     cache leaves: ``(n_pages, page_size, KVH, Dh)``, the pool;
@@ -320,7 +341,8 @@ def gqa_decode_paged(params, x, cache, pos, block_tables, cfg: ModelConfig,
     that view hold what a dense per-slot cache would, and rows > pos are
     masked out of the softmax, so greedy tokens equal the dense layout's.
     Returns (out, new_cache); with ``inplace`` the pool is written in place
-    and returned, else a written copy is."""
+    and returned, else a written copy is. ``write_mask``: the slots whose
+    rows are written (all by default)."""
     dtype = x.dtype
     B = x.shape[0]
     q, k_new, v_new = _qkv(params, x, x, cfg, dtype)
@@ -342,7 +364,8 @@ def gqa_decode_paged(params, x, cache, pos, block_tables, cfg: ModelConfig,
         new = {"k": knq, "k_scale": kns, "v": vnq, "v_scale": vns}
     else:
         new = {"k": k_new, "v": v_new}
-    new_cache = {key: _write_page(cache[key], t, page, off, inplace)
+    new_cache = {key: _write_page(cache[key], t, page, off, inplace,
+                                  write_mask)
                  for key, t in new.items()}
 
     def gather(buf):                   # (B, M, P, ...) -> (B, M*P, ...)
@@ -435,13 +458,14 @@ def mla_forward(params, x, cfg: ModelConfig, *, positions,
 
 
 def mla_decode(params, x, cache, pos, cfg: ModelConfig, positions=None,
-               inplace: bool = False):
+               inplace: bool = False, write_mask=None):
     """Absorbed-latent decode: attention runs in the kv_lora_rank space over
     the (B, L, r) + (B, L, rope) cache, in plain PyTorch as the reference
     runs it in plain jnp. pos: a Python int or a (B,) long tensor (per-slot
     positions); ``positions``: the token's (B, 1) rope positions, ``pos``
     by default. Returns (out, new_cache); the input cache is left as it
-    was, unless ``inplace``: then it is written and returned."""
+    was, unless ``inplace``: then it is written and returned.
+    ``write_mask``: the slots whose rows are written (all by default)."""
     m = cfg.mla
     dtype = x.dtype
     B = x.shape[0]
@@ -453,8 +477,8 @@ def mla_decode(params, x, cache, pos, cfg: ModelConfig, positions=None,
     q_nope, q_rope = _mla_q(params, x, cfg, positions, dtype)    # (B,1,H,.)
     c_new, kr_new = _mla_latent(params, x, cfg, positions, dtype)
 
-    c_kv = _write_slot(cache["c_kv"], c_new, pos, inplace)
-    k_rope = _write_slot(cache["k_rope"], kr_new, pos, inplace)
+    c_kv = _write_slot(cache["c_kv"], c_new, pos, inplace, write_mask)
+    k_rope = _write_slot(cache["k_rope"], kr_new, pos, inplace, write_mask)
 
     L = c_kv.shape[1]
     r = m.kv_lora_rank

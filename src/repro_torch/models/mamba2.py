@@ -139,11 +139,13 @@ def mamba_forward(params, u, cfg: ModelConfig, *, return_cache: bool = False,
     return out, {"conv": conv_cache, "state": final_state}
 
 
-def mamba_decode(params, u, cache, cfg: ModelConfig, inplace: bool = False):
+def mamba_decode(params, u, cache, cfg: ModelConfig, inplace: bool = False,
+                 write_mask=None):
     """One-token decode. u: (B,1,d); cache{conv (B,K-1,conv_dim),
     state (B,nh,P,N)}. Returns (out, new_cache); the cache is left as it
     was, unless ``inplace``: then the new conv window and state are copied
-    into it and it is returned."""
+    into it and it is returned. ``write_mask`` ((B,) bool): only the slots
+    it marks take the new window and state; the others keep theirs."""
     s = cfg.ssm
     dtype = u.dtype
     B = u.shape[0]
@@ -170,12 +172,18 @@ def mamba_decode(params, u, cache, cfg: ModelConfig, inplace: bool = False):
     y = y.to(dtype).reshape(B, 1, d_in)
     y = gated_rmsnorm(y, z, params["norm_scale"], cfg.norm_eps)
     out = mdot(y, params["out_proj"], dtype)
+    new_conv = new_conv.to(cache["conv"].dtype)
+    if write_mask is not None:
+        def keep(new, old):
+            m = write_mask.reshape((-1,) + (1,) * (new.dim() - 1))
+            return torch.where(m, new, old)
+        new_conv = keep(new_conv, cache["conv"])
+        new_state = keep(new_state, cache["state"])
     if inplace:
         cache["conv"].copy_(new_conv)
         cache["state"].copy_(new_state)
         return out, cache
-    return out, {"conv": new_conv.to(cache["conv"].dtype),
-                 "state": new_state}
+    return out, {"conv": new_conv, "state": new_state}
 
 
 def mamba_empty_cache(cfg: ModelConfig, batch: int, dtype, device):

@@ -302,27 +302,28 @@ class Model:
         return h + y, cache, aux
 
     def _block_decode(self, p, h, kind: LayerKind, cache, pos, positions,
-                      block_tables=None, inplace: bool = False):
+                      block_tables=None, inplace: bool = False,
+                      write_mask=None):
         cfg = self.cfg
         x = apply_norm(p["ln1"], h, cfg.norm, cfg.norm_eps)
+        wm = dict(inplace=inplace, write_mask=write_mask)
         if kind.block == "mamba":
-            y, mc = mamba2.mamba_decode(p["mamba"], x, cache["m"], cfg,
-                                        inplace=inplace)
+            y, mc = mamba2.mamba_decode(p["mamba"], x, cache["m"], cfg, **wm)
             return h + y, {"m": mc}
         if "p" in cache:          # the paged pool, read through the tables
             key = "p"
             y, ac = attn.gqa_decode_paged(
                 p["attn"], x, cache["p"], pos, block_tables, cfg,
-                positions=positions, use_rope=self.use_rope, inplace=inplace)
+                positions=positions, use_rope=self.use_rope, **wm)
         elif cfg.attention == "mla":
             key = "a"
             y, ac = attn.mla_decode(p["attn"], x, cache["a"], pos, cfg,
-                                    positions=positions, inplace=inplace)
+                                    positions=positions, **wm)
         else:
             key = "a"
             y, ac = attn.gqa_decode(p["attn"], x, cache["a"], pos, cfg,
                                     window=kind.window, positions=positions,
-                                    use_rope=self.use_rope, inplace=inplace)
+                                    use_rope=self.use_rope, **wm)
         h = h + y
         new_cache = {key: ac}
         if kind.cross and "x" in cache:
@@ -524,7 +525,7 @@ class Model:
         return logits, cache
 
     def decode(self, params, cache, token, pos, *, positions=None,
-               block_tables=None, inplace: bool = False):
+               block_tables=None, inplace: bool = False, write_mask=None):
         """One decode step. token: (B,1) long; pos: a Python int (absolute
         position for the batch) or a (B,) long tensor of per-request
         positions (continuous batching). ``positions``: the token's rope
@@ -534,7 +535,10 @@ class Model:
         (logits (B, vocab), new_cache); the input cache is left as it was,
         unless ``inplace``: then every layer writes its new row (or SSM
         state) into ``cache``, which is returned, so a step copies no
-        cache and allocates nothing that outlives it."""
+        cache and allocates nothing that outlives it. ``write_mask``: a
+        (B,) bool tensor; only the slots it marks write their rows and SSM
+        states, the others keep theirs (the compiled engine decodes two
+        weight generations on one cache so)."""
         cfg = self.cfg
         B = token.shape[0]
         if positions is None:
@@ -550,7 +554,7 @@ class Model:
             c = cache[key] if u is None else _tree_index(cache["units"],
                                                           u)[key]
             h, c = self._block_decode(p, h, kind, c, pos, positions,
-                                      block_tables, inplace)
+                                      block_tables, inplace, write_mask)
             (new_cache if u is None else per_unit[u])[key] = c
         if inplace:
             new_cache = cache

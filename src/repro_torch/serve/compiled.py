@@ -1,5 +1,5 @@
 """Compiled continuous-batching engine, twin of ``repro/serve/compiled.py``
-without live weight publishing.
+(single device).
 
 The per-step ``ServingEngine`` (``serve/engine.py``, kept as the
 token-exact oracle) runs one decode a Python iteration and reads every
@@ -49,12 +49,30 @@ device:
     for admission; past it the request is shed with ``rejected=True`` and
     counted in ``stats["rejections"]``. ``clock`` is injectable.
 
+  * **Live weight publishing.** ``publish(params)`` swaps in a new weight
+    generation (the phase-2 running average of
+    ``serve.publish.WeightPublisher``) without dropping in-flight
+    requests. The params are double-buffered in tensors the engine owns:
+    a publish copies into the buffer no in-flight request is pinned to
+    (at once, or deferred until its requests drain; a newer publish
+    supersedes a queued one, a stale one is refused), and never writes
+    into the caller's tensors. Each slot is pinned to the buffer it was
+    admitted on. While both generations have requests, a step runs the
+    dual K-step block: each model step evaluates both weight sets on the
+    one cache, each writing only the rows, pages and SSM states of its own
+    slots (``decode(write_mask=)``), and the logits are selected per slot,
+    so every request's tokens equal a single-generation engine's on its
+    weights. The per-slot selector is copied from pinned host memory
+    before the replay: still one block read a decode call. On the card
+    each buffer has its own single-generation graph and the dual block a
+    third, sharing one memory pool; ``warmup(dual=True)`` takes the
+    engine's own copies of both buffers and captures all three, after
+    which neither ``publish`` nor ``step`` captures.
+
 Scheduling differs from the oracle (admissions happen between K-token
 blocks), but each request's tokens are exact: a slot's output depends only
-on its own cache rows, which admission re-prefills. Live weight publishing
-(``publish``, a second weight generation decoded beside the first) and
-placement over a device mesh (``dist=``) are refused: ROADMAP A12b and
-A13.
+on its own cache rows, which admission re-prefills. Placement over a
+device mesh (``dist=``) is refused: ROADMAP A13.
 """
 from __future__ import annotations
 
@@ -67,6 +85,7 @@ import torch
 
 from repro_torch.data import prng
 from repro_torch.models.model import Model
+from repro_torch.optim.api import tree_map
 from repro_torch.serve.engine import Request
 
 
@@ -133,7 +152,8 @@ def _clone(tree):
 
 
 class CompiledServingEngine:
-    """Sibling of ``ServingEngine`` with a compiled hot loop.
+    """Sibling of ``ServingEngine`` with a compiled hot loop and live
+    weight publishing.
 
     Args beyond the oracle's: ``decode_block`` (K: model steps a host
     call), ``prefill_buckets`` (padded prompt lengths; None: the doubling
@@ -146,9 +166,10 @@ class CompiledServingEngine:
     by default), ``kv_cache_dtype`` (overrides the config's, e.g. "int8",
     by rebuilding the Model, so prefill, decode and the pool quantize
     alike). Deadlines: ``admit_timeout_s`` and ``clock``, as in the class
-    docstring of the module. ``cuda_graph``: on CUDA, replay the K-step
-    block as a captured graph (True) or run it eagerly (False); the CPU
-    always runs it eagerly. The engine serves on its params' device.
+    docstring of the module. ``generation``: the weight generation of
+    ``params``. ``cuda_graph``: on CUDA, replay the K-step blocks as
+    captured graphs (True) or run them eagerly (False); the CPU always runs
+    them eagerly. The engine serves on its params' device.
     """
 
     def __init__(self, model: Model, params, *, max_batch: int = 4,
@@ -188,9 +209,17 @@ class CompiledServingEngine:
         self.admit_timeout_s = admit_timeout_s
         self._clock = clock
         self.model = model
-        self._params = params
-        self._generation = generation
         self.device = params["embed"]["table"].device
+        # double-buffered params: buffer j holds generation _buf_gen[j],
+        # _latest names the one new admissions pin to. Buffer 0 starts as
+        # the caller's tensors (_owned False) and is never written: a
+        # publish into it, or warmup(dual=True), first makes it the
+        # engine's own copy
+        self._buffers: List[Any] = [params, None]
+        self._buf_gen: List[int] = [generation, generation - 1]
+        self._owned: List[bool] = [False, False]
+        self._latest: int = 0
+        self._pending: Optional[Tuple[int, Any]] = None
         self.max_batch = max_batch
         self.max_seq = max_seq
         self.decode_block = decode_block
@@ -238,7 +267,11 @@ class CompiledServingEngine:
         self._compiled_buckets: set = set()
         self._cuda = self.device.type == "cuda"
         self._use_graph = self._cuda and cuda_graph
-        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        # captured K-step blocks: 0 and 1 single-generation on that buffer,
+        # "dual" both; one memory pool for all (they never run at once)
+        self._graphs: Dict[Any, torch.cuda.CUDAGraph] = {}
+        self._pool = None
+        self._captures = 0
         with torch.inference_mode():
             self.state = self._empty_state(
                 prng.PRNGKey(0) if rng is None else rng)
@@ -246,12 +279,18 @@ class CompiledServingEngine:
             # transfer of a decode call
             self._block = torch.zeros((max_batch, decode_block),
                                       dtype=torch.long, device=self.device)
-        # host staging of the block tables (pinned on CUDA, so that the
-        # copy to the device is asynchronous)
+            # the dual block's per-slot selector: True = buffer 1
+            self._use_b = torch.zeros((max_batch,), dtype=torch.bool,
+                                      device=self.device)
+        # host staging of the block tables and the selector (pinned on
+        # CUDA, so that the copies to the device are asynchronous)
         self._bt_stage = torch.zeros(self._host_bt.shape, dtype=torch.long,
                                      pin_memory=self._cuda)
+        self._sel_stage = torch.zeros((max_batch,), dtype=torch.bool,
+                                      pin_memory=self._cuda)
         self.slot_req: List[Optional[Request]] = [None] * max_batch
         self.slot_len: List[int] = [0] * max_batch     # prompt len a slot
+        self.slot_buf: List[int] = [0] * max_batch     # pinned param buffer
         self.waiting: List[Request] = []
         # the zero-per-token-round-trip claim is decode_transfers ==
         # decode_calls: one bulk block read a decode call
@@ -264,18 +303,18 @@ class CompiledServingEngine:
 
     @property
     def params(self):
-        """The parameter set every admission uses."""
-        return self._params
+        """The latest published parameter set (what new admissions use)."""
+        return self._buffers[self._latest]
 
     @property
     def generation(self) -> int:
         """The weight generation new admissions are pinned to."""
-        return self._generation
+        return self._buf_gen[self._latest]
 
     @property
     def graphed(self) -> bool:
-        """Whether the K-step block replays as a captured CUDA graph."""
-        return self._graph is not None
+        """Whether a K-step block replays as a captured CUDA graph."""
+        return bool(self._graphs)
 
     # ------------------------------------------------------------------
     # device programs
@@ -332,44 +371,60 @@ class CompiledServingEngine:
         st.remaining.copy_(rem1)
         return next_tok
 
-    def _decode_k(self, st: DecodeState, block: torch.Tensor) -> None:
+    def _decode_k(self, st: DecodeState, block: torch.Tensor,
+                  key=0) -> None:
         """K decode steps on ``st``, in place; step k's sampled tokens go
-        to ``block[:, k]``. Fixed shapes and no host reads, so that it can
-        be captured as one CUDA graph."""
+        to ``block[:, k]``. ``key``: 0 or 1, every slot on that buffer's
+        weights; "dual", each slot on its pinned buffer's (``_use_b``).
+        Fixed shapes and no host reads, so that it can be captured as one
+        CUDA graph."""
+        dec = self.model.decode
         for k in range(self.decode_block):
-            logits, _ = self.model.decode(
-                self._params, st.cache, st.tokens[:, None], st.positions,
-                block_tables=st.block_tables, inplace=True)
+            args = (st.cache, st.tokens[:, None], st.positions)
+            kw = dict(block_tables=st.block_tables, inplace=True)
+            if key == "dual":
+                # two evaluations from the same cache rows: each writes only
+                # its own slots' rows, pages and SSM states, so each reads
+                # for its slots the cache a single-generation step would
+                use_b = self._use_b
+                la, _ = dec(self._buffers[0], *args, write_mask=~use_b, **kw)
+                lb, _ = dec(self._buffers[1], *args, write_mask=use_b, **kw)
+                logits = torch.where(use_b[:, None], lb, la)
+            else:
+                logits, _ = dec(self._buffers[key], *args, **kw)
             block[:, k].copy_(self._advance(st, logits))
 
-    def _capture(self) -> None:
-        """Capture ``_decode_k`` on the engine's state as one CUDA graph.
-        The warm-up (the kernels' libraries, cuBLAS's workspaces, the rope
-        tables, first-use allocations) runs on a copy of the state on a
-        side stream, so the live state is not touched; capture records
-        without running."""
+    def _capture(self, key) -> None:
+        """Capture ``_decode_k(..., key)`` on the engine's state as one
+        CUDA graph. The warm-up (the kernels' libraries, cuBLAS's
+        workspaces, the rope tables, first-use allocations) runs on a copy
+        of the state on a side stream, so the live state is not touched;
+        capture records without running."""
         st = self.state
         scratch = DecodeState(*(_clone(t) for t in st))
         scratch_block = self._block.clone()
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
-            self._decode_k(scratch, scratch_block)
+            self._decode_k(scratch, scratch_block, key)
         torch.cuda.current_stream(self.device).wait_stream(side)
         torch.cuda.synchronize(self.device)
         del scratch, scratch_block
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self._decode_k(st, self._block)
-        self._graph = graph
+        with torch.cuda.graph(graph, pool=self._pool):
+            self._decode_k(st, self._block, key)
+        if self._pool is None:
+            self._pool = graph.pool()
+        self._graphs[key] = graph
+        self._captures += 1
 
-    def _run_decode(self) -> None:
+    def _run_decode(self, key) -> None:
         if self._use_graph:
-            if self._graph is None:
-                self._capture()
-            self._graph.replay()
+            if key not in self._graphs:
+                self._capture(key)
+            self._graphs[key].replay()
         else:
-            self._decode_k(self.state, self._block)
+            self._decode_k(self.state, self._block, key)
 
     def _admit_device(self, pc, first_tok, slot: int, length: int,
                       budget: int, eos_id: int, active: bool,
@@ -423,7 +478,7 @@ class CompiledServingEngine:
         if bucket not in self._compiled_buckets:
             self._compiled_buckets.add(bucket)
             self.stats["prefill_compiles"] += 1
-        return self.model.prefill(self._params, padded,
+        return self.model.prefill(self.params, padded,
                                   cache_len=self._cache_len, length=length)
 
     # ---- host page allocator (paged layout only) ----------------------
@@ -538,9 +593,13 @@ class CompiledServingEngine:
     def _admit(self) -> None:
         # free slots are found anew each time: a request that finishes at
         # admission (budget 1, EOS first, truncation) leaves its slot to
-        # the next waiting one in this same pass
+        # the next waiting one in this same pass; a deferred publish is
+        # tried again each time too, so that a request admitted after the
+        # pinned buffer drained takes the newest generation
+        self._apply_pending()
         self._shed_expired()
         while self.waiting:
+            self._apply_pending()
             free = self._free_slots()
             if not free:
                 return
@@ -596,16 +655,91 @@ class CompiledServingEngine:
             else:
                 self.slot_req[slot] = req
                 self.slot_len[slot] = S
+                self.slot_buf[slot] = self._latest
 
     # ------------------------------------------------------------------
-    # what the reference's live publishing adds (ROADMAP A12b)
+    # live weight publishing
     # ------------------------------------------------------------------
 
-    def publish(self, params, generation: Optional[int] = None):
-        raise NotImplementedError(
-            "CompiledServingEngine.publish: live weight publishing (a second "
-            "weight generation decoded beside the first) is not ported "
-            "(ROADMAP A12b)")
+    def publish(self, params,
+                generation: Optional[int] = None) -> Optional[bool]:
+        """Queue ``params`` as the next weight generation and swap it in as
+        soon as no in-flight request is pinned to the other buffer (often
+        at once). In-flight requests go on decoding on their admission
+        weights; new admissions take the new generation.
+
+        Only the newest queued publish survives: one that lands before a
+        deferred one applied supersedes it (``stats["publish_superseded"]``).
+        Returns True when the swap happened in this call, False when it is
+        deferred (it applies between decode calls once the old generation
+        drains), and None when it is refused as stale (``generation`` not
+        newer than what the engine serves or has queued)."""
+        base = self._buf_gen[self._latest]
+        if self._pending is not None:
+            base = max(base, self._pending[0])   # not a queued generation
+        gen = base + 1 if generation is None else int(generation)
+        if gen <= self._buf_gen[self._latest]:
+            return None                          # stale republish
+        if self._pending is not None:
+            if gen <= self._pending[0]:
+                return None
+            self.stats["publish_superseded"] += 1
+        self.stats["publishes"] += 1
+        self._pending = (gen, params)
+        return self._apply_pending()
+
+    @torch.inference_mode()
+    def _own(self, j: int, src) -> None:
+        """Make buffer ``j`` the engine's own tensors, copies of ``src``'s
+        leaves at buffer 0's dtypes and device. Graphs captured on its old
+        tensors are dropped (captured again at their next use)."""
+        self._buffers[j] = tree_map(
+            lambda x, r: torch.as_tensor(x).to(device=r.device,
+                                               dtype=r.dtype, copy=True),
+            src, self._buffers[0])
+        self._owned[j] = True
+        for key in (j, "dual"):
+            self._graphs.pop(key, None)
+
+    @torch.inference_mode()
+    def _apply_pending(self) -> bool:
+        """Copy the pending params into the other buffer unless a live
+        request is still pinned to it (a buffer is written only once no
+        in-flight request reads it)."""
+        if self._pending is None:
+            return False
+        target = 1 - self._latest
+        if any(r is not None and self.slot_buf[i] == target
+               for i, r in enumerate(self.slot_req)):
+            return False                         # deferred: buffer busy
+        gen, params = self._pending
+        ref = _flatten(self._buffers[self._latest])
+        new = _flatten(params)
+        if new.keys() != ref.keys():
+            raise ValueError(
+                f"published params and the engine's differ in the leaves "
+                f"{sorted(new.keys() ^ ref.keys())}")
+        for path, old in ref.items():
+            shape = tuple(torch.as_tensor(new[path]).shape)
+            if shape != tuple(old.shape):
+                raise ValueError(
+                    f"published params have leaf shape {shape} where the "
+                    f"engine expects {tuple(old.shape)} — generation "
+                    f"published from a different model config?")
+        # copied at the resident dtypes into tensors the engine owns, so
+        # the graphs stay valid and neither the caller's tensors (a
+        # StreamingAverage folds into its own in place) nor any tensor of
+        # the caller's construction params is ever written
+        if self._owned[target]:
+            for path, dst in _flatten(self._buffers[target]).items():
+                dst.copy_(torch.as_tensor(new[path]))
+        else:
+            self._own(target, params)
+        self._buf_gen[target] = gen
+        self._latest = target
+        self._pending = None
+        self.stats["publish_swaps"] += 1
+        return True
 
     # ------------------------------------------------------------------
 
@@ -623,13 +757,29 @@ class CompiledServingEngine:
     def step(self) -> None:
         """One K-token decode call for all slots (a graph replay on the
         card), then one bulk read of the (B, K) block and a host replay of
-        the device's stop rule."""
+        the device's stop rule.
+
+        The host knows the buffer each active slot is pinned to, so it
+        picks the single- or the dual-generation block without a device
+        read: with one generation in flight it runs exactly the block of
+        an engine that never published."""
         if self.active == 0:
             return
         if self._paged:
             self._ensure_pages()      # host allocation for the next K rows
             self._push_block_tables()
-        self._run_decode()
+        bufs = {self.slot_buf[i] for i, r in enumerate(self.slot_req)
+                if r is not None}
+        if len(bufs) == 1:
+            self._run_decode(bufs.pop())
+        else:
+            # the selector, as the block tables: queued before the decode,
+            # its staging rewritten only after the next block read
+            self._sel_stage.copy_(torch.tensor([b == 1
+                                                for b in self.slot_buf]))
+            self._use_b.copy_(self._sel_stage, non_blocking=self._cuda)
+            self._run_decode("dual")
+            self.stats["dual_decode_calls"] += 1
         self.stats["decode_calls"] += 1
         self.stats["decode_steps"] += self.decode_block
         block = self._block.cpu().tolist()        # ONE (B, K) transfer
@@ -666,17 +816,25 @@ class CompiledServingEngine:
     def warmup(self, dual: bool = False) -> None:
         """Run the fixed program set once before serving: one prefill a
         bucket (each counted once in ``prefill_compiles``) and, on CUDA,
-        the capture of the K-step graph. ``dual=True`` (the reference's
-        second weight generation) is refused: ROADMAP A12b."""
-        if dual:
-            raise NotImplementedError(
-                "CompiledServingEngine.warmup(dual=True): the two-generation "
-                "decode of live weight publishing is not ported (ROADMAP "
-                "A12b)")
+        the capture of the latest buffer's K-step graph. ``dual=True``,
+        for an engine that will take live publishes: both buffers become
+        the engine's own tensors (buffer 0 a copy of the caller's params,
+        an unused buffer 1 a copy of buffer 0), and the graphs of both
+        buffers and of the dual block are captured, so no publish or step
+        captures after it."""
         for b in self.buckets:
             self._run_prefill(b, torch.zeros((1, b), dtype=torch.long,
                                              device=self.device), 1)
-        if self._use_graph and self._graph is None:
-            self._capture()
+        keys = [self._latest]
+        if dual:
+            if not self._owned[0]:
+                self._own(0, self._buffers[0])
+            if self._buffers[1] is None:     # once made, always owned
+                self._own(1, self._buffers[0])
+            keys = [0, 1, "dual"]
+        if self._use_graph:
+            for key in keys:
+                if key not in self._graphs:
+                    self._capture(key)
         if self._cuda:
             torch.cuda.synchronize(self.device)

@@ -395,22 +395,29 @@ def test_unknown_modes_are_refused():
 
 
 def test_publishing_and_mesh_placement_are_refused():
-    """Live weight publishing is ROADMAP A12b, mesh placement A13; the
-    generation is read-only and pinned on every admitted request."""
+    """Mesh placement is refused (ROADMAP A13); live publishing is not:
+    ``warmup(dual=True)`` takes the engine's own copies of both buffers and
+    ``publish`` swaps in the next generation. The generation is read-only
+    and pinned on every admitted request."""
     cfg = setup("internlm2-1.8b")[2].cfg
     port = Side("internlm2-1.8b", False)
-    eng = port.compiled(max_batch=1, max_seq=32, generation=3)
-    with pytest.raises(NotImplementedError, match="A12b"):
-        eng.publish(port.params)
-    with pytest.raises(NotImplementedError, match="A12b"):
-        eng.warmup(dual=True)
     with pytest.raises(NotImplementedError, match="A13"):
         port.compiled(dist=object())
+    eng = port.compiled(max_batch=1, max_seq=32, generation=3)
     with pytest.raises(AttributeError):
         eng.generation = 4
     req = port.request(0, prompts(cfg, [6])[0], 2)
     eng.run([req])
     assert req.generation == 3 and eng.generation == 3
+    eng.warmup(dual=True)
+    assert eng._owned == [True, True] and not eng.graphed
+    assert eng.params is not port.params
+    assert eng.publish(port.params) is True and eng.generation == 4
+    req = port.request(1, prompts(cfg, [6])[0], 2)
+    eng.run([req])
+    assert req.generation == 4 and req.generated == port.generate(
+        prompts(cfg, [6])[0], 2)
+    assert eng.stats["publish_swaps"] == 1
 
 
 def test_audio_family_is_refused_as_by_the_oracle():
