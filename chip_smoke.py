@@ -84,6 +84,15 @@ Phases, each printing its own lines; any failed check exits non-zero:
    the same way; every kernel of the path must launch in it, losses and
    accuracies must be finite, and the elastic average must agree with the
    plain mean of the same phase-2 models;
+5b. supervised SWAP (``[supervise]``) at the same full width, built by the
+   launcher's code with ``--supervise 2 --heartbeat-dir DIR
+   --lost-workers 0`` and a NaN poisoning phase 2's first chunk
+   (``FaultPlan``): one divergence rolled back and one dead worker dropped,
+   both from the supervisor's host copy of phase 2's initial state; the
+   survivor's phase-2 params and the phase-1 params bitwise those of
+   phase 5, the flash launches of the three phase-2 attempts as the layer
+   plan has them, the host copy's bytes and seconds, each restore's
+   seconds, the peaks under 75 GB;
 6. smoke-width exactness in f32: continuous batching against
    single-request generation, token for token; the compiled engine's CPU
    test scenarios through its CUDA graph (``phase_compiled_exact``: equal
@@ -199,7 +208,10 @@ Phases, each printing its own lines; any failed check exits non-zero:
    the worker ablation (W 1, 2, 4, 8), and Table 3 on its reference task
    (the internlm2 smoke config in f32, whose three flash kernels must
    launch); each a main path counted as above, every accuracy and cosine
-   finite;
+   finite; the ablation (``phase_ablation``) and the rest
+   (``phase_experiments``) each in a process of its own
+   (``python3 chip_smoke.py --phase-child NAME OUT``), side by side and
+   beside phase 17, their lines printed when they end;
 16. the CNN step's bits may not depend on what the process did before:
    one full-width cifar-cnn forward and grads step in a fresh process and
    in one that first fills the card, in blocks that leave the allocator
@@ -212,8 +224,10 @@ Phases, each printing its own lines; any failed check exits non-zero:
    SWAP at the full width of cifar-cnn, and internlm2 smoke through the
    launcher (``--checkpoint-dir``, ``--checkpoint-every``,
    ``--elastic-deadline``), each cut once mid-phase-1 and once
-   mid-phase-2; the final params, BN state, stacked params, phase-1 log,
-   step counts and accuracies bitwise the uninterrupted run's; each CNN
+   mid-phase-2, the four resuming processes side by side (the CNN's
+   beside the launcher's uninterrupted run); the final params, BN state,
+   stacked params, phase-1 log, step counts and accuracies bitwise the
+   uninterrupted run's; each CNN
    snapshot's size and its load and save ms; the flash kernels and
    swa_avg launched in the resumed launcher runs.
 
@@ -331,6 +345,11 @@ TRAIN_SHAPE = (256, 64, 64, 16, 8, 128)          # B, Sq, Skv, H, KVH, D
 TRAIN_ARGV = ["--full", "--workers", "2", "--phase1-steps", "4",
               "--phase2-steps", "4", "--elastic-deadline", "30",
               "--device", "cuda"]
+# supervised SWAP: that run under a supervisor with 2 retries, worker 0
+# never beating (the heartbeat directory is added at run time), and a NaN
+# poisoning the phase-2 chunk that holds step 1 (SUPERVISE_NAN_STEP)
+SUPERVISE_ARGV = TRAIN_ARGV + ["--supervise", "2", "--lost-workers", "0"]
+SUPERVISE_NAN_STEP = 1
 MAMBA = "mamba2-2.7b"
 # PERF.md's line for a training phase's device memory peak: above it a
 # configuration is cut further
@@ -3018,9 +3037,11 @@ def _blocks(model) -> Dict[str, Tuple[int, int]]:
 
 def phase_train(card: str, argv=TRAIN_ARGV, cfg=None,
                 required=DENSE_TRAIN_KERNELS, tag="train", sm90_only=(),
-                fused_bwd=False):
+                fused_bwd=False, on_result=None):
     """The launcher's own run (``train.main(argv, cfg=cfg)``) as a main
-    path: every kernel in ``required`` must launch in it, every launch of a
+    path (``on_result``, if given, is called with its results dict before
+    it is dropped): every kernel in ``required`` must launch in it, every
+    launch of a
     kernel in ``sm90_only`` must take its bf16 wgmma route, and where the
     flash or SSD kernels are required they must launch as the layer plan
     has them (``_blocks``): a (worker) step runs 1 forward and its backward
@@ -3114,8 +3135,158 @@ def phase_train(card: str, argv=TRAIN_ARGV, cfg=None,
     check(max(peaks) <= PEAK_LIMIT_GB,
           f"a phase of the {tag} run peaked at {max(peaks):.2f} GB, over "
           f"{PEAK_LIMIT_GB} GB")
+    if on_result is not None:
+        on_result(res)
     del res
     torch.cuda.empty_cache()
+    return launches
+
+
+def _digests(tree):
+    """Per-leaf digests of a parameter tree's bits, on the card: each f32
+    leaf's words as int64, their sum and a position-weighted sum. Integer
+    sums are exact (wrapping) whatever the reduction order, so equal bits
+    give equal digests, and a change of any word changes the first."""
+    import torch
+    out = []
+    for leaf in _leaves(tree):
+        words = leaf.detach().reshape(-1).view(torch.int32).to(torch.int64)
+        weight = torch.arange(words.numel(), device=words.device) % 65521 + 1
+        out.append((int(words.sum()), int((words * weight).sum())))
+        del words, weight
+    return out
+
+
+def _train_digests(res, worker: int):
+    """What ``[supervise]`` holds bitwise against a run of TRAIN_ARGV: the
+    phase-1 params and worker ``worker``'s phase-2 params."""
+    from repro_torch.optim.api import tree_map
+    return {"phase1": _digests(res["phase1_bundle"]["params"]),
+            "worker": _digests(tree_map(lambda a: a[worker],
+                                        res["stacked_params"]))}
+
+
+def phase_supervise(card: str, trained) -> Dict[str, int]:
+    """Supervised SWAP at internlm2-1.8b's full width, built by the
+    launcher's own code (its parser, ``train.resilience``, ``train.build``)
+    from SUPERVISE_ARGV and a heartbeat directory, with a phase-2 chunk
+    filter, ``FaultPlan().nan_at_step(SUPERVISE_NAN_STEP)``. Worker 0 never
+    beats; with no checkpoint directory every restore comes from the
+    supervisor's host copy of the phase's initial state. The run must make
+    one divergence recovery (the NaN chunk, both workers replayed) and then
+    one worker_lost [0] (found by the liveness hook after the replayed
+    chunk), and end with worker 1 alone; its phase-1 params and worker 1's
+    phase-2 params must equal those of ``[train]`` (``trained``: its
+    ``_train_digests`` for worker 1) bitwise, the elastic average must
+    agree with the plain mean, the flash kernels must launch as the layer
+    plan has them for the three phase-2 attempts (W, W and W - 1 workers),
+    all on the bf16 route, and swa_avg once a leaf a fold past the first
+    (none for one survivor: the first model into the average is copied);
+    every peak under PEAK_LIMIT_GB. Returns the launches."""
+    import tempfile
+    import torch
+    from repro_torch.core.averaging import average_stacked
+    from repro_torch.dist.config import DistConfig
+    from repro_torch.launch import train
+    from repro_torch.models.model import Model
+    from repro_torch.optim.api import tree_map
+    from repro_torch.testing.faults import FaultPlan
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as hb:
+        argv = SUPERVISE_ARGV + ["--heartbeat-dir", hb]
+        print(f"[supervise] python -m repro_torch.launch.train "
+              f"{' '.join(argv)}, phase-2 chunk filter FaultPlan()."
+              f"nan_at_step({SUPERVISE_NAN_STEP})", flush=True)
+        args = train.build_parser().parse_args(argv)
+        wiring = train.resilience(args, DistConfig.from_args(
+            args, n_workers_default=train.N_WORKERS_DEFAULT))
+        swap = train.build(args, supervisor=wiring.supervisor)
+        plan = FaultPlan().nan_at_step(SUPERVISE_NAN_STEP)
+        # --- the main path, with every launch count read around it ---
+        _reset_launches()
+        res = swap.run(
+            torch.Generator(device=args.device).manual_seed(args.seed),
+            worker_arrivals=wiring.worker_arrivals,
+            phase2_hooks=wiring.phase2_hooks, heartbeats=wiring.monitor,
+            phase2_chunk_filter=plan.chunk_filter)
+        torch.cuda.synchronize()
+        launches = {n: fn.launches for n, fn in _launch_counts().items()}
+        on_sm90 = {n: fn.launches_sm90 for n, fn in _launch_counts().items()
+                   if n in FLASH_PAIR_KERNELS}
+        # -------------------------------------------------------------
+    events = res["recovery_events"]
+    for ev in events:
+        print(f"[supervise] recovery: {ev['kind']} in {ev['tag']} (attempt "
+              f"{ev['attempt']}, lost {ev['lost_workers']}) -> resumed from "
+              f"{ev['restored_from']} at step {ev['restored_step']}")
+    check([(e["kind"], e["attempt"], e["tag"], e["restored_step"],
+            e["restored_from"], e["lost_workers"]) for e in events] ==
+          [("divergence", 1, "phase2", 0, "initial state", []),
+           ("worker_lost", 2, "phase2", 0, "initial state", [0])],
+          f"[supervise] recovery events are not one divergence, then one "
+          f"worker_lost [0]: {events}")
+    W, p1, p2 = args.workers, res["phase1_steps"], res["phase2_steps"]
+    print(f"[supervise] phase2_worker_ids {res['phase2_worker_ids']}, live "
+          f"mask {res['worker_live_mask']}, "
+          f"{res['phase2_live_workers']} live, phase-2 steps {p2}")
+    check(res["phase2_worker_ids"] == [1]
+          and res["worker_live_mask"] == [False, True]
+          and res["phase2_live_workers"] == 1 and p2 == args.phase2_steps,
+          "[supervise] the run did not end with worker 1 alone at its "
+          "phase-2 step target")
+    got = _train_digests(res, 0)
+    same = {k: got[k] == trained[k] for k in got}
+    print(f"[supervise] bitwise against [train] (per-leaf digests): phase-1 "
+          f"params {same['phase1']}, worker 1's phase-2 params "
+          f"{same['worker']}")
+    check(all(same.values()), f"[supervise] not bitwise equal to [train]: "
+          f"{same}")
+    rel = _rel_l2(res["final_bundle"]["params"],
+                  average_stacked(res["stacked_params"]))
+    print(f"[supervise] elastic average of the survivor against the plain "
+          f"mean: relative L2 {rel:.3e} (limit 1e-6)")
+    check(rel <= 1e-6, f"[supervise] elastic average differs: {rel}")
+    # the layer plan (``_blocks``): a (worker) step runs each layer's
+    # forward (twice in a rematerialized one) and its backward once; the
+    # phase-2 attempts ran W, W and W - 1 workers p2 steps each
+    n, remat = _blocks(Model(swap.adapter.cfg))["flash"]
+    steps = p1 + p2 * (W + W + W - 1)
+    evals, rem = divmod(launches["flash_attention_fwd"]
+                        - (n + remat) * steps, n)
+    n_leaves = len(list(_leaves(res["final_bundle"]["params"])))
+    print(f"[supervise] launches on the supervised path: {launches}; on the "
+          f"bf16 wgmma route: {on_sm90}; {steps} (worker) steps, {evals} eval "
+          f"forwards of {n} layers")
+    check(all(launches[k] == n * steps for k in FLASH_PAIR_KERNELS[1:])
+          and evals >= 0 and rem == 0,
+          f"[supervise] flash launches {launches} are not the plan's "
+          f"{n + remat} forwards and {n} backwards a step of {steps}, with "
+          f"whole eval forwards")
+    check(all(on_sm90[k] == launches[k] > 0 for k in on_sm90),
+          f"[supervise] flash launches off the bf16 route: {on_sm90}")
+    check(launches["swa_avg"] == n_leaves * (res["phase2_live_workers"] - 1),
+          f"[supervise] swa_avg launched {launches['swa_avg']} times, not "
+          f"{n_leaves} a fold past the first")
+    timing = {t["tag"]: t for t in wiring.supervisor.timings}
+    for tag, t in timing.items():
+        print(f"[supervise] on {card}: {tag} host copy of the initial state "
+              f"{t['host_copy_bytes'] / 1e9:.2f} GB in "
+              f"{t['host_copy_s']:.2f} s; restores "
+              f"{[round(r, 3) for r in t['restore_s']]} s")
+    st = res["device"]
+    peaks = [st[f"phase{i}_peak_gb"] for i in (1, 2, 3)]
+    print(f"[supervise] memory peak: phase 1 {peaks[0]:.2f} GB, phase 2 "
+          f"{peaks[1]:.2f} GB, phase 3 {peaks[2]:.2f} GB (limit "
+          f"{PEAK_LIMIT_GB} GB); SWAP total_time {res['total_time']:.1f} s",
+          flush=True)
+    check(max(peaks) <= PEAK_LIMIT_GB,
+          f"[supervise] a phase peaked at {max(peaks):.2f} GB")
+    del res, swap, wiring
+    torch.cuda.empty_cache()
+    print(f"[supervise] phase time on {card}: {time.perf_counter() - t0:.1f} "
+          f"s", flush=True)
     return launches
 
 
@@ -4201,44 +4372,71 @@ def phase_cnn(card: str) -> int:
 # ---------------------------------------------------------------------------
 
 
-def cnn_step_child(arm: str, margin: str, out: str) -> None:
-    """A fresh process: one full-width cifar-cnn forward and grads step
-    (``cnn_determinism.train_step_record``) under ``arm``, the card first
-    filled to ``margin`` MB free unless it is "-"; writes ``out``."""
+# what runs in a process of its own, beside the phases after it:
+# ``--phase-child NAME OUT ARGS...`` runs ``CHILD_PHASES[NAME](*ARGS)``
+CHILD_PHASES = {"experiments": "phase_experiments",
+                "ablation": "phase_ablation", "cnn-step": "_cnn_step"}
+
+
+def phase_child(name: str, out: str, *args: str) -> None:
+    """A fresh process that runs ``CHILD_PHASES[name](*args)`` and writes
+    its result to ``out`` (JSON); its lines go to its stdout."""
     _require_card()
+    Path(out).write_text(json.dumps(globals()[CHILD_PHASES[name]](*args)))
+
+
+def start_phase_child(name: str, *args: str):
+    """``phase_child(name, ..., *args)`` in a new process, started and not
+    waited for: (the process, its directory, the name)."""
+    import tempfile
+    tmp = tempfile.mkdtemp()
+    # output to files, not pipes: the parent reads nothing until it waits,
+    # and a full pipe would stop the child
+    with open(f"{tmp}/stdout.txt", "w") as out, \
+            open(f"{tmp}/stderr.txt", "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--phase-child",
+             name, f"{tmp}/result.json", *args], stdout=out, stderr=err)
+    return proc, tmp, name
+
+
+def _kill(procs) -> None:
+    """Stop the processes of ``procs`` that still run (a failed check
+    leaves none behind)."""
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def finish_phase_child(started, what: str = ""):
+    """Wait for a ``start_phase_child`` process, print its lines, fail if
+    it failed; returns its result."""
+    import shutil
+    proc, tmp, name = started
+    try:
+        proc.wait(timeout=900)
+        print(Path(f"{tmp}/stdout.txt").read_text(), end="", flush=True)
+        check(proc.returncode == 0, f"the {what or name} process failed:\n"
+              f"{Path(f'{tmp}/stderr.txt').read_text()[-3000:]}")
+        return json.loads(Path(f"{tmp}/result.json").read_text())
+    finally:
+        _kill([proc])
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _cnn_step(arm: str, margin: str) -> dict:
+    """One full-width cifar-cnn forward and grads step
+    (``cnn_determinism.train_step_record``) under ``arm``, the card first
+    filled to ``margin`` MB free unless it is "-"."""
     from cnn_determinism import train_step_record
-    rec = train_step_record(
+    return train_step_record(
         None if margin == "-" else int(float(margin) * 2 ** 20), arm)
-    Path(out).write_text(json.dumps(rec))
 
 
 def start_cnn_step(arm: str = "model", margin="-"):
-    """``cnn_step_child`` in a new process, started and not waited for:
-    (the process, its output file's directory and name)."""
-    import tempfile
-    tmp = tempfile.mkdtemp()
-    out = f"{tmp}/step.json"
-    # its output goes to files, not pipes: the parent reads nothing until
-    # it waits, and a full pipe would stop the child
-    with open(f"{tmp}/stderr.txt", "w") as err:
-        proc = subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()),
-             "--cnn-step-child", arm, str(margin), out],
-            stdout=subprocess.DEVNULL, stderr=err)
-    return proc, tmp, out
-
-
-def _finish_cnn_step(started, what) -> dict:
-    import shutil
-    proc, tmp, out = started
-    try:
-        proc.wait(timeout=600)
-        err = Path(f"{tmp}/stderr.txt").read_text()
-        check(proc.returncode == 0, f"the CNN step ({what}) failed:\n"
-                                    f"{err[-3000:]}")
-        return json.loads(Path(out).read_text())
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    """``_cnn_step`` in a new process, started and not waited for."""
+    return start_phase_child("cnn-step", arm, str(margin))
 
 
 def phase_cnn_processes(card: str, arm: str = "model", fresh=None) -> None:
@@ -4258,10 +4456,12 @@ def phase_cnn_processes(card: str, arm: str = "model", fresh=None) -> None:
     card)."""
     from cnn_determinism import compare_steps, pressure_margin_mb
     t0 = time.perf_counter()
-    fresh = _finish_cnn_step(fresh or start_cnn_step(arm), f"{arm}, fresh")
+    fresh = finish_phase_child(fresh or start_cnn_step(arm),
+                               f"CNN step ({arm}, fresh)")
     margin = pressure_margin_mb(fresh)
-    full = _finish_cnn_step(start_cnn_step(arm, margin),
-                            f"{arm}, card filled to {margin} MB free")
+    full = finish_phase_child(start_cnn_step(arm, margin),
+                              f"CNN step ({arm}, card filled to {margin} MB "
+                              f"free)")
     for x, y in zip(fresh["convs"], full["convs"]):
         print(f"[cnn-processes] {x['name']}: scratch {x['scratch_mb']} MB "
               f"fresh, {y['scratch_mb']} MB in the full card; kernels "
@@ -4312,15 +4512,15 @@ def _table_rows(tag, out):
 
 
 def phase_experiments(card: str) -> Dict[str, int]:
-    """Tables 2 and 3, Figures 1-4 and the worker ablation, one seed each,
-    the CNN ones at the full width of cifar-cnn ``config()``, Table 3 on
-    its reference task (the internlm2 smoke config, f32, on the f32 flash
-    kernels). Returns Table 3's launches."""
+    """Tables 2 and 3 and Figures 1-4, one seed each, the CNN ones at the
+    full width of cifar-cnn ``config()``, Table 3 on its reference task
+    (the internlm2 smoke config, f32, on the f32 flash kernels). Returns
+    Table 3's launches."""
     import torch
     from repro_torch.configs import registry
-    from repro_torch.experiments import (ablation_workers, figure1_curves,
-                                         figure4_cosine, landscape_viz,
-                                         table2_cifar100, table3_imagenet)
+    from repro_torch.experiments import (figure1_curves, figure4_cosine,
+                                         landscape_viz, table2_cifar100,
+                                         table3_imagenet)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     cfg = registry.get_config("cifar-cnn")
@@ -4378,9 +4578,23 @@ def phase_experiments(card: str) -> Dict[str, int]:
           flush=True)
     check(_finite(f4["sims"] + [f4["early_mean"], f4["late_mean"]]),
           "Figure 4: a non-finite cosine")
+    torch.cuda.empty_cache()
+    print(f"[experiments] phase time {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return table3
 
+
+def phase_ablation(card: str) -> Dict[str, int]:
+    """The worker ablation (W 1, 2, 4, 8), one seed, at the full width of
+    cifar-cnn ``config()``. Returns its launches."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.experiments import ablation_workers
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = registry.get_config("cifar-cnn")
     runs = []
-    abl, _, _ = _counted(
+    abl, launches, _ = _counted(
         "worker ablation (W 1, 2, 4, 8)",
         lambda: ablation_workers.run(seeds=(0,), verbose=False, cfg=cfg,
                                      results=runs))
@@ -4394,9 +4608,9 @@ def phase_experiments(card: str) -> Dict[str, int]:
     check(_finite([a for v in abl.values() for a in v["before"] + v["after"]]),
           "the worker ablation: a non-finite accuracy")
     torch.cuda.empty_cache()
-    print(f"[experiments] phase time {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    return table3
+    print(f"[experiments] ablation phase time on {card}: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -4483,14 +4697,24 @@ def _interrupt(src: str, dst: str, keep) -> str:
     return dst
 
 
-def _resume_in_new_process(tag, kind, out, args, want, first_step):
-    """Run ``resume_child`` in a new process and hold its record against
-    the uninterrupted run's ``want`` bitwise. Returns its launches."""
-    proc = subprocess.run(
-        [sys.executable, str(Path(__file__).resolve()), "--resume-child",
-         kind, out, *args], capture_output=True, text=True, timeout=900)
-    check(proc.returncode == 0,
-          f"{tag}: the resuming process failed:\n{proc.stderr[-3000:]}")
+def _start_resume(kind, out, args):
+    """``resume_child`` in a new process, started and not waited for; its
+    stderr goes to ``out``.err."""
+    with open(out + ".err", "w") as err:
+        return subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--resume-child",
+             kind, out, *args], stdout=subprocess.DEVNULL, stderr=err)
+
+
+def _finish_resume(proc, tag, out, want, first_step):
+    """Wait for a ``_start_resume`` process and hold its record against the
+    uninterrupted run's ``want`` bitwise. Returns its launches."""
+    try:
+        proc.wait(timeout=900)
+    finally:
+        _kill([proc])
+    check(proc.returncode == 0, f"{tag}: the resuming process failed:\n"
+          f"{Path(out + '.err').read_text()[-3000:]}")
     packed, rec = want
     got = json.loads(Path(out + ".json").read_text())
     tail = [e for e in rec["phase1_log"] if e["step"] >= first_step]
@@ -4541,8 +4765,9 @@ def _snapshot_costs(swap, key, ckpt_dir):
 def phase_resume(card: str) -> Dict[str, int]:
     """Snapshots and resume, the resuming run a new process: cifar-cnn at
     full width (Table 1's SWAP) and internlm2 smoke through the launcher,
-    each cut once mid-phase-1 and once mid-phase-2. Returns the launches
-    of the resumed launcher runs."""
+    each cut once mid-phase-1 and once mid-phase-2. The resuming processes
+    run side by side (the CNN's beside the launcher's uninterrupted run).
+    Returns the launches of the resumed launcher runs."""
     import os
     import tempfile
     import torch
@@ -4565,41 +4790,57 @@ def phase_resume(card: str) -> Dict[str, int]:
               flush=True)
         del res
         _snapshot_costs(swap, key, run_dir)
-        for cut, keep, first in (
-                ("mid-phase-1 (from phase 1 step 48)",
-                 lambda n: n.startswith("phase1-step00000048"), 48),
-                ("mid-phase-2 (from phase 2 step 64)",
-                 lambda n: (n.startswith(("phase1-", "phase1_final-",
-                                          "phase2-step00000064"))), 10 ** 9)):
-            src = _interrupt(run_dir, f"{tmp}/cnn-{first}", keep)
-            _resume_in_new_process(f"cifar-cnn {cut}", "cnn",
-                                   f"{tmp}/cnn-{first}-out", [src], want,
-                                   first)
+        cnn_want, resuming, lm_resuming = want, [], []
+        try:
+            for cut, keep, first in (
+                    ("mid-phase-1 (from phase 1 step 48)",
+                     lambda n: n.startswith("phase1-step00000048"), 48),
+                    ("mid-phase-2 (from phase 2 step 64)",
+                     lambda n: n.startswith(("phase1-", "phase1_final-",
+                                             "phase2-step00000064")),
+                     10 ** 9)):
+                src = _interrupt(run_dir, f"{tmp}/cnn-{first}", keep)
+                out = f"{tmp}/cnn-{first}-out"
+                resuming.append((_start_resume("cnn", out, [src]),
+                                 f"cifar-cnn {cut}", out, first))
 
-        lm_dir = f"{tmp}/lm"
-        argv = LM_RESUME_ARGV + ["--checkpoint-dir", lm_dir]
-        print(f"[resume] python -m repro_torch.launch.train "
-              f"{' '.join(LM_RESUME_ARGV)} --checkpoint-dir DIR", flush=True)
-        res = train.main(argv)
-        torch.cuda.synchronize()
-        want = _resume_record(res)
-        del res
-        for name in sorted(os.listdir(lm_dir)):
-            if name.endswith(".msgpack"):
-                print(f"[resume] internlm2 smoke snapshot {name}: "
-                      f"{os.path.getsize(f'{lm_dir}/{name}') / 1e6:.2f} MB")
-        for cut, keep, first in (
-                ("mid-phase-1 (from phase 1 step 32)",
-                 lambda n: n.startswith(("phase1-step00000016",
-                                         "phase1-step00000032")), 32),
-                ("mid-phase-2 (from phase 2 step 16)",
-                 lambda n: n.startswith(("phase1-", "phase1_final-",
-                                         "phase2-step00000016")), 10 ** 9)):
-            src = _interrupt(lm_dir, f"{tmp}/lm-{first}", keep)
-            got = _resume_in_new_process(
-                f"internlm2 launcher {cut}", "lm", f"{tmp}/lm-{first}-out",
-                LM_RESUME_ARGV + ["--checkpoint-dir", src, "--resume"], want,
-                first)
+            lm_dir = f"{tmp}/lm"
+            argv = LM_RESUME_ARGV + ["--checkpoint-dir", lm_dir]
+            print(f"[resume] python -m repro_torch.launch.train "
+                  f"{' '.join(LM_RESUME_ARGV)} --checkpoint-dir DIR",
+                  flush=True)
+            res = train.main(argv)
+            torch.cuda.synchronize()
+            want = _resume_record(res)
+            del res
+            for name in sorted(os.listdir(lm_dir)):
+                if name.endswith(".msgpack"):
+                    mb = os.path.getsize(f"{lm_dir}/{name}") / 1e6
+                    print(f"[resume] internlm2 smoke snapshot {name}: "
+                          f"{mb:.2f} MB")
+            for cut, keep, first in (
+                    ("mid-phase-1 (from phase 1 step 32)",
+                     lambda n: n.startswith(("phase1-step00000016",
+                                             "phase1-step00000032")), 32),
+                    ("mid-phase-2 (from phase 2 step 16)",
+                     lambda n: n.startswith(("phase1-", "phase1_final-",
+                                             "phase2-step00000016")),
+                     10 ** 9)):
+                src = _interrupt(lm_dir, f"{tmp}/lm-{first}", keep)
+                out = f"{tmp}/lm-{first}-out"
+                lm_resuming.append((_start_resume(
+                    "lm", out, LM_RESUME_ARGV + ["--checkpoint-dir", src,
+                                                 "--resume"]),
+                    f"internlm2 launcher {cut}", out, first))
+            for proc, tag, out, first in resuming:
+                _finish_resume(proc, tag, out, cnn_want, first)
+            lm_got = [(tag, _finish_resume(proc, tag, out, want, first))
+                      for proc, tag, out, first in lm_resuming]
+        finally:
+            # a failed check or run leaves no resuming process behind
+            _kill([r[0] for r in resuming + lm_resuming])
+        for tag, got in lm_got:
+            cut = tag[len("internlm2 launcher "):]
             for name in FLASH_PAIR_KERNELS + ("swa_avg",):
                 check(got[name] > 0, f"{name} was not launched in the "
                                      f"resumed launcher run ({cut})")
@@ -4633,7 +4874,10 @@ def main() -> None:
             *phase_ssd()]
     compiled_fwd = phase_serve(card, compiled=True)["compiled"]
     published = phase_publish(card)
-    launches = phase_train(card)
+    trained = {}
+    launches = phase_train(
+        card, on_result=lambda res: trained.update(_train_digests(res, 1)))
+    supervised = phase_supervise(card, trained)
     phase_exact()
     phase_compiled_exact()
     phase_exact_train()
@@ -4655,11 +4899,20 @@ def main() -> None:
     whisper_serve, whisper_train = phase_whisper(card)
     vlm_serve, vlm_train = phase_vlm(card)
     cnn_launches = phase_cnn(card)
-    # the CNN step's fresh process runs beside the experiments
+    # host-bound phases in processes of their own, side by side: the CNN
+    # step's fresh process, the experiments and the ablation beside the
+    # resume phase (whose resuming processes run side by side too); the
+    # full card's CNN step runs last, alone
     fresh = start_cnn_step()
-    table3 = phase_experiments(card)
+    children = [start_phase_child(n, card)
+                for n in ("experiments", "ablation")]
+    try:
+        resumed = phase_resume(card)
+        table3, _ = [finish_phase_child(c) for c in children]
+    except BaseException:        # a failed check exits: leave no process
+        _kill([fresh[0]] + [c[0] for c in children])
+        raise
     phase_cnn_processes(card, fresh=fresh)
-    resumed = phase_resume(card)
     # launches: the dense kernels' on the dense training path; the SSD
     # forward's on the mamba serving path (the shape of its row) and on the
     # mamba training path (its train_shape), the SSD backward's on the
@@ -4692,6 +4945,9 @@ def main() -> None:
             row["table3_launches"] = table3[row["name"]]
         if row["name"] in resumed:
             row["resume_launches"] = resumed[row["name"]]
+        # supervised SWAP at internlm2's full width (one survivor: no fold)
+        if row["name"] in DENSE_TRAIN_KERNELS:
+            row["supervise_launches"] = supervised[row["name"]]
         if row["name"] in FLASH_KERNELS:
             row["gemma3_launches"] = {"train": gemma_train[row["name"]]}
             if row["name"] == "flash_attention_fwd":
@@ -4732,9 +4988,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--resume-child"]:
+    if sys.argv[1:2] == ["--phase-child"]:
+        phase_child(*sys.argv[2:])
+    elif sys.argv[1:2] == ["--resume-child"]:
         resume_child(sys.argv[2], sys.argv[3], sys.argv[4:])
-    elif sys.argv[1:2] == ["--cnn-step-child"]:
-        cnn_step_child(*sys.argv[2:5])
     else:
         main()

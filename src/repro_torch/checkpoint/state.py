@@ -125,14 +125,17 @@ def checkpoint_workers(meta: Dict[str, Any]) -> Optional[int]:
     return int(n) if n is not None else None
 
 
-def _map_state(fn, state: TrainState) -> TrainState:
-    def rec(tree):
-        if isinstance(tree, dict):
-            return {k: rec(v) for k, v in tree.items()}
-        if isinstance(tree, tuple):          # the loss-scale NamedTuple
-            return type(tree)(*(rec(v) for v in tree))
-        return fn(tree)
-    return TrainState(*(rec(x) for x in state))
+def _map_state(fn, *states: TrainState) -> TrainState:
+    """``fn`` over the leaves of one TrainState, or of several of one
+    structure taken together."""
+    def rec(*trees):
+        first = trees[0]
+        if isinstance(first, dict):
+            return {k: rec(*(t[k] for t in trees)) for k in first}
+        if isinstance(first, tuple):         # the loss-scale NamedTuple
+            return type(first)(*(rec(*xs) for xs in zip(*trees)))
+        return fn(*trees)
+    return TrainState(*(rec(*xs) for xs in zip(*states)))
 
 
 def shrink_worker_axis(state: TrainState, n_workers: int) -> TrainState:

@@ -18,8 +18,11 @@ time without evals, and on CUDA each phase's device-memory peak
 (``torch.cuda.max_memory_allocated``). With
 ``SWAPConfig.checkpoint_dir``/``checkpoint_every`` set, periodic snapshots
 let ``run(resume=True)`` restart bit-exactly mid-phase-1 or mid-phase-2
-(see ``repro_torch.checkpoint.state``). The mesh, supervisor, heartbeats
-and chunk filter (ROADMAP A13) are not ported yet and are refused.
+(see ``repro_torch.checkpoint.state``). With a supervisor
+(``repro_torch.resilience.PhaseSupervisor``) both phases run under its
+retry, rollback and dead-worker recovery; with a heartbeat monitor the
+elastic phase 3 takes real arrivals. The mesh (ROADMAP A13b) is not
+ported yet and is refused.
 """
 from __future__ import annotations
 
@@ -113,16 +116,20 @@ class SWAP:
     def __init__(self, adapter, cfg: SWAPConfig, train_arrays: Dict,
                  test_loader: Loader, mesh=None,
                  dist: Optional[DistConfig] = None, supervisor=None):
+        """``supervisor``: an optional ``repro_torch.resilience.
+        PhaseSupervisor``. With one, both phases run under its retry,
+        rollback and dead-worker recovery (a worker whose heartbeat goes
+        stale mid-phase-2 is dropped when the supervisor has a monitor),
+        and ``results["recovery_events"]`` lists what it did."""
         if mesh is not None:
             _refuse("a device mesh / sharded phase-2 engine", "A13")
-        if supervisor is not None:
-            _refuse("the phase supervisor", "A13")
         self.adapter = adapter
         self.cfg = cfg
         self.train_arrays = train_arrays
         self.test_loader = test_loader
         self.dist = dist if dist is not None else DistConfig()
         self.mesh = None
+        self.supervisor = supervisor
 
     def phase1(self, bundle) -> Tuple[EpochRunner, TrainState]:
         """Phase 1's runner (one model, the large batch) and its start
@@ -174,15 +181,33 @@ class SWAP:
         ``phase2_hooks``: extra epoch-boundary hooks for phase 2,
         ``hook(state, steps_done)``. ``worker_arrivals``: per-worker report
         times for the elastic phase 3 (``float('inf')`` marks a lost
-        worker)."""
-        if heartbeats is not None:
-            _refuse("heartbeat liveness", "A13")
-        if phase2_chunk_filter is not None:
-            _refuse("the phase-2 chunk filter (fault injection)", "A13")
+        worker), by worker id. ``heartbeats``: an optional
+        ``repro_torch.dist.heartbeat.HeartbeatMonitor``; with the elastic
+        phase 3 its arrivals (beacon staleness at averaging time) replace
+        ``worker_arrivals``. ``phase2_chunk_filter``: a ``(state, metrics)
+        -> (state, metrics)`` transform of what each phase-2 chunk
+        surfaces, before the supervisor's guard (the fault-injection seam,
+        ``repro_torch.testing.faults.FaultPlan.chunk_filter``); it needs a
+        supervisor, since without one no guard would see the fault."""
         cfg = self.cfg
         adapter = self.adapter
         results: Dict = {"phase1_log": [], "phase2_curves": [],
                          "recovery_events": []}
+        if phase2_chunk_filter is not None and self.supervisor is None:
+            raise ValueError(
+                "phase2_chunk_filter needs a supervisor attached "
+                "(SWAP(..., supervisor=...)): without one, no guard "
+                "observes the injected fault")
+
+        def _supervised(runner, state, worker, **kw):
+            res = self.supervisor.run_phase(runner, state, worker, **kw)
+            results["recovery_events"].extend(
+                {"kind": e.kind, "attempt": e.attempt, "tag": e.tag,
+                 "error": e.error, "restored_step": e.restored_step,
+                 "restored_from": e.restored_from,
+                 "lost_workers": list(e.lost_workers)} for e in res.events)
+            return res
+
         ckpt = Checkpointer(cfg.checkpoint_dir, cfg.checkpoint_every) \
             if cfg.checkpoint_dir else None
         resume_pt = find_resume_point(cfg.checkpoint_dir) \
@@ -223,14 +248,15 @@ class SWAP:
                 # times go with the cumulative phase1_steps
                 prior_t1 = resume_pt["meta"].get("phase1_time", 0.0)
                 prior_train1 = resume_pt["meta"].get("phase1_train_s", 0.0)
-            res1 = run_phase(
-                runner1, state1, 0,
+            phase1_kw = dict(
                 max_steps=cfg.phase1.max_steps - state_step(state1),
                 stop_accuracy=cfg.phase1.stop_accuracy,
                 log=results["phase1_log"], checkpointer=ckpt, tag="phase1",
                 checkpoint_meta=lambda tt: {
                     "phase1_time": prior_t1 + time.perf_counter() - t0,
                     "phase1_train_s": prior_train1 + tt})
+            res1 = (_supervised if self.supervisor is not None
+                    else run_phase)(runner1, state1, 0, **phase1_kw)
             state1 = res1.state
             bundle = state1.bundle
             results["phase1_steps"] = state_step(state1)
@@ -287,14 +313,20 @@ class SWAP:
 
             hooks.append(curve_hook)
 
-        res2 = run_phase(runner2, state2, workers,
-                         max_steps=cfg.phase2.max_steps - state_step(state2),
-                         chunk_steps=1 if collect_curves else None,
-                         checkpointer=ckpt, tag="phase2",
-                         checkpoint_meta=lambda tt: {
-                             "phase2_train_time": prior_t2 + tt,
-                             "n_workers": W},
-                         on_chunk=hooks)
+        phase2_kw = dict(
+            max_steps=cfg.phase2.max_steps - state_step(state2),
+            chunk_steps=1 if collect_curves else None,
+            checkpointer=ckpt, tag="phase2",
+            checkpoint_meta=lambda tt: {"phase2_train_time": prior_t2 + tt,
+                                        "n_workers": W},
+            on_chunk=hooks)
+        if self.supervisor is not None:
+            res2 = _supervised(runner2, state2, workers,
+                               chunk_filter=phase2_chunk_filter, **phase2_kw)
+            # the surviving ids after any mid-phase recovery shrink
+            workers = list(res2.worker)
+        else:
+            res2 = run_phase(runner2, state2, workers, **phase2_kw)
         # phase 2's optimizer state (W momentum trees, as large as the
         # stacked params) is dead from here on: the evaluations and phase 3
         # run without it
@@ -317,6 +349,14 @@ class SWAP:
 
         # ---------------- phase 3: average + BN recompute ----------------
         t3 = time.perf_counter()
+        if heartbeats is not None:
+            # real beacon staleness at averaging time, by surviving id
+            worker_arrivals = heartbeats.arrivals(workers)
+        elif worker_arrivals is not None and W_live != W \
+                and len(worker_arrivals) == W:
+            # simulated arrivals are by original worker id: realign them
+            # to the survivors' stacked positions
+            worker_arrivals = [worker_arrivals[wid] for wid in workers]
         avg_params, live_mask = self.average(state2.bundle["params"],
                                              worker_arrivals)
         full_mask = [False] * W

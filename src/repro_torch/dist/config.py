@@ -6,9 +6,13 @@ averaging knobs (``elastic_deadline_s`` > 0 turns the strict phase-3
 barrier into a deadline; ``elastic_backoff`` / ``elastic_max_extensions``
 grow it while fewer than ``elastic_min_workers`` reported -- see
 ``repro_torch.core.averaging.ElasticAverage``), with their validation and
-flags. Mesh geometry, the sharded engine, multi-host layout and heartbeats
-come with the distribution item (ROADMAP A13); their flags are not
-registered, so passing one is an error.
+flags, and the heartbeat liveness knobs (``heartbeat_dir`` enables the
+file beacons of ``repro_torch.dist.heartbeat``; ``heartbeat_interval_s``
+is the least spacing between beats; ``heartbeat_timeout_s`` the beacon
+staleness that declares a worker dead, 0 deriving it, see
+``resolved_heartbeat_timeout``). Mesh geometry, the sharded engine and
+multi-host layout come with the distribution item (ROADMAP A13b); their
+flags are not registered, so passing one is an error.
 """
 from __future__ import annotations
 
@@ -23,6 +27,10 @@ class DistConfig:
     elastic_backoff: float = 2.0
     elastic_max_extensions: int = 2
     elastic_min_workers: int = 1
+    # heartbeat liveness ("" = off: elastic arrivals stay caller-supplied)
+    heartbeat_dir: str = ""
+    heartbeat_interval_s: float = 0.0
+    heartbeat_timeout_s: float = 0.0
 
     def __post_init__(self):
         if self.n_workers < 1:
@@ -38,10 +46,36 @@ class DistConfig:
             raise ValueError(
                 f"elastic_min_workers must be in [1, n_workers="
                 f"{self.n_workers}], got {self.elastic_min_workers}")
+        if self.heartbeat_interval_s < 0:
+            raise ValueError("heartbeat_interval_s must be >= 0")
+        if self.heartbeat_timeout_s < 0:
+            raise ValueError("heartbeat_timeout_s must be >= 0")
+        if (self.heartbeat_timeout_s > 0 and self.heartbeat_interval_s > 0
+                and self.heartbeat_timeout_s < self.heartbeat_interval_s):
+            raise ValueError(
+                f"heartbeat_timeout_s ({self.heartbeat_timeout_s}) must be "
+                f">= heartbeat_interval_s ({self.heartbeat_interval_s}): a "
+                f"timeout shorter than the beat spacing declares every "
+                f"worker dead between beats")
 
     @property
     def elastic(self) -> bool:
         return self.elastic_deadline_s > 0
+
+    @property
+    def heartbeats(self) -> bool:
+        return bool(self.heartbeat_dir)
+
+    @property
+    def resolved_heartbeat_timeout(self) -> float:
+        """Liveness timeout in seconds: the explicit knob, else 3 beat
+        intervals (one missed beat is a hiccup, three a death), else 30 s
+        where every chunk boundary beats."""
+        if self.heartbeat_timeout_s > 0:
+            return self.heartbeat_timeout_s
+        if self.heartbeat_interval_s > 0:
+            return 3.0 * self.heartbeat_interval_s
+        return 30.0
 
     @classmethod
     def from_args(cls, args, n_workers_default: int = 1) -> "DistConfig":
@@ -55,6 +89,12 @@ class DistConfig:
             kw["elastic_backoff"] = args.elastic_backoff
         if args.elastic_min_workers is not None:
             kw["elastic_min_workers"] = args.elastic_min_workers
+        if args.heartbeat_dir is not None:
+            kw["heartbeat_dir"] = args.heartbeat_dir
+        if args.heartbeat_interval is not None:
+            kw["heartbeat_interval_s"] = args.heartbeat_interval
+        if args.heartbeat_timeout is not None:
+            kw["heartbeat_timeout_s"] = args.heartbeat_timeout
         return cls(**kw)
 
 
@@ -74,3 +114,15 @@ def add_dist_args(parser) -> None:
     g.add_argument("--elastic-min-workers", type=int, default=None,
                    help="fewest live workers an elastic average may fold "
                         "(all-late past the backed-off deadline is an error)")
+    g.add_argument("--heartbeat-dir", default=None, metavar="DIR",
+                   help="directory for per-worker heartbeat beacons "
+                        "(repro_torch.dist.heartbeat); real liveness in "
+                        "place of simulated elastic arrivals")
+    g.add_argument("--heartbeat-interval", type=float, default=None,
+                   metavar="SECONDS",
+                   help="least spacing between heartbeats (0 = beat at "
+                        "every chunk boundary)")
+    g.add_argument("--heartbeat-timeout", type=float, default=None,
+                   metavar="SECONDS",
+                   help="beacon staleness that declares a worker dead "
+                        "(0 = 3x the interval, or 30 s)")

@@ -18,7 +18,8 @@ config:
       [--stop-acc 0.55] [--optimizer sgd|lars|adamw] [--save out.ckpt] \
       [--phase1-precision bfloat16] [--grad-accum 4] \
       [--checkpoint-dir ckpts/ --checkpoint-every 50] [--resume] \
-      [--elastic-deadline 30] [--lost-workers 3] [--device {cuda,cpu}]
+      [--elastic-deadline 30] [--lost-workers 3] [--supervise 2] \
+      [--heartbeat-dir hb/ --heartbeat-interval 5] [--device {cuda,cpu}]
 
 gemma3-1b at full width on one 80 GB card takes a phase-1 batch of 128
 (at 256 its 262144-wide logits run the card out of memory):
@@ -52,14 +53,23 @@ Runs on CUDA unless ``--device cpu`` is given; with no card visible it
 raises. Long jobs: ``--checkpoint-dir``/``--checkpoint-every`` write
 epoch-aligned TrainState snapshots, and a relaunch with ``--resume``
 continues bit-exactly from the newest one, mid-phase-1 or mid-phase-2.
-Not ported yet, and so not accepted: ``--supervise``, ``--mesh`` and the
-other distribution flags (ROADMAP A13).
+
+Resilience (``resilience``): ``--heartbeat-dir`` switches the elastic
+arrivals from the simulated ``--lost-workers`` to real per-worker beacons
+(this launcher beats every live worker at each phase-2 chunk boundary; a
+``--lost-workers`` worker then never beats, and the monitor declares it
+dead). ``--supervise N`` runs both phases under a ``PhaseSupervisor``
+with N retries: a divergence rolls back to the last verified snapshot (or
+the phase's initial state), and a worker whose beacon goes stale mid-phase
+2 is dropped and the phase resumes with the survivors. Not ported yet, and
+so not accepted: ``--mesh`` and the multi-host flags (ROADMAP A13b).
 """
 from __future__ import annotations
 
 import argparse
 import json
 import time
+from typing import List, NamedTuple, Optional
 
 import torch
 
@@ -71,7 +81,12 @@ from repro_torch.core.adapters import LMAdapter
 from repro_torch.core.swap import SWAP
 from repro_torch.data.pipeline import Loader, make_markov_lm
 from repro_torch.dist.config import DistConfig, add_dist_args
+from repro_torch.dist.heartbeat import (HeartbeatMonitor, HeartbeatWriter,
+                                        beat_on_chunk)
 from repro_torch.kernels.dispatch import require_device
+from repro_torch.resilience import PhaseSupervisor, SupervisorConfig
+
+N_WORKERS_DEFAULT = 4
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -110,19 +125,65 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--resume", action="store_true",
                     help="continue from the newest snapshot in "
                          "--checkpoint-dir (bit-exact, mid-phase)")
+    ap.add_argument("--supervise", type=int, default=0, metavar="RETRIES",
+                    help="run both phases under a resilience."
+                         "PhaseSupervisor with this retry budget (0 = "
+                         "unsupervised): a divergence rolls back to the "
+                         "last verified checkpoint, a worker whose "
+                         "heartbeat goes stale is dropped")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return ap
 
 
-def build(args, cfg=None) -> SWAP:
+class Resilience(NamedTuple):
+    """What ``--supervise``, ``--heartbeat-*`` and ``--lost-workers``
+    make: the supervisor for ``SWAP``, and ``SWAP.run``'s ``heartbeats``,
+    ``phase2_hooks`` and ``worker_arrivals``."""
+    supervisor: Optional[PhaseSupervisor]
+    monitor: Optional[HeartbeatMonitor]
+    phase2_hooks: List
+    worker_arrivals: Optional[List[float]]
+
+
+def resilience(args, dist: DistConfig) -> Resilience:
+    """The resilience wiring of the parsed flags. With ``--heartbeat-dir``
+    every worker that is not in ``--lost-workers`` gets a writer that
+    beats once now and at each phase-2 chunk boundary, and one monitor
+    serves the supervisor and phase 3; without it ``--lost-workers`` is
+    the simulated arrivals of the elastic phase 3."""
+    lost = [int(w) for w in args.lost_workers.split(",") if w.strip()]
+    if lost and not dist.elastic:
+        raise SystemExit("--lost-workers needs --elastic-deadline > 0 "
+                         "(a strict phase-3 barrier cannot drop workers)")
+    monitor, hooks, arrivals = None, [], None
+    if dist.heartbeats:
+        writers = [HeartbeatWriter(dist.heartbeat_dir, w,
+                                   interval_s=dist.heartbeat_interval_s)
+                   for w in range(dist.n_workers) if w not in lost]
+        for wtr in writers:
+            wtr.beat()                       # everyone alive at launch
+        monitor = HeartbeatMonitor(dist.heartbeat_dir, dist.n_workers,
+                                   timeout_s=dist.resolved_heartbeat_timeout)
+        hooks.append(beat_on_chunk(writers))
+    elif lost:
+        arrivals = [float("inf") if w in lost else 0.0
+                    for w in range(dist.n_workers)]
+    supervisor = (PhaseSupervisor(SupervisorConfig(max_retries=args.supervise),
+                                  monitor=monitor)
+                  if args.supervise > 0 else None)
+    return Resilience(supervisor, monitor, hooks, arrivals)
+
+
+def build(args, cfg=None, supervisor=None) -> SWAP:
     """The SWAP run that the parsed flags describe: model, data, optimizer,
     phase schedules and the phase-3 average, on ``args.device``. ``cfg``
     (a Python keyword, not a flag) replaces the config that ``--arch`` and
-    ``--full`` select with one of the same arch, e.g. at a cut depth."""
+    ``--full`` select with one of the same arch, e.g. at a cut depth;
+    ``supervisor``: ``resilience(args, dist).supervisor``."""
     if args.resume and not args.checkpoint_dir:
         raise SystemExit("--resume requires --checkpoint-dir")
     dev = require_device(args.device)
-    dist = DistConfig.from_args(args, n_workers_default=4)
+    dist = DistConfig.from_args(args, n_workers_default=N_WORKERS_DEFAULT)
     if cfg is None:
         cfg = (registry.get_config(args.arch) if args.full
                else registry.get_smoke_config(args.arch))
@@ -174,27 +235,27 @@ def build(args, cfg=None) -> SWAP:
         seed=args.seed, checkpoint_dir=args.checkpoint_dir,
         checkpoint_every=args.checkpoint_every)
 
-    return SWAP(adapter, swap_cfg, train, test_loader, dist=dist)
+    return SWAP(adapter, swap_cfg, train, test_loader, dist=dist,
+                supervisor=supervisor)
 
 
 def main(argv=None, *, cfg=None):
     """Parse ``argv``, run SWAP, print the summary. Returns the results
     dict of ``SWAP.run``. ``cfg``: as for ``build``."""
     args = build_parser().parse_args(argv)
-    swap = build(args, cfg)
+    wiring = resilience(args, DistConfig.from_args(
+        args, n_workers_default=N_WORKERS_DEFAULT))
+    swap = build(args, cfg, supervisor=wiring.supervisor)
     cfg, dist = swap.adapter.cfg, swap.dist
-    lost = [int(w) for w in args.lost_workers.split(",") if w.strip()]
-    if lost and not dist.elastic:
-        raise SystemExit("--lost-workers needs --elastic-deadline > 0 "
-                         "(a strict phase-3 barrier cannot drop workers)")
-    worker_arrivals = ([float("inf") if w in lost else 0.0
-                        for w in range(dist.n_workers)] if lost else None)
     print(f"arch={cfg.name} family={cfg.family} "
           f"params={cfg.param_count() / 1e6:.1f}M "
           f"workers={dist.n_workers} engine=loop")
     t0 = time.time()
     res = swap.run(torch.Generator(device=args.device).manual_seed(args.seed),
-                   resume=args.resume, worker_arrivals=worker_arrivals)
+                   resume=args.resume,
+                   worker_arrivals=wiring.worker_arrivals,
+                   phase2_hooks=wiring.phase2_hooks,
+                   heartbeats=wiring.monitor)
     out = {k: v for k, v in res.items()
            if isinstance(v, (int, float, list)) and k != "phase1_log"}
     out["wall_s"] = time.time() - t0
@@ -205,6 +266,10 @@ def main(argv=None, *, cfg=None):
         print(f"elastic: {res['phase2_live_workers']}/{dist.n_workers} "
               f"workers in the average, live mask "
               f"{res['worker_live_mask']}")
+    for ev in res["recovery_events"]:
+        print(f"recovery: {ev['kind']} in {ev['tag']} (attempt "
+              f"{ev['attempt']}) -> resumed from {ev['restored_from']} at "
+              f"step {ev['restored_step']}")
     print(f"SWAP: before avg {res['before_avg_test_acc']:.4f} -> "
           f"after avg {res['after_avg_test_acc']:.4f}")
     st = res["device"]

@@ -69,7 +69,8 @@ PORT_MODULES = (
     "repro_torch.experiments.ablation_workers", "repro_torch.serve",
     "repro_torch.serve.compiled", "repro_torch.experiments.serve_continuous",
     "repro_torch.experiments.serve_batched", "repro_torch.serve.publish",
-    "repro_torch.experiments.train_and_serve")
+    "repro_torch.experiments.train_and_serve", "repro_torch.dist.heartbeat",
+    "repro_torch.resilience", "repro_torch.testing.faults")
 
 
 def test_importing_the_port_loads_no_jax():

@@ -4,9 +4,9 @@ the engine's publish queue, the publisher and the follower.
 The rest of ``tests/test_publish.py`` (deferred, superseded, stale and
 misshapen publishes; the ``WeightPublisher`` epoch hook over a
 ``StreamingAverage``, its rollbacks; the ``PublishFollower``) and the
-three publisher scenarios of ``tests/test_resilience.py`` (the JAX
+three publisher scenarios of ``tests/test_resilience.py`` (each
 package's ``FaultPlan().failing_engine()``, a duck-typed engine, drives
-both publishers) run through the JAX package and the port on the same
+its own publisher) run through the JAX package and the port on the same
 params and prompts: tokens, ``stats``, generations, publisher logs and
 ``failures`` identical. Then ``launch.serve --follow`` seeded from one
 generation already written.
@@ -21,8 +21,9 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import repro.serve.publish as jpublish_mod  # noqa: E402
+import repro.testing.faults as jfaults  # noqa: E402
 import repro_torch.serve.publish as tpublish_mod  # noqa: E402
-from repro.testing.faults import FaultPlan  # noqa: E402
+import repro_torch.testing.faults as tfaults  # noqa: E402
 from repro_torch.checkpoint import state as tstate  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.optim.api import tree_leaves, tree_map  # noqa: E402
@@ -229,7 +230,8 @@ def test_publisher_engine_and_follower_roundtrip(tmp_path):
 
 
 def _flaky_publish(side, n_fail, **kw):
-    plan = FaultPlan().fail_publishes(n_fail)
+    plan = (jfaults if side.jax else tfaults).FaultPlan().fail_publishes(
+        n_fail)
     engine = plan.failing_engine()
     sleeps = []
     pub = side.publisher([engine], sleep=sleeps.append, **kw)

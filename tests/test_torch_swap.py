@@ -35,7 +35,11 @@ from repro_torch.core.swa import SWA  # noqa: E402
 from repro_torch.core.swap import SWAP  # noqa: E402
 from repro_torch.data.pipeline import Loader  # noqa: E402
 from repro_torch.dist.config import DistConfig, add_dist_args  # noqa: E402
+from repro_torch.dist.heartbeat import (HeartbeatMonitor,  # noqa: E402
+                                        HeartbeatWriter)
 from repro_torch.launch import train as tlaunch  # noqa: E402
+from repro_torch.resilience import PhaseSupervisor  # noqa: E402
+from repro_torch.testing.faults import FakeClock  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = 1e-4
@@ -166,19 +170,28 @@ def test_swa_matches_jax(runs):
         np.testing.assert_allclose(tres[key], jres[key], atol=1 / 512)
 
 
-def test_unported_surfaces_are_refused():
+def test_unported_surfaces_are_refused(tmp_path):
+    """The mesh is still refused (A13); the supervisor and heartbeats are
+    accepted and run to a result."""
     _, tcfg = _swap_cfgs()
     tad = LMAdapter(tbase.ModelConfig(**TINY), tbase.OptimizerConfig())
-    tr = {"tokens": np.zeros((64, 16), np.int32),
-          "labels": np.zeros((64, 16), np.int32)}
+    tr = {"tokens": np.zeros((256, 16), np.int32),
+          "labels": np.zeros((256, 16), np.int32)}
     test = Loader(tr, 32)
     with pytest.raises(NotImplementedError, match="A13"):
         SWAP(tad, tcfg, tr, test, mesh=object())
-    with pytest.raises(NotImplementedError, match="A13"):
-        SWAP(tad, tcfg, tr, test, supervisor=object())
-    swap = SWAP(tad, tcfg, tr, test)
-    with pytest.raises(NotImplementedError, match="A13"):
-        swap.run(torch.Generator(), heartbeats=object())
+    clock = FakeClock()
+    for w in range(W):
+        HeartbeatWriter(str(tmp_path), w, clock=clock).beat()
+    monitor = HeartbeatMonitor(str(tmp_path), W, timeout_s=1.0, clock=clock)
+    swap = SWAP(tad, tcfg, tr, test,
+                dist=DistConfig(n_workers=W, elastic_deadline_s=10.0),
+                supervisor=PhaseSupervisor(monitor=monitor))
+    res = swap.run(torch.Generator(), heartbeats=monitor)
+    assert res["recovery_events"] == []
+    assert res["phase2_worker_ids"] == list(range(W))
+    assert res["worker_live_mask"] == [True] * W
+    assert res["phase2_steps"] == tcfg.phase2.max_steps
 
 
 def test_dist_config_validation_and_flags():
@@ -187,7 +200,11 @@ def test_dist_config_validation_and_flags():
                     (dict(elastic_backoff=0.5), "elastic_backoff"),
                     (dict(elastic_max_extensions=-1), "max_extensions"),
                     (dict(n_workers=2, elastic_min_workers=3),
-                     "elastic_min_workers")):
+                     "elastic_min_workers"),
+                    (dict(heartbeat_interval_s=-1.0), "heartbeat_interval_s"),
+                    (dict(heartbeat_timeout_s=-1.0), "heartbeat_timeout_s"),
+                    (dict(heartbeat_interval_s=5.0, heartbeat_timeout_s=2.0),
+                     "declares every worker dead")):
         with pytest.raises(ValueError, match=msg):
             DistConfig(**kw)
         with pytest.raises(ValueError, match=msg):
@@ -202,6 +219,17 @@ def test_dist_config_validation_and_flags():
             d.elastic) == (3, 5.0, 2, True)
     assert DistConfig.from_args(ap.parse_args([]),
                                 n_workers_default=4).n_workers == 4
+    d = DistConfig.from_args(ap.parse_args(
+        ["--heartbeat-dir", "hb", "--heartbeat-interval", "2",
+         "--heartbeat-timeout", "0"]))
+    assert (d.heartbeats, d.heartbeat_dir, d.heartbeat_interval_s,
+            d.resolved_heartbeat_timeout) == (True, "hb", 2.0, 6.0)
+    for kw in (dict(heartbeat_dir="hb"), dict(heartbeat_interval_s=2.0),
+               dict(heartbeat_interval_s=2.0, heartbeat_timeout_s=7.0)):
+        assert (DistConfig(**kw).resolved_heartbeat_timeout,
+                DistConfig(**kw).heartbeats) == \
+            (JDist(**kw).resolved_heartbeat_timeout, JDist(**kw).heartbeats)
+    assert not DistConfig().heartbeats
     with pytest.raises(SystemExit):
         ap.parse_args(["--mesh", "worker:2"])
 
