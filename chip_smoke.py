@@ -93,6 +93,18 @@ Phases, each printing its own lines; any failed check exits non-zero:
    phase 5, the flash launches of the three phase-2 attempts as the layer
    plan has them, the host copy's bytes and seconds, each restore's
    seconds, the peaks under 75 GB;
+5c. SWAP across processes (``[dist]``): the launcher with phase 5's argv
+   (phase 1 cut to 2 steps: gloo's all_reduce is slow on one card) and
+   ``--mesh worker:2`` as two processes on the one card (this one rank
+   0, a child rank 1, both allocators on expandable segments), gloo over
+   loopback, internlm2-1.8b at full width and DIST_LAYERS: phase 1 data parallel over both, one worker a process
+   in phase 2 with no collective, phase 3 gathered by broadcasts in worker
+   order; both ranks' phase-1 params equal and within DIST_PHASE1_RTOL of
+   the single-process launcher's phase 1; each worker and the elastic
+   average bitwise the single-process port's from the same phase-1
+   params; the recorder's collectives where the layout puts them; each
+   rank's launches as the layer plan has them, on the bf16 route; each
+   rank's peak and their sum under 75 GB; the gloo transfer rates;
 6. smoke-width exactness in f32: continuous batching against
    single-request generation, token for token; the compiled engine's CPU
    test scenarios through its CUDA graph (``phase_compiled_exact``: equal
@@ -350,6 +362,24 @@ TRAIN_ARGV = ["--full", "--workers", "2", "--phase1-steps", "4",
 # poisoning the phase-2 chunk that holds step 1 (SUPERVISE_NAN_STEP)
 SUPERVISE_ARGV = TRAIN_ARGV + ["--supervise", "2", "--lost-workers", "0"]
 SUPERVISE_NAN_STEP = 1
+# SWAP across two processes on the one card: TRAIN_ARGV with phase 1 cut
+# to 2 steps (a gloo all_reduce of a rank's f32 grads runs at 0.5-0.9
+# GB/s here: 6.55 GB a step at 20 layers took 7.5-12 s), on the layout
+# worker:2 (one worker a process), gloo (NCCL refuses two ranks on one
+# card); each rank adds --coordinator and --process-id at run time
+DIST_TRAIN_ARGV = TRAIN_ARGV + ["--phase1-steps", "2"]
+DIST_ARGV = DIST_TRAIN_ARGV + ["--mesh", "worker:2", "--num-processes", "2",
+                               "--dist-backend", "gloo"]
+# internlm2-1.8b's depth in [dist]: two processes share the card, and at
+# all 24 layers each peaks at 39.39 GB in phase 3 (three f32 copies of the
+# params: phase 1's, its worker's and the average; and the eval's logits),
+# 78.79 GB together, over PEAK_LIMIT_GB; at 20 layers 35.37 GB a rank
+DIST_LAYERS = 20
+# phase 1 over two ranks against one process's (relative L2 of the
+# params): the mean of two half-batch gradients, summed in another order,
+# measured at 2.1e-05; both ranks reading shard 0 (the mean over half the
+# batch, the ranks still equal) measured at 3.3e-03
+DIST_PHASE1_RTOL = 2e-4
 MAMBA = "mamba2-2.7b"
 # PERF.md's line for a training phase's device memory peak: above it a
 # configuration is cut further
@@ -3290,6 +3320,275 @@ def phase_supervise(card: str, trained) -> Dict[str, int]:
     return launches
 
 
+def _dist_argv(port: int, rank: int):
+    return DIST_ARGV + ["--coordinator", f"127.0.0.1:{port}",
+                        "--process-id", str(rank)]
+
+
+def _dist_cfg(layers: int):
+    """internlm2-1.8b at full width, at ``layers`` of its layers."""
+    import dataclasses
+    from repro_torch.configs import registry
+    return dataclasses.replace(registry.get_config("internlm2-1.8b"),
+                               n_layers=layers)
+
+
+def _allocator_settings(settings: str) -> None:
+    """Set this process's CUDA caching allocator options
+    (``PYTORCH_CUDA_ALLOC_CONF``'s syntax) from here on."""
+    import torch
+    setter = getattr(torch._C, "_accelerator_setAllocatorSettings", None)
+    (setter or torch.cuda.memory._set_allocator_settings)(settings)
+
+
+@contextlib.contextmanager
+def _dist_plant(plant: bool):
+    """With ``plant``, a data-parallel fault that keeps the ranks equal:
+    every rank reads shard 0 of each phase-1 batch, so that phase 1's
+    mean covers half the batch on both ranks and only the bound on phase
+    1 against one process can see it. Without, nothing."""
+    from repro_torch.dist.config import DistConfig
+    if not plant:
+        yield
+        return
+    honest = DistConfig.data_shard
+    DistConfig.data_shard = property(
+        lambda d: (0, d.num_processes) if d.multihost else None)
+    try:
+        yield
+    finally:
+        DistConfig.data_shard = honest
+
+
+def _dist_rank(port: str, layers: str, plant: str = "0") -> dict:
+    """Rank 1 of ``[dist]`` (a child process, its caching allocator on
+    expandable segments): the launcher's run, the launches it made, the
+    digests of its phase-1 params, of its worker and of the average, its
+    peaks and its collectives."""
+    import torch
+    from repro_torch.launch import train
+    _reset_launches()
+    with _dist_plant(plant == "1"):
+        res = train.main(_dist_argv(int(port), 1),
+                         cfg=_dist_cfg(int(layers)))
+    torch.cuda.synchronize()
+    return dict(_dist_record(res),
+                launches={n: fn.launches
+                          for n, fn in _launch_counts().items()},
+                on_sm90={n: fn.launches_sm90 for n, fn in
+                         _launch_counts().items() if n in FLASH_PAIR_KERNELS})
+
+
+def _dist_record(res) -> dict:
+    from repro_torch.optim.api import tree_map
+    return {"phase1": _digests(res["phase1_bundle"]["params"]),
+            "workers": res["local_worker_ids"],
+            "local": [_digests(tree_map(lambda a: a[i],
+                                        res["stacked_params"]))
+                      for i in range(len(res["local_worker_ids"]))],
+            "average": _digests(res["final_bundle"]["params"]),
+            "peaks": [res["device"][f"phase{i}_peak_gb"] for i in (1, 2, 3)],
+            "records": [list(r) for r in res["collectives"]],
+            "accs": res["worker_test_accs"],
+            "mask": res["worker_live_mask"],
+            "times": {k: res[k] for k in ("phase1_time", "phase2_time",
+                                          "phase3_time", "total_time")},
+            "p1": res["phase1_steps"], "p2": res["phase2_steps"]}
+
+
+def phase_dist(card: str, layers: int = DIST_LAYERS,
+               plant: bool = False) -> Dict[str, Dict[str, int]]:
+    """SWAP across two processes on the one card (``[dist]``): the
+    launcher (``train.main``) with DIST_ARGV (DIST_TRAIN_ARGV on the
+    worker:2 layout), this process rank 0 and a
+    child rank 1 (``--phase-child dist-rank``), gloo over loopback
+    (NCCL refuses two ranks on one card), internlm2-1.8b at full width
+    (``_dist_cfg``). Prints each rank's peaks and their sum, the gloo
+    transfer rates and the phase's time. Holds: both ranks' phase-1 params
+    equal, and within DIST_PHASE1_RTOL (relative L2) of the single-process
+    launcher's phase 1 (DIST_TRAIN_ARGV at DIST_LAYERS), run here after
+    the ranks end (a data-parallel mean is not bitwise); each rank's worker
+    and both ranks' averages bitwise those of the single-process port's
+    phase 2 and elastic fold from rank 0's phase-1 params, also run here;
+    the average within 1e-6 of the plain mean; no phase-2 collective
+    across the worker blocks and one phase-3 broadcast a leaf a worker
+    (the recorder); every kernel of the path launched on each rank, the
+    flash kernels as the layer plan has them on the bf16 route, swa_avg
+    once a leaf (the second worker's fold); the sum of the two ranks'
+    peaks under PEAK_LIMIT_GB. Both ranks' caching allocators run on
+    expandable segments (this process's only for the phase): two
+    processes share the card, and memory that one holds reserved but
+    unused is lost to the other. ``layers``: internlm2's depth (its 24
+    layers, or a cut). ``plant``: both ranks read shard 0 of phase 1's
+    batches (``_dist_plant``), and the check on phase 1 is that the bound
+    catches it. Returns each rank's launches."""
+    import socket
+    import torch
+    from repro_torch.core.averaging import average_stacked
+    from repro_torch.dist.sharding import (CollectiveRecord,
+                                           assert_no_cross_worker_collectives,
+                                           collective_bytes)
+    from repro_torch.launch import train
+    from repro_torch.models.model import Model
+    from repro_torch.optim.api import tree_map
+    from repro_torch.train.loop import run_phase
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    cfg = _dist_cfg(layers)
+    free, total = torch.cuda.mem_get_info()
+    planted = "; planted: both ranks on shard 0" if plant else ""
+    print(f"[dist] 2 processes: python -m repro_torch.launch.train "
+          f"{' '.join(_dist_argv(port, 0))} (rank 1: --process-id 1; "
+          f"{cfg.n_layers} layers{planted}); the card has "
+          f"{free / 1e9:.2f} of {total / 1e9:.2f} GB free, this process "
+          f"holds {torch.cuda.memory_reserved() / 1e9:.2f} GB reserved",
+          flush=True)
+    child = start_phase_child(
+        "dist-rank", str(port), str(layers), str(int(plant)),
+        env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+    _allocator_settings("expandable_segments:True")
+    try:
+        # --- the main path (rank 0), its launch counts read around it ---
+        _reset_launches()
+        with _dist_plant(plant):
+            res = train.main(_dist_argv(port, 0), cfg=cfg)
+        torch.cuda.synchronize()
+        launches0 = {n: fn.launches for n, fn in _launch_counts().items()}
+        sm90_0 = {n: fn.launches_sm90 for n, fn in _launch_counts().items()
+                  if n in FLASH_PAIR_KERNELS}
+        # ----------------------------------------------------------------
+        rank1 = finish_phase_child(child, "[dist] rank 1")
+    except BaseException:
+        _kill([child[0]])
+        for name in ("stdout", "stderr"):     # rank 0 failed first
+            path = Path(f"{child[1]}/{name}.txt")
+            if path.exists():
+                print(f"[dist] rank 1 {name}:\n{path.read_text()[-3000:]}",
+                      flush=True)
+        torch.cuda.empty_cache()
+        _allocator_settings("expandable_segments:False")
+        raise
+    t_ranks = time.perf_counter() - t0
+    rank0 = json.loads(json.dumps(_dist_record(res)))   # as rank 1's
+    ranks = [rank0, rank1]
+    launches = [launches0, rank1["launches"]]
+    sm90 = [sm90_0, rank1["on_sm90"]]
+    p1, p2 = rank0["p1"], rank0["p2"]
+    peaks = [max(r["peaks"]) for r in ranks]
+    print(f"[dist] memory peak: rank 0 {ranks[0]['peaks']} GB, rank 1 "
+          f"{ranks[1]['peaks']} GB (phases 1-3); the sum of the ranks' "
+          f"peaks {sum(peaks):.2f} GB (limit {PEAK_LIMIT_GB} GB)")
+    print(f"[dist] rank 0 times {rank0['times']}; the ranks' run "
+          f"{t_ranks:.1f} s", flush=True)
+
+    # the recorder
+    phase1 = res["phase1_bundle"]["params"]
+    n_leaves = len(list(_leaves(phase1)))
+    for r, rec in enumerate(ranks):
+        recs = [CollectiveRecord(op, tuple(rk), nb, ph, sec)
+                for op, rk, nb, ph, sec in rec["records"]]
+        rates = []
+        for phase, op in (("phase1", "all_reduce"), ("phase3", "broadcast")):
+            xs = [x for x in recs if x.phase == phase and x.op == op]
+            nb = collective_bytes(xs).get(op, 0)
+            sec = sum(x.seconds for x in xs)
+            rates.append(f"{phase} {len(xs)} {op} {nb / 1e9:.2f} GB in "
+                         f"{sec:.2f} s ({nb / 1e9 / max(sec, 1e-9):.2f} GB/s)")
+        phase2 = [x for x in recs if x.phase == "phase2"]
+        print(f"[dist] rank {r} collectives on {card}, gloo over loopback: "
+              f"{len(phase2)} in phase 2; " + "; ".join(rates), flush=True)
+        assert_no_cross_worker_collectives(phase2, 2, 2)
+        p3 = [x for x in recs if x.phase == "phase3"]
+        check(len(p3) == 2 * n_leaves
+              and all(x.op == "broadcast" for x in p3),
+              f"[dist] rank {r}: phase 3 issued {len(p3)} collectives, not "
+              f"one broadcast a leaf a worker ({2 * n_leaves})")
+    check(sum(peaks) <= PEAK_LIMIT_GB,
+          f"[dist] the two ranks peak at {sum(peaks):.2f} GB together")
+
+    # the launches, rank by rank
+    n, remat = _blocks(Model(cfg))["flash"]
+    steps = p1 + p2              # each rank: phase 1, and one worker
+    for r in (0, 1):
+        lc = launches[r]
+        evals, rem = divmod(lc["flash_attention_fwd"] - (n + remat) * steps,
+                            n)
+        print(f"[dist] rank {r} launches: {lc}; on the bf16 route: "
+              f"{sm90[r]}; {steps} steps, {evals} eval forwards of {n} "
+              f"layers")
+        check(all(lc[k] > 0 for k in DENSE_TRAIN_KERNELS),
+              f"[dist] rank {r}: a kernel of the path was not launched")
+        check(all(lc[k] == n * steps for k in FLASH_PAIR_KERNELS[1:])
+              and evals >= 0 and rem == 0,
+              f"[dist] rank {r}: flash launches {lc} are not the plan's")
+        check(all(sm90[r][k] == lc[k] for k in sm90[r]),
+              f"[dist] rank {r}: flash launches off the bf16 route")
+        check(lc["swa_avg"] == n_leaves,
+              f"[dist] rank {r}: swa_avg launched {lc['swa_avg']} times, "
+              f"not once a leaf ({n_leaves})")
+    check(rank1["phase1"] == rank0["phase1"],
+          "[dist] the two ranks' phase-1 params differ")
+    del res
+
+    # the single-process launcher's phase 1 from the same seed, then its
+    # phase 2 and elastic fold from rank 0's phase-1 params
+    single = train.build(train.build_parser().parse_args(DIST_TRAIN_ARGV),
+                         cfg)
+    init = single.adapter.init(torch.Generator(device="cuda").manual_seed(0))
+    init0 = tree_map(lambda a: a.clone(), init["params"])
+    runner, state = single.phase1(init)
+    state = run_phase(runner, state, 0, max_steps=p1,
+                      stop_accuracy=single.cfg.phase1.stop_accuracy).state
+    rel1 = _rel_l2(phase1, state.bundle["params"])
+    step1 = _rel_l2(state.bundle["params"], init0)
+    del state, runner, init, init0
+    print(f"[dist] phase 1 (data parallel over 2 ranks"
+          f"{', planted: both on shard 0' if plant else ''}) against the "
+          f"single-process launcher's: relative L2 {rel1:.3e} (limit "
+          f"{DIST_PHASE1_RTOL:g}; phase 1 moved the params by {step1:.3e} "
+          f"of their norm)", flush=True)
+    if plant:
+        check(rel1 > DIST_PHASE1_RTOL,
+              f"[dist] the planted fault stays inside the bound: {rel1}")
+    else:
+        check(rel1 <= DIST_PHASE1_RTOL,
+              f"[dist] phase 1 differs from the single-process one: {rel1}")
+    runner, state = single.phase2({"params": phase1, "state": {}})
+    state = run_phase(runner, state, [0, 1], max_steps=p2).state
+    stacked = state.bundle["params"]
+    del state, runner
+    avg, mask = single.average(stacked)
+    want = json.loads(json.dumps({
+        "local": [_digests(tree_map(lambda a: a[w], stacked))
+                  for w in (0, 1)],
+        "average": _digests(avg)}))
+    rel = _rel_l2(avg, average_stacked(stacked))
+    del stacked, avg, phase1, single
+    same = {f"worker {w}": ranks[w]["local"][0] == want["local"][w]
+            for w in (0, 1)}
+    same.update({f"average on rank {r}": ranks[r]["average"] ==
+                 want["average"] for r in (0, 1)})
+    print(f"[dist] bitwise against the single-process port from the same "
+          f"phase-1 params (per-leaf digests): {same}")
+    check(all(same.values()) and [r["workers"] for r in ranks] == [[0], [1]],
+          f"[dist] not bitwise the single-process port: {same}")
+    print(f"[dist] elastic average against the plain mean of the same "
+          f"workers: relative L2 {rel:.3e} (limit 1e-6); live masks "
+          f"{[r['mask'] for r in ranks]}; worker accs {rank0['accs']}")
+    check(rel <= 1e-6 and all(r["mask"] == [True, True] for r in ranks)
+          and rank1["accs"] == rank0["accs"],
+          f"[dist] average {rel}, masks or accuracies disagree")
+    torch.cuda.empty_cache()
+    _allocator_settings("expandable_segments:False")
+    print(f"[dist] phase time on {card}: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {"rank0": launches0, "rank1": launches[1]}
+
+
 # ---------------------------------------------------------------------------
 # phase 6: smoke-width training exactness
 # ---------------------------------------------------------------------------
@@ -4375,7 +4674,8 @@ def phase_cnn(card: str) -> int:
 # what runs in a process of its own, beside the phases after it:
 # ``--phase-child NAME OUT ARGS...`` runs ``CHILD_PHASES[NAME](*ARGS)``
 CHILD_PHASES = {"experiments": "phase_experiments",
-                "ablation": "phase_ablation", "cnn-step": "_cnn_step"}
+                "ablation": "phase_ablation", "cnn-step": "_cnn_step",
+                "dist-rank": "_dist_rank"}
 
 
 def phase_child(name: str, out: str, *args: str) -> None:
@@ -4385,9 +4685,11 @@ def phase_child(name: str, out: str, *args: str) -> None:
     Path(out).write_text(json.dumps(globals()[CHILD_PHASES[name]](*args)))
 
 
-def start_phase_child(name: str, *args: str):
+def start_phase_child(name: str, *args: str, env=None):
     """``phase_child(name, ..., *args)`` in a new process, started and not
-    waited for: (the process, its directory, the name)."""
+    waited for: (the process, its directory, the name). ``env``: variables
+    added to the child's environment."""
+    import os
     import tempfile
     tmp = tempfile.mkdtemp()
     # output to files, not pipes: the parent reads nothing until it waits,
@@ -4396,7 +4698,8 @@ def start_phase_child(name: str, *args: str):
             open(f"{tmp}/stderr.txt", "w") as err:
         proc = subprocess.Popen(
             [sys.executable, str(Path(__file__).resolve()), "--phase-child",
-             name, f"{tmp}/result.json", *args], stdout=out, stderr=err)
+             name, f"{tmp}/result.json", *args], stdout=out, stderr=err,
+            env=dict(os.environ, **env) if env else None)
     return proc, tmp, name
 
 
@@ -4878,6 +5181,7 @@ def main() -> None:
     launches = phase_train(
         card, on_result=lambda res: trained.update(_train_digests(res, 1)))
     supervised = phase_supervise(card, trained)
+    dist = phase_dist(card)
     phase_exact()
     phase_compiled_exact()
     phase_exact_train()
@@ -4948,6 +5252,8 @@ def main() -> None:
         # supervised SWAP at internlm2's full width (one survivor: no fold)
         if row["name"] in DENSE_TRAIN_KERNELS:
             row["supervise_launches"] = supervised[row["name"]]
+            # SWAP across two processes, each rank's own launches
+            row["dist_launches"] = {r: dist[r][row["name"]] for r in dist}
         if row["name"] in FLASH_KERNELS:
             row["gemma3_launches"] = {"train": gemma_train[row["name"]]}
             if row["name"] == "flash_attention_fwd":

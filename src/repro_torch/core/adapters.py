@@ -45,10 +45,12 @@ class LMAdapter:
 
     def make_train_step(self, schedule_fn: Callable,
                         policy: Optional[PrecisionPolicy] = None,
-                        grad_accum_steps: int = 1):
+                        grad_accum_steps: int = 1, group=None):
         """Engine-facing train step. The LM casts per matmul from
         ``ModelConfig.dtype``, so a reduced-precision policy threads its
-        compute dtype through the model config; master params stay f32."""
+        compute dtype through the model config; master params stay f32.
+        ``group``: the data-parallel process group
+        (``make_precision_train_step``)."""
         model = self.model
         if (policy is not None and policy.casts_compute
                 and self.cfg.dtype != policy.compute_dtype):
@@ -61,7 +63,8 @@ class LMAdapter:
 
         return make_precision_train_step(
             loss_with_aux, self._opt_update, schedule_fn, policy=policy,
-            grad_accum_steps=grad_accum_steps, cast_inputs=False)
+            grad_accum_steps=grad_accum_steps, cast_inputs=False,
+            group=group)
 
     @torch.no_grad()
     def _eval_batch(self, bundle, batch):
@@ -114,14 +117,15 @@ class CNNAdapter:
 
     def make_train_step(self, schedule_fn: Callable,
                         policy: Optional[PrecisionPolicy] = None,
-                        grad_accum_steps: int = 1):
+                        grad_accum_steps: int = 1, group=None):
         """Engine-facing train step. The CNN has no per-op compute-dtype
         plumbing, so reduced-precision policies pre-cast params and batch
         (``cast_inputs=True``); the precision step casts the BN running
-        stats back to their master dtype."""
+        stats back to their master dtype. ``group``: as for the LM."""
         return make_precision_train_step(
             self._loss, self._opt_update, schedule_fn, policy=policy,
-            grad_accum_steps=grad_accum_steps, cast_inputs=True)
+            grad_accum_steps=grad_accum_steps, cast_inputs=True,
+            group=group)
 
     @torch.no_grad()
     def _eval_batch(self, bundle, batch):

@@ -1,4 +1,4 @@
-"""SWAP training launcher: twin of ``repro/launch/train.py``, one process.
+"""SWAP training launcher: twin of ``repro/launch/train.py``.
 
 Runs the three-phase SWAP schedule on an LM architecture of the dense,
 moe, ssm, hybrid or vlm family with GQA or MLA attention (the smoke config
@@ -61,8 +61,27 @@ arrivals from the simulated ``--lost-workers`` to real per-worker beacons
 dead). ``--supervise N`` runs both phases under a ``PhaseSupervisor``
 with N retries: a divergence rolls back to the last verified snapshot (or
 the phase's initial state), and a worker whose beacon goes stale mid-phase
-2 is dropped and the phase resumes with the survivors. Not ported yet, and
-so not accepted: ``--mesh`` and the multi-host flags (ROADMAP A13b).
+2 is dropped and the phase resumes with the survivors.
+
+Across processes (``--mesh``, ``--coordinator``, ``--num-processes``,
+``--process-id``; ``DistConfig.initialize`` runs first thing): one
+process a card, phase 1 data parallel over every process, phase 2 on the
+``sharded`` engine each worker block training its own workers, phase 3
+gathered in worker order (``repro_torch.core.swap``). Two processes of
+the smoke config on the CPU, over gloo:
+
+  for i in 0 1; do PYTHONPATH=src python -m repro_torch.launch.train \
+      --device cpu --workers 2 --mesh worker:2 --elastic-deadline 30 \
+      --coordinator 127.0.0.1:29511 --num-processes 2 --process-id $i & \
+  done; wait
+
+On cards the backend is NCCL, one card a process; processes that share
+one card take ``--dist-backend gloo`` (NCCL refuses them). Rank 0 prints
+the summary and writes ``--save`` / ``--json-out``; a rank that fails
+exits non-zero, and so do the others when their next collective finds it
+gone (or at the timeout, ``dist.config.DEFAULT_TIMEOUT_S``). A ``model``
+axis, ``--supervise``, ``--heartbeat-dir`` and ``--checkpoint-dir``
+writes across processes are refused (ROADMAP A13c).
 """
 from __future__ import annotations
 
@@ -240,24 +259,48 @@ def build(args, cfg=None, supervisor=None) -> SWAP:
 
 
 def main(argv=None, *, cfg=None):
-    """Parse ``argv``, run SWAP, print the summary. Returns the results
-    dict of ``SWAP.run``. ``cfg``: as for ``build``."""
+    """Parse ``argv``, initialize the process group of a multi-process run,
+    run SWAP, print the summary (rank 0). Returns the results dict of
+    ``SWAP.run``. ``cfg``: as for ``build``."""
     args = build_parser().parse_args(argv)
-    wiring = resilience(args, DistConfig.from_args(
-        args, n_workers_default=N_WORKERS_DEFAULT))
+    dist = DistConfig.from_args(args, n_workers_default=N_WORKERS_DEFAULT)
+    backend = dist.initialize(device=args.device)
+    try:
+        return _main(args, dist, backend, cfg)
+    finally:
+        if backend is not None:
+            torch.distributed.destroy_process_group()
+
+
+def _main(args, dist: DistConfig, backend: Optional[str], cfg):
+    if backend is not None:
+        print(f"dist: process {dist.process_id}/{dist.num_processes} "
+              f"backend={backend} coordinator={dist.coordinator} "
+              f"device={args.device}", flush=True)
+    if args.dump_dist_config:
+        dist.to_json(args.dump_dist_config)
+    rank0 = dist.process_id == 0
+    wiring = resilience(args, dist)
     swap = build(args, cfg, supervisor=wiring.supervisor)
-    cfg, dist = swap.adapter.cfg, swap.dist
-    print(f"arch={cfg.name} family={cfg.family} "
-          f"params={cfg.param_count() / 1e6:.1f}M "
-          f"workers={dist.n_workers} engine=loop")
+    cfg = swap.adapter.cfg
+    if rank0:
+        print(f"arch={cfg.name} family={cfg.family} "
+              f"params={cfg.param_count() / 1e6:.1f}M "
+              f"workers={dist.n_workers} "
+              f"engine={dist.resolved_engine(swap.mesh)}"
+              + (f" mesh={'x'.join(map(str, dist.mesh_shape))}"
+                 if dist.mesh_shape else ""))
     t0 = time.time()
     res = swap.run(torch.Generator(device=args.device).manual_seed(args.seed),
                    resume=args.resume,
                    worker_arrivals=wiring.worker_arrivals,
                    phase2_hooks=wiring.phase2_hooks,
                    heartbeats=wiring.monitor)
+    if not rank0:
+        return res
     out = {k: v for k, v in res.items()
-           if isinstance(v, (int, float, list)) and k != "phase1_log"}
+           if isinstance(v, (int, float, list))
+           and k not in ("phase1_log", "collectives")}
     out["wall_s"] = time.time() - t0
     print(json.dumps({k: v for k, v in out.items()
                       if not isinstance(v, list)}, indent=1))

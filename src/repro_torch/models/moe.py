@@ -10,7 +10,7 @@ drops. The router's aux load-balance loss is Switch/GShard's.
 
 The reference's ``logical_constraint`` calls on the dispatched blocks are
 sharding hints for a device mesh; on one card they have no counterpart
-(distribution is ROADMAP A13).
+(the model axis is ROADMAP A13c).
 """
 from __future__ import annotations
 

@@ -72,7 +72,7 @@ device:
 Scheduling differs from the oracle (admissions happen between K-token
 blocks), but each request's tokens are exact: a slot's output depends only
 on its own cache rows, which admission re-prefills. Placement over a
-device mesh (``dist=``) is refused: ROADMAP A13.
+device mesh (``dist=``) is refused: serving across cards is ROADMAP A13c.
 """
 from __future__ import annotations
 
@@ -84,6 +84,7 @@ import numpy as np
 import torch
 
 from repro_torch.data import prng
+from repro_torch.dist.sharding import cache_batch_dim, page_pool_dim
 from repro_torch.models.model import Model
 from repro_torch.optim.api import tree_map
 from repro_torch.serve.engine import Request
@@ -112,25 +113,6 @@ def default_buckets(max_seq: int, lo: int = 16) -> Tuple[int, ...]:
         b *= 2
     buckets.append(max_seq)
     return tuple(buckets)
-
-
-# The cache layout rules of the reference's ``dist/sharding.py``
-# (``cache_batch_dim``, ``page_pool_dim``), kept here until that module
-# has a twin (ROADMAP A13).
-
-def _cache_batch_dim(path: str) -> int:
-    """Batch dim of a cache leaf: leaves under the stacked ``units``
-    subtree carry the unit axis first, so batch is dim 1."""
-    return 1 if path.split("/", 1)[0] == "units" else 0
-
-
-def _page_pool_dim(path: str) -> Optional[int]:
-    """Page dim of a paged pool leaf (under a ``p`` layout key), where the
-    batch dim would be; None for per-slot (dense) leaves."""
-    parts = path.split("/")
-    if len(parts) >= 2 and parts[-2] == "p":
-        return 1 if parts[0] == "units" else 0
-    return None
 
 
 def _flatten(tree, prefix: str = ""):
@@ -189,7 +171,7 @@ class CompiledServingEngine:
         if dist is not None:
             raise NotImplementedError(
                 "CompiledServingEngine(dist=...): placing the decode state "
-                "over a device mesh is not ported (ROADMAP A13)")
+                "over a device mesh is not ported (ROADMAP A13c)")
         if model.cfg.is_encoder_decoder:
             raise NotImplementedError(
                 f"{model.cfg.name}: the continuous engine takes no encoder "
@@ -438,16 +420,16 @@ class CompiledServingEngine:
         st = self.state
         src = _flatten(pc)
         for path, dst in _flatten(st.cache).items():
-            pd = _page_pool_dim(path)
+            pd = page_pool_dim(path)
             if pd is None:
-                bd = _cache_batch_dim(path)
+                bd = cache_batch_dim(path)
                 dst.select(bd, slot).copy_(src[path].select(bd, 0))
                 continue
             if not n_pages:
                 continue
             parts = path.split("/")
             parts[-2] = "a"                    # pool leaf <- dense leaf
-            rows = src["/".join(parts)].select(_cache_batch_dim(path), 0)
+            rows = src["/".join(parts)].select(cache_batch_dim(path), 0)
             M, P = page_row.shape[0], dst.shape[pd + 1]
             rows = rows.reshape(rows.shape[:pd] + (M, P)
                                 + rows.shape[pd + 1:])

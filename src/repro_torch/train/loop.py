@@ -27,7 +27,7 @@ state returned by a chunk holds the same tensors as the state passed in.
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Dict, List, NamedTuple, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -71,20 +71,26 @@ def init_train_state(bundle, opt_state, *, step: int = 0,
 
 def stack_train_state(stacked_bundle, stacked_opt_state, n_workers: int,
                       seed: int = 0,
-                      scale: Optional[LossScaleState] = None) -> TrainState:
+                      scale: Optional[LossScaleState] = None,
+                      worker_ids: Optional[Sequence[int]] = None
+                      ) -> TrainState:
     """The phase-2 start state from an already-stacked bundle and
-    per-worker optimizer state, both with a leading W axis."""
+    per-worker optimizer state, both with a leading worker axis.
+    ``worker_ids``: the global workers of the ``n_workers`` that the
+    stacked rows hold (all of them by default); worker w's key is row w of
+    the split of ``seed`` into ``n_workers`` whatever rows a process
+    holds."""
+    ids = list(range(n_workers)) if worker_ids is None else list(worker_ids)
+    n = len(ids)
     return TrainState(
         bundle=stacked_bundle, opt_state=stacked_opt_state,
-        step=torch.zeros((n_workers,), dtype=torch.int64),
-        acc_ema=torch.zeros((n_workers,), dtype=torch.float32,
+        step=torch.zeros((n,), dtype=torch.int64),
+        acc_ema=torch.zeros((n,), dtype=torch.float32,
                             device=_device(stacked_bundle)),
-        phase=torch.full((n_workers,), PHASE_TAGS["phase2"],
-                         dtype=torch.int32),
-        rng=prng.split(prng.PRNGKey(seed), n_workers),
+        phase=torch.full((n,), PHASE_TAGS["phase2"], dtype=torch.int32),
+        rng=prng.split(prng.PRNGKey(seed), n_workers)[ids],
         scale=stack_scale_state(
-            scale if scale is not None else default_scale_state(),
-            n_workers))
+            scale if scale is not None else default_scale_state(), n))
 
 
 def _write_back(dst, src):

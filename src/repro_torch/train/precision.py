@@ -11,8 +11,9 @@
   * ``make_precision_train_step`` -- the engine's step
     ``(bundle, opt_state, batch, step, scale) -> (bundle, opt_state,
     scale, metrics)``: compute-dtype casting, loss scaling, ``k``
-    sequential microbatches with summed gradients, the skip on a
-    non-finite step, and the master-weight optimizer update.
+    sequential microbatches with summed gradients, with a process group
+    the mean over its ranks (data parallelism), the skip on a non-finite
+    step, and the master-weight optimizer update.
 
 Gradients come from one ``torch.autograd.grad`` over params that are
 detached views of the master tensors (so the update can write into them in
@@ -160,11 +161,20 @@ def _unflatten(tree, flat):
     return build(tree)
 
 
+def _group_mean(group, tensors) -> None:
+    """Each floating tensor of ``tensors`` set to its mean over the
+    group, in place: every rank ends with the same bits."""
+    for t in tensors:
+        if t.is_floating_point():
+            group.mean_(t)
+
+
 def make_precision_train_step(loss_with_aux: Callable, opt_update: Callable,
                               schedule_fn: Callable,
                               policy: Optional[PrecisionPolicy] = None,
                               grad_accum_steps: int = 1,
-                              cast_inputs: bool = True) -> Callable:
+                              cast_inputs: bool = True,
+                              group=None) -> Callable:
     """The engine-facing train step with the full precision pipeline.
 
     ``loss_with_aux(params, model_state, batch) -> (loss, (metrics,
@@ -172,7 +182,16 @@ def make_precision_train_step(loss_with_aux: Callable, opt_update: Callable,
     and batch for models that cast per matmul from their own config (the
     LM's ``mdot``). With ``policy.dynamic``, a step whose unscaled grads are
     not all finite is skipped: nothing is updated, the scale backs off, and
-    ``metrics["skipped"]`` is 1."""
+    ``metrics["skipped"]`` is 1.
+
+    ``group``: a ``repro_torch.dist.sharding.RecordedGroup`` whose ranks
+    each hold a shard of the batch. After the backward and before the
+    update the gradients, the metrics and the new model state (BN running
+    statistics) are set to their means over the group, so every decision
+    that must match across ranks is taken from reduced values: the skip
+    (a non-finite gradient on one rank is non-finite in the mean) and the
+    accuracy EMA. BN normalizes with each rank's own batch statistics
+    (no synchronized BN)."""
     policy = policy or F32
     k = int(grad_accum_steps)
     if k < 1:
@@ -223,6 +242,13 @@ def make_precision_train_step(loss_with_aux: Callable, opt_update: Callable,
             grads = tree_map(lambda g: g * inv, grads)
         if grad_dtype != torch.float32:
             grads = tree_map(lambda g: g.to(grad_dtype), grads)
+        if group is not None:
+            _group_mean(group, tree_leaves(grads) + tree_leaves(new_mstate))
+            names = sorted(metrics)
+            reduced = group.mean_(torch.stack(
+                [metrics[n].to(torch.float32) for n in names]))
+            metrics = {n: r.to(metrics[n].dtype)
+                       for n, r in zip(names, reduced)}
 
         lr = schedule_fn(step)
         finite = all_finite(grads) if policy.dynamic else True

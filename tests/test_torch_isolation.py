@@ -70,7 +70,10 @@ PORT_MODULES = (
     "repro_torch.serve.compiled", "repro_torch.experiments.serve_continuous",
     "repro_torch.experiments.serve_batched", "repro_torch.serve.publish",
     "repro_torch.experiments.train_and_serve", "repro_torch.dist.heartbeat",
-    "repro_torch.resilience", "repro_torch.testing.faults")
+    "repro_torch.resilience", "repro_torch.testing.faults",
+    "repro_torch.dist.config", "repro_torch.dist.sharding",
+    "repro_torch.launch.mesh", "repro_torch.dist.mesh",
+    "repro_torch.experiments.train_lm_swap")
 
 
 def test_importing_the_port_loads_no_jax():

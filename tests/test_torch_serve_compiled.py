@@ -395,13 +395,13 @@ def test_unknown_modes_are_refused():
 
 
 def test_publishing_and_mesh_placement_are_refused():
-    """Mesh placement is refused (ROADMAP A13); live publishing is not:
+    """Mesh placement is refused (ROADMAP A13c); live publishing is not:
     ``warmup(dual=True)`` takes the engine's own copies of both buffers and
     ``publish`` swaps in the next generation. The generation is read-only
     and pinned on every admitted request."""
     cfg = setup("internlm2-1.8b")[2].cfg
     port = Side("internlm2-1.8b", False)
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(NotImplementedError, match="A13c"):
         port.compiled(dist=object())
     eng = port.compiled(max_batch=1, max_seq=32, generation=3)
     with pytest.raises(AttributeError):

@@ -171,15 +171,21 @@ def test_swa_matches_jax(runs):
 
 
 def test_unported_surfaces_are_refused(tmp_path):
-    """The mesh is still refused (A13); the supervisor and heartbeats are
-    accepted and run to a result."""
+    """The mesh is accepted since A13b (``mesh=`` warns, a model axis is
+    refused: A13c); the supervisor and heartbeats are accepted and run to
+    a result."""
+    from repro_torch.dist.mesh import ProcessMesh
     _, tcfg = _swap_cfgs()
     tad = LMAdapter(tbase.ModelConfig(**TINY), tbase.OptimizerConfig())
     tr = {"tokens": np.zeros((256, 16), np.int32),
           "labels": np.zeros((256, 16), np.int32)}
     test = Loader(tr, 32)
-    with pytest.raises(NotImplementedError, match="A13"):
-        SWAP(tad, tcfg, tr, test, mesh=object())
+    with pytest.warns(DeprecationWarning, match="mesh="):
+        SWAP(tad, tcfg, tr, test, mesh=ProcessMesh((W,), ("worker",)))
+    with pytest.raises(NotImplementedError, match="A13c"), \
+            pytest.warns(DeprecationWarning):
+        SWAP(tad, tcfg, tr, test, mesh=ProcessMesh((1, 2),
+                                                   ("worker", "model")))
     clock = FakeClock()
     for w in range(W):
         HeartbeatWriter(str(tmp_path), w, clock=clock).beat()
@@ -230,8 +236,18 @@ def test_dist_config_validation_and_flags():
                 DistConfig(**kw).heartbeats) == \
             (JDist(**kw).resolved_heartbeat_timeout, JDist(**kw).heartbeats)
     assert not DistConfig().heartbeats
-    with pytest.raises(SystemExit):
-        ap.parse_args(["--mesh", "worker:2"])
+    # the layout and multi-process flags are registered since A13b, and
+    # give the reference's fields
+    from repro.dist.config import add_dist_args as jadd_dist_args
+    jap = argparse.ArgumentParser()
+    jadd_dist_args(jap)
+    argv = ["--mesh", "worker:2", "--phase2-engine", "sharded",
+            "--coordinator", "127.0.0.1:1", "--num-processes", "2",
+            "--process-id", "1"]
+    d, jd = (DistConfig.from_args(ap.parse_args(argv)),
+             JDist.from_args(jap.parse_args(argv)))
+    assert json.loads(d.to_json()) == dict(json.loads(jd.to_json()),
+                                           backend="")
 
 
 def _launch(args, timeout=300):
